@@ -1,0 +1,63 @@
+"""Carry the JAX package's weights, state and controls over to the port.
+
+The "weights" of this system are the coefficient bank and its state is
+the spectra ring plus the overlap tails. The JAX package keeps ring and
+bank in the lane-tiled ``[.., 2, N/128, 128]`` layout when its Pallas MAC
+runs, or flat ``[.., 2, N]`` otherwise; the port always keeps them flat.
+Every function takes numpy arrays (``np.asarray`` of the JAX values) and
+a target device, so both packages can start from one mid-stream state.
+The results are copies: the port writes its ring in place, and a view of
+a JAX buffer must never be written.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .graph.compile import StepCtrl, StepState
+
+
+def _flat(a: np.ndarray) -> np.ndarray:
+    """[X, B, 2, N] or tiled [X, B, 2, R, 128] -> contiguous [X, B, 2, N]."""
+    a = np.asarray(a)
+    if a.ndim == 5:
+        a = a.reshape(a.shape[:3] + (a.shape[3] * a.shape[4],))
+    if a.ndim != 4 or a.shape[2] != 2:
+        raise ValueError(f"expected [X, B, 2, N] or [X, B, 2, R, 128] "
+                         f"spectra, got shape {a.shape}")
+    return np.array(a, np.float32, order="C", copy=True)
+
+
+def bank_from_jax(np_bank, device) -> torch.Tensor:
+    """Coefficient bank: flat or tiled float planes -> flat [E, B, 2, N]."""
+    return torch.as_tensor(_flat(np_bank), device=device)
+
+
+def state_from_jax(prev_in, ring, eval_prev, t, device) -> StepState:
+    """StepState fields (numpy) -> the port's StepState on ``device``.
+    ``eval_prev`` holds cascade tails; the port has no cascades yet
+    (ROADMAP queue 1 item 8), so it must have no rows."""
+    if np.asarray(eval_prev).size:
+        raise NotImplementedError(
+            "cascade state is not ported yet (ROADMAP queue 1 item 8)")
+    return StepState(
+        prev_in=torch.as_tensor(np.array(prev_in, np.float32, copy=True),
+                                device=device),
+        ring=torch.as_tensor(_flat(ring), device=device),
+        t=torch.tensor(int(np.asarray(t)), dtype=torch.int32, device=device),
+    )
+
+
+def ctrl_from_jax(ctrl, device) -> StepCtrl:
+    """A StepCtrl-shaped tuple of numpy-convertible arrays -> the port's
+    StepCtrl on ``device``: the fields the port's step reads, same
+    dtypes; the filter mix and crossfade fields are left behind."""
+    out = {}
+    for name in StepCtrl._fields:
+        a = np.asarray(getattr(ctrl, name))
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        out[name] = torch.as_tensor(np.array(a, order="C", copy=True),
+                                    device=device)
+    return StepCtrl(**out)

@@ -30,3 +30,10 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.default_rng(0xB1F)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (brutefir_tpu_torch kernels); "
+        "skips where there is none")

@@ -2,8 +2,9 @@
 
 The port of :mod:`brutefir_tpu` to an NVIDIA GPU. It keeps the JAX
 package's layout (``config/``, ``graph/``, ``ops/``, ``runtime/``) and
-module names; the framework-free layers (config parsing, codecs, I/O
-modules, errors) are imported from :mod:`brutefir_tpu` rather than copied.
+module names, and keeps its own copies of the framework-free layers
+(config parsing, sample formats, the file I/O module, errors): it imports
+nothing of :mod:`brutefir_tpu`.
 The per-block device program runs as plain torch ops around hand-written
 CUDA kernels (``csrc/``), built with ``nvcc`` on first use.
 

@@ -15,11 +15,10 @@ from __future__ import annotations
 import os
 import sys
 
-from brutefir_tpu.config.defaults import ensure_defaults_file
-from brutefir_tpu.config.parser import parse_config_file, ConfigParseError
-from brutefir_tpu.errors import (BFError, BF_EXIT_OK, BF_EXIT_OTHER,
-                                 BF_EXIT_INVALID_CONFIG)
-
+from .config.defaults import ensure_defaults_file
+from .config.parser import parse_config_file, ConfigParseError
+from .errors import (BFError, BF_EXIT_OK, BF_EXIT_OTHER,
+                     BF_EXIT_INVALID_CONFIG)
 from .runtime.engine import Engine
 
 USAGE = ("Usage: %s [-quiet] [-nodefault] [-daemon] [config file]\n")
@@ -136,10 +135,8 @@ def main(argv=None, device=None) -> int:
 
 
 def parse_config_probe(defaults_text: str):
-    """Extract the config_file setting from the defaults file, if present
-    (``brutefir_tpu.__main__`` imports its jax engine, so this small
-    helper is repeated here)."""
-    from brutefir_tpu.config.lexer import tokenize, T
+    """Extract the config_file setting from the defaults file, if present."""
+    from .config.lexer import tokenize, T
     toks = list(tokenize(defaults_text))
     for i, t in enumerate(toks):
         if t.kind == T.FIELD and t.value == "config_file":

@@ -1,8 +1,7 @@
 """Coefficient bank loading: TEXT and RAW tap files and the dirac pulse.
 
-Numpy twin of ``build_bank`` in :mod:`brutefir_tpu.config.coeffs`, which
-cannot be imported here: it imports ``brutefir_tpu.ops.partconv``, whose
-package pulls in ``jax``. The loaders mirror `load_coeff`
+Numpy twin of ``build_bank`` in :mod:`brutefir_tpu.config.coeffs` (the
+port imports nothing of the JAX package). The loaders mirror `load_coeff`
 (bfconf.c:1867-2030): TEXT reads the leading float of each line
 (`real_read`), RAW reads the declared sample format times its scale
 (`raw_read`), ``skip`` seeks, taps beyond ``n_blocks * filter_length`` are
@@ -16,6 +15,7 @@ import re
 
 import numpy as np
 
+from ..core.codecs import raw_to_float
 from ..ops.partconv import dirac_bank_entry, preprocess_coeffs
 
 _FLOAT_PREFIX = re.compile(r"[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?")
@@ -48,7 +48,6 @@ def _read_text_taps(path: str, skip: int, max_items: int, dtype) -> np.ndarray:
 
 def _read_raw_taps(path: str, skip: int, max_items: int, rawformat,
                    dtype) -> np.ndarray:
-    from brutefir_tpu.core.codecs import raw_to_float
     with open(path, "rb") as fh:
         if skip > 0:
             fh.seek(skip)

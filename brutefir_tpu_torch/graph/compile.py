@@ -9,6 +9,10 @@ one block is
     -> ring write at (t + delay[f]) % B -> fused MAC + output mix (CUDA)
     -> valid-half irfft -> y [C_out, N]
 
+The batched offline dispatch may instead run G blocks at a time through
+``group_step_impl`` (compile.py:615-752), whose grouped MAC kernels read
+the ring and the bank once per group; ``group_size`` decides.
+
 ``state`` holds the overlap-save tails, the [F, B, 2, N] spectra ring and
 the block counter; ``ctrl`` is the block-boundary snapshot of every
 runtime control, so control changes never rebuild anything. PyTorch runs
@@ -21,12 +25,14 @@ state buffers. The returned state shares the ring tensor with the input.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops import partconv
+from ..ops.mac_group import mac_group, mac_mix_group
 from ..ops.mac_mix import mac_mix
 from .spec import GraphSpec
 
@@ -94,6 +100,33 @@ def make_ctrl(spec: GraphSpec, in_mix, out_mix, delay, coeff_idx, mask,
     )
 
 
+def _gate(spec: GraphSpec, ctrl: StepCtrl, frame: torch.Tensor):
+    """The analog powersave gate (test_silent, bfrun.c:722-772) on one
+    [C_in, 2N] frame: a channel whose whole frame is quiet is truly zero
+    for this transform."""
+    if not spec.powersave:
+        return frame
+    thr = ctrl.ps_thresh[:, None]
+    peak = torch.amax(torch.abs(frame), dim=1, keepdim=True)
+    return torch.where((thr > 0) & (peak < thr), torch.zeros_like(frame),
+                       frame)
+
+
+def _write_ring(ring, blk, t, delay, uniform_delay: bool) -> None:
+    """Write one block's spectra [F, 2, N] in place at each filter's
+    delayed slot (t + delay[f]) % B (the cbuf curblock + delay of
+    bfrun.c:1688-1690): one slice at a scalar slot when every filter
+    shares one delay, else a per-filter scatter."""
+    B = ring.shape[1]
+    if uniform_delay:
+        wpos0 = torch.remainder(t + delay[0], B).reshape(1).long()
+        ring.index_copy_(1, wpos0, blk[:, None])
+    else:
+        wpos = torch.remainder(t + delay, B).long()
+        ring.index_put_((torch.arange(ring.shape[0], device=ring.device),
+                         wpos), blk)
+
+
 def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
               bank: torch.Tensor, x: torch.Tensor, uniform: bool = False,
               uniform_delay: bool = False):
@@ -108,32 +141,151 @@ def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     The ring is updated in place (see the module docstring); nothing here
     synchronises with the host."""
     check_supported(spec)
-    B = spec.n_blocks
-    F = spec.n_filters
-    frame = torch.cat([state.prev_in, x], dim=-1)
-    if spec.powersave:
-        # analog powersave gate (test_silent, bfrun.c:722-772): the whole
-        # 2N frame must be quiet; it is then truly zero for this transform
-        thr = ctrl.ps_thresh[:, None]
-        peak = torch.amax(torch.abs(frame), dim=1, keepdim=True)
-        frame = torch.where((thr > 0) & (peak < thr),
-                            torch.zeros_like(frame), frame)
+    frame = _gate(spec, ctrl, torch.cat([state.prev_in, x], dim=-1))
     X = partconv.rfft_planes(frame)                         # [C_in, 2, N]
     mixed = partconv.complex_mix(ctrl.in_mix, X)            # [F, 2, N]
 
-    # the block lands at each filter's delayed slot (the cbuf
-    # curblock + delay of bfrun.c:1688-1690) BEFORE the MAC reads the ring
+    # the block lands at each filter's delayed slot BEFORE the MAC reads
+    # the ring
     ring = state.ring
     t = state.t
-    if uniform_delay:
-        wpos0 = torch.remainder(t + ctrl.delay[0], B).reshape(1).long()
-        ring.index_copy_(1, wpos0, mixed[:, None])
-    else:
-        wpos = torch.remainder(t + ctrl.delay, B).long()
-        ring.index_put_(
-            (torch.arange(F, device=ring.device), wpos), mixed)
+    _write_ring(ring, mixed, t, ctrl.delay, uniform_delay)
 
+    # at big shapes mac_mix launches the bin-tiled kernel (tiled_route)
     out_spec = mac_mix(ring, bank, ctrl.coeff_idx, ctrl.mask, t,
                        ctrl.out_mix, uniform)               # [C_out, 2, N]
     y = partconv.irfft_planes_valid(out_spec)               # [C_out, N]
     return StepState(prev_in=x, ring=ring, t=t + 1), y
+
+
+# --- the grouped offline dispatch ------------------------------------------
+#
+# The VMEM arithmetic below is copied from brutefir_tpu/ops/pallas_mac.py
+# (_group_vmem_units :858, _group_tiles :869, group_mix_fusable :896,
+# _group_unfused_vmem :1011, group_unfused_fusable :1018) as plain
+# arithmetic with the default tiles (the TPU's tile knobs are not read).
+# These are the budgets of the TPU's 16 MiB of scoped VMEM; the card has no
+# such limit. They are kept so that one config takes the same group size
+# and the same form in both packages: the form fixes the summation order of
+# the output mix (in the fused kernel, or as a matmul outside), so the two
+# packages stay comparable block for block. Retuning them for the card is
+# later work.
+
+_VMEM_BUDGET = 12 * 2**20
+
+
+def _group_vmem_units(G: int, B: int, Rc: int, Fc: int, C_out: int) -> int:
+    return (2 * G * C_out + G * Fc + 4 * B + 4 * (G - 1)) * 2 * Rc * 128 * 4
+
+
+def _group_tiles(G: int, F: int, B: int, R: int, C_out: int):
+    for rc in (8, R):
+        for fc in (128, 64, 32, 16, 8):
+            if (R % rc == 0 and (rc % 8 == 0 or rc == R) and F % fc == 0
+                    and _group_vmem_units(G, B, rc, fc, C_out)
+                    <= _VMEM_BUDGET):
+                return rc, fc
+    return R, F
+
+
+def group_mix_fusable(G: int, F: int, B: int, K: int, C_out: int) -> bool:
+    """The JAX package's test for its fused G-block MAC + mix kernel."""
+    if K % 128 != 0 or G < 2:
+        return False
+    Rc, Fc = _group_tiles(G, F, B, K // 128, C_out)
+    return _group_vmem_units(G, B, Rc, Fc, C_out) <= _VMEM_BUDGET
+
+
+def group_unfused_fusable(G: int, B: int, K: int) -> bool:
+    """The JAX package's test for its unfused G-block MAC kernel."""
+    if K % 128 != 0 or G < 2:
+        return False
+    return (4 * B + 2 * (G - 1) + 2 * G) * 2 * K * 4 <= _VMEM_BUDGET
+
+
+def _group_fused(spec: GraphSpec, G: int) -> bool:
+    """The form a group of G takes: the fused MAC + mix kernel, or the
+    unfused grouped MAC with the output mix outside
+    (BRUTEFIR_TPU_GROUP_FORM=unfused forces the latter)."""
+    return (os.environ.get("BRUTEFIR_TPU_GROUP_FORM", "") != "unfused"
+            and group_mix_fusable(G, spec.n_filters, spec.n_blocks,
+                                  spec.n_bins, spec.n_outputs))
+
+
+def group_size(spec: GraphSpec, m: int) -> int:
+    """Blocks per group for a batch of m blocks with frozen controls:
+    the twin of ``group_size`` in brutefir_tpu/graph/compile.py:536-607
+    with the JAX package's kernel MAC, no spectral taps and no mesh.
+    Returns 1 when the batch runs block by block.
+
+    ``BRUTEFIR_TPU_PAIR`` sets the group size (default 4; 0 or 1 turn
+    grouping off; ``force[:G]`` groups at any shape, default G = 2).
+    Without force only big shapes group:
+    ``(C_out + 4 B) * 2 * K * 4 > 12 MiB``. G falls until it divides m
+    and a form fits: the fused form at any G, the unfused form at G > 2
+    or under ``BRUTEFIR_TPU_GROUP_FORM=unfused``."""
+    env = os.environ.get("BRUTEFIR_TPU_PAIR", "4")
+    force = env.startswith("force")
+    try:
+        G = int(env.split(":", 1)[1]) if force and ":" in env else (
+            2 if force else int(env))
+    except ValueError:
+        G = 2
+    if G in (0, 1):
+        return 1
+    if not (spec.tileable and spec.single_full_stage):
+        return 1
+    B, K = spec.n_blocks, spec.n_bins
+    if not force and (spec.n_outputs + 4 * B) * 2 * K * 4 <= _VMEM_BUDGET:
+        return 1
+    unfused_only = os.environ.get("BRUTEFIR_TPU_GROUP_FORM", "") == "unfused"
+    while G >= 2:
+        if m % G == 0 and (
+                _group_fused(spec, G)
+                or ((G > 2 or unfused_only)
+                    and group_unfused_fusable(G, B, K))):
+            return G
+        G -= 1
+    return 1
+
+
+def group_step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
+                    bank: torch.Tensor, xs, uniform_delay: bool = False):
+    """G = len(xs) consecutive blocks with one pass over the ring and the
+    bank: the twin of ``_group_step_impl`` (brutefir_tpu/graph/
+    compile.py:615-752). Only reachable through ``group_size``.
+
+    Per block, the rfft and input mix (with the powersave gate); block
+    t's ring write; then ONE kernel launch for the group, which reads the
+    ring holding block t's write and no later one, plus the later blocks'
+    spectra as ``xnews``; then the ring writes of blocks t+1 .. t+G-1, in
+    order. The launch and the later writes run in that order on one
+    stream; writing first would let the kernel read a later block where
+    an earlier one belongs, in partitions the mask does not zero. The
+    group kernels read ``coeff_idx`` per filter even for a shared
+    coefficient, as the JAX group path does.
+
+    The fused form mixes in the kernel; the unfused form mixes outside
+    with ``partconv.complex_mix`` (an FP32 matmul, where the JAX package
+    also leaves it to XLA). Returns (state', [y_0 .. y_{G-1}])."""
+    check_supported(spec)
+    G = len(xs)
+    frames = [torch.cat([p, x], dim=-1)
+              for p, x in zip([state.prev_in] + list(xs[:-1]), xs)]
+    blks = [partconv.complex_mix(ctrl.in_mix,
+                                 partconv.rfft_planes(_gate(spec, ctrl, f)))
+            for f in frames]                                # G x [F, 2, N]
+    ring, t = state.ring, state.t
+    _write_ring(ring, blks[0], t, ctrl.delay, uniform_delay)
+    xnews = torch.stack(blks[1:], dim=1)                    # [F, G-1, 2, N]
+    if _group_fused(spec, G):
+        outs = mac_mix_group(ring, xnews, bank, ctrl.coeff_idx, ctrl.mask,
+                             t, ctrl.out_mix, ctrl.delay)
+    else:
+        ys = mac_group(ring, xnews, bank, ctrl.coeff_idx, ctrl.mask, t,
+                       ctrl.delay)
+        outs = [partconv.complex_mix(ctrl.out_mix, y) for y in ys]
+    for g in range(1, G):
+        _write_ring(ring, blks[g], t + g, ctrl.delay, uniform_delay)
+    ys = [partconv.irfft_planes_valid(o) for o in outs]     # G x [C_out, N]
+    return StepState(prev_in=xs[-1], ring=ring, t=t + G), ys

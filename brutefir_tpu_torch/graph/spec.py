@@ -1,7 +1,7 @@
 """Static graph description for the per-block step (numpy only).
 
-Twin of :mod:`brutefir_tpu.graph.spec`, which cannot be imported here
-because its package pulls in ``jax``. Only *structure* lives here;
+Twin of :mod:`brutefir_tpu.graph.spec` (the port imports nothing of the
+JAX package). Only *structure* lives here;
 everything runtime-controllable is a tensor in ``StepCtrl``.
 
 The port keeps persistent spectra in the flat ``[.., 2, N]`` layout: the
@@ -44,6 +44,22 @@ class GraphSpec:
     def n_bins(self) -> int:
         """Packed spectral bins (Nyquist folded into bin 0)."""
         return self.block_length
+
+    @property
+    def tileable(self) -> bool:
+        """Whether the JAX package can keep this shape's spectra in its
+        lane-tiled layout (spec.py:68), which its grouped dispatch
+        requires; the port's layout is flat either way."""
+        return self.n_bins % 128 == 0
+
+    @property
+    def single_full_stage(self) -> bool:
+        """One stage holding every filter in order, with no filter
+        inputs: the graph the fused MAC + mix paths take."""
+        return (len(self.stages) == 1
+                and self.stages[0].casc_local.size == 0
+                and np.array_equal(self.stages[0].idx,
+                                   np.arange(self.n_filters)))
 
     def ring_shape(self) -> tuple:
         return (self.n_filters, self.n_blocks, 2, self.n_bins)

@@ -1,12 +1,13 @@
 """Build and load the CUDA kernels of ``brutefir_tpu_torch/csrc``.
 
-On first use the sources are compiled with plain ``nvcc`` into one shared
-library with a C interface, which is loaded with ``ctypes``. The library
-lands in ``build/brutefir_tpu_torch/`` at the repository root, named by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. ``torch.utils.cpp_extension.load`` is not used:
-a source that includes PyTorch's headers takes minutes to compile, a plain
-C interface seconds.
+On first use each source is compiled with plain ``nvcc`` into a shared
+library of its own with a C interface, loaded with ``ctypes``. The
+compilers run side by side, one process per source, all started
+together. The libraries land in ``build/brutefir_tpu_torch/`` at the
+repository root, named by a hash of the source and flags, so an edited
+source rebuilds and an unchanged one is reused.
+``torch.utils.cpp_extension.load`` is not used: a source that includes
+PyTorch's headers takes minutes to compile, a plain C interface seconds.
 
 Nothing here runs at import time.
 """
@@ -27,8 +28,17 @@ BUILD_DIR = _PKG.parent / "build" / "brutefir_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# source stem -> {C function: argtypes}; every function returns a cudaError
+SIGNATURES = {
+    "mac_mix": {"bf_mac_mix": [_P] * 7 + [_I] * 6 + [_P]},
+    "mac_mix_tiled": {"bf_mac_mix_tiled": [_P] * 7 + [_I] * 5 + [_P]},
+    "mac_group": {"bf_mac_group": [_P] * 8 + [_I] * 5 + [_P],
+                  "bf_mac_mix_group": [_P] * 9 + [_I] * 6 + [_P]},
+}
+
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -50,44 +60,56 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libbf_kernels_{h.hexdigest()[:16]}.so"
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless a library for their hash exists. The
-    compiler's output (``-Xptxas -v``: registers, spills) is kept beside
-    the library as ``.log``. Returns the library path."""
-    so = library_path()
-    if so.exists():
-        return so
+def build() -> list:
+    """Compile every source that has no library for its hash yet, one
+    ``nvcc`` per source, all at once. The compiler's output (``-Xptxas
+    -v``: registers, spills) is kept beside each library as ``.log``.
+    Returns the library paths, one per source."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, so)
-    return so
+    jobs = []
+    for src in sources():
+        so = library_path(src)
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        log = open(so.with_suffix(".log"), "w")
+        log.write(" ".join(cmd) + "\n")
+        log.flush()
+        jobs.append((so, tmp, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    for so, tmp, log, proc in jobs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({rc}) on {so.stem}:\n"
+                          + so.with_suffix(".log").read_text()[-4000:])
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+    return [library_path(src) for src in sources()]
 
 
-def load():
-    """The loaded kernel library, built on first use (thread-safe)."""
-    global _lib
+def load(stem: str):
+    """The loaded library of ``csrc/<stem>.cu`` with its functions'
+    argtypes set; the first call builds every source (thread-safe)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.bf_mac_mix.argtypes = [p, p, p, p, p, p, p,
-                                       i, i, i, i, i, i, p]
-            lib.bf_mac_mix.restype = i
-            _lib = lib
-        return _lib
+        if stem not in _libs:
+            build()
+            lib = ctypes.CDLL(str(library_path(CSRC / f"{stem}.cu")))
+            for name, argtypes in SIGNATURES[stem].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _I
+            _libs[stem] = lib
+        return _libs[stem]

@@ -4,10 +4,12 @@ launch counts.
 ``mac_mix`` computes ``out[c] = sum_f w[c, f] * Y_f`` with
 ``Y_f = sum_b ring[f, (t-b)%B] (*) (bank[idx_f, b] * mask[f, b])`` -- the
 port of ``pallas_spectral_mac_mix`` (brutefir_tpu/ops/pallas_mac.py).
-On a CUDA tensor it launches the hand-written kernel of
-``csrc/mac_mix.cu``; on a CPU tensor it runs :func:`mac_mix_reference`,
-the plain torch version. There is no fallback from the kernel to the
-plain version on a CUDA tensor: a failed build or launch raises.
+On a CUDA tensor it launches a hand-written kernel: ``csrc/mac_mix.cu``
+(the ``uniform`` and ``rows`` forms), or ``csrc/mac_mix_tiled.cu`` at the
+shapes where the JAX package takes its bin-tiled kernel (``tiled_route``).
+On a CPU tensor it runs :func:`mac_mix_reference`, the plain torch
+version. There is no fallback from a kernel to the plain version on a
+CUDA tensor: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from .partconv import complex_mix, spectral_mac_rollh, spectral_mac_uniform
 
 # kernel launches per form, counted where the kernel is launched and
 # nowhere else (the smoke run reads them to prove the main path used it)
-launches = {"uniform": 0, "rows": 0}
+launches = {"uniform": 0, "rows": 0, "tiled": 0}
 
 
 def reset_launches() -> None:
@@ -27,42 +29,66 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def tiled_route(C_out: int, B: int, K: int) -> bool:
+    """Whether ``pallas_spectral_mac_mix`` takes its bin-tiled kernel
+    (pallas_mac.py:1304-1306): the [C_out, 2, K] output plus four ring and
+    bank rows exceed the TPU kernel's 12 MiB VMEM budget. The card has no
+    such budget; the rule is kept so that a shape takes the same kernel,
+    and so the same summation order, in both packages. It is also where
+    the tiled kernel's on-chip mix pays on the card: at 256 outputs."""
+    return (C_out + 4 * B) * 2 * K * 4 > 12 * 2**20
+
+
 def mac_mix_reference(ring, bank, coeff_idx, mask, t, w, uniform: bool):
-    """Plain torch version: the dense MAC, then the FP32 output mix."""
+    """Plain torch version of every form: the dense MAC, then the FP32
+    output mix. The tiled kernel reads per-filter rows, so its plain
+    version is the ``uniform=False`` one."""
     mac = spectral_mac_uniform if uniform else spectral_mac_rollh
     return complex_mix(w, mac(ring, bank, coeff_idx, mask, t))
 
 
-def _check(ring, bank, coeff_idx, mask, t, w):
+def check_operands(fn: str, ring, bank, coeff_idx, mask, t, w=None,
+                   xnews=None, delay=None) -> None:
+    """Raise on what the MAC kernels do not take: every operand on the
+    ring's device, contiguous, of its dtype and shape. ``w``, ``xnews``
+    and ``delay`` are checked when given."""
+    ops = [("ring", ring, torch.float32), ("bank", bank, torch.float32),
+           ("coeff_idx", coeff_idx, torch.int32),
+           ("mask", mask, torch.float32), ("t", t, torch.int32)]
+    ops += [(name, x, dt) for name, x, dt in
+            (("w", w, torch.float32), ("xnews", xnews, torch.float32),
+             ("delay", delay, torch.int32)) if x is not None]
     dev = ring.device
-    for name, x, dt in (("ring", ring, torch.float32),
-                        ("bank", bank, torch.float32),
-                        ("coeff_idx", coeff_idx, torch.int32),
-                        ("mask", mask, torch.float32),
-                        ("t", t, torch.int32),
-                        ("w", w, torch.float32)):
+    for name, x, dt in ops:
         if x.device != dev:
-            raise ValueError(f"mac_mix: {name} is on {x.device}, ring on {dev}")
+            raise ValueError(f"{fn}: {name} is on {x.device}, ring on {dev}")
         if x.dtype != dt:
-            raise TypeError(f"mac_mix: {name} must be {dt}, got {x.dtype}")
+            raise TypeError(f"{fn}: {name} must be {dt}, got {x.dtype}")
         if not x.is_contiguous():
-            raise ValueError(f"mac_mix: {name} must be contiguous")
+            raise ValueError(f"{fn}: {name} must be contiguous")
     if ring.dim() != 4 or ring.shape[2] != 2:
-        raise ValueError(f"mac_mix: ring must be [F, B, 2, K], got "
+        raise ValueError(f"{fn}: ring must be [F, B, 2, K], got "
                          f"{tuple(ring.shape)}")
     F, B, _, K = ring.shape
     if bank.dim() != 4 or tuple(bank.shape[1:]) != (B, 2, K):
-        raise ValueError(f"mac_mix: bank must be [E, {B}, 2, {K}], got "
+        raise ValueError(f"{fn}: bank must be [E, {B}, 2, {K}], got "
                          f"{tuple(bank.shape)}")
     if bank.shape[0] < 1:
-        raise ValueError("mac_mix: empty bank")
+        raise ValueError(f"{fn}: empty bank")
     if tuple(coeff_idx.shape) != (F,) or tuple(mask.shape) != (F, B):
-        raise ValueError("mac_mix: coeff_idx must be [F] and mask [F, B]")
+        raise ValueError(f"{fn}: coeff_idx must be [F] and mask [F, B]")
     if t.numel() != 1:
-        raise ValueError("mac_mix: t must be a scalar")
-    if w.dim() != 2 or w.shape[1] != F:
-        raise ValueError(f"mac_mix: w must be [C_out, {F}], got "
+        raise ValueError(f"{fn}: t must be a scalar")
+    if w is not None and (w.dim() != 2 or w.shape[1] != F):
+        raise ValueError(f"{fn}: w must be [C_out, {F}], got "
                          f"{tuple(w.shape)}")
+    if xnews is not None and (xnews.dim() != 4 or xnews.shape[0] != F
+                              or xnews.shape[1] < 1
+                              or tuple(xnews.shape[2:]) != (2, K)):
+        raise ValueError(f"{fn}: xnews must be [{F}, G-1, 2, {K}] with "
+                         f"G >= 2, got {tuple(xnews.shape)}")
+    if delay is not None and tuple(delay.shape) != (F,):
+        raise ValueError(f"{fn}: delay must be [{F}]")
 
 
 def mac_mix(ring: torch.Tensor, bank: torch.Tensor, coeff_idx: torch.Tensor,
@@ -73,25 +99,32 @@ def mac_mix(ring: torch.Tensor, bank: torch.Tensor, coeff_idx: torch.Tensor,
     ring [F, B, 2, K] f32 (current block already written), bank
     [E, B, 2, K] f32, coeff_idx [F] int32, mask [F, B] f32, t scalar
     int32 tensor, w [C_out, F] f32; all on one device, contiguous.
-    ``uniform``: every filter uses coeff_idx[0] and mask[0].
+    ``uniform``: every filter uses coeff_idx[0] and mask[0] (the tiled
+    kernel reads per-filter rows, which then hold the same values).
     """
-    _check(ring, bank, coeff_idx, mask, t, w)
+    check_operands("mac_mix", ring, bank, coeff_idx, mask, t, w)
     if ring.device.type == "cpu":
         return mac_mix_reference(ring, bank, coeff_idx, mask, t, w, uniform)
     if ring.device.type != "cuda":
         raise ValueError(f"mac_mix: unsupported device {ring.device}")
     F, B, _, K = ring.shape
     C_out = w.shape[0]
+    E = bank.shape[0]
     out = torch.empty((C_out, 2, K), dtype=torch.float32, device=ring.device)
-    lib = _build.load()
+    args = (ring.data_ptr(), bank.data_ptr(), coeff_idx.data_ptr(),
+            mask.data_ptr(), t.data_ptr(), w.data_ptr(), out.data_ptr(),
+            F, B, K, E, C_out)
     with torch.cuda.device(ring.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.bf_mac_mix(ring.data_ptr(), bank.data_ptr(),
-                            coeff_idx.data_ptr(), mask.data_ptr(),
-                            t.data_ptr(), w.data_ptr(), out.data_ptr(),
-                            F, B, K, bank.shape[0], C_out, int(uniform),
-                            stream)
+        if tiled_route(C_out, B, K):
+            form = "tiled"
+            rc = _build.load("mac_mix_tiled").bf_mac_mix_tiled(*args, stream)
+        else:
+            form = "uniform" if uniform else "rows"
+            rc = _build.load("mac_mix").bf_mac_mix(*args, int(uniform),
+                                                   stream)
     if rc != 0:
-        raise RuntimeError(f"mac_mix: kernel launch failed (cudaError {rc})")
-    launches["uniform" if uniform else "rows"] += 1
+        raise RuntimeError(
+            f"mac_mix: {form} kernel launch failed (cudaError {rc})")
+    launches[form] += 1
     return out

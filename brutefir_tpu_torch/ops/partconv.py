@@ -153,7 +153,7 @@ def _hpos(t: torch.Tensor, B: int) -> torch.Tensor:
     return torch.remainder(t.to(torch.int64) - b, B)
 
 
-def _mac_terms(ring, H):
+def mac_terms(ring, H):
     """Sum over partitions of ring (*) H, with the bin-0 rule.
     ring [F, B, 2, N], H [F|1, B, 2, N] -> [F, 2, N]."""
     rr, ri = ring[:, :, 0], ring[:, :, 1]          # [F, B, N]
@@ -182,7 +182,7 @@ def spectral_mac_rollh(ring: torch.Tensor, bank: torch.Tensor,
     hpos = _hpos(t, B)
     mg = mask[:, hpos].to(ring.dtype)
     H = bank[coeff_idx.long()[:, None], hpos[None, :]] * mg[:, :, None, None]
-    return _mac_terms(ring, H)
+    return mac_terms(ring, H)
 
 
 def spectral_mac_uniform(ring: torch.Tensor, bank: torch.Tensor,
@@ -195,4 +195,4 @@ def spectral_mac_uniform(ring: torch.Tensor, bank: torch.Tensor,
     hpos = _hpos(t, B)
     mrow = mask[0, hpos].to(ring.dtype)
     H = bank[coeff_idx.long()[0], hpos] * mrow[:, None, None]   # [B, 2, N]
-    return _mac_terms(ring, H[None])
+    return mac_terms(ring, H[None])

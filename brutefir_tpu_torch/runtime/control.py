@@ -1,11 +1,10 @@
 """Runtime control plane -- the `intercomm_area`/`bfaccess` equivalent.
 
 Twin of the part of :mod:`brutefir_tpu.runtime.control` that the
-fused-mix step reads; the JAX module cannot be imported here (it imports
-``StepCtrl``/``make_ctrl`` from the JAX step). The config's per-filter
-coefficient selection, edge gains and pre-delays are snapshotted into a
-:class:`StepCtrl` of tensors on the engine's device; mutes ride
-``mute_version`` into the engine's gain vectors.
+fused-mix step reads. The config's per-filter coefficient selection,
+edge gains and pre-delays are snapshotted into a :class:`StepCtrl` of
+tensors on the engine's device; mutes ride ``mute_version`` into the
+engine's gain vectors.
 
 Not in this slice: the mutation API the CLI and logic modules drive
 (coefficient, delay and subdelay changes, the coeff_final hooks) and the
@@ -19,8 +18,7 @@ from typing import Optional
 
 import numpy as np
 
-from brutefir_tpu.config.model import BFConfig, IN, OUT
-
+from ..config.model import BFConfig, IN, OUT
 from ..graph.compile import StepCtrl, make_ctrl
 from ..graph.spec import GraphSpec
 

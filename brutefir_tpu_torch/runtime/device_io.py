@@ -16,7 +16,9 @@ raises NotImplementedError (ROADMAP queue 1 item 5).
 
 ``multi_step`` runs m blocks as a Python loop (the ``lax.scan`` analog)
 with controls frozen across the batch; nothing in the loop synchronises
-with the host.
+with the host. At big shapes it steps G blocks at a time
+(``graph.compile.group_size`` / ``group_step_impl``), reading the ring
+and the bank once per group.
 """
 
 from __future__ import annotations
@@ -24,9 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from brutefir_tpu.config.model import BFConfig, IN, OUT
-
-from ..graph.compile import step_impl
+from ..config.model import BFConfig, IN, OUT
+from ..graph.compile import group_size, group_step_impl, step_impl
 from ..ops.device_codec import (device_format_word, decode_words,
                                 encode_words, torch_dtype)
 
@@ -202,13 +203,27 @@ class DeviceIO:
         per-device aggregated meters, nan_ok over all blocks)."""
         m = in_words[0].shape[0]
         outs_b, meters_b, nans = [], [], []
-        for b in range(m):
-            state, outs, meters, nan_ok = self.step(
-                state, ctrl, in_gain, out_gain, bank,
-                [w[b] for w in in_words], uniform=uniform, udelay=udelay)
-            outs_b.append(outs)
-            meters_b.append(meters)
-            nans.append(nan_ok)
+        G = group_size(self.spec, m)
+        for b0 in range(0, m, G):
+            if G >= 2:
+                # grouped dispatch (device_io.py:587-613, 727-782): the
+                # IO halves per block, in order; the graph step G blocks
+                # at a time
+                xs = [self.input_half([w[b] for w in in_words], in_gain)
+                      for b in range(b0, b0 + G)]
+                state, ys = group_step_impl(self.spec, state, ctrl, bank,
+                                            xs, uniform_delay=udelay)
+                blocks = [self.output_half(y, out_gain) for y in ys]
+            else:
+                state, *one = self.step(
+                    state, ctrl, in_gain, out_gain, bank,
+                    [w[b0] for w in in_words], uniform=uniform,
+                    udelay=udelay)
+                blocks = [one]
+            for outs, meters, nan_ok in blocks:
+                outs_b.append(outs)
+                meters_b.append(meters)
+                nans.append(nan_ok)
         outs = [torch.stack(per_dev) for per_dev in zip(*outs_b)]
         meters = [aggregate_meters(list(per_dev))
                   for per_dev in zip(*meters_b)]

@@ -25,15 +25,14 @@ from typing import List
 import numpy as np
 import torch
 
-from brutefir_tpu.config.model import BFConfig, IN, OUT
-from brutefir_tpu.core.codecs import Overflow
-from brutefir_tpu.errors import BFError, BF_EXIT_INVALID_INPUT
-from brutefir_tpu.io import get_io_module
-
 from .. import resolve_device
 from ..config.coeffs import build_bank
+from ..config.model import BFConfig, IN, OUT
+from ..core.codecs import Overflow
+from ..errors import BFError, BF_EXIT_INVALID_INPUT
 from ..graph.compile import check_supported, init_state
 from ..graph.spec import build_graph_spec
+from ..io import get_io_module
 from ..ops.partconv import np_c2p
 from .control import RuntimeControl
 from .device_io import DeviceIO, eligible

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Where the time goes in a file-to-file run of the 256-channel scale
+shape, or of the massive_config shape, on one NVIDIA GPU.
+
+Usage (from the repository root, one CUDA card):
+
+    python3 chip_profile.py [--shape scale|massive] [--blocks N] [--pair G]
+
+Writes the shape's seeded inputs for N blocks (default 64) as
+``chip_smoke.py`` does: the scale shape (``write_scale_inputs``: 256 x
+256 channels, 131072 taps in 8192 x 16 partitions, 256 distinct
+coefficient sets, S24_4LE) or examples/multichannel_massive.conf (26 x
+26, one shared coefficient), then runs the port's engine three times on
+them: once to warm up (kernel build, cuFFT plans), once timed on the
+host clock, once under ``torch.profiler`` (CPU and CUDA activities).
+Prints the card, the engine's wall time a
+block and realtime factor, the host time a block of each pipeline stage
+in the timed run (the producer's reads, the main thread's dispatch, the
+writer's fetch, meters and writes; the three overlap), the device's busy
+time a block (the sum of the device time of every kernel and copy in the
+profiled run) and its share of the timed run's wall time, and the device
+time by name, largest first. ``--pair`` sets BRUTEFIR_TPU_PAIR (default:
+the engine's own).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import time
+
+import numpy as np
+
+import chip_smoke as cs
+
+
+def _time_calls(obj, name: str, acc: dict) -> None:
+    """Wrap ``obj.name`` so that its host time adds up in ``acc[name]``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--shape", choices=("scale", "massive"),
+                    default="scale")
+    ap.add_argument("--blocks", type=int, default=64)
+    ap.add_argument("--pair", default=None)
+    args = ap.parse_args()
+    if args.pair is not None:
+        os.environ["BRUTEFIR_TPU_PAIR"] = args.pair
+    import torch
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is False: this profile needs a "
+                "card")
+    from torch.profiler import ProfilerActivity, profile
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.graph.compile import group_size
+    from brutefir_tpu_torch.runtime.engine import BATCH_BLOCKS, Engine
+
+    print(f"card: {cs.card_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    os.makedirs(cs.WORK, exist_ok=True)
+    frames = args.blocks * cs.K
+    if args.shape == "scale":
+        _, _, cfg = cs.write_scale_inputs(cs.WORK, frames)
+    else:
+        cs.write_massive_inputs(np.random.default_rng(cs.SEED), frames)
+        cfg = cs.massive_config("profile.conf", False)
+    with open(cfg) as fh:
+        text = fh.read()
+
+    def run(host=None):
+        eng = Engine(parse_config(text))
+        if host is not None:
+            for obj, name in ((eng, "read_block_dio"), (eng.dio, "step"),
+                              (eng.dio, "multi_step"),
+                              (eng, "_write_outputs")):
+                _time_calls(obj, name, host)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = eng.run_offline()
+        torch.cuda.synchronize()
+        return eng, stats, time.perf_counter() - t0
+
+    eng, _, _ = run()                                      # warm-up
+    G = group_size(eng.spec, BATCH_BLOCKS)
+    host = {}
+    _, stats, wall = run(host)
+    blocks = stats["blocks"]
+    wall_ms = wall / blocks * 1e3
+    print(f"{args.shape} shape, {blocks} blocks, BRUTEFIR_TPU_PAIR="
+          f"{os.environ.get('BRUTEFIR_TPU_PAIR', 'default')} (groups of "
+          f"{G}): wall {wall_ms:.3f} ms a block, engine xrt "
+          f"{stats['xrt']:.2f}, p50 batch period {stats['p50_block_ms']:.3f}"
+          f" ms a block", flush=True)
+    print("host a block: " + ", ".join(
+        f"{name} {sec / blocks * 1e3:.3f} ms"
+        for name, sec in sorted(host.items())), flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, pstats, pwall = run()
+    # device-side events only (kernels, copies, memsets): the CPU ops that
+    # launched them carry the same time again
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3 / pstats["blocks"]
+    if not rows:
+        print("device time not traced by torch.profiler: busy share not "
+              "measured", flush=True)
+    else:
+        print(f"device busy {busy_ms:.3f} ms a block = "
+              f"{busy_ms / wall_ms * 100:.1f}% of the timed run's wall "
+              f"time (profiled run: {pwall / pstats['blocks'] * 1e3:.3f} "
+              f"ms a block)", flush=True)
+        for dev_us, count, key in rows[:25]:
+            print(f"  {dev_us / 1e3 / pstats['blocks']:9.4f} ms a block "
+                  f"{count:7d} calls  {key[:90]}", flush=True)
+    shutil.rmtree(cs.WORK, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,21 +8,43 @@ Usage (from the repository root, one CUDA card, no arguments):
 Phases, in order; any failure exits non-zero:
 
 1. card: prints the card's name and power limit, and requires CUDA;
-2. build: compiles every CUDA kernel of the main path with nvcc;
-3. kernel vs plain: each kernel form at the flagship shape (26 filters,
-   16 partitions, 8192 bins, 26 outputs) against its plain torch version
-   on the same CUDA tensors, relative error <= 1e-5 of the output's
-   magnitude, and both timed with CUDA events;
-4. main path: ``python -m brutefir_tpu_torch``'s ``main()`` on the exact
-   examples/multichannel_massive.conf shape (26 x 26, 131072 taps in
-   8192 x 16 partitions, S24_4LE), seeded random coefficients and input,
-   43.5 blocks; then again with two coefficients (filters 0-12 and
-   13-25). Each run must exit 0, write as many frames as it read, stay
-   within 16 LSB of a float64 convolution oracle on every channel, and
-   launch its kernel form (launch counts are reset just before).
+2. build: compiles every CUDA source with nvcc, one process per source,
+   all at once;
+3. kernel vs plain: each kernel at the shape its main path gives it
+   against its plain torch version on the same CUDA tensors, relative
+   error <= 1e-5 of the output's magnitude, at several t (ring wraps
+   included), per-filter delays 0 .. G-1 and >= G, and the mask zeros of
+   the host's cblocks clamp; then both timed with CUDA events (L2
+   flushed before each call, all-ones mask and zero delays as the main
+   path has them) beside the byte/operation bound:
+   - the fused MAC + mix, both forms, at the massive_config shape
+     (26 filters, 16 partitions, 8192 bins, 26 outputs);
+   - at the 256-channel scale shape (256 x 256, 16 partitions, 8192
+     bins, 256 distinct coefficient sets): the bin-tiled fused MAC + mix,
+     the grouped MAC at G = 4 and G = 3, the grouped fused MAC + mix at
+     G = 2;
+4. main path, massive: ``python -m brutefir_tpu_torch``'s ``main()`` on
+   the exact examples/multichannel_massive.conf shape (26 x 26, 131072
+   taps in 8192 x 16 partitions, S24_4LE), seeded random coefficients and
+   input, 19.5 blocks; then again with two coefficients (filters 0-12 and
+   13-25);
+5. main path, scale: ``main()`` on the 256 x 256 x 131072-tap shape of
+   tools/mac_step_compare.py (alldistinct, 256 channels) with 256 seeded
+   coefficient sets as RAW float32 files and 19.5 blocks of S24_4LE
+   input (2 batches of 8, a 3-block tail, a half block): with the
+   default BRUTEFIR_TPU_PAIR (the batches in groups of 4 through the
+   grouped MAC, the tail through the tiled kernel), then with
+   BRUTEFIR_TPU_PAIR=2 (groups of 2 through the grouped fused MAC + mix).
+
+Each main-path run must exit 0, write as many frames as it read, stay
+within 16 LSB of a float64 convolution oracle on every channel, and
+launch its kernels the expected number of times (launch counts are set
+to 0 just before each run). No module of jax or of the JAX package may
+be loaded at the end.
 
 The last lines are the kernel summary JSON, the card line, and
-``{"ok": true, "device": {...}}``. The script imports no jax.
+``{"ok": true, "device": {...}}``. The script imports no jax and nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -42,10 +64,17 @@ SEED = 20261016
 REL_TOL = 1e-5          # kernel vs plain, of the output's max magnitude
 LSB_TOL = 16            # main path vs the float64 oracle, S24 LSB
 F, B, K, C_OUT, E = 26, 16, 8192, 26, 2   # multichannel_massive.conf
-BLOCKS = 43.5           # 5 batches of 8, a 3-block remainder, a half block
+SCALE_C = 256           # the scale shape: 256 x 256, one set per filter
+BLOCKS = 19.5           # 2 batches of 8, a 3-block tail, a half block
+REPS = 20               # timed calls per kernel and plain version
+# one H100 SXM (NVIDIA's data sheet): device memory rate and the FP32
+# rate outside the tensor cores, for the bound of each kernel
+MEM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 REPO = os.path.dirname(os.path.abspath(__file__))
 EXAMPLE = os.path.join(REPO, "examples", "multichannel_massive.conf")
 WORK = os.path.join(REPO, "build", "chip_smoke")
+PALLAS = "brutefir_tpu/ops/pallas_mac.py"
 
 
 def fail(msg: str):
@@ -85,16 +114,77 @@ def time_ms(fn, reps: int, flush) -> float:
     return float(np.median(times))
 
 
-def kernel_vs_plain(mm):
-    """Both forms of the fused MAC + mix at the flagship shape."""
+def bound(n_bytes: float, n_flop: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the FP32 operations over the FP32 rate."""
+    b = n_bytes / MEM_BYTES_PER_S * 1e3
+    o = n_flop / FP32_FLOP_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def cblocks_mask(delay, B_):
+    """[F, B] mask as the host's cblocks clamp makes it: partitions
+    >= B - delay[f] are zero."""
+    import torch
+    return (torch.arange(B_, device=delay.device)[None, :]
+            < (B_ - delay)[:, None]).float().contiguous()
+
+
+def check(name, got, ref, t):
+    """Max relative error of ``got`` against ``ref`` (of ref's max
+    magnitude) and max abs error; fails past REL_TOL."""
+    import torch
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite kernel output at t={t}")
+    err = (got - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    if not rel <= REL_TOL:
+        fail(f"{name}: kernel disagrees with the plain version at t={t} "
+             f"({rel:.3e} > {REL_TOL:g})")
+    return rel, err
+
+
+def report(rows, name, source, line, worst, max_abs, k_ms, p_ms, n_bytes,
+           n_flop, launches_key, note=""):
+    b_ms, by = bound(n_bytes, n_flop)
+    print(f"{name}{note}: max rel err {worst:.3e} (tol {REL_TOL:g}), max "
+          f"abs err {max_abs:.3e}; kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}: "
+          f"{n_bytes / 1e6:.1f} MB, {n_flop / 1e9:.2f} GFLOP); median of "
+          f"{REPS}, L2 flushed before each", flush=True)
+    if launches_key is not None:
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": f"{PALLAS}:{line}",
+                     "launches_key": launches_key, "max_abs_err": max_abs,
+                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": by, "library_ms": None})
+
+
+def mac_bytes_flops(F_, B_, K_, C, rows_used, G=1, out_rows=None):
+    """Bytes a MAC kernel must move (each input once, each output once)
+    and its FP32 operations: ring, the bank rows it uses, G-1 xnews
+    blocks, the small controls, and G outputs of ``out_rows`` rows; a
+    complex multiply-add (8 operations) per filter, partition, bin and
+    block, and a real mix (4 a bin: two planes, multiply and add) per
+    output, filter and block when C > 0."""
+    plane = 2 * K_ * 4
+    n_bytes = (F_ * B_ * plane + rows_used * B_ * plane
+               + (G - 1) * F_ * plane
+               + F_ * 4 + F_ * B_ * 4 + 4 + F_ * 4 * (G > 1) + C * F_ * 4
+               + G * (out_rows if out_rows is not None else C) * plane)
+    n_flop = G * (F_ * B_ * K_ * 8 + C * F_ * K_ * 4)
+    return n_bytes, n_flop
+
+
+def kernels_massive(mm, rows, flush):
+    """Both forms of the fused MAC + mix at the massive_config shape."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(SEED)
     ring = torch.randn(F, B, 2, K, generator=g).to(dev)
     bank = torch.randn(E, B, 2, K, generator=g).to(dev)
     w = torch.randn(C_OUT, F, generator=g).to(dev)
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    rows = []
     for uniform, name, line in ((True, "mac_mix_uniform", 615),
                                 (False, "mac_mix_rows", 582)):
         if uniform:
@@ -106,42 +196,107 @@ def kernel_vs_plain(mm):
         mask = mask.contiguous()
         mask[:, -2:] = 0.0                       # cblocks-style zeros
         idx, mask = idx.to(dev), mask.to(dev)
-        worst = 0.0
-        max_abs = 0.0
+        worst = max_abs = 0.0
         for tv in (0, 5, 15, 16, 37):            # 16 and 37 wrap the ring
             t = torch.tensor(tv, dtype=torch.int32, device=dev)
-            got = mm.mac_mix(ring, bank, idx, mask, t, w, uniform)
-            ref = mm.mac_mix_reference(ring, bank, idx, mask, t, w, uniform)
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                fail(f"{name}: non-finite kernel output at t={tv}")
-            err = (got - ref).abs().max().item()
-            rel = err / ref.abs().max().item()
-            max_abs = max(max_abs, err)
-            worst = max(worst, rel)
-        print(f"{name}: max rel err {worst:.3e} (tol {REL_TOL:g}), "
-              f"max abs err {max_abs:.3e}", flush=True)
-        if not worst <= REL_TOL:
-            fail(f"{name}: kernel disagrees with the plain version "
-                 f"({worst:.3e} > {REL_TOL:g})")
+            rel, err = check(name, mm.mac_mix(ring, bank, idx, mask, t, w,
+                                              uniform),
+                             mm.mac_mix_reference(ring, bank, idx, mask, t,
+                                                  w, uniform), tv)
+            worst, max_abs = max(worst, rel), max(max_abs, err)
+        ones = torch.ones(F, B, device=dev)
         t = torch.tensor(7, dtype=torch.int32, device=dev)
-        k_ms = time_ms(lambda: mm.mac_mix(ring, bank, idx, mask, t, w,
-                                          uniform), 30, flush)
-        p_ms = time_ms(lambda: mm.mac_mix_reference(ring, bank, idx, mask,
-                                                    t, w, uniform), 30,
+        k_ms = time_ms(lambda: mm.mac_mix(ring, bank, idx, ones, t, w,
+                                          uniform), REPS, flush)
+        p_ms = time_ms(lambda: mm.mac_mix_reference(ring, bank, idx, ones,
+                                                    t, w, uniform), REPS,
                        flush)
-        print(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              "(median of 30, L2 flushed before each)", flush=True)
-        rows.append({"name": name, "route": "cuda",
-                     "source": "brutefir_tpu_torch/csrc/mac_mix.cu",
-                     "replaces": f"brutefir_tpu/ops/pallas_mac.py:{line}",
-                     "form": "uniform" if uniform else "rows",
-                     "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms})
-    del flush
-    return rows
+        nb, nf = mac_bytes_flops(F, B, K, C_OUT, 1 if uniform else E)
+        report(rows, name, "brutefir_tpu_torch/csrc/mac_mix.cu", line,
+               worst, max_abs, k_ms, p_ms, nb, nf,
+               ("mac_mix", "uniform" if uniform else "rows"))
 
 
-def write_inputs(rng, frames: int):
+def kernels_scale(mm, mg, rows, flush):
+    """The bin-tiled fused MAC + mix and the grouped MACs at the scale
+    shape, with 256 distinct bank rows."""
+    import torch
+    dev = torch.device("cuda")
+    Fs = Cs = Es = SCALE_C
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    ring = torch.randn(Fs, B, 2, K, generator=g, device=dev)
+    bank = torch.randn(Es, B, 2, K, generator=g, device=dev)
+    w = torch.randn(Cs, Fs, generator=g, device=dev) / 16.0
+    idx = torch.randperm(Fs, generator=g, device=dev).to(torch.int32)
+    ones = torch.ones(Fs, B, device=dev)
+    zeros = torch.zeros(Fs, dtype=torch.int32, device=dev)
+    t7 = torch.tensor(7, dtype=torch.int32, device=dev)
+    ts = (0, 5, B - 1, B, 37)                    # B - 1: groups wrap
+
+    if not mm.tiled_route(Cs, B, K):
+        fail("the scale shape does not take the tiled route")
+    worst = max_abs = 0.0
+    delay = torch.arange(Fs, device=dev, dtype=torch.int32) % 6
+    mask = cblocks_mask(delay, B)
+    for tv in ts:
+        t = torch.tensor(tv, dtype=torch.int32, device=dev)
+        rel, err = check("mac_mix_tiled",
+                         mm.mac_mix(ring, bank, idx, mask, t, w, False),
+                         mm.mac_mix_reference(ring, bank, idx, mask, t, w,
+                                              False), tv)
+        worst, max_abs = max(worst, rel), max(max_abs, err)
+    k_ms = time_ms(lambda: mm.mac_mix(ring, bank, idx, ones, t7, w, False),
+                   REPS, flush)
+    p_ms = time_ms(lambda: mm.mac_mix_reference(ring, bank, idx, ones, t7,
+                                                w, False), REPS, flush)
+    nb, nf = mac_bytes_flops(Fs, B, K, Cs, Es)
+    report(rows, "mac_mix_tiled", "brutefir_tpu_torch/csrc/mac_mix_tiled.cu",
+           665, worst, max_abs, k_ms, p_ms, nb, nf, ("mac_mix", "tiled"))
+
+    for G, fused in ((4, False), (3, False), (2, True)):
+        name = "mac_mix_group" if fused else "mac_group"
+        xnews = torch.randn(Fs, G - 1, 2, K, generator=g, device=dev)
+        # delays 0 .. G+1: in-group, at G-1 and past the group
+        delay = (torch.arange(Fs, device=dev, dtype=torch.int32)
+                 % (G + 2)).to(torch.int32)
+        mask = cblocks_mask(delay, B)
+        worst = max_abs = 0.0
+        for tv in ts:
+            t = torch.tensor(tv, dtype=torch.int32, device=dev)
+            if fused:
+                got = mg.mac_mix_group(ring, xnews, bank, idx, mask, t, w,
+                                       delay)
+                ref = mg.mac_mix_group_reference(ring, xnews, bank, idx,
+                                                 mask, t, w, delay)
+            else:
+                got = mg.mac_group(ring, xnews, bank, idx, mask, t, delay)
+                ref = mg.mac_group_reference(ring, xnews, bank, idx, mask,
+                                             t, delay)
+            rel, err = check(f"{name} G={G}", got, ref, tv)
+            worst, max_abs = max(worst, rel), max(max_abs, err)
+            del got, ref
+        if fused:
+            k_ms = time_ms(lambda: mg.mac_mix_group(
+                ring, xnews, bank, idx, ones, t7, w, zeros), REPS, flush)
+            p_ms = time_ms(lambda: mg.mac_mix_group_reference(
+                ring, xnews, bank, idx, ones, t7, w, zeros), REPS, flush)
+            nb, nf = mac_bytes_flops(Fs, B, K, Cs, Es, G)
+        else:
+            k_ms = time_ms(lambda: mg.mac_group(
+                ring, xnews, bank, idx, ones, t7, zeros), REPS, flush)
+            p_ms = time_ms(lambda: mg.mac_group_reference(
+                ring, xnews, bank, idx, ones, t7, zeros), REPS, flush)
+            nb, nf = mac_bytes_flops(Fs, B, K, 0, Es, G, out_rows=Fs)
+        # kernel 4 enters the summary at G = 4, the main path's group
+        key = (("mac_group", "mix_group") if fused else
+               ("mac_group", "group") if G == 4 else None)
+        report(rows, name, "brutefir_tpu_torch/csrc/mac_group.cu",
+               768 if fused else 956, worst, max_abs, k_ms, p_ms, nb, nf,
+               key, note=f" G={G}")
+        torch.cuda.empty_cache()
+
+
+def write_massive_inputs(rng, frames: int):
     """Seeded 131072-tap coefficients (||taps||_2 = 0.5) as TEXT files,
     and an S24_4LE input with std 2^20 (no clipping)."""
     n_taps = K * B
@@ -187,13 +342,42 @@ def massive_config(name: str, two_coeffs: bool) -> str:
     return path
 
 
-def main_path(main, x, taps, two_coeffs: bool):
-    """One run of the port's __main__.main on the massive shape (its
-    writer thread has fetched every output when main() returns)."""
-    from scipy.signal import fftconvolve
-    frames = x.shape[0]
-    cfg = massive_config("run2.conf" if two_coeffs else "run1.conf",
-                         two_coeffs)
+def scale_config(work: str) -> str:
+    """The 256-channel scale shape: tools/mac_step_compare.py's config
+    with MODE=alldistinct and BENCH_C=256 (8192 x 16 partitions, S24_4LE,
+    filter i from input i to output i with coefficient set i), its
+    coefficients RAW float32 files ``h<i>.raw`` in ``work`` and its
+    devices the files ``input.raw`` and ``output.raw`` there."""
+    C = SCALE_C
+    chans = ", ".join(str(i) for i in range(C))
+    coeffs = "\n".join(
+        f'coeff {i} {{ filename: "{os.path.join(work, f"h{i}.raw")}"; '
+        f'format: "FLOAT_LE"; }};' for i in range(C))
+    filters = "\n".join(
+        f"filter {i} {{ from_inputs: {i}; to_outputs: {i}; coeff: {i}; }};"
+        for i in range(C))
+    return f"""
+sampling_rate: 44100;
+filter_length: {K},{B};
+{coeffs}
+input {chans} {{
+    device: "file" {{ path: "{os.path.join(work, 'input.raw')}"; }};
+    sample: "S24_4LE";
+    channels: {C};
+}};
+output {chans} {{
+    device: "file" {{ path: "{os.path.join(work, 'output.raw')}"; }};
+    sample: "S24_4LE";
+    channels: {C};
+    dither: false;
+}};
+{filters}
+"""
+
+
+def run_main(main, cfg: str, frames: int, channels: int, label: str):
+    """One run of the port's __main__.main (its writer thread has
+    fetched every output when main() returns); the output words."""
     out = os.path.join(WORK, "output.raw")
     if os.path.exists(out):
         os.remove(out)
@@ -204,26 +388,127 @@ def main_path(main, x, taps, two_coeffs: bool):
     wall = time.perf_counter() - t0
     sys.stderr.write(err.getvalue())
     if rc != 0:
-        fail(f"main() exited {rc}")
+        fail(f"main() exited {rc} ({label})")
     y = np.fromfile(out, dtype="<i4")
-    if y.size != frames * F:
-        fail(f"output has {y.size // F} frames, input {frames}")
-    y = y.reshape(frames, F)
-    lsb = []
-    for c in range(F):
-        h = taps[1] if (two_coeffs and c >= 13) else taps[0]
-        ref = np.round(fftconvolve(x[:, c].astype(np.float64), h)[:frames])
-        lsb.append(int(np.abs(y[:, c].astype(np.int64) - ref).max()))
+    if y.size != frames * channels:
+        fail(f"output has {y.size // channels} frames, input {frames} "
+             f"({label})")
     audio_s = frames / 44100.0
-    label = "two coefficients" if two_coeffs else "shared coefficient"
     engine_line = (err.getvalue().strip().splitlines() or ["-"])[-1]
-    print(f"main path ({label}): rc 0, {frames} frames in and out, max "
-          f"|y - oracle| {max(lsb)} LSB (tol {LSB_TOL}), end to end "
-          f"{wall:.3f} s for {audio_s:.3f} s of audio = "
+    print(f"main path ({label}): rc 0, {frames} frames in and out, end to "
+          f"end {wall:.3f} s for {audio_s:.3f} s of audio = "
           f"{audio_s / wall:.2f}x realtime (incl. config parse and bank "
           f"build); engine: {engine_line}", flush=True)
-    if max(lsb) > LSB_TOL:
-        fail(f"output off the float64 oracle by {max(lsb)} LSB")
+    return y.reshape(frames, channels)
+
+
+def oracle_lsb(y, x, taps_of):
+    """Max |y - round(x (*) h)| in LSB over all channels, the convolution
+    in float64."""
+    from scipy.signal import fftconvolve
+    frames, C = y.shape
+    worst = 0
+    for c0 in range(0, C, 16):
+        c1 = min(C, c0 + 16)
+        ref = np.round(fftconvolve(
+            x[:, c0:c1].T.astype(np.float64),
+            np.stack([taps_of(c) for c in range(c0, c1)]), axes=1)
+            [:, :frames])
+        worst = max(worst, int(np.abs(y[:, c0:c1].T.astype(np.int64)
+                                      - ref).max()))
+    return worst
+
+
+def expect_launches(counts: dict, want: dict, label: str):
+    print(f"kernel launches in this run ({label}): {counts}", flush=True)
+    for key, n in want.items():
+        if counts.get(key, 0) != n:
+            fail(f"{label}: {key} launched {counts.get(key, 0)} times, "
+                 f"expected {n}")
+
+
+def main_massive(main, mm, launched: dict):
+    rng = np.random.default_rng(SEED)
+    frames = int(BLOCKS * K)
+    taps, x = write_massive_inputs(rng, frames)
+    for two in (False, True):
+        label = "massive, two coefficients" if two else \
+            "massive, shared coefficient"
+        form = "rows" if two else "uniform"
+        cfg = massive_config("run2.conf" if two else "run1.conf", two)
+        mm.reset_launches()
+        y = run_main(main, cfg, frames, F, label)
+        counts = {("mac_mix", k): v for k, v in mm.launches.items()}
+        lsb = oracle_lsb(y, x, lambda c: taps[1] if (two and c >= 13)
+                         else taps[0])
+        print(f"main path ({label}): max |y - oracle| {lsb} LSB (tol "
+              f"{LSB_TOL}) on all {F} channels", flush=True)
+        if lsb > LSB_TOL:
+            fail(f"output off the float64 oracle by {lsb} LSB ({label})")
+        if counts[("mac_mix", form)] <= 0:
+            fail(f"the main path never launched the {form} kernel form")
+        expect_launches({k[1]: v for k, v in counts.items()},
+                        {"tiled": 0}, label)
+        launched[("mac_mix", form)] = counts[("mac_mix", form)]
+
+
+def write_scale_inputs(work: str, frames: int, seed: int = SEED + 2):
+    """The scale shape's seeded inputs in ``work``: 256 exponentially
+    decaying 131072-tap coefficient sets (||h||_2 = 0.5) as RAW float32
+    files, an S24_4LE input of ``frames`` frames with std 2^20, and the
+    config. Returns (taps [256, 131072] float32, x [frames, 256], config
+    path)."""
+    C = SCALE_C
+    rng = np.random.default_rng(seed)
+    n_taps = K * B
+    decay = np.exp(-np.arange(n_taps) / 20000.0)
+    taps = np.empty((C, n_taps), np.float32)
+    for c in range(C):
+        h = rng.standard_normal(n_taps) * decay
+        taps[c] = 0.5 * h / np.linalg.norm(h)
+        taps[c].astype("<f4").tofile(os.path.join(work, f"h{c}.raw"))
+    x = np.clip(np.round(rng.standard_normal((frames, C)) * 2.0 ** 20),
+                -(2 ** 23), 2 ** 23 - 1).astype("<i4")
+    x.tofile(os.path.join(work, "input.raw"))
+    cfg = os.path.join(work, "scale.conf")
+    with open(cfg, "w") as fh:
+        fh.write(scale_config(work))
+    return taps, x, cfg
+
+
+def main_scale(main, mm, mg, launched: dict):
+    C = SCALE_C
+    frames = int(BLOCKS * K)
+    taps, x, cfg = write_scale_inputs(WORK, frames)
+    runs = (("scale, groups of 4", None,
+             {"group": 4, "tiled": 4, "mix_group": 0},
+             (("mac_group", "group"), ("mac_mix", "tiled"))),
+            ("scale, BRUTEFIR_TPU_PAIR=2", "2",
+             {"mix_group": 8, "tiled": 4, "group": 0},
+             (("mac_group", "mix_group"),)))
+    for label, pair, want, keys in runs:
+        old = os.environ.pop("BRUTEFIR_TPU_PAIR", None)
+        if pair is not None:
+            os.environ["BRUTEFIR_TPU_PAIR"] = pair
+        try:
+            mm.reset_launches()
+            mg.reset_launches()
+            y = run_main(main, cfg, frames, C, label)
+            counts = {("mac_mix", k): v for k, v in mm.launches.items()}
+            counts.update({("mac_group", k): v
+                           for k, v in mg.launches.items()})
+        finally:
+            os.environ.pop("BRUTEFIR_TPU_PAIR", None)
+            if old is not None:
+                os.environ["BRUTEFIR_TPU_PAIR"] = old
+        lsb = oracle_lsb(y, x, lambda c: taps[c].astype(np.float64))
+        print(f"main path ({label}): max |y - oracle| {lsb} LSB (tol "
+              f"{LSB_TOL}) on all {C} channels", flush=True)
+        if lsb > LSB_TOL:
+            fail(f"output off the float64 oracle by {lsb} LSB ({label})")
+        expect_launches({k[1]: v for k, v in counts.items()}, want, label)
+        for key in keys:
+            launched[key] = counts[key]
 
 
 def run():
@@ -240,43 +525,47 @@ def run():
           f"{torch.version.cuda}", flush=True)
 
     phase("build")
-    from brutefir_tpu_torch.ops import _build, mac_mix as mm
+    from brutefir_tpu_torch.ops import _build, mac_group as mg, mac_mix as mm
     from brutefir_tpu_torch.__main__ import main
     t0 = time.perf_counter()
-    so = _build.build()
-    _build.load()
-    print(f"built {so.name} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    log = so.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("  " + line.strip(), flush=True)
+    libs = _build.build()
+    for stem in _build.SIGNATURES:
+        _build.load(stem)
+    print(f"built {', '.join(p.name for p in libs)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for so in libs:
+        log = so.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  {so.stem}: {line.strip()}", flush=True)
 
     phase("kernel vs plain")
-    rows = kernel_vs_plain(mm)
+    rows = []
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    kernels_massive(mm, rows, flush)
+    kernels_scale(mm, mg, rows, flush)
+    del flush
+    torch.cuda.empty_cache()
 
-    phase("main path")
     os.makedirs(WORK, exist_ok=True)
-    rng = np.random.default_rng(SEED)
-    frames = int(BLOCKS * K)
-    taps, x = write_inputs(rng, frames)
-    counts = {}
-    for two in (False, True):
-        form = "rows" if two else "uniform"
-        mm.reset_launches()
-        main_path(main, x, taps, two)
-        counts[form] = mm.launches[form]
-        print(f"kernel launches in this run: {form} {counts[form]}",
-              flush=True)
-        if counts[form] <= 0:
-            fail(f"the main path never launched the {form} kernel form")
+    launched = {}
+    phase("main path, massive")
+    main_massive(main, mm, launched)
+    phase("main path, scale")
+    main_scale(main, mm, mg, launched)
     shutil.rmtree(WORK, ignore_errors=True)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] == "brutefir_tpu" or m.startswith("jax"))
+    if bad:
+        fail(f"modules of jax or of the JAX package were loaded: {bad[:5]}")
 
     for r in rows:
-        r["launches"] = counts[r.pop("form")]
+        key = r.pop("launches_key")
+        r["launches"] = launched[key]
+        if r["launches"] <= 0:
+            fail(f"{r['name']}: not launched on the main path")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from brutefir_tpu.config import parse_config
-from brutefir_tpu_torch.ops import mac_mix as mm
+from brutefir_tpu_torch.config import parse_config
+from brutefir_tpu_torch.ops import mac_group as mg, mac_mix as mm
 
 
 @pytest.fixture
@@ -68,6 +68,109 @@ def test_kernel_matches_plain_version(cuda, uniform, K, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F,B,K,E,C", [
+    (5, 3, 1000, 3, 37),       # K not a multiple of the 32-bin tile
+    (13, 4, 8200, 5, 300),     # C past one block's 256 rows, F % 8 != 0
+    (9, 2, 24, 4, 3),          # small mix: the 4-row form
+])
+def test_tiled_kernel_matches_plain_version(cuda, monkeypatch, F, B, K, E,
+                                            C):
+    """The bin-tiled kernel at odd sizes (E < F), forced by the route."""
+    monkeypatch.setattr(mm, "tiled_route", lambda *a: True)
+    ring, bank, idx, mask, w = _mac_inputs(F * K + C, F, B, K, E, C, False,
+                                           cuda)
+    for tv in (0, B - 1, B, 3 * B + 2):
+        t = torch.tensor(tv, dtype=torch.int32, device=cuda)
+        before = mm.launches["tiled"]
+        got = mm.mac_mix(ring, bank, idx, mask, t, w, False)
+        ref = mm.mac_mix_reference(ring, bank, idx, mask, t, w, False)
+        torch.cuda.synchronize()
+        assert mm.launches["tiled"] == before + 1
+        assert got.shape == (C, 2, K)
+        assert (got - ref).abs().max().item() / ref.abs().max().item() <= 1e-5
+
+
+def _group_inputs(seed, F, B, K, E, G, C, dev):
+    rng = np.random.default_rng(seed)
+    ring = rng.standard_normal((F, B, 2, K)).astype(np.float32)
+    xnews = rng.standard_normal((F, G - 1, 2, K)).astype(np.float32)
+    bank = rng.standard_normal((E, B, 2, K)).astype(np.float32)
+    idx = rng.integers(0, E, F).astype(np.int32)
+    delay = (np.arange(F) % (G + 2)).clip(0, B - 1).astype(np.int32)
+    mask = (np.arange(B)[None, :] < (B - delay)[:, None]).astype(np.float32)
+    w = rng.standard_normal((C, F)).astype(np.float32)
+    return [torch.as_tensor(a, device=dev)
+            for a in (ring, xnews, bank, idx, mask, delay, w)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [2, 3, 4, 5, 8])
+@pytest.mark.parametrize("F,B,K,E,C", [
+    (7, 6, 1000, 3, 9),        # K not a multiple of any tile
+    (19, 9, 300, 5, 70),       # F % 16 != 0, C past one block at G >= 3
+])
+def test_group_kernels_match_plain_versions(cuda, G, F, B, K, E, C):
+    """Both grouped kernels: delays 0 .. G+1 (clamped to B-1), the
+    cblocks mask, start times that wrap the ring inside the group."""
+    ring, xnews, bank, idx, mask, delay, w = _group_inputs(
+        G * 100 + K, F, B, K, E, G, C, cuda)
+    for tv in (0, B - 1, 2 * B + 1):
+        t = torch.tensor(tv, dtype=torch.int32, device=cuda)
+        before = dict(mg.launches)
+        got = mg.mac_group(ring, xnews, bank, idx, mask, t, delay)
+        ref = mg.mac_group_reference(ring, xnews, bank, idx, mask, t, delay)
+        gotm = mg.mac_mix_group(ring, xnews, bank, idx, mask, t, w, delay)
+        refm = mg.mac_mix_group_reference(ring, xnews, bank, idx, mask, t,
+                                          w, delay)
+        torch.cuda.synchronize()
+        assert mg.launches == {"group": before["group"] + 1,
+                               "mix_group": before["mix_group"] + 1}
+        assert got.shape == (G, F, 2, K) and gotm.shape == (G, C, 2, K)
+        for a, b in ((got, ref), (gotm, refm)):
+            assert (a - b).abs().max().item() / b.abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_failed_group_launch_raises(cuda):
+    """A launch the card refuses (grid.y past 65535 filters) raises; it
+    counts no launch."""
+    F, B, K, G = 70000, 1, 1, 2
+    z = torch.zeros
+    args = (z(F, B, 2, K, device=cuda), z(F, G - 1, 2, K, device=cuda),
+            z(1, B, 2, K, device=cuda),
+            z(F, dtype=torch.int32, device=cuda), z(F, B, device=cuda),
+            torch.tensor(0, dtype=torch.int32, device=cuda),
+            z(F, dtype=torch.int32, device=cuda))
+    before = mg.launches["group"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mg.mac_group(*args)
+    assert mg.launches["group"] == before
+
+
+@pytest.mark.cuda
+def test_failed_launches_raise(cuda, monkeypatch):
+    """Every wrapper raises when its C entry reports a CUDA error."""
+    class Refused:
+        def __getattr__(self, name):
+            return lambda *a: 9          # cudaErrorInvalidConfiguration
+    monkeypatch.setattr(mm._build, "load", lambda stem: Refused())
+    ring, xnews, bank, idx, mask, delay, w = _group_inputs(
+        1, 3, 2, 128, 2, 2, 300, cuda)
+    t = torch.tensor(0, dtype=torch.int32, device=cuda)
+    before = dict(mm.launches)
+    for tiled in (True, False):
+        monkeypatch.setattr(mm, "tiled_route", lambda *a, _t=tiled: _t)
+        for uniform in (True, False):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                mm.mac_mix(ring, bank, idx, mask, t, w, uniform)
+    assert mm.launches == before
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mg.mac_group(ring, xnews, bank, idx, mask, t, delay)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mg.mac_mix_group(ring, xnews, bank, idx, mask, t, w, delay)
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_mixed_devices(cuda):
     ring, bank, idx, mask, w = _mac_inputs(1, 2, 2, 128, 1, 2, False, cuda)
     t = torch.tensor(0, dtype=torch.int32, device=cuda)
@@ -75,9 +178,10 @@ def test_wrapper_rejects_mixed_devices(cuda):
         mm.mac_mix(ring, bank, idx, mask, t, w.cpu(), False)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("coeff_of", [[0, 0, 0], [0, 1, 0]])
-def test_engine_on_card_matches_cpu(cuda, tmp_path, coeff_of):
+def _card_and_cpu(cuda, tmp_path, coeff_of, delays=(0, 0, 0)):
+    """The same S24 file through the engine on the card and on the CPU;
+    checks both against each other and the card against a float64
+    oracle, within 2 LSB."""
     from brutefir_tpu_torch.runtime.engine import Engine
     N, B, C = 256, 4, 3
     rng = np.random.default_rng(7)
@@ -97,7 +201,8 @@ def test_engine_on_card_matches_cpu(cuda, tmp_path, coeff_of):
             f'format: "TEXT"; }};\n' for k in sorted(set(coeff_of)))
         filters = "".join(
             f"filter {f} {{ from_inputs: {f}; to_outputs: {f}; "
-            f"coeff: {c}; }};\n" for f, c in enumerate(coeff_of))
+            f"coeff: {c}; delay: {d}; }};\n"
+            for f, (c, d) in enumerate(zip(coeff_of, delays)))
         return parse_config(f"""
 sampling_rate: 44100;
 filter_length: {N},{B};
@@ -106,10 +211,7 @@ input 0,1,2 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24
 output 0,1,2 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "S24_4LE"; channels: {C}; dither: false; }};
 {filters}""")
 
-    form = "uniform" if len(set(coeff_of)) == 1 else "rows"
-    before = mm.launches[form]
     sg = Engine(conf("gpu.raw"), device=cuda).run_offline()
-    assert mm.launches[form] - before == 12
     sc = Engine(conf("cpu.raw"),
                 device=torch.device("cpu")).run_offline()
     assert sg["frames"] == sc["frames"] == frames
@@ -119,6 +221,31 @@ output 0,1,2 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "S24_4L
     assert np.abs(yg - yc).max() <= 2
     yg = yg.reshape(frames, C)
     for c in range(C):
-        ref = np.convolve(x[:, c].astype(np.float64),
-                          taps[coeff_of[c]].astype(np.float64))[:frames]
+        # a filter delayed d blocks keeps B - d partitions of its taps
+        h = taps[coeff_of[c]][:(B - delays[c]) * N].astype(np.float64)
+        ref = np.convolve(x[:, c].astype(np.float64), h)[:frames]
+        ref = np.concatenate([np.zeros(delays[c] * N), ref])[:frames]
         assert np.abs(yg[:, c] - np.round(ref)).max() <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coeff_of", [[0, 0, 0], [0, 1, 0]])
+def test_engine_on_card_matches_cpu(cuda, tmp_path, coeff_of):
+    form = "uniform" if len(set(coeff_of)) == 1 else "rows"
+    before = mm.launches[form]
+    _card_and_cpu(cuda, tmp_path, coeff_of)
+    assert mm.launches[form] - before == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,kernel", [("", "mix_group"),
+                                         ("unfused", "group")])
+def test_grouped_engine_on_card_matches_cpu(cuda, tmp_path, monkeypatch,
+                                            form, kernel):
+    """The batch of 8 in groups of 4 (BRUTEFIR_TPU_PAIR=force:4), with
+    per-filter delays that select the group's own spectra."""
+    monkeypatch.setenv("BRUTEFIR_TPU_PAIR", "force:4")
+    monkeypatch.setenv("BRUTEFIR_TPU_GROUP_FORM", form)
+    before = mg.launches[kernel]
+    _card_and_cpu(cuda, tmp_path, [0, 1, 0], delays=(0, 1, 2))
+    assert mg.launches[kernel] - before == 2

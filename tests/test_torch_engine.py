@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from brutefir_tpu.config import parse_config
+from brutefir_tpu.config import parse_config as jax_parse_config
+from brutefir_tpu_torch.config import parse_config
 
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 CPU = torch.device("cpu")
@@ -71,7 +72,7 @@ def _run_both(tmp_path, monkeypatch, make_text, frames, channels):
     _s24_input(tmp_path / "in.raw", frames, channels, seed=11)
     # the JAX side runs its fused Pallas kernel, interpreted on the CPU
     monkeypatch.setenv("BRUTEFIR_TPU_MAC", "pallas")
-    jeng = JaxEngine(parse_config(make_text("out_jax.raw")))
+    jeng = JaxEngine(jax_parse_config(make_text("out_jax.raw")))
     assert jeng.cg.mac == "pallas-interpret"
     jstats = jeng.run_offline(batch_blocks=8)
     teng = Engine(parse_config(make_text("out_torch.raw")), device=CPU)
@@ -132,7 +133,7 @@ def test_engine_clipping_meters_match_jax(tmp_path, monkeypatch):
         return _config(tmp_path, name, [0, 0])
 
     monkeypatch.setenv("BRUTEFIR_TPU_MAC", "pallas")
-    jeng = JaxEngine(parse_config(make_text("out_jax.raw")))
+    jeng = JaxEngine(jax_parse_config(make_text("out_jax.raw")))
     js = jeng.run_offline(batch_blocks=8)
     teng = Engine(parse_config(make_text("out_torch.raw")), device=CPU)
     ts = teng.run_offline()
@@ -216,7 +217,7 @@ output 0,1 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "{fmt}"; 
 {filters}"""
 
     monkeypatch.setenv("BRUTEFIR_TPU_MAC", "pallas")
-    jeng = JaxEngine(parse_config(make_text("out_jax.raw")))
+    jeng = JaxEngine(jax_parse_config(make_text("out_jax.raw")))
     assert jeng.dio is not None and jeng.cg.mac == "pallas-interpret"
     js = jeng.run_offline(batch_blocks=8)
     teng = Engine(parse_config(make_text("out_torch.raw")), device=CPU)

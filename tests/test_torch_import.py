@@ -1,4 +1,7 @@
-"""brutefir_tpu_torch never imports jax, and pins full FP32 matmuls."""
+"""brutefir_tpu_torch imports neither jax nor anything of the JAX package
+brutefir_tpu (it keeps its own copies of the framework-free layers), its
+config parser accepts exactly what the JAX one does, and it pins full
+FP32 matmuls."""
 
 import os
 import subprocess
@@ -7,9 +10,16 @@ import sys
 import numpy as np
 import torch
 
-from brutefir_tpu.config import parse_config
+from brutefir_tpu_torch.config import parse_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# run in the subprocess after the imports: no jax* module and no module
+# of the JAX package (brutefir_tpu, brutefir_tpu.*) may be loaded
+_NOTHING_OF_JAX = (
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] == "
+    "'brutefir_tpu' or m.startswith('jax'))\n"
+    "assert not bad, bad\n")
 
 
 def test_port_imports_no_jax():
@@ -20,8 +30,8 @@ def test_port_imports_no_jax():
         "import brutefir_tpu_torch.__main__\n"
         "import brutefir_tpu_torch.ops.mac_mix\n"
         "import brutefir_tpu_torch.convert\n"
-        "assert 'jax' not in sys.modules, sorted(\n"
-        "    m for m in sys.modules if m.startswith('jax'))\n"
+        "import brutefir_tpu_torch.ops.mac_group\n"
+        + _NOTHING_OF_JAX +
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -50,7 +60,7 @@ filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; }};
         f"rc = main(['-quiet', '-nodefault', {str(cfg)!r}],\n"
         "          device=torch.device('cpu'))\n"
         "assert rc == 0, rc\n"
-        "assert 'jax' not in sys.modules\n"
+        + _NOTHING_OF_JAX +
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -85,3 +95,127 @@ def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     assert resolve_device(torch.device("cpu")).type == "cpu"
+
+
+def _plain(obj):
+    """A parsed config as nested plain values: dataclasses by class name
+    and fields, enums by name (the two packages' classes differ)."""
+    import dataclasses
+    import enum
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj).__name__,
+                tuple((f.name, _plain(getattr(obj, f.name)))
+                      for f in dataclasses.fields(obj)))
+    if isinstance(obj, enum.Enum):
+        return obj.name
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    return obj
+
+
+def _scale_config_text():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs.scale_config("/data/scale")
+
+
+_IO = ('input 0,1 {{ device: "file" {{ path: "/in.raw"; }}; '
+       'sample: "{fmt}"; channels: 2; {inf} }};\n'
+       'output 0,1 {{ device: "file" {{ path: "/out.raw"; }}; '
+       'sample: "{fmt}"; channels: {och}; dither: {dither}; {outf} }};\n')
+PARSE_TEXTS = {
+    "s24_text_coeffs": (
+        'sampling_rate: 44100;\nfilter_length: 256,4;\n'
+        'coeff 0 { filename: "/c0.txt"; format: "TEXT"; };\n'
+        'coeff 1 { filename: "/c1.txt"; format: "TEXT"; };\n'
+        + _IO.format(fmt="S24_4LE", inf="", och=2, dither="false", outf="")
+        + 'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; };\n'
+          'filter 1 { from_inputs: 1; to_outputs: 1; coeff: 1; };\n'),
+    "raw_coeffs_mapping_mute_delay": (
+        'sampling_rate: 48000;\nfilter_length: 128,4;\npowersave: -70.0;\n'
+        'coeff 0 { filename: "/a.txt"; format: "TEXT"; attenuation: 3.0; };\n'
+        'coeff 1 { filename: "/b.raw"; format: "S32_LE"; skip: 8; '
+        'blocks: 3; };\n'
+        'coeff 2 { filename: "dirac pulse"; format: "TEXT"; '
+        'attenuation: 6.0; };\n'
+        + _IO.format(fmt="S16_LE", inf="mute: false, true;", och=1,
+                     dither="true", outf="mapping: 0,0;")
+        + 'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 1; '
+          'delay: 1; };\n'
+          'filter 1 { from_inputs: 1/-3, 0; to_outputs: 1/2.5; '
+          'coeff: 2; };\n'),
+    "float_cascade_crossfade": (
+        'sampling_rate: 44100;\nfilter_length: 64,2;\nfloat_bits: 64;\n'
+        'coeff "c" { filename: "/c.raw"; format: "FLOAT_LE"; };\n'
+        + _IO.format(fmt="FLOAT_LE", inf="", och=2, dither="false",
+                     outf="")
+        + 'filter "a" { from_inputs: 0; to_filters: "b"; coeff: "c"; '
+          'crossfade: true; };\n'
+          'filter "b" { from_filters: "a"; to_outputs: 0, 1; coeff: -1; };\n'),
+}
+
+
+def _parity_cases():
+    cases = dict(PARSE_TEXTS)
+    for name in sorted(os.listdir(os.path.join(REPO, "examples"))):
+        if name.endswith(".conf"):
+            with open(os.path.join(REPO, "examples", name)) as fh:
+                cases[name] = fh.read()
+    return cases
+
+
+def test_parse_config_matches_jax_on_every_config():
+    """The port's copy of the config language gives the same BFConfig as
+    the JAX package's on the configs the port's tests use, the examples,
+    the 256-channel scale config of chip_smoke.py, and under the defaults
+    file."""
+    from brutefir_tpu.config import parse_config as jax_parse_config
+    from brutefir_tpu.config.defaults import (
+        DEFAULT_CONFIG_TEXT as JAX_DEFAULTS)
+    from brutefir_tpu_torch.config import DEFAULT_CONFIG_TEXT
+    assert DEFAULT_CONFIG_TEXT == JAX_DEFAULTS
+    cases = _parity_cases()
+    cases["scale_256"] = _scale_config_text()
+    for name, text in cases.items():
+        got = _plain(parse_config(text))
+        assert got == _plain(jax_parse_config(text)), name
+        assert got == _plain(parse_config(text)), name      # deterministic
+    text = cases["s24_text_coeffs"]
+    assert (_plain(parse_config(text, defaults_text=DEFAULT_CONFIG_TEXT))
+            == _plain(jax_parse_config(text, defaults_text=JAX_DEFAULTS)))
+
+
+def test_parse_config_rejects_what_jax_rejects():
+    """Both parsers refuse the same broken configs, with the same message."""
+    from brutefir_tpu.config import parse_config as jax_parse_config
+    good = PARSE_TEXTS["s24_text_coeffs"]
+    for bad in (good.replace("filter_length: 256,4;", "filter_length: 3,4;"),
+                good.replace("coeff: 1; };", "coeff: 7; };"),
+                good.replace("channels: 2;", "channels: 300;", 1),
+                good + "filter 0 { from_inputs: 0; to_outputs: 1; };\n",
+                good.replace(";", "", 1)):
+        errs = []
+        for parse in (parse_config, jax_parse_config):
+            try:
+                parse(bad)
+                errs.append(None)
+            except Exception as e:              # noqa: BLE001
+                errs.append(str(e))
+        assert errs[0] is not None and errs[0] == errs[1], errs
+
+
+def test_io_modules_other_than_file_are_not_ported_yet():
+    """The port carries the file module only; sound-server backends and
+    external bfio_<name>.py modules raise, naming their ROADMAP item."""
+    import pytest
+    from brutefir_tpu_torch.io import get_io_module
+    assert get_io_module("file").__name__ == "FileDevice"
+    for name in ("alsa", "oss", "jack", "pulse", "mymodule"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 4"):
+            get_io_module(name, ".")

@@ -66,7 +66,7 @@ def test_wrapper_on_cpu_runs_plain_version_and_counts_nothing(rng, uniform):
             torch.tensor(5, dtype=torch.int32), torch.as_tensor(w))
     mm.reset_launches()
     got = mm.mac_mix(*args, uniform)
-    assert mm.launches == {"uniform": 0, "rows": 0}
+    assert mm.launches == {"uniform": 0, "rows": 0, "tiled": 0}
     torch.testing.assert_close(got, mm.mac_mix_reference(*args, uniform),
                                rtol=0, atol=0)
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from brutefir_tpu.config import parse_config
+from brutefir_tpu_torch.config import parse_config as port_parse_config
 from brutefir_tpu.config.coeffs import build_bank as jax_build_bank
 from brutefir_tpu.ops import partconv as jpc
 from brutefir_tpu_torch.config.coeffs import build_bank
@@ -125,7 +126,7 @@ def test_build_bank_equals_jax(tmp_path, rng):
     txt.write_text("\n".join(repr(float(v)) for v in taps[:300]) + "\n")
     raw = tmp_path / "b.raw"
     (taps * 2 ** 20).astype("<i4").tofile(raw)
-    conf = parse_config(f"""
+    text = f"""
 sampling_rate: 44100;
 filter_length: {N},{B};
 coeff 0 {{ filename: "{txt}"; format: "TEXT"; attenuation: 3.0; }};
@@ -134,8 +135,9 @@ coeff 2 {{ filename: "dirac pulse"; format: "TEXT"; attenuation: 6.0; }};
 input 0 {{ device: "file" {{ path: "/dev/null"; }}; sample: "S32_LE"; channels: 1; }};
 output 0 {{ device: "file" {{ path: "/dev/null"; }}; sample: "S32_LE"; channels: 1; }};
 filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; }};
-""")
-    got = build_bank(conf.coeffs, N, B)
+"""
+    conf = parse_config(text)
+    got = build_bank(port_parse_config(text).coeffs, N, B)
     ref = jax_build_bank(conf.coeffs, N, B)
     assert got.shape == (4, B, N)
     np.testing.assert_array_equal(got, ref)

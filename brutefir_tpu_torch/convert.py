@@ -36,15 +36,17 @@ def bank_from_jax(np_bank, device) -> torch.Tensor:
 
 def state_from_jax(prev_in, ring, eval_prev, t, device) -> StepState:
     """StepState fields (numpy) -> the port's StepState on ``device``.
-    ``eval_prev`` holds cascade tails; the port has no cascades yet
-    (ROADMAP queue 1 item 8), so it must have no rows."""
-    if np.asarray(eval_prev).size:
-        raise NotImplementedError(
-            "cascade state is not ported yet (ROADMAP queue 1 item 8)")
+    ``eval_prev`` holds the cascade tails, one [N] row per filter with
+    filter inputs (none for a graph without cascades)."""
+    prev_in = np.array(prev_in, np.float32, copy=True)
+    eval_prev = np.array(eval_prev, np.float32, copy=True)
+    if eval_prev.ndim != 2 or eval_prev.shape[1] != prev_in.shape[-1]:
+        raise ValueError(f"eval_prev must be [n_casc, {prev_in.shape[-1]}], "
+                         f"got shape {eval_prev.shape}")
     return StepState(
-        prev_in=torch.as_tensor(np.array(prev_in, np.float32, copy=True),
-                                device=device),
+        prev_in=torch.as_tensor(prev_in, device=device),
         ring=torch.as_tensor(_flat(ring), device=device),
+        eval_prev=torch.as_tensor(eval_prev, device=device),
         t=torch.tensor(int(np.asarray(t)), dtype=torch.int32, device=device),
     )
 
@@ -52,7 +54,7 @@ def state_from_jax(prev_in, ring, eval_prev, t, device) -> StepState:
 def ctrl_from_jax(ctrl, device) -> StepCtrl:
     """A StepCtrl-shaped tuple of numpy-convertible arrays -> the port's
     StepCtrl on ``device``: the fields the port's step reads, same
-    dtypes; the filter mix and crossfade fields are left behind."""
+    dtypes; the crossfade fields are left behind."""
     out = {}
     for name in StepCtrl._fields:
         a = np.asarray(getattr(ctrl, name))

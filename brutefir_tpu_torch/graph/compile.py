@@ -1,30 +1,40 @@
 """The per-block device step: ``step_impl(spec, state, ctrl, bank, x)``.
 
-Torch twin of the fused-mix branch of ``_step_impl`` in
-:mod:`brutefir_tpu.graph.compile` (compile.py:241-275, 309-351): for a
-single-stage graph with no cascades, no crossfade and no spectral taps,
-one block is
+Torch twin of ``_step_impl`` in :mod:`brutefir_tpu.graph.compile`
+(compile.py:241-351, 418-533), without spectral taps and crossfade. One
+block is
 
-    frame = [prev_in, x] -> (powersave gate) -> rfft -> input mix
-    -> ring write at (t + delay[f]) % B -> fused MAC + output mix (CUDA)
-    -> valid-half irfft -> y [C_out, N]
+    frame = [prev_in, x] -> (powersave gate) -> rfft -> per stage:
+    input mix (+ cascade input) -> ring write at (t + delay[f]) % B -> MAC
+    -> output mix -> valid-half irfft -> y [C_out, N]
+
+Two routes, chosen as the JAX package chooses them (``fused_mix_route``):
+a single stage of every filter takes the fused MAC + output mix kernel
+(``mac_mix``); every other graph runs the **stage loop**, one topological
+stage of the filter DAG after the other, through the unfused MAC kernel
+(``mac``). A stage's filters that take other filters' outputs
+(``from_filters``) get them as ``convolve_eval`` of the mixed upstream
+spectra, overlap-save framed against the cascade tails ``eval_prev``.
 
 The batched offline dispatch may instead run G blocks at a time through
 ``group_step_impl`` (compile.py:615-752), whose grouped MAC kernels read
 the ring and the bank once per group; ``group_size`` decides.
 
-``state`` holds the overlap-save tails, the [F, B, 2, N] spectra ring and
-the block counter; ``ctrl`` is the block-boundary snapshot of every
-runtime control, so control changes never rebuild anything. PyTorch runs
-eagerly, so there is no compiled program cache: the ``uniform`` and
-``uniform_delay`` variants are plain arguments chosen by the host.
+``state`` holds the overlap-save tails, the [F, B, 2, N] spectra ring, the
+cascade tails and the block counter; ``ctrl`` is the block-boundary
+snapshot of every runtime control, so control changes never rebuild
+anything. PyTorch runs eagerly, so there is no compiled program cache: the
+``uniform`` and ``uniform_delay`` variants are plain arguments chosen by
+the host.
 
-The ring is written **in place**: the analog of the JAX step donating its
-state buffers. The returned state shares the ring tensor with the input.
+The ring and the cascade tails are written **in place**: the analog of
+the JAX step donating its state buffers. The returned state shares them
+with the input.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple
 
@@ -32,22 +42,24 @@ import numpy as np
 import torch
 
 from ..ops import partconv
+from ..ops.mac import mac
 from ..ops.mac_group import mac_group, mac_mix_group
-from ..ops.mac_mix import mac_mix
+from ..ops.mac_mix import mac_mix, tiled_route
 from .spec import GraphSpec
 
 
 class StepState(NamedTuple):
     prev_in: torch.Tensor    # [C_in, N] previous input block (overlap-save tails)
     ring: torch.Tensor       # [F, B, 2, N] packed spectra ring (re/im planes)
+    eval_prev: torch.Tensor  # [n_casc, N] cascade valid-output tails
     t: torch.Tensor          # scalar int32 block counter
 
 
 class StepCtrl(NamedTuple):
-    """The controls the fused-mix step reads. The JAX StepCtrl's filter
-    mix and crossfade fields come with the ROADMAP items that port
-    cascades (queue 1 item 8) and crossfade (item 7)."""
+    """The controls the step reads. The JAX StepCtrl's crossfade fields
+    come with the ROADMAP item that ports crossfade (queue 1 item 7)."""
     in_mix: torch.Tensor     # [F, C_in] input mix gains (incl. format scale)
+    fmix: torch.Tensor       # [F, F] filter -> filter mix gains
     out_mix: torch.Tensor    # [C_out, F] output mix gains (incl. 1/format scale)
     delay: torch.Tensor      # [F] int32 pre-delay in blocks (clamped 0..B-1)
     coeff_idx: torch.Tensor  # [F] int32 index into the bank (dirac = last entry)
@@ -56,37 +68,36 @@ class StepCtrl(NamedTuple):
 
 
 def check_supported(spec: GraphSpec) -> None:
-    """Raise NotImplementedError for a graph the fused-mix step does not
-    cover, naming the ROADMAP item that will port it."""
+    """Raise NotImplementedError for a graph the step does not cover,
+    naming the ROADMAP item that will port it."""
     if spec.real_dtype != np.float32:
         raise NotImplementedError(
             "float_bits: 64 is not ported yet (ROADMAP queue 1 item 9)")
     if spec.any_crossfade:
         raise NotImplementedError(
             "crossfade filters are not ported yet (ROADMAP queue 1 item 7)")
-    if len(spec.stages) != 1 or spec.n_casc:
-        raise NotImplementedError(
-            "filter cascades and graphs other than one stage of filters "
-            "are not ported yet (ROADMAP queue 1 item 8)")
 
 
 def init_state(spec: GraphSpec, device) -> StepState:
     rd = torch.float32
+    N = spec.block_length
     return StepState(
-        prev_in=torch.zeros((spec.n_inputs, spec.block_length), dtype=rd,
-                            device=device),
+        prev_in=torch.zeros((spec.n_inputs, N), dtype=rd, device=device),
         ring=torch.zeros(spec.ring_shape(), dtype=rd, device=device),
+        eval_prev=torch.zeros((spec.n_casc, N), dtype=rd, device=device),
         t=torch.zeros((), dtype=torch.int32, device=device),
     )
 
 
 def make_ctrl(spec: GraphSpec, in_mix, out_mix, delay, coeff_idx, mask,
-              ps_thresh=None, device=None) -> StepCtrl:
+              ps_thresh=None, device=None, fmix=None) -> StepCtrl:
     """Assemble a StepCtrl on ``device`` from host arrays (default:
-    powersave gate off)."""
+    powersave gate off, no filter -> filter edges)."""
     rd = spec.real_dtype
     if ps_thresh is None:
         ps_thresh = np.zeros(spec.n_inputs, rd)
+    if fmix is None:
+        fmix = np.zeros((spec.n_filters, spec.n_filters), rd)
 
     def real(a):
         return torch.as_tensor(np.asarray(a, rd), device=device)
@@ -95,9 +106,52 @@ def make_ctrl(spec: GraphSpec, in_mix, out_mix, delay, coeff_idx, mask,
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
     return StepCtrl(
-        in_mix=real(in_mix), out_mix=real(out_mix), delay=idx(delay),
-        coeff_idx=idx(coeff_idx), mask=real(mask), ps_thresh=real(ps_thresh),
+        in_mix=real(in_mix), fmix=real(fmix), out_mix=real(out_mix),
+        delay=idx(delay), coeff_idx=idx(coeff_idx), mask=real(mask),
+        ps_thresh=real(ps_thresh),
     )
+
+
+_VMEM_BUDGET = 12 * 2**20
+
+
+def mix_fusable(F: int, B: int, K: int, C_out: int) -> bool:
+    """The JAX package's test for its fused MAC + mix kernels
+    (pallas_mac.py:645-662), as plain arithmetic: the [C_out, 2, K] output
+    and four ring and bank rows fit the TPU's 12 MiB VMEM budget (the
+    untiled kernel), or the bin-tiled form's 16-row bin chunks do."""
+    if not tiled_route(C_out, B, K):
+        return True
+    if (K // 128) % 16 != 0:
+        return False
+    Fc = 128 if F % 128 == 0 else F
+    return (C_out + Fc + 4 * B) * 2 * 16 * 128 * 4 <= _VMEM_BUDGET
+
+
+def fused_mix_route(spec: GraphSpec) -> bool:
+    """Whether a block takes the fused MAC + output mix (``mac_mix``)
+    rather than the stage loop: the JAX package's ``fused_mix`` predicate
+    (compile.py:323-330) without spectral taps and mesh. A single stage of
+    every filter in order, at a shape where the JAX package runs its
+    Pallas kernels (``pallas_available``: K a multiple of 128, K >= 256;
+    elsewhere it runs the dense stage loop) and its fused kernel fits
+    (``mix_fusable``), unless ``BRUTEFIR_TPU_FUSED_MIX=0``. The card needs
+    none of these limits; they are kept so that a config takes the same
+    route, and so the same summation order, in both packages."""
+    K = spec.n_bins
+    return (spec.single_full_stage and K % 128 == 0 and K >= 256
+            and mix_fusable(spec.n_filters, spec.n_blocks, K,
+                            spec.n_outputs)
+            and os.environ.get("BRUTEFIR_TPU_FUSED_MIX", "1") != "0")
+
+
+@functools.lru_cache(maxsize=256)
+def _index(values: tuple, device: torch.device,
+           dtype: torch.dtype = torch.long) -> torch.Tensor:
+    """A static index vector (a stage's filters, slots, an inverse
+    permutation) on ``device``, built once: a tensor made from host data
+    inside the per-block loop is a synchronous host -> device copy."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _gate(spec: GraphSpec, ctrl: StepCtrl, frame: torch.Tensor):
@@ -112,19 +166,64 @@ def _gate(spec: GraphSpec, ctrl: StepCtrl, frame: torch.Tensor):
                        frame)
 
 
-def _write_ring(ring, blk, t, delay, uniform_delay: bool) -> None:
-    """Write one block's spectra [F, 2, N] in place at each filter's
-    delayed slot (t + delay[f]) % B (the cbuf curblock + delay of
-    bfrun.c:1688-1690): one slice at a scalar slot when every filter
-    shares one delay, else a per-filter scatter."""
+def _write_ring(ring, blk, t, delay, uniform_delay: bool, rows=None) -> None:
+    """Write spectra [Fs, 2, N] in place at each filter's delayed slot
+    (t + delay[f]) % B (the cbuf curblock + delay of bfrun.c:1688-1690).
+    ``rows``: the filters of ``blk`` (a long index), or None for every
+    filter in order; then one slice at a scalar slot when every filter
+    shares one delay, else a per-filter scatter (compile.py:260-274)."""
     B = ring.shape[1]
-    if uniform_delay:
+    if rows is None and uniform_delay:
         wpos0 = torch.remainder(t + delay[0], B).reshape(1).long()
         ring.index_copy_(1, wpos0, blk[:, None])
-    else:
-        wpos = torch.remainder(t + delay, B).long()
-        ring.index_put_((torch.arange(ring.shape[0], device=ring.device),
-                         wpos), blk)
+        return
+    if rows is None:
+        rows = _index(tuple(range(ring.shape[0])), ring.device)
+    wpos = torch.remainder(t + delay[rows], B).long()
+    ring.index_put_((rows, wpos), blk)
+
+
+def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
+                bank: torch.Tensor, X: torch.Tensor, uniform: bool,
+                uniform_delay: bool) -> torch.Tensor:
+    """The stage loop of compile.py:418-533 without taps and crossfade:
+    per stage, the input mix of its filters, the cascade input of those
+    with filter inputs, the ring write and the unfused MAC of its filters
+    (read in place in the ring); then every filter's spectra [F, 2, N] in
+    filter order. Updates the ring and ``state.eval_prev`` in place."""
+    ring, t, eval_prev = state.ring, state.t, state.eval_prev
+    dev = ring.device
+    F = spec.n_filters
+    ys, done = [], []
+    for stage in spec.stages:
+        idx = tuple(stage.idx.tolist())
+        rows = _index(idx, dev)
+        mixed = partconv.complex_mix(ctrl.in_mix[rows], X)    # [Fs, 2, N]
+        if stage.casc_local.size:
+            # the mixed spectra of the earlier stages' filters that feed
+            # this one, contracted stage by stage in stage order
+            cidx = _index(tuple(stage.idx[stage.casc_local].tolist()), dev)
+            z = None
+            for prows, py in zip(done, ys):
+                zc = partconv.complex_mix(
+                    ctrl.fmix[cidx[:, None], prows[None, :]], py)
+                z = zc if z is None else z + zc
+            slots = _index(tuple(stage.casc_slots.tolist()), dev)
+            e, tails = partconv.convolve_eval(z, eval_prev[slots])
+            eval_prev.index_copy_(0, slots, tails)
+            mixed.index_add_(0, _index(tuple(stage.casc_local.tolist()), dev),
+                             e)
+        full = idx == tuple(range(F))
+        _write_ring(ring, mixed, t, ctrl.delay, uniform_delay,
+                    None if full else rows)
+        ys.append(mac(ring, bank, _index(idx, dev, torch.int32),
+                      ctrl.coeff_idx, ctrl.mask, t, uniform))  # [Fs, 2, N]
+        done.append(rows)
+    y_all = ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
+    order = np.concatenate([s.idx for s in spec.stages])
+    if not np.array_equal(order, np.arange(F)):
+        y_all = y_all[_index(tuple(np.argsort(order).tolist()), dev)]
+    return y_all
 
 
 def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
@@ -133,29 +232,33 @@ def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     """One block: x [C_in, N] -> (state', y [C_out, N]).
 
     ``uniform``: the host asserts every filter shares one coefficient row
-    and mask row (RuntimeControl.snapshot_uniform), so the kernel reads one
+    and mask row (RuntimeControl.snapshot_uniform), so the kernels read one
     shared bank row. ``uniform_delay``: every filter shares one pre-delay,
-    so the ring write is one slice at a scalar slot instead of a
-    per-filter scatter. Both give the same values as the general form.
+    so a ring write that covers every filter is one slice at a scalar slot
+    instead of a per-filter scatter. Both give the same values as the
+    general form.
 
-    The ring is updated in place (see the module docstring); nothing here
-    synchronises with the host."""
+    The ring and the cascade tails are updated in place (see the module
+    docstring); nothing here synchronises with the host."""
     check_supported(spec)
     frame = _gate(spec, ctrl, torch.cat([state.prev_in, x], dim=-1))
     X = partconv.rfft_planes(frame)                         # [C_in, 2, N]
-    mixed = partconv.complex_mix(ctrl.in_mix, X)            # [F, 2, N]
-
-    # the block lands at each filter's delayed slot BEFORE the MAC reads
-    # the ring
-    ring = state.ring
-    t = state.t
-    _write_ring(ring, mixed, t, ctrl.delay, uniform_delay)
-
-    # at big shapes mac_mix launches the bin-tiled kernel (tiled_route)
-    out_spec = mac_mix(ring, bank, ctrl.coeff_idx, ctrl.mask, t,
-                       ctrl.out_mix, uniform)               # [C_out, 2, N]
+    ring, t = state.ring, state.t
+    if fused_mix_route(spec):
+        mixed = partconv.complex_mix(ctrl.in_mix, X)        # [F, 2, N]
+        # the block lands at each filter's delayed slot BEFORE the MAC
+        # reads the ring
+        _write_ring(ring, mixed, t, ctrl.delay, uniform_delay)
+        # at big shapes mac_mix launches the bin-tiled kernel (tiled_route)
+        out_spec = mac_mix(ring, bank, ctrl.coeff_idx, ctrl.mask, t,
+                           ctrl.out_mix, uniform)           # [C_out, 2, N]
+    else:
+        y_all = _stage_loop(spec, state, ctrl, bank, X, uniform,
+                            uniform_delay)                  # [F, 2, N]
+        out_spec = partconv.complex_mix(ctrl.out_mix, y_all)
     y = partconv.irfft_planes_valid(out_spec)               # [C_out, N]
-    return StepState(prev_in=x, ring=ring, t=t + 1), y
+    return StepState(prev_in=x, ring=ring, eval_prev=state.eval_prev,
+                     t=t + 1), y
 
 
 # --- the grouped offline dispatch ------------------------------------------
@@ -170,8 +273,6 @@ def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
 # the output mix (in the fused kernel, or as a matmul outside), so the two
 # packages stay comparable block for block. Retuning them for the card is
 # later work.
-
-_VMEM_BUDGET = 12 * 2**20
 
 
 def _group_vmem_units(G: int, B: int, Rc: int, Fc: int, C_out: int) -> int:
@@ -233,6 +334,10 @@ def group_size(spec: GraphSpec, m: int) -> int:
         G = 2
     if G in (0, 1):
         return 1
+    if os.environ.get("BRUTEFIR_TPU_FUSED_MIX", "1") == "0":
+        # the block-by-block step leaves the fused kernel too
+        # (fused_mix_route), and so does the grouped dispatch
+        return 1
     if not (spec.tileable and spec.single_full_stage):
         return 1
     B, K = spec.n_blocks, spec.n_bins
@@ -288,4 +393,5 @@ def group_step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     for g in range(1, G):
         _write_ring(ring, blks[g], t + g, ctrl.delay, uniform_delay)
     ys = [partconv.irfft_planes_valid(o) for o in outs]     # G x [C_out, N]
-    return StepState(prev_in=xs[-1], ring=ring, t=t + G), ys
+    return StepState(prev_in=xs[-1], ring=ring, eval_prev=state.eval_prev,
+                     t=t + G), ys

@@ -48,16 +48,17 @@ def mac_mix_reference(ring, bank, coeff_idx, mask, t, w, uniform: bool):
 
 
 def check_operands(fn: str, ring, bank, coeff_idx, mask, t, w=None,
-                   xnews=None, delay=None) -> None:
+                   xnews=None, delay=None, rows=None) -> None:
     """Raise on what the MAC kernels do not take: every operand on the
-    ring's device, contiguous, of its dtype and shape. ``w``, ``xnews``
-    and ``delay`` are checked when given."""
+    ring's device, contiguous, of its dtype and shape. ``w``, ``xnews``,
+    ``delay`` and ``rows`` are checked when given."""
     ops = [("ring", ring, torch.float32), ("bank", bank, torch.float32),
            ("coeff_idx", coeff_idx, torch.int32),
            ("mask", mask, torch.float32), ("t", t, torch.int32)]
     ops += [(name, x, dt) for name, x, dt in
             (("w", w, torch.float32), ("xnews", xnews, torch.float32),
-             ("delay", delay, torch.int32)) if x is not None]
+             ("delay", delay, torch.int32), ("rows", rows, torch.int32))
+            if x is not None]
     dev = ring.device
     for name, x, dt in ops:
         if x.device != dev:
@@ -89,6 +90,9 @@ def check_operands(fn: str, ring, bank, coeff_idx, mask, t, w=None,
                          f"G >= 2, got {tuple(xnews.shape)}")
     if delay is not None and tuple(delay.shape) != (F,):
         raise ValueError(f"{fn}: delay must be [{F}]")
+    if rows is not None and (rows.dim() != 1 or rows.shape[0] < 1):
+        raise ValueError(f"{fn}: rows must be [Fs] with Fs >= 1, got "
+                         f"{tuple(rows.shape)}")
 
 
 def mac_mix(ring: torch.Tensor, bank: torch.Tensor, coeff_idx: torch.Tensor,

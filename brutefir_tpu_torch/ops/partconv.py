@@ -15,8 +15,8 @@ On the device spectra are separate real/imag float planes ``[..., 2, N]``
 
 The FFTs are cuFFT (``torch.fft``) and the channel mixes ``torch.matmul``
 in full FP32, as the JAX package left them to XLA. The plain MACs below
-are the correctness baseline for the fused CUDA kernel in
-:mod:`brutefir_tpu_torch.ops.mac_mix`.
+are the correctness baseline for the CUDA kernels in
+:mod:`brutefir_tpu_torch.ops.mac_mix`, ``mac_group`` and ``mac``.
 """
 
 from __future__ import annotations
@@ -132,6 +132,17 @@ def irfft_planes_valid(p: torch.Tensor) -> torch.Tensor:
     zv = z[..., : M // 2]
     return torch.stack([zv.real, zv.imag], dim=-1).reshape(
         *z.shape[:-1], M)
+
+
+def convolve_eval(z: torch.Tensor, eval_prev: torch.Tensor):
+    """Filter-cascade re-framing (``convolver_convolve_eval``,
+    fftw_convolver.c:411-433), twin of the JAX package's
+    ``partconv.convolve_eval``: the mixed upstream spectra ``z [Fc, 2, N]``
+    -> their valid time-domain output, overlap-save framed with the
+    previous block's valid output ``eval_prev [Fc, N]``, re-transformed.
+    Returns ``(E [Fc, 2, N], new eval_prev [Fc, N])``."""
+    valid = irfft_planes_valid(z)
+    return rfft_planes(torch.cat([eval_prev, valid], dim=-1)), valid
 
 
 def complex_mix(mix: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

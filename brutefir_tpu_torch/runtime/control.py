@@ -1,10 +1,10 @@
 """Runtime control plane -- the `intercomm_area`/`bfaccess` equivalent.
 
 Twin of the part of :mod:`brutefir_tpu.runtime.control` that the
-fused-mix step reads. The config's per-filter coefficient selection,
-edge gains and pre-delays are snapshotted into a :class:`StepCtrl` of
-tensors on the engine's device; mutes ride ``mute_version`` into the
-engine's gain vectors.
+step reads. The config's per-filter coefficient selection, edge gains
+(input, filter -> filter and output) and pre-delays are snapshotted into
+a :class:`StepCtrl` of tensors on the engine's device; mutes ride
+``mute_version`` into the engine's gain vectors.
 
 Not in this slice: the mutation API the CLI and logic modules drive
 (coefficient, delay and subdelay changes, the coeff_final hooks) and the
@@ -68,6 +68,7 @@ class RuntimeControl:
         rd = spec.real_dtype
 
         in_mix = np.zeros((F, spec.n_inputs), rd)
+        fmix = np.zeros((F, F), rd)
         out_mix = np.zeros((spec.n_outputs, F), rd)
         delay = np.zeros(F, np.int32)
         coeff_idx = np.zeros(F, np.int32)
@@ -75,6 +76,8 @@ class RuntimeControl:
         for n, f in enumerate(conf.filters):
             for ch, scale in f.in_channels:
                 in_mix[n, ch] = scale * self.virtscale[IN][ch]
+            for src, scale in f.in_filters:
+                fmix[n, src] = scale
             for ch, scale in f.out_channels:
                 out_mix[ch, n] = scale / self.virtscale[OUT][ch]
             d = min(max(f.delayblocks, 0), B - 1)
@@ -88,7 +91,8 @@ class RuntimeControl:
             ps_thresh = (conf.analog_powersave
                          / np.maximum(self.virtscale[IN], 1e-30)).astype(rd)
         self._cached = make_ctrl(spec, in_mix, out_mix, delay, coeff_idx,
-                                 mask, ps_thresh, device=self.device)
+                                 mask, ps_thresh, device=self.device,
+                                 fmix=fmix)
         self.snapshot_uniform = bool(
             F > 0
             and np.all(coeff_idx == coeff_idx[0])

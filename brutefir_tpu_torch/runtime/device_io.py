@@ -5,7 +5,8 @@ raw input words of every input device and returns the raw output words
 of every output device plus per-channel meters:
 
     input_half:  p24/raw3 sign-extend -> decode -> mute gain
-    step_impl:   rfft -> mix -> ring -> fused MAC + mix -> irfft
+    step_impl:   rfft -> mix -> ring -> fused MAC + mix -> irfft, or the
+                 stage loop (per stage: mix, cascade input, ring, MAC)
     output_half: NaN gate -> gains -> per-device output mix ->
                  no-dither quantize -> p24/raw3 pack -> meters
 
@@ -16,7 +17,7 @@ raises NotImplementedError (ROADMAP queue 1 item 5).
 
 ``multi_step`` runs m blocks as a Python loop (the ``lax.scan`` analog)
 with controls frozen across the batch; nothing in the loop synchronises
-with the host. At big shapes it steps G blocks at a time
+with the host. At big single-stage shapes it steps G blocks at a time
 (``graph.compile.group_size`` / ``group_step_impl``), reading the ring
 and the bank once per group.
 """

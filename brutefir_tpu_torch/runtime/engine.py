@@ -9,9 +9,10 @@ contract holds: output frame m is the convolution of input frames <= m,
 and file-to-file output length equals input length (the EOF tail runs
 block by block).
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): the per-block realtime ``run()`` with the host codec, logic
-modules, crossfade, cascades, channel delays, subdelay, dither, float64.
+Graphs of any number of stages run, filter cascades included. Not in
+this slice (each raises NotImplementedError naming its ROADMAP item): the
+per-block realtime ``run()`` with the host codec, logic modules,
+crossfade, channel delays, subdelay, dither, float64.
 """
 
 from __future__ import annotations

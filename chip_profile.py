@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
 """Where the time goes in a file-to-file run of the 256-channel scale
-shape, or of the massive_config shape, on one NVIDIA GPU.
+shape, of the massive_config shape or of a filter cascade, on one NVIDIA
+GPU.
 
 Usage (from the repository root, one CUDA card):
 
-    python3 chip_profile.py [--shape scale|massive] [--blocks N] [--pair G]
+    python3 chip_profile.py [--shape scale|massive|bench1|massive_cascade]
+                            [--blocks N] [--pair G]
 
 Writes the shape's seeded inputs for N blocks (default 64) as
 ``chip_smoke.py`` does: the scale shape (``write_scale_inputs``: 256 x
 256 channels, 131072 taps in 8192 x 16 partitions, 256 distinct
-coefficient sets, S24_4LE) or examples/multichannel_massive.conf (26 x
-26, one shared coefficient), then runs the port's engine three times on
+coefficient sets, S24_4LE), examples/multichannel_massive.conf (26 x
+26, one shared coefficient), the reference's bench1_config cascade
+(``write_bench1_inputs``: 2 x 2 through 6 filters in two stages, 65536
+taps in 8192 x 8 partitions, six coefficient sets) or the massive shape
+with a second stage (``massive_cascade_config``: 26 x 26 through 52
+filters, one shared coefficient), then runs the port's engine three
+times on
 them: once to warm up (kernel build, cuFFT plans), once timed on the
 host clock, once under ``torch.profiler`` (CPU and CUDA activities).
 Prints the card, the engine's wall time a
@@ -51,7 +58,8 @@ def _time_calls(obj, name: str, acc: dict) -> None:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--shape", choices=("scale", "massive"),
+    ap.add_argument("--shape", choices=("scale", "massive", "bench1",
+                                        "massive_cascade"),
                     default="scale")
     ap.add_argument("--blocks", type=int, default=64)
     ap.add_argument("--pair", default=None)
@@ -73,9 +81,13 @@ def main():
     frames = args.blocks * cs.K
     if args.shape == "scale":
         _, _, cfg = cs.write_scale_inputs(cs.WORK, frames)
+    elif args.shape == "bench1":
+        _, _, cfg = cs.write_bench1_inputs(cs.WORK, frames)
     else:
         cs.write_massive_inputs(np.random.default_rng(cs.SEED), frames)
-        cfg = cs.massive_config("profile.conf", False)
+        cfg = (cs.massive_config("profile.conf", False)
+               if args.shape == "massive"
+               else cs.massive_cascade_config(cs.WORK))
     with open(cfg) as fh:
         text = fh.read()
 

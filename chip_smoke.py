@@ -34,10 +34,28 @@ Phases, in order; any failure exits non-zero:
    input (2 batches of 8, a 3-block tail, a half block): with the
    default BRUTEFIR_TPU_PAIR (the batches in groups of 4 through the
    grouped MAC, the tail through the tiled kernel), then with
-   BRUTEFIR_TPU_PAIR=2 (groups of 2 through the grouped fused MAC + mix).
+   BRUTEFIR_TPU_PAIR=2 (groups of 2 through the grouped fused MAC + mix);
+6. kernel vs plain, the unfused MAC of the stage loop (``csrc/mac.cu``),
+   at the shapes where the JAX package takes each of its four TPU
+   variants: bench1's first stage (rows 2-5 of 6 filters, 8192 x 8, per
+   filter: "row"), the massive cascade (52 filters, 8192 x 16, one shared
+   coefficient: "uniform"), 256 filters of 8192 x 16 with 256 distinct
+   rows ("chunked") and 4 filters of 65536 x 8 ("tile"); distinct and
+   repeated rows, the same t and mask zeros as phase 3;
+7. main path, bench1 cascade: ``main()`` on the reference's bench1_config
+   graph (2 inputs -> 4 filters -> 2 filters -> 2 outputs, 8192 x 8
+   partitions) with six seeded 65536-tap coefficient sets as RAW float32
+   files and 19.5 blocks of S24_4LE input, held to 2e-5 of the output's
+   peak + 4 LSB of the float64 oracle ``conv(conv(x0, h2) + conv(x1, h5),
+   h0)``, ``conv(conv(x0, h3) + conv(x1, h4), h1)``; two unfused MAC
+   launches a block;
+8. main path, massive cascade: the massive shape with a second stage (26
+   filters from the inputs, each feeding one of 26 filters to the
+   outputs, all on the one shared coefficient), within 16 LSB of
+   ``conv(conv(x, h), h)``; two launches a block of the uniform form.
 
 Each main-path run must exit 0, write as many frames as it read, stay
-within 16 LSB of a float64 convolution oracle on every channel, and
+within its bound of a float64 convolution oracle on every channel, and
 launch its kernels the expected number of times (launch counts are set
 to 0 just before each run). No module of jax or of the JAX package may
 be loaded at the end.
@@ -67,6 +85,7 @@ F, B, K, C_OUT, E = 26, 16, 8192, 26, 2   # multichannel_massive.conf
 SCALE_C = 256           # the scale shape: 256 x 256, one set per filter
 BLOCKS = 19.5           # 2 batches of 8, a 3-block tail, a half block
 REPS = 20               # timed calls per kernel and plain version
+SPIN_CYCLES = 400_000   # about 0.2 ms of the card's clock before each call
 # one H100 SXM (NVIDIA's data sheet): device memory rate and the FP32
 # rate outside the tensor cores, for the bound of each kernel
 MEM_BYTES_PER_S = 3.35e12
@@ -97,13 +116,17 @@ def card_line() -> str:
 
 def time_ms(fn, reps: int, flush) -> float:
     """Median device time of one call, CUDA events around each call, the
-    L2 cache flushed before each (a cold caller), after a warm-up."""
+    L2 cache flushed before each (a cold caller), after a warm-up. A spin
+    kernel queued after the flush keeps the card busy while the host
+    enqueues the first event and the call, so the wrapper's host overhead
+    (tens of us) is not timed as device time of a short kernel."""
     import torch
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -293,6 +316,63 @@ def kernels_scale(mm, mg, rows, flush):
         report(rows, name, "brutefir_tpu_torch/csrc/mac_group.cu",
                768 if fused else 956, worst, max_abs, k_ms, p_ms, nb, nf,
                key, note=f" G={G}")
+        torch.cuda.empty_cache()
+
+
+def kernels_mac(tm, rows, flush):
+    """The unfused MAC (csrc/mac.cu) at the shape of each TPU variant it
+    replaces: (name, TPU kernel line, F, B, K, E, uniform, stage rows or
+    None for all F rows permuted, repeated rows)."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    shapes = (
+        ("mac_rows", 102, 6, 8, K, 7, False, [2, 3, 4, 5], [5, 2, 2, 3]),
+        ("mac_uniform", 149, 2 * F, B, K, 1, True, list(range(2 * F)),
+         list(range(F, 2 * F)) + [0, 0]),
+        ("mac_rows_chunked_shape", 318, SCALE_C, B, K, SCALE_C, False, None,
+         [7] * 8),
+        ("mac_rows_tile_shape", 79, 4, 8, 65536, 4, False, [0, 1, 2, 3],
+         [3, 3, 0]),
+    )
+    for name, line, F_, B_, K_, E_, uniform, stage, repeated in shapes:
+        ring = torch.randn(F_, B_, 2, K_, generator=g, device=dev)
+        bank = torch.randn(E_, B_, 2, K_, generator=g, device=dev)
+        if uniform:
+            idx = torch.full((F_,), E_ - 1, dtype=torch.int32, device=dev)
+            delay = torch.full((F_,), 2, dtype=torch.int32, device=dev)
+        else:
+            idx = torch.randperm(F_, generator=g, device=dev).remainder(
+                E_).to(torch.int32)
+            delay = torch.arange(F_, device=dev, dtype=torch.int32) % 3
+        mask = cblocks_mask(delay, B_)
+        if stage is None:
+            stage = torch.randperm(F_, generator=g, device=dev).tolist()
+        worst = max_abs = 0.0
+        for r in (stage, repeated):
+            rt = torch.tensor(r, dtype=torch.int32, device=dev)
+            for tv in (0, 5, B_ - 1, B_, 2 * B_ + 5):
+                t = torch.tensor(tv, dtype=torch.int32, device=dev)
+                rel, err = check(name, tm.mac(ring, bank, rt, idx, mask, t,
+                                              uniform),
+                                 tm.mac_reference(ring, bank, rt, idx, mask,
+                                                  t, uniform), tv)
+                worst, max_abs = max(worst, rel), max(max_abs, err)
+        rt = torch.tensor(stage, dtype=torch.int32, device=dev)
+        ones = torch.ones(F_, B_, device=dev)
+        t7 = torch.tensor(7, dtype=torch.int32, device=dev)
+        k_ms = time_ms(lambda: tm.mac(ring, bank, rt, idx, ones, t7,
+                                      uniform), REPS, flush)
+        p_ms = time_ms(lambda: tm.mac_reference(ring, bank, rt, idx, ones,
+                                                t7, uniform), REPS, flush)
+        Fs = len(stage)
+        used = 1 if uniform else len(set(idx[rt.long()].tolist()))
+        nb, nf = mac_bytes_flops(Fs, B_, K_, 0, used, out_rows=Fs)
+        report(rows, name, "brutefir_tpu_torch/csrc/mac.cu", line, worst,
+               max_abs, k_ms, p_ms, nb + Fs * 4, nf,
+               ("mac", "mac_uniform" if uniform else "mac_rows"),
+               note=f" (F={F_}, Fs={Fs}, B={B_}, K={K_})")
+        del ring, bank
         torch.cuda.empty_cache()
 
 
@@ -511,6 +591,149 @@ def main_scale(main, mm, mg, launched: dict):
             launched[key] = counts[key]
 
 
+BENCH1_N, BENCH1_B = 8192, 8       # the reference's bench1_config
+
+
+def bench1_config(work: str) -> str:
+    """The reference's bench1_config graph at its shipped 8192 x 8: in 0
+    -> filters 2, 3; in 1 -> filters 4, 5; filters 2, 5 -> filter 0 ->
+    out 0; filters 3, 4 -> filter 1 -> out 1; coefficient i the RAW
+    float32 file ``h<i>.raw`` in ``work`` (the reference's are diracs)."""
+    coeffs = "\n".join(
+        f'coeff {i} {{ filename: "{os.path.join(work, f"h{i}.raw")}"; '
+        f'format: "FLOAT_LE"; }};' for i in range(6))
+    return f"""
+float_bits: 32;
+sampling_rate: 44100;
+filter_length: {BENCH1_N},{BENCH1_B};
+{coeffs}
+input 0, 1 {{
+    device: "file" {{ path: "{os.path.join(work, 'input.raw')}"; }};
+    sample: "S24_4LE";
+    channels: 2;
+}};
+output 0, 1 {{
+    device: "file" {{ path: "{os.path.join(work, 'output.raw')}"; }};
+    sample: "S24_4LE";
+    channels: 2;
+    dither: false;
+}};
+filter 0 {{ from_filters: 2, 5; to_outputs: 0; coeff: 0; }};
+filter 1 {{ from_filters: 3, 4; to_outputs: 1; coeff: 1; }};
+filter 2 {{ from_inputs: 0; to_filters: 0; coeff: 2; }};
+filter 3 {{ from_inputs: 0; to_filters: 1; coeff: 3; }};
+filter 4 {{ from_inputs: 1; to_filters: 1; coeff: 4; }};
+filter 5 {{ from_inputs: 1; to_filters: 0; coeff: 5; }};
+"""
+
+
+def write_bench1_inputs(work: str, frames: int, seed: int = SEED + 4):
+    """Six seeded 65536-tap coefficient sets (uniform in +-0.003, as
+    tests/test_fullshape_parity.py makes them) as RAW float32 files, a
+    2-channel S24_4LE input uniform in +-2^20, and the config. Returns
+    (taps [6, 65536] float32, x [frames, 2], config path)."""
+    rng = np.random.default_rng(seed)
+    taps = (rng.uniform(-1.0, 1.0, (6, BENCH1_N * BENCH1_B))
+            * 0.003).astype(np.float32)
+    for i in range(6):
+        taps[i].astype("<f4").tofile(os.path.join(work, f"h{i}.raw"))
+    x = rng.integers(-(1 << 20), 1 << 20, (frames, 2)).astype("<i4")
+    x.tofile(os.path.join(work, "input.raw"))
+    cfg = os.path.join(work, "bench1.conf")
+    with open(cfg, "w") as fh:
+        fh.write(bench1_config(work))
+    return taps, x, cfg
+
+
+def bench1_oracle(taps, x):
+    """The float64 oracle of the bench1 graph: [frames, 2]."""
+    from scipy.signal import fftconvolve
+    n = x.shape[0]
+
+    def conv(a, h):
+        return fftconvolve(a, h.astype(np.float64))[:n]
+
+    x0, x1 = x[:, 0].astype(np.float64), x[:, 1].astype(np.float64)
+    return np.stack([conv(conv(x0, taps[2]) + conv(x1, taps[5]), taps[0]),
+                     conv(conv(x0, taps[3]) + conv(x1, taps[4]), taps[1])],
+                    axis=1)
+
+
+def all_counts(mods: dict) -> dict:
+    """Every launch count of the kernel modules, by (module, form)."""
+    return {(name, k): v for name, m in mods.items()
+            for k, v in m.launches.items()}
+
+
+def run_cascade(main, mods, cfg, frames, channels, label, form):
+    """One cascade run of ``main()`` with every count set to 0 just
+    before it; the unfused MAC's ``form`` must launch two times a block
+    (two stages) and no other kernel at all. Returns (y, counts)."""
+    for m in mods.values():
+        m.reset_launches()
+    y = run_main(main, cfg, frames, channels, label)
+    counts = all_counts(mods)
+    want = {k[1]: 0 for k in counts}
+    want[form] = 2 * int(np.ceil(BLOCKS))
+    expect_launches({k[1]: v for k, v in counts.items()}, want, label)
+    return y, counts
+
+
+def main_bench1(main, mods: dict, launched: dict):
+    frames = int(BLOCKS * BENCH1_N)
+    taps, x, cfg = write_bench1_inputs(WORK, frames)
+    y, counts = run_cascade(main, mods, cfg, frames, 2, "bench1 cascade",
+                            "mac_rows")
+    ref = bench1_oracle(taps, x)
+    for c in range(2):
+        peak = np.abs(ref[:, c]).max()
+        err = np.abs(y[:, c] - ref[:, c]).max()
+        lsb = int(np.abs(y[:, c].astype(np.int64)
+                         - np.round(ref[:, c])).max())
+        tol = 2e-5 * peak + 4.0
+        print(f"main path (bench1 cascade): channel {c}: max |y - oracle| "
+              f"{err:.3f} (tol 2e-5 * {peak:.0f} + 4 = {tol:.3f}); "
+              f"{lsb} LSB from the rounded oracle", flush=True)
+        if not err <= tol:
+            fail(f"bench1 cascade off the float64 oracle on channel {c}")
+    launched[("mac", "mac_rows")] = counts[("mac", "mac_rows")]
+
+
+def massive_cascade_config(work: str) -> str:
+    """examples/multichannel_massive.conf with a second stage: filter i
+    from input i to filter 26 + i, filter 26 + i from filter i to output
+    i, all on the one shared coefficient (``taps0.txt`` in ``work``)."""
+    with open(massive_config("run1.conf", False)) as fh:
+        text = fh.read()
+    text = text[:text.index("\nfilter ")]
+    text += "\n" + "".join(
+        f'filter {i} {{ from_inputs: {i}; to_filters: {F + i}; '
+        f'coeff: "correction"; }};\n' for i in range(F))
+    text += "".join(
+        f'filter {F + i} {{ from_filters: {i}; to_outputs: {i}; '
+        f'coeff: "correction"; }};\n' for i in range(F))
+    path = os.path.join(work, "cascade.conf")
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def main_massive_cascade(main, mods: dict, launched: dict):
+    frames = int(BLOCKS * K)
+    taps, x = write_massive_inputs(np.random.default_rng(SEED + 5), frames)
+    cfg = massive_cascade_config(WORK)
+    hh = np.convolve(taps[0], taps[0])           # h (*) h in float64
+    y, counts = run_cascade(main, mods, cfg, frames, F, "massive cascade",
+                            "mac_uniform")
+    lsb = oracle_lsb(y, x, lambda c: hh)
+    print(f"main path (massive cascade): max |y - oracle| {lsb} LSB (tol "
+          f"{LSB_TOL}) on all {F} channels", flush=True)
+    if lsb > LSB_TOL:
+        fail(f"output off the float64 oracle by {lsb} LSB (massive "
+             f"cascade)")
+    launched[("mac", "mac_uniform")] = counts[("mac", "mac_uniform")]
+
+
 def run():
     phase("card")
     # one card: the first visible one, so device_count() below is 1
@@ -525,7 +748,8 @@ def run():
           f"{torch.version.cuda}", flush=True)
 
     phase("build")
-    from brutefir_tpu_torch.ops import _build, mac_group as mg, mac_mix as mm
+    from brutefir_tpu_torch.ops import (_build, mac as tm,
+                                        mac_group as mg, mac_mix as mm)
     from brutefir_tpu_torch.__main__ import main
     t0 = time.perf_counter()
     libs = _build.build()
@@ -545,6 +769,8 @@ def run():
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     kernels_massive(mm, rows, flush)
     kernels_scale(mm, mg, rows, flush)
+    phase("kernel vs plain, the unfused MAC")
+    kernels_mac(tm, rows, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -554,6 +780,11 @@ def run():
     main_massive(main, mm, launched)
     phase("main path, scale")
     main_scale(main, mm, mg, launched)
+    mods = {"mac": tm, "mac_mix": mm, "mac_group": mg}
+    phase("main path, bench1 cascade")
+    main_bench1(main, mods, launched)
+    phase("main path, massive cascade")
+    main_massive_cascade(main, mods, launched)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules

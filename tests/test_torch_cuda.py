@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from brutefir_tpu_torch.config import parse_config
-from brutefir_tpu_torch.ops import mac_group as mg, mac_mix as mm
+from brutefir_tpu_torch.ops import mac as tm, mac_group as mg, mac_mix as mm
 
 
 @pytest.fixture
@@ -87,6 +87,32 @@ def test_tiled_kernel_matches_plain_version(cuda, monkeypatch, F, B, K, E,
         torch.cuda.synchronize()
         assert mm.launches["tiled"] == before + 1
         assert got.shape == (C, 2, K)
+        assert (got - ref).abs().max().item() / ref.abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uniform", [True, False])
+@pytest.mark.parametrize("F,B,K,E,rows", [
+    (6, 8, 8192, 7, [2, 3, 4, 5]),   # bench1's first stage
+    (5, 6, 1000, 3, [4, 1, 1]),      # K not a multiple of the block; repeats
+    (3, 2, 64, 2, [0, 1, 2]),        # an xtc-like short partition
+])
+def test_unfused_mac_kernel_matches_plain_version(cuda, uniform, F, B, K, E,
+                                                  rows):
+    """csrc/mac.cu: the stage's rows read in place, t over ring wraps."""
+    ring, bank, idx, mask, _ = _mac_inputs(F * K, F, B, K, E, 1, uniform,
+                                           cuda)
+    mask[:, 0] = 1.0                 # no all-zero mask row at small B
+    r = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    form = "mac_uniform" if uniform else "mac_rows"
+    for tv in (0, 3, B - 1, B, 2 * B + 5):
+        t = torch.tensor(tv, dtype=torch.int32, device=cuda)
+        before = tm.launches[form]
+        got = tm.mac(ring, bank, r, idx, mask, t, uniform)
+        ref = tm.mac_reference(ring, bank, r, idx, mask, t, uniform)
+        torch.cuda.synchronize()
+        assert tm.launches[form] == before + 1
+        assert got.shape == (len(rows), 2, K)
         assert (got - ref).abs().max().item() / ref.abs().max().item() <= 1e-5
 
 
@@ -164,6 +190,8 @@ def test_failed_launches_raise(cuda, monkeypatch):
             with pytest.raises(RuntimeError, match="launch failed"):
                 mm.mac_mix(ring, bank, idx, mask, t, w, uniform)
     assert mm.launches == before
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tm.mac(ring, bank, idx[:2], idx, mask, t, False)
     with pytest.raises(RuntimeError, match="launch failed"):
         mg.mac_group(ring, xnews, bank, idx, mask, t, delay)
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -249,3 +277,46 @@ def test_grouped_engine_on_card_matches_cpu(cuda, tmp_path, monkeypatch,
     before = mg.launches[kernel]
     _card_and_cpu(cuda, tmp_path, [0, 1, 0], delays=(0, 1, 2))
     assert mg.launches[kernel] - before == 2
+
+
+@pytest.mark.cuda
+def test_cascade_engine_on_card_matches_cpu(cuda, tmp_path):
+    """bench1's cascade at 256 x 4 partitions, file to file on the card
+    and on the CPU: two unfused MAC launches a block, within 2 LSB."""
+    from brutefir_tpu_torch.runtime.engine import Engine
+    N, B = 256, 4
+    rng = np.random.default_rng(9)
+    for i in range(6):
+        (rng.uniform(-1, 1, N * B) * 0.03).astype("<f4").tofile(
+            tmp_path / f"h{i}.raw")
+    frames = N * 13 + 77
+    rng.integers(-(1 << 20), 1 << 20, (frames, 2)).astype("<i4").tofile(
+        tmp_path / "in.raw")
+
+    def conf(name):
+        coeffs = "".join(
+            f'coeff {i} {{ filename: "{tmp_path / f"h{i}.raw"}"; '
+            f'format: "FLOAT_LE"; }};\n' for i in range(6))
+        return parse_config(f"""
+sampling_rate: 44100;
+filter_length: {N},{B};
+{coeffs}
+input 0, 1 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: 2; }};
+output 0, 1 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "S24_4LE"; channels: 2; dither: false; }};
+filter 0 {{ from_filters: 2, 5; to_outputs: 0; coeff: 0; }};
+filter 1 {{ from_filters: 3, 4; to_outputs: 1; coeff: 1; }};
+filter 2 {{ from_inputs: 0; to_filters: 0; coeff: 2; }};
+filter 3 {{ from_inputs: 0; to_filters: 1; coeff: 3; }};
+filter 4 {{ from_inputs: 1; to_filters: 1; coeff: 4; }};
+filter 5 {{ from_inputs: 1; to_filters: 0; coeff: 5; }};
+""")
+
+    before = dict(tm.launches)
+    sg = Engine(conf("gpu.raw"), device=cuda).run_offline()
+    assert tm.launches["mac_rows"] - before["mac_rows"] == 2 * sg["blocks"]
+    sc = Engine(conf("cpu.raw"), device=torch.device("cpu")).run_offline()
+    assert sg["frames"] == sc["frames"] == frames
+    yg = np.fromfile(tmp_path / "gpu.raw", "<i4").astype(np.int64)
+    yc = np.fromfile(tmp_path / "cpu.raw", "<i4").astype(np.int64)
+    assert yg.size == frames * 2 and np.abs(yg).max() > 2 ** 16
+    assert np.abs(yg - yc).max() <= 2

@@ -250,6 +250,7 @@ output 0,1 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "{fmt}"; 
 OUTSIDE = {
     "crossfade": 'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; '
                  'crossfade: true; };',
+    # cascades run in the port; an input channel delay (below) does not
     "cascade": 'filter 0 { from_inputs: 0; to_filters: 1; coeff: 0; };\n'
                'filter 1 { from_filters: 0; to_outputs: 0; coeff: 0; };',
     "logic": 'logic: "cli" { script: "ppk"; };\n'
@@ -265,13 +266,14 @@ def test_config_outside_the_slice_raises(tmp_path, kind):
     from brutefir_tpu_torch.runtime.engine import Engine
     (tmp_path / "in.raw").write_bytes(b"")
     dither = "true" if kind == "dither" else "false"
+    in_delay = "delay: 1;" if kind == "cascade" else ""
     body = OUTSIDE[kind] or \
         'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; };'
     conf = parse_config(f"""
 sampling_rate: 44100;
 filter_length: 128,2;
 coeff 0 {{ filename: "dirac pulse"; }};
-input 0 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: 1; }};
+input 0 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: 1; {in_delay} }};
 output 0 {{ device: "file" {{ path: "{tmp_path / 'out.raw'}"; }}; sample: "S24_4LE"; channels: 1; dither: {dither}; }};
 {body}
 """)

@@ -170,6 +170,28 @@ def test_group_size_matches_jax(monkeypatch, pair, form):
         assert (2, True) in seen           # ... and G=2 fused
 
 
+@pytest.mark.parametrize("pair", [None, "4", "force:4"])
+def test_group_size_stands_down_without_fused_mix(monkeypatch, pair):
+    """BRUTEFIR_TPU_FUSED_MIX=0 turns the grouped dispatch off in both
+    packages, at every shape of the table."""
+    if pair is None:
+        monkeypatch.delenv("BRUTEFIR_TPU_PAIR", raising=False)
+    else:
+        monkeypatch.setenv("BRUTEFIR_TPU_PAIR", pair)
+    monkeypatch.setenv("BRUTEFIR_TPU_FUSED_MIX", "0")
+    for n, b, c, casc in SHAPES:
+        fin = [[] for _ in range(c)]
+        js = jax_spec(n, b, c, c, fin, [False] * c)
+        ts = build_graph_spec(n, b, c, c, fin, [False] * c)
+        assert jcomp.group_size(js, "pallas-interpret", None, None, 8) == 1
+        assert tcomp.group_size(ts, 8) == 1
+    # and the same table groups somewhere with the switch back on
+    monkeypatch.setenv("BRUTEFIR_TPU_FUSED_MIX", "1")
+    assert max(tcomp.group_size(build_graph_spec(
+        n, b, c, c, [[] for _ in range(c)], [False] * c), 8)
+        for n, b, c, _ in SHAPES) >= 2
+
+
 def _taps(path, n, seed):
     t = (np.random.default_rng(seed).standard_normal(n) * 0.05)
     path.write_text("\n".join(repr(float(v)) for v in t) + "\n")

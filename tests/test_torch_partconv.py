@@ -49,6 +49,22 @@ def test_rfft_irfft_roundtrip_valid_half(rng):
     np.testing.assert_allclose(y, x[:, :256], rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("N", [128, 256])
+def test_convolve_eval_matches_jax(rng, N):
+    """Cascade re-framing: the re-transformed spectra and the new tails."""
+    z = rng.standard_normal((3, 2, N)).astype(np.float32)
+    prev = rng.standard_normal((3, N)).astype(np.float32)
+    e, tails = tpc.convolve_eval(_t(z), _t(prev))
+    e_ref, tails_ref = jpc.convolve_eval(jnp.asarray(z), jnp.asarray(prev), N)
+    assert e.shape == (3, 2, N) and tails.shape == (3, N)
+    np.testing.assert_allclose(tails.numpy(), np.asarray(tails_ref), rtol=0,
+                               atol=ATOL)
+    # |E| grows with the 2N-point transform: held relative to its peak
+    e_ref = np.asarray(e_ref)
+    np.testing.assert_allclose(e.numpy(), e_ref, rtol=0,
+                               atol=ATOL * np.abs(e_ref).max())
+
+
 def test_complex_mix_matches_jax(rng):
     w = rng.standard_normal((5, 4)).astype(np.float32)
     x = rng.standard_normal((4, 2, 256)).astype(np.float32)

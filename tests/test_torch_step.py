@@ -113,11 +113,18 @@ def test_step_writes_ring_in_place(rng):
 
 
 def test_state_from_jax_refuses_cascade_tails():
-    """The port's state has no cascade tails yet: a JAX state that holds
-    some is refused, one with none carries over."""
+    """Cascade tails carry over as a copy, none or some; tails of another
+    shape than [n_casc, N] are refused."""
     prev_in = np.ones((2, N), np.float32)
     ring = np.zeros((2, B, 2, N // 128, 128), np.float32)
     st = state_from_jax(prev_in, ring, np.zeros((0, N), np.float32), 3, CPU)
     assert st.ring.shape == (2, B, 2, N) and int(st.t) == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        state_from_jax(prev_in, ring, np.zeros((1, N), np.float32), 3, CPU)
+    assert st.eval_prev.shape == (0, N)
+    tails = np.arange(2 * N, dtype=np.float32).reshape(2, N)
+    st = state_from_jax(prev_in, ring, tails, 3, CPU)
+    np.testing.assert_array_equal(st.eval_prev.numpy(), tails)
+    st.eval_prev.zero_()                     # the port writes it in place
+    assert tails[1, 1] == N + 1
+    for bad in (np.zeros((1, N // 2), np.float32), np.zeros(N, np.float32)):
+        with pytest.raises(ValueError, match="eval_prev"):
+            state_from_jax(prev_in, ring, bad, 3, CPU)

@@ -4,10 +4,12 @@ Usage: python -m brutefir_tpu_torch [-quiet] [-nodefault] [-daemon] [config file
 
 Same flags and exit codes as the JAX package. Without -nodefault the
 two-level config applies: ``~/.brutefir_defaults`` (auto-created on first
-run) is parsed first, then the main config. A clockless config (file
-devices on storage) runs through ``Engine.run_offline``; a clocked config
-needs the per-block ``run()``, which is not ported yet, and exits with an
-error saying so.
+run) is parsed first, then the main config. A config of file devices on
+storage runs through ``Engine.run_offline`` (which falls back to the
+per-block ``Engine.run`` for logic modules such as a CLI script); file
+devices on live endpoints (pipes, FIFOs, ttys) run through
+``Engine.run``. Clocked devices and the benchmark and debug modes are not
+ported yet and exit with an error saying so.
 """
 
 from __future__ import annotations
@@ -108,14 +110,17 @@ def main(argv=None, device=None) -> int:
         return _exit_code(e)
     _report_ready(BF_EXIT_OK)
 
-    clockless = all(not inst.uses_sample_clock and inst.batch_safe
-                    for io in (0, 1) for inst in eng.devices[io])
-    if not clockless or conf.benchmark or conf.debug:
+    clocked = any(inst.uses_sample_clock
+                  for io in (0, 1) for inst in eng.devices[io])
+    if clocked or conf.benchmark or conf.debug:
         sys.stderr.write(
-            "brutefir_tpu_torch: clocked devices, live endpoints, benchmark "
-            "and debug need the per-block run(), which is not ported yet "
-            "(ROADMAP queue 1 item 4)\n")
+            "brutefir_tpu_torch: clocked devices and the benchmark and "
+            "debug modes are not ported yet (ROADMAP queue 1 item 4)\n")
         return BF_EXIT_OTHER
+    # batching adds batch_blocks * N of latency and bursty writes, which a
+    # peer on a live endpoint would see: those run block by block
+    batch_safe = all(inst.batch_safe
+                     for io in (0, 1) for inst in eng.devices[io])
 
     def _stop(signum, frame):
         eng.stop()
@@ -123,7 +128,7 @@ def main(argv=None, device=None) -> int:
     signal.signal(signal.SIGINT, _stop)
     signal.signal(signal.SIGTERM, _stop)
     try:
-        stats = eng.run_offline()
+        stats = eng.run_offline() if batch_safe else eng.run()
     except BFError as e:
         sys.stderr.write(f"{e}\n")
         return _exit_code(e)

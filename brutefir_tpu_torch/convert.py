@@ -53,8 +53,10 @@ def state_from_jax(prev_in, ring, eval_prev, t, device) -> StepState:
 
 def ctrl_from_jax(ctrl, device) -> StepCtrl:
     """A StepCtrl-shaped tuple of numpy-convertible arrays -> the port's
-    StepCtrl on ``device``: the fields the port's step reads, same
-    dtypes; the crossfade fields are left behind."""
+    StepCtrl on ``device``: every field the port's step reads, the
+    crossfade fields (``prev_idx``, ``prev_mask``, ``xfade``) included,
+    same dtypes. The JAX ``any_xfade`` scalar is left behind: the port's
+    host passes ``xfade_now`` to the step instead."""
     out = {}
     for name in StepCtrl._fields:
         a = np.asarray(getattr(ctrl, name))

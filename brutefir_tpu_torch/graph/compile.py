@@ -1,31 +1,37 @@
 """The per-block device step: ``step_impl(spec, state, ctrl, bank, x)``.
 
 Torch twin of ``_step_impl`` in :mod:`brutefir_tpu.graph.compile`
-(compile.py:241-351, 418-533), without spectral taps and crossfade. One
-block is
+(compile.py:241-533), without spectral taps. One block is
 
     frame = [prev_in, x] -> (powersave gate) -> rfft -> per stage:
     input mix (+ cascade input) -> ring write at (t + delay[f]) % B -> MAC
     -> output mix -> valid-half irfft -> y [C_out, N]
 
-Two routes, chosen as the JAX package chooses them (``fused_mix_route``):
-a single stage of every filter takes the fused MAC + output mix kernel
-(``mac_mix``); every other graph runs the **stage loop**, one topological
-stage of the filter DAG after the other, through the unfused MAC kernel
-(``mac``). A stage's filters that take other filters' outputs
-(``from_filters``) get them as ``convolve_eval`` of the mixed upstream
-spectra, overlap-save framed against the cascade tails ``eval_prev``.
+Three routes, chosen as the JAX package chooses them: a single stage of
+every filter takes the fused MAC + output mix kernel (``mac_mix``,
+``fused_mix_route``), unless a crossfade lands on the block; a crossfade
+block of such a graph takes the **fused time-domain crossfade** (the dual
+MAC ``mac_dual``, three mixed spectra, one inverse transform, the ramp in
+time); every other graph runs the **stage loop**, one topological stage
+of the filter DAG after the other, through the unfused MAC kernel
+(``mac``), or on a crossfade block through ``mac_dual`` and
+``partconv.crossfade_spectra``. A stage's filters that take other
+filters' outputs (``from_filters``) get them as ``convolve_eval`` of the
+mixed upstream spectra, overlap-save framed against the cascade tails
+``eval_prev``.
 
 The batched offline dispatch may instead run G blocks at a time through
 ``group_step_impl`` (compile.py:615-752), whose grouped MAC kernels read
-the ring and the bank once per group; ``group_size`` decides.
+the ring and the bank once per group; ``group_size`` decides. It only
+ever runs blocks without a crossfade.
 
 ``state`` holds the overlap-save tails, the [F, B, 2, N] spectra ring, the
 cascade tails and the block counter; ``ctrl`` is the block-boundary
 snapshot of every runtime control, so control changes never rebuild
 anything. PyTorch runs eagerly, so there is no compiled program cache: the
-``uniform`` and ``uniform_delay`` variants are plain arguments chosen by
-the host.
+``uniform``, ``uniform_delay`` and ``xfade_now`` variants are plain
+arguments chosen by the host (the JAX package's in-graph ``lax.cond`` on
+``any_xfade`` has no counterpart: the host always knows).
 
 The ring and the cascade tails are written **in place**: the analog of
 the JAX step donating its state buffers. The returned state shares them
@@ -43,6 +49,7 @@ import torch
 
 from ..ops import partconv
 from ..ops.mac import mac
+from ..ops.mac_dual import mac_dual
 from ..ops.mac_group import mac_group, mac_mix_group
 from ..ops.mac_mix import mac_mix, tiled_route
 from .spec import GraphSpec
@@ -56,14 +63,17 @@ class StepState(NamedTuple):
 
 
 class StepCtrl(NamedTuple):
-    """The controls the step reads. The JAX StepCtrl's crossfade fields
-    come with the ROADMAP item that ports crossfade (queue 1 item 7)."""
+    """The controls the step reads: the JAX StepCtrl without
+    ``any_xfade`` (the host passes ``xfade_now`` instead)."""
     in_mix: torch.Tensor     # [F, C_in] input mix gains (incl. format scale)
     fmix: torch.Tensor       # [F, F] filter -> filter mix gains
     out_mix: torch.Tensor    # [C_out, F] output mix gains (incl. 1/format scale)
     delay: torch.Tensor      # [F] int32 pre-delay in blocks (clamped 0..B-1)
     coeff_idx: torch.Tensor  # [F] int32 index into the bank (dirac = last entry)
     mask: torch.Tensor       # [F, B] partition validity (cblocks clamp)
+    prev_idx: torch.Tensor   # [F] int32 previous coefficient (crossfade source)
+    prev_mask: torch.Tensor  # [F, B]
+    xfade: torch.Tensor      # [F] 1.0 where a crossfade happens this block
     ps_thresh: torch.Tensor  # [C_in] analog-powersave gate threshold (0 = off)
 
 
@@ -73,9 +83,6 @@ def check_supported(spec: GraphSpec) -> None:
     if spec.real_dtype != np.float32:
         raise NotImplementedError(
             "float_bits: 64 is not ported yet (ROADMAP queue 1 item 9)")
-    if spec.any_crossfade:
-        raise NotImplementedError(
-            "crossfade filters are not ported yet (ROADMAP queue 1 item 7)")
 
 
 def init_state(spec: GraphSpec, device) -> StepState:
@@ -90,14 +97,22 @@ def init_state(spec: GraphSpec, device) -> StepState:
 
 
 def make_ctrl(spec: GraphSpec, in_mix, out_mix, delay, coeff_idx, mask,
-              ps_thresh=None, device=None, fmix=None) -> StepCtrl:
+              ps_thresh=None, device=None, fmix=None, prev_idx=None,
+              prev_mask=None, xfade=None) -> StepCtrl:
     """Assemble a StepCtrl on ``device`` from host arrays (default:
-    powersave gate off, no filter -> filter edges)."""
+    powersave gate off, no filter -> filter edges, no crossfade: the
+    previous coefficient is the current one)."""
     rd = spec.real_dtype
     if ps_thresh is None:
         ps_thresh = np.zeros(spec.n_inputs, rd)
     if fmix is None:
         fmix = np.zeros((spec.n_filters, spec.n_filters), rd)
+    if prev_idx is None:
+        prev_idx = coeff_idx
+    if prev_mask is None:
+        prev_mask = mask
+    if xfade is None:
+        xfade = np.zeros(spec.n_filters, rd)
 
     def real(a):
         return torch.as_tensor(np.asarray(a, rd), device=device)
@@ -108,7 +123,8 @@ def make_ctrl(spec: GraphSpec, in_mix, out_mix, delay, coeff_idx, mask,
     return StepCtrl(
         in_mix=real(in_mix), fmix=real(fmix), out_mix=real(out_mix),
         delay=idx(delay), coeff_idx=idx(coeff_idx), mask=real(mask),
-        ps_thresh=real(ps_thresh),
+        prev_idx=idx(prev_idx), prev_mask=real(prev_mask),
+        xfade=real(xfade), ps_thresh=real(ps_thresh),
     )
 
 
@@ -128,11 +144,12 @@ def mix_fusable(F: int, B: int, K: int, C_out: int) -> bool:
     return (C_out + Fc + 4 * B) * 2 * 16 * 128 * 4 <= _VMEM_BUDGET
 
 
-def fused_mix_route(spec: GraphSpec) -> bool:
+def fused_mix_route(spec: GraphSpec, xfade_now: bool = False) -> bool:
     """Whether a block takes the fused MAC + output mix (``mac_mix``)
-    rather than the stage loop: the JAX package's ``fused_mix`` predicate
-    (compile.py:323-330) without spectral taps and mesh. A single stage of
-    every filter in order, at a shape where the JAX package runs its
+    rather than the stage loop or the fused time-domain crossfade: the JAX
+    package's ``fused_mix`` predicate (compile.py:323-330) without
+    spectral taps and mesh. A single stage of every filter in order, not
+    crossfading this block, at a shape where the JAX package runs its
     Pallas kernels (``pallas_available``: K a multiple of 128, K >= 256;
     elsewhere it runs the dense stage loop) and its fused kernel fits
     (``mix_fusable``), unless ``BRUTEFIR_TPU_FUSED_MIX=0``. The card needs
@@ -140,9 +157,19 @@ def fused_mix_route(spec: GraphSpec) -> bool:
     route, and so the same summation order, in both packages."""
     K = spec.n_bins
     return (spec.single_full_stage and K % 128 == 0 and K >= 256
+            and not (spec.stages[0].any_crossfade and xfade_now)
             and mix_fusable(spec.n_filters, spec.n_blocks, K,
                             spec.n_outputs)
             and os.environ.get("BRUTEFIR_TPU_FUSED_MIX", "1") != "0")
+
+
+def fused_xfade_route(spec: GraphSpec, xfade_now: bool) -> bool:
+    """Whether a crossfade block takes the fused time-domain crossfade:
+    the JAX package's ``fused_xf`` predicate (compile.py:369-373) at its
+    default, without spectral taps. A single stage of every filter in
+    order holding a crossfading filter."""
+    return (xfade_now and spec.single_full_stage
+            and spec.stages[0].any_crossfade)
 
 
 @functools.lru_cache(maxsize=256)
@@ -185,15 +212,19 @@ def _write_ring(ring, blk, t, delay, uniform_delay: bool, rows=None) -> None:
 
 def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
                 bank: torch.Tensor, X: torch.Tensor, uniform: bool,
-                uniform_delay: bool) -> torch.Tensor:
-    """The stage loop of compile.py:418-533 without taps and crossfade:
-    per stage, the input mix of its filters, the cascade input of those
-    with filter inputs, the ring write and the unfused MAC of its filters
-    (read in place in the ring); then every filter's spectra [F, 2, N] in
-    filter order. Updates the ring and ``state.eval_prev`` in place."""
+                uniform_delay: bool, xfade_now: bool) -> torch.Tensor:
+    """The stage loop of compile.py:418-533 without taps: per stage, the
+    input mix of its filters, the cascade input of those with filter
+    inputs, the ring write and the unfused MAC of its filters (read in
+    place in the ring); then every filter's spectra [F, 2, N] in filter
+    order. On a crossfade block a stage holding a crossfading filter runs
+    the dual MAC and ``crossfade_spectra`` instead, and keeps the ramped
+    spectra of the filters whose ``xfade`` is set (compile.py:456-505
+    without the cond). Updates the ring and ``state.eval_prev`` in
+    place."""
     ring, t, eval_prev = state.ring, state.t, state.eval_prev
     dev = ring.device
-    F = spec.n_filters
+    F, N = spec.n_filters, spec.block_length
     ys, done = [], []
     for stage in spec.stages:
         idx = tuple(stage.idx.tolist())
@@ -216,8 +247,17 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
         full = idx == tuple(range(F))
         _write_ring(ring, mixed, t, ctrl.delay, uniform_delay,
                     None if full else rows)
-        ys.append(mac(ring, bank, _index(idx, dev, torch.int32),
-                      ctrl.coeff_idx, ctrl.mask, t, uniform))  # [Fs, 2, N]
+        rows32 = _index(idx, dev, torch.int32)
+        if stage.any_crossfade and xfade_now:
+            y_new, y_old = mac_dual(ring, bank, rows32, ctrl.coeff_idx,
+                                    ctrl.mask, ctrl.prev_idx, ctrl.prev_mask,
+                                    t, uniform)
+            y_xf = partconv.crossfade_spectra(y_old, y_new, N)
+            y = torch.where(ctrl.xfade[rows][:, None, None] > 0, y_xf, y_new)
+        else:
+            y = mac(ring, bank, rows32, ctrl.coeff_idx, ctrl.mask, t,
+                    uniform)                                # [Fs, 2, N]
+        ys.append(y)
         done.append(rows)
     y_all = ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
     order = np.concatenate([s.idx for s in spec.stages])
@@ -226,17 +266,46 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     return y_all
 
 
+def _fused_xfade(spec: GraphSpec, ctrl: StepCtrl, bank: torch.Tensor,
+                 ring: torch.Tensor, t: torch.Tensor,
+                 uniform: bool) -> torch.Tensor:
+    """The fused time-domain crossfade of compile.py:353-416 for a single
+    full stage (the ring already holds the block): the dual MAC, then the
+    three mixed spectra -- old and new products of the crossfading
+    filters, new products of the others -- in two FP32 matmuls, one
+    batched valid-half inverse transform, and the linear ramp in time,
+    ``y = a (1 - r) + b r + c``. The output mix commutes with the
+    transforms, so this equals ``crossfade_spectra`` followed by the mix
+    up to the removed transform round trip's rounding."""
+    N, C_out = spec.block_length, spec.n_outputs
+    rows32 = _index(tuple(range(spec.n_filters)), ring.device, torch.int32)
+    y_new, y_old = mac_dual(ring, bank, rows32, ctrl.coeff_idx, ctrl.mask,
+                            ctrl.prev_idx, ctrl.prev_mask, t, uniform)
+    sel = (ctrl.xfade > 0).to(y_new.dtype)                  # [F]
+    w_sel = ctrl.out_mix * sel[None, :]
+    w_rest = ctrl.out_mix - w_sel
+    o_old = partconv.complex_mix(w_sel, y_old)              # [C_out, 2, N]
+    o_new = partconv.complex_mix(torch.cat([w_sel, w_rest], dim=0), y_new)
+    tv = partconv.irfft_planes_valid(torch.cat([o_old, o_new], dim=0))
+    a, b, c = tv[:C_out], tv[C_out:2 * C_out], tv[2 * C_out:]
+    r = partconv.xfade_ramp(N, tv.dtype, tv.device)
+    return a * (1.0 - r) + b * r + c
+
+
 def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
               bank: torch.Tensor, x: torch.Tensor, uniform: bool = False,
-              uniform_delay: bool = False):
+              uniform_delay: bool = False, xfade_now: bool = False):
     """One block: x [C_in, N] -> (state', y [C_out, N]).
 
     ``uniform``: the host asserts every filter shares one coefficient row
-    and mask row (RuntimeControl.snapshot_uniform), so the kernels read one
-    shared bank row. ``uniform_delay``: every filter shares one pre-delay,
-    so a ring write that covers every filter is one slice at a scalar slot
+    and mask row, and one previous row and mask
+    (RuntimeControl.snapshot_uniform), so the kernels read one shared bank
+    row per set. ``uniform_delay``: every filter shares one pre-delay, so
+    a ring write that covers every filter is one slice at a scalar slot
     instead of a per-filter scatter. Both give the same values as the
-    general form.
+    general form. ``xfade_now``: the host asserts that ``ctrl.xfade``
+    marks a crossfade on this block (RuntimeControl.snapshot_xfade);
+    False asserts it is all zero.
 
     The ring and the cascade tails are updated in place (see the module
     docstring); nothing here synchronises with the host."""
@@ -244,21 +313,25 @@ def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     frame = _gate(spec, ctrl, torch.cat([state.prev_in, x], dim=-1))
     X = partconv.rfft_planes(frame)                         # [C_in, 2, N]
     ring, t = state.ring, state.t
-    if fused_mix_route(spec):
+    new_state = StepState(prev_in=x, ring=ring, eval_prev=state.eval_prev,
+                          t=t + 1)
+    td_xfade = fused_xfade_route(spec, xfade_now)
+    if td_xfade or fused_mix_route(spec, xfade_now):
         mixed = partconv.complex_mix(ctrl.in_mix, X)        # [F, 2, N]
         # the block lands at each filter's delayed slot BEFORE the MAC
         # reads the ring
         _write_ring(ring, mixed, t, ctrl.delay, uniform_delay)
+        if td_xfade:
+            return new_state, _fused_xfade(spec, ctrl, bank, ring, t,
+                                           uniform)
         # at big shapes mac_mix launches the bin-tiled kernel (tiled_route)
         out_spec = mac_mix(ring, bank, ctrl.coeff_idx, ctrl.mask, t,
                            ctrl.out_mix, uniform)           # [C_out, 2, N]
     else:
         y_all = _stage_loop(spec, state, ctrl, bank, X, uniform,
-                            uniform_delay)                  # [F, 2, N]
+                            uniform_delay, xfade_now)       # [F, 2, N]
         out_spec = partconv.complex_mix(ctrl.out_mix, y_all)
-    y = partconv.irfft_planes_valid(out_spec)               # [C_out, N]
-    return StepState(prev_in=x, ring=ring, eval_prev=state.eval_prev,
-                     t=t + 1), y
+    return new_state, partconv.irfft_planes_valid(out_spec)  # [C_out, N]
 
 
 # --- the grouped offline dispatch ------------------------------------------

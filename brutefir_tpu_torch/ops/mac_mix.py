@@ -48,16 +48,20 @@ def mac_mix_reference(ring, bank, coeff_idx, mask, t, w, uniform: bool):
 
 
 def check_operands(fn: str, ring, bank, coeff_idx, mask, t, w=None,
-                   xnews=None, delay=None, rows=None) -> None:
+                   xnews=None, delay=None, rows=None, prev_idx=None,
+                   prev_mask=None) -> None:
     """Raise on what the MAC kernels do not take: every operand on the
     ring's device, contiguous, of its dtype and shape. ``w``, ``xnews``,
-    ``delay`` and ``rows`` are checked when given."""
+    ``delay``, ``rows``, ``prev_idx`` and ``prev_mask`` are checked when
+    given."""
     ops = [("ring", ring, torch.float32), ("bank", bank, torch.float32),
            ("coeff_idx", coeff_idx, torch.int32),
            ("mask", mask, torch.float32), ("t", t, torch.int32)]
     ops += [(name, x, dt) for name, x, dt in
             (("w", w, torch.float32), ("xnews", xnews, torch.float32),
-             ("delay", delay, torch.int32), ("rows", rows, torch.int32))
+             ("delay", delay, torch.int32), ("rows", rows, torch.int32),
+             ("prev_idx", prev_idx, torch.int32),
+             ("prev_mask", prev_mask, torch.float32))
             if x is not None]
     dev = ring.device
     for name, x, dt in ops:
@@ -78,6 +82,9 @@ def check_operands(fn: str, ring, bank, coeff_idx, mask, t, w=None,
         raise ValueError(f"{fn}: empty bank")
     if tuple(coeff_idx.shape) != (F,) or tuple(mask.shape) != (F, B):
         raise ValueError(f"{fn}: coeff_idx must be [F] and mask [F, B]")
+    if (prev_idx is not None and tuple(prev_idx.shape) != (F,)) or (
+            prev_mask is not None and tuple(prev_mask.shape) != (F, B)):
+        raise ValueError(f"{fn}: prev_idx must be [F] and prev_mask [F, B]")
     if t.numel() != 1:
         raise ValueError(f"{fn}: t must be a scalar")
     if w is not None and (w.dim() != 2 or w.shape[1] != F):

@@ -16,7 +16,8 @@ On the device spectra are separate real/imag float planes ``[..., 2, N]``
 The FFTs are cuFFT (``torch.fft``) and the channel mixes ``torch.matmul``
 in full FP32, as the JAX package left them to XLA. The plain MACs below
 are the correctness baseline for the CUDA kernels in
-:mod:`brutefir_tpu_torch.ops.mac_mix`, ``mac_group`` and ``mac``.
+:mod:`brutefir_tpu_torch.ops.mac_mix`, ``mac_group``, ``mac`` and
+``mac_dual``.
 """
 
 from __future__ import annotations
@@ -134,6 +135,38 @@ def irfft_planes_valid(p: torch.Tensor) -> torch.Tensor:
         *z.shape[:-1], M)
 
 
+def irfft_planes(p: torch.Tensor) -> torch.Tensor:
+    """Full inverse of :func:`rfft_planes`: packed planes ``[..., 2, M]``
+    -> real ``[..., 2M]`` (cuFFT's irfft of the unpacked M+1 bins)."""
+    M = p.shape[-1]
+    re, im = p[..., 0, :], p[..., 1, :]
+    zero = torch.zeros_like(re[..., :1])
+    X = torch.complex(torch.cat([re, im[..., :1]], dim=-1),
+                      torch.cat([zero, im[..., 1:], zero], dim=-1))
+    return torch.fft.irfft(X, n=2 * M, dim=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def xfade_ramp(n: int, dtype, device) -> torch.Tensor:
+    """The crossfade's linear ramp ``arange(n) / (n - 1)``, built once per
+    (n, dtype, device) rather than on every crossfade block."""
+    return torch.arange(n, dtype=dtype, device=device) / (n - 1)
+
+
+def crossfade_spectra(y_old: torch.Tensor, y_new: torch.Tensor,
+                      n_fft2: int) -> torch.Tensor:
+    """Seamless coefficient-change crossfade
+    (``convolver_crossfade_inplace``, fftw_convolver.c:330-368), twin of
+    the JAX package's ``partconv.crossfade_spectra``: inverse-transform
+    both spectra, ramp old -> new linearly across the valid (lower) half,
+    keep the new upper half, re-transform."""
+    t_old = irfft_planes(y_old)
+    t_new = irfft_planes(y_new)
+    f = xfade_ramp(n_fft2, t_new.dtype, t_new.device)
+    ramped = t_old[..., :n_fft2] * (1.0 - f) + t_new[..., :n_fft2] * f
+    return rfft_planes(torch.cat([ramped, t_new[..., n_fft2:]], dim=-1))
+
+
 def convolve_eval(z: torch.Tensor, eval_prev: torch.Tensor):
     """Filter-cascade re-framing (``convolver_convolve_eval``,
     fftw_convolver.c:411-433), twin of the JAX package's
@@ -207,3 +240,17 @@ def spectral_mac_uniform(ring: torch.Tensor, bank: torch.Tensor,
     mrow = mask[0, hpos].to(ring.dtype)
     H = bank[coeff_idx.long()[0], hpos] * mrow[:, None, None]   # [B, 2, N]
     return mac_terms(ring, H[None])
+
+
+def spectral_mac_dual(ring, bank, rows, coeff_idx, mask, prev_idx,
+                      prev_mask, t, uniform: bool):
+    """The crossfade's two MACs of the stage filters ``rows`` (int tensor)
+    as two plain MACs over the gathered rows: ``(Y_new, Y_old)`` against
+    (``coeff_idx``, ``mask``) and (``prev_idx``, ``prev_mask``), every
+    filter's controls read at ``rows``; ``uniform`` reads the first stage
+    filter's for all of them. Returns two [Fs, 2, N]."""
+    r = rows.long()
+    fn = spectral_mac_uniform if uniform else spectral_mac_rollh
+    rs = ring[r]
+    return (fn(rs, bank, coeff_idx[r], mask[r], t),
+            fn(rs, bank, prev_idx[r], prev_mask[r], t))

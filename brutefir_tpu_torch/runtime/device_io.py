@@ -5,8 +5,9 @@ raw input words of every input device and returns the raw output words
 of every output device plus per-channel meters:
 
     input_half:  p24/raw3 sign-extend -> decode -> mute gain
-    step_impl:   rfft -> mix -> ring -> fused MAC + mix -> irfft, or the
-                 stage loop (per stage: mix, cascade input, ring, MAC)
+    step_impl:   rfft -> mix -> ring -> fused MAC + mix -> irfft, the
+                 fused time-domain crossfade, or the stage loop (per
+                 stage: mix, cascade input, ring, MAC or dual MAC)
     output_half: NaN gate -> gains -> per-device output mix ->
                  no-dither quantize -> p24/raw3 pack -> meters
 
@@ -188,18 +189,22 @@ class DeviceIO:
         return outs, meters, nan_ok
 
     def step(self, state, ctrl, in_gain, out_gain, bank, in_words,
-             uniform=False, udelay=False):
+             uniform=False, udelay=False, xfade=False):
         """One block: per-device words [N, ...] -> (state', outs, meters,
-        nan_ok)."""
+        nan_ok). ``xfade``: the snapshot carries a crossfade on this block
+        (``step_impl``'s ``xfade_now``)."""
         x = self.input_half(in_words, in_gain)
         state, y = step_impl(self.spec, state, ctrl, bank, x,
-                             uniform=uniform, uniform_delay=udelay)
+                             uniform=uniform, uniform_delay=udelay,
+                             xfade_now=xfade)
         outs, meters, nan_ok = self.output_half(y, out_gain)
         return state, outs, meters, nan_ok
 
     def multi_step(self, state, ctrl, in_gain, out_gain, bank, in_words,
                    uniform=False, udelay=False):
-        """m blocks with frozen controls: per-device stacked words
+        """m blocks with frozen controls and no crossfade (the engine
+        dispatches crossfade blocks one at a time, as the JAX package
+        groups only then, device_io.py:587-613): per-device stacked words
         [m, N, ...] -> (state', per-device stacked outs [m, N, ...],
         per-device aggregated meters, nan_ok over all blocks)."""
         m = in_words[0].shape[0]

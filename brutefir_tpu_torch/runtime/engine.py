@@ -1,18 +1,33 @@
 """The engine: host pipeline around the per-block device step.
 
-Torch twin of the offline slice of :mod:`brutefir_tpu.runtime.engine`:
-``run_offline`` reads raw words on a producer thread and uploads each
-batch, the main thread dispatches batches of ``BATCH_BLOCKS`` blocks
-through the device-IO program (controls frozen per batch), and a writer
-thread fetches, meters and writes the results. The fixed-latency
-contract holds: output frame m is the convolution of input frames <= m,
-and file-to-file output length equals input length (the EOF tail runs
-block by block).
+Torch twin of :mod:`brutefir_tpu.runtime.engine` for file devices, with
+two loops:
 
-Graphs of any number of stages run, filter cascades included. Not in
-this slice (each raises NotImplementedError naming its ROADMAP item): the
-per-block realtime ``run()`` with the host codec, logic modules,
-crossfade, channel delays, subdelay, dither, float64.
+- ``run``: the per-block loop (engine.py:1118-1310, 1390-1620). The main
+  thread reads a block of raw words, fires the logic modules'
+  ``block_start`` hooks (the CLI's script mode runs one script line
+  there), takes one control snapshot under ``control_mutex`` and
+  dispatches the block through the device-IO program; a writer thread
+  fetches, meters and writes the results.
+- ``run_offline``: the batched loop. A producer thread reads and uploads
+  batches of ``BATCH_BLOCKS`` blocks, the main thread dispatches each
+  batch with its controls frozen, and the same writer thread writes. A
+  crossfade lands on one block: the batch dispatches its crossfade
+  blocks one at a time and the rest under the same snapshot. A config
+  with logic modules falls back to ``run``.
+
+The fixed-latency contract holds: output frame m is the convolution of
+input frames <= m, and file-to-file output length equals input length
+(the EOF tail runs block by block).
+
+Not ported (each a ROADMAP queue 1 item 4 entry, or NotImplementedError
+naming its item): clocked devices and the realtime pacing around them,
+the host codec, the EQ and external logic modules, timed and
+frequency-domain module hooks, the powersave dispatch skip (the JAX
+package makes it byte-identical to always dispatching, so the port always
+dispatches), the sink mode with its prefetch pool, the stall watchdog and
+the clock-drift monitor; channel delays, subdelay and dither (item 5);
+float64 (item 9).
 """
 
 from __future__ import annotations
@@ -21,7 +36,7 @@ import collections
 import queue
 import threading
 import time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -29,6 +44,7 @@ import torch
 from .. import resolve_device
 from ..config.coeffs import build_bank
 from ..config.model import BFConfig, IN, OUT
+from ..control import check_logic_module, load_logic_module
 from ..core.codecs import Overflow
 from ..errors import BFError, BF_EXIT_INVALID_INPUT
 from ..graph.compile import check_supported, init_state
@@ -40,6 +56,7 @@ from .device_io import DeviceIO, eligible
 
 # blocks per offline dispatch: block latency becomes BATCH_BLOCKS * N
 BATCH_BLOCKS = 8
+
 
 class EngineError(BFError):
     pass
@@ -67,16 +84,14 @@ class Engine:
     only when passed explicitly)."""
 
     def __init__(self, conf: BFConfig, device=None):
+        for name, _ in conf.logic_modules:
+            check_logic_module(name)
         self.device = resolve_device(device)
         pin_fp32_matmul()
         self.conf = conf
         self.N = conf.filter_length
         self.B = conf.n_blocks
         self.rd = np.dtype(np.float32 if conf.realsize == 4 else np.float64)
-        if conf.logic_modules:
-            raise NotImplementedError(
-                "logic modules need the per-block run(), not ported yet "
-                "(ROADMAP queue 1 item 4)")
         if not eligible(conf):
             raise NotImplementedError(
                 "this config needs the host codec, not ported yet "
@@ -123,7 +138,14 @@ class Engine:
         self.state = init_state(self.spec, self.device)
         self.control_mutex = threading.RLock()
         self.blockcounter = 0
+        self.realtime_index = 0.0    # the CLI's rti reads it
         self._rti_max = 0.0
+        # full-processing ramp of the rti meter (procblocks,
+        # bfrun.c:1436-1445, 1567-1571)
+        self._procblocks = 0
+        self.logic = []              # logic module instances
+        self._peak_hooks = []        # bfevents.peak analogs
+        self._last_peak_state = None
         self._stopped = False
         self.dio = DeviceIO(self)
         self._gain_version = -1
@@ -133,6 +155,55 @@ class Engine:
 
     def stop(self):
         self._stopped = True
+
+    # ----- logic modules ---------------------------------------------------
+    def attach_logic(self):
+        """Load the config's logic modules and wire their hooks
+        (engine.py:488-572 without timed and frequency-domain hooks,
+        which raise): the coeff_final hooks, the peak push, and each
+        module's ``initialised``."""
+        for name, params in self.conf.logic_modules:
+            self.logic.append(load_logic_module(name, params, self))
+        for m in self.logic:
+            hooks = [h for h in ("input_timed", "output_timed",
+                                 "input_freqd", "pre_convolve",
+                                 "post_convolve", "output_freqd")
+                     if getattr(m, h, None) is not None]
+            if hooks:
+                raise NotImplementedError(
+                    f"logic module hooks {', '.join(hooks)} are not ported "
+                    "yet (ROADMAP queue 1 item 4)")
+        self.control.coeff_final_mod_hooks = [
+            m.coeff_final for m in self.logic
+            if getattr(m, "coeff_final", None) is not None]
+        # peak push (BF_FDEVENT_PEAK / bfevents.peak, bfrun.c:589-618)
+        self._peak_hooks = [m.peak for m in self.logic
+                            if getattr(m, "peak", None) is not None]
+        self._last_peak_state = tuple(
+            (o.n_overflows, o.largest, o.intlargest) for o in self.overflow)
+        for m in self.logic:
+            hook = getattr(m, "initialised", None)
+            if hook is not None:
+                hook()
+
+    def _peak_push(self):
+        """Push a peak event to logic modules when an overflow meter
+        changed (check_overflows, bfrun.c:589-618), gated on
+        overflow_warnings like the reference."""
+        if not self._peak_hooks or not self.conf.overflow_warnings:
+            return
+        cur = tuple((o.n_overflows, o.largest, o.intlargest)
+                    for o in self.overflow)
+        if cur != self._last_peak_state:
+            self._last_peak_state = cur
+            for h in self._peak_hooks:
+                h()
+
+    def _block_start_hooks(self):
+        for mod in self.logic:
+            hook = getattr(mod, "block_start", None)
+            if hook is not None:
+                hook(self.blockcounter)
 
     # ----- setup / teardown ----------------------------------------------
     def setup(self):
@@ -167,12 +238,14 @@ class Engine:
 
     def _snapshot_epoch(self):
         """One control epoch for a dispatch: (ctrl, gains, uniform,
-        uniform_delay), taken under the control mutex."""
+        uniform_delay, xfade), taken under the control mutex so that a
+        concurrent CLI line is never seen half applied."""
         with self.control_mutex:
             ctrl = self.control.snapshot()
             gains = self._mute_gains()
             return (ctrl, gains, self.control.snapshot_uniform,
-                    self.control.snapshot_uniform_delay)
+                    self.control.snapshot_uniform_delay,
+                    self.control.snapshot_xfade)
 
     # ----- device-IO host side ---------------------------------------------
     def read_block_dio(self):
@@ -237,23 +310,14 @@ class Engine:
             else:
                 raw = raw.reshape(-1, dev.open_channels)
             self.devices[OUT][di].write(raw[:frames].tobytes())
+        self._peak_push()
 
-    # ----- offline run -----------------------------------------------------
-    def run_offline(self):
-        """File-to-file throughput mode: batched device dispatch.
-
-        Freezes controls across each batch of ``BATCH_BLOCKS`` blocks and
-        dispatches them back to back with no host synchronisation; a
-        producer thread reads and uploads batch k+1 while batch k runs,
-        and a writer thread fetches and writes results. Offline only:
-        block latency becomes BATCH_BLOCKS * N samples."""
-        self.setup()
-        conf = self.conf
-        N = self.N
-        M = BATCH_BLOCKS
-        t_run0 = time.perf_counter()
-        self._periods = collections.deque(maxlen=1 << 17)
-
+    # ----- the writer thread and run statistics -----------------------------
+    def _start_writer(self):
+        """The output stage on its own thread (the analog of the
+        reference's output process, bfrun.c:846-964): it fetches, meters
+        and writes block k while the main thread dispatches block k+1.
+        Returns (queue, stats, thread); queue depth 2 bounds latency."""
         wq: "queue.Queue" = queue.Queue(maxsize=2)
         wstats = {"frames": 0, "err": None}
 
@@ -272,6 +336,149 @@ class Engine:
 
         wth = threading.Thread(target=writer, daemon=True)
         wth.start()
+        return wq, wstats, wth
+
+    @staticmethod
+    def _stop_writer(wq, wth):
+        try:
+            wq.put(None, timeout=5.0)
+        except queue.Full:
+            pass
+        wth.join(timeout=600.0)
+
+    def _put(self, wq, wstats, item):
+        while wstats["err"] is None:
+            try:
+                wq.put(item, timeout=1.0)
+                return
+            except queue.Full:
+                continue
+
+    def _stats(self, frames_out: int, elapsed: float) -> dict:
+        periods = np.asarray(self._periods)
+        return {
+            "blocks": self.blockcounter,
+            "frames": frames_out,
+            "elapsed_s": elapsed,
+            "xrt": (frames_out / self.conf.sampling_rate) / elapsed
+            if elapsed > 0 else 0.0,
+            "p50_block_ms": float(np.median(periods) * 1e3)
+            if periods.size else 0.0,
+            "p95_block_ms": float(np.percentile(periods, 95) * 1e3)
+            if periods.size else 0.0,
+            "rti_max": self._rti_max,
+            "realtime_index": self.realtime_index,
+            "overflows": [o.n_overflows for o in self.overflow],
+            "peak_db": [o.peak_db() for o in self.overflow],
+        }
+
+    def _teardown_quietly(self):
+        try:
+            self.teardown()
+        except Exception:
+            pass
+
+    # ----- per-block run ---------------------------------------------------
+    def run(self, max_blocks: Optional[int] = None, setup: bool = True):
+        """Process block by block until input EOF (or until the engine
+        has run ``max_blocks`` blocks since its first). Returns run
+        statistics. ``setup=False`` neither attaches the logic modules
+        nor opens or closes the devices: the caller runs ``setup()``,
+        one or more runs, then ``teardown()``."""
+        if setup:
+            self.attach_logic()
+            self.setup()
+        budget = self.N / self.conf.sampling_rate    # seconds per block
+        t_run0 = time.perf_counter()
+        # bounded: p50/p95 over the most recent ~131k blocks
+        self._periods = collections.deque(maxlen=1 << 17)
+        wq, wstats, wth = self._start_writer()
+        try:
+            try:
+                self._run_blocks(max_blocks, wq, wstats, budget)
+            finally:
+                self._stop_writer(wq, wth)
+            if wstats["err"] is not None:
+                raise wstats["err"]
+        except BaseException:
+            # release the devices: a caller that catches the error and
+            # builds a new Engine must not inherit still-open devices
+            if setup:
+                self._teardown_quietly()
+            raise
+        stats = self._stats(wstats["frames"], time.perf_counter() - t_run0)
+        if setup:
+            self.teardown()
+        return stats
+
+    def _input_silent_words(self, xw) -> bool:
+        """Powersave silence on raw input words: exact zero only (the
+        analog threshold would need a decode), as the JAX package's
+        device-IO path decides it; it only gates the rti meter here."""
+        if not self.conf.powersave:
+            return False
+        return all(not np.asarray(w).any() for w in xw)
+
+    def _update_full_proc(self, silent: bool) -> bool:
+        """Advance the full-processing ramp (procblocks,
+        bfrun.c:1567-1571): rti counts only after B+1 live blocks; a
+        silent block resets it (bfrun.c:1721-1722)."""
+        self._procblocks = 0 if silent else min(self._procblocks + 1,
+                                                self.B + 1)
+        return self._procblocks > self.B
+
+    def _run_blocks(self, max_blocks, wq, wstats, budget):
+        N = self.N
+        eof = False
+        while not self._stopped and not eof:
+            if max_blocks is not None and self.blockcounter >= max_blocks:
+                break
+            if wstats["err"] is not None:
+                break
+            t0 = time.perf_counter()
+            self._block_start_hooks()
+            xw, frames = self.read_block_dio()
+            if frames < N:
+                eof = True
+            if frames > 0:
+                ctrl, gains, uni, udl, xf = self._snapshot_epoch()
+                # np.array: a writable copy of the (read-only) file words
+                words = [torch.as_tensor(np.array(w), device=self.device)
+                         for w in xw]
+                self.state, outs, meters, nan_ok = self.dio.step(
+                    self.state, ctrl, gains[0], gains[1], self.bank, words,
+                    uniform=uni, udelay=udl, xfade=xf)
+                self.blockcounter += 1
+                self._put(wq, wstats, (outs, meters, nan_ok, frames))
+            period = time.perf_counter() - t0
+            self._periods.append(period)
+            if self._update_full_proc(self._input_silent_words(xw)):
+                self.realtime_index = period / budget
+                self._rti_max = max(self._rti_max, self.realtime_index)
+
+    # ----- offline run -----------------------------------------------------
+    def run_offline(self, max_blocks: Optional[int] = None,
+                    batch_blocks: int = BATCH_BLOCKS, setup: bool = True):
+        """File-to-file throughput mode: batched device dispatch.
+
+        Freezes controls across each batch of ``batch_blocks`` blocks and
+        dispatches them back to back with no host synchronisation; a
+        producer thread reads and uploads batch k+1 while batch k runs,
+        and a writer thread fetches and writes results. Offline only:
+        block latency becomes batch_blocks * N samples. Falls back to
+        ``run()`` for logic modules (script lines pace per block) and for
+        ``batch_blocks <= 1``. ``max_blocks`` and ``setup`` as in
+        ``run()``."""
+        if self.conf.logic_modules or batch_blocks <= 1:
+            return self.run(max_blocks, setup=setup)
+        if setup:
+            self.setup()
+        conf = self.conf
+        N = self.N
+        M = batch_blocks
+        t_run0 = time.perf_counter()
+        self._periods = collections.deque(maxlen=1 << 17)
+        wq, wstats, wth = self._start_writer()
 
         # batch producer: reads, packs and uploads batch k+1 while the
         # main thread dispatches batch k
@@ -280,14 +487,21 @@ class Engine:
 
         def producer():
             try:
+                # never read past max_blocks: over-read input would be
+                # dropped, skipping samples for a later run on this engine
+                left = (None if max_blocks is None
+                        else max(0, max_blocks - self.blockcounter))
                 while not pstate["stop"]:
+                    take = M if left is None else min(M, left)
+                    if take == 0:
+                        return
                     stacks = [np.zeros((M, N) + self.dio.in_wire_shape[di],
                                        self.dio.in_wire_dtype[di])
                               for di in range(len(conf.iodevs[IN]))]
                     got = 0
-                    frames = M * N
+                    frames = take * N
                     hit_eof = False
-                    for b in range(M):
+                    for b in range(take):
                         words, f = self.read_block_dio()
                         for di in range(len(stacks)):
                             stacks[di][b] = words[di]
@@ -296,6 +510,8 @@ class Engine:
                             frames = b * N + f
                             hit_eof = True
                             break
+                    if left is not None:
+                        left -= got
                     item = ([torch.from_numpy(st).to(self.device)
                              for st in stacks], frames, got, hit_eof)
                     while not pstate["stop"]:
@@ -318,8 +534,8 @@ class Engine:
 
         try:
             try:
-                self._run_offline_batches(M, N, wq, wstats, pq, pstate,
-                                          N / conf.sampling_rate)
+                self._run_offline_batches(max_blocks, M, wq, wstats, pq,
+                                          pstate, N / conf.sampling_rate)
             finally:
                 # always stop both pipeline threads
                 pstate["stop"] = True
@@ -329,82 +545,94 @@ class Engine:
                 except queue.Empty:
                     pass
                 pth.join(timeout=10.0)
-                try:
-                    wq.put(None, timeout=5.0)
-                except queue.Full:
-                    pass
-                wth.join(timeout=600.0)
+                self._stop_writer(wq, wth)
+            if wstats["err"] is not None:
+                raise wstats["err"]
         except BaseException:
-            try:
-                self.teardown()
-            except Exception:
-                pass
+            if setup:
+                self._teardown_quietly()
             raise
-
-        if wstats["err"] is not None:
-            try:
-                self.teardown()
-            except Exception:
-                pass
-            raise wstats["err"]
-        frames_out = wstats["frames"]
-        elapsed = time.perf_counter() - t_run0
-        periods = np.asarray(self._periods)
-        stats = {
-            "blocks": self.blockcounter,
-            "frames": frames_out,
-            "elapsed_s": elapsed,
-            "xrt": (frames_out / conf.sampling_rate) / elapsed
-            if elapsed > 0 else 0.0,
-            "p50_block_ms": float(np.median(periods) * 1e3)
-            if periods.size else 0.0,
-            "p95_block_ms": float(np.percentile(periods, 95) * 1e3)
-            if periods.size else 0.0,
-            "rti_max": self._rti_max,
-            "overflows": [o.n_overflows for o in self.overflow],
-            "peak_db": [o.peak_db() for o in self.overflow],
-        }
-        self.teardown()
+        stats = self._stats(wstats["frames"], time.perf_counter() - t_run0)
+        if setup:
+            self.teardown()
         return stats
 
-    def _put(self, wq, wstats, item):
-        while wstats["err"] is None:
-            try:
-                wq.put(item, timeout=1.0)
-                return
-            except queue.Full:
-                continue
+    def _step_one(self, wq, wstats, epoch, words, frames: int,
+                  xfade: bool):
+        """Dispatch one block of a batch under ``epoch`` (a
+        ``_snapshot_epoch``) and queue its ``frames`` frames."""
+        ctrl, gains, uni, udl, _ = epoch
+        self.state, outs, meters, nan_ok = self.dio.step(
+            self.state, ctrl, gains[0], gains[1], self.bank, words,
+            uniform=uni, udelay=udl, xfade=xfade)
+        self.blockcounter += 1
+        self._put(wq, wstats, (outs, meters, nan_ok, frames))
 
-    def _run_offline_batches(self, M, N, wq, wstats, pq, pstate, budget):
+    def _run_offline_batches(self, max_blocks, M, wq, wstats, pq, pstate,
+                             budget):
+        N = self.N
         eof = False
         while not self._stopped and not eof and wstats["err"] is None:
+            rem = (None if max_blocks is None
+                   else max_blocks - self.blockcounter)
+            if rem is not None and rem <= 0:
+                break
             t0 = time.perf_counter()
             dstacks, frames, got_blocks, eof = pq.get()
             if pstate["err"] is not None:
                 raise pstate["err"]
-            if eof:
-                # EOF inside the batch: finish the already-read blocks
-                # one at a time so no samples are dropped, with a
-                # control snapshot per block
+            if rem is not None and rem < got_blocks:
+                got_blocks = rem
+                frames = min(frames, rem * N)
+            if eof or got_blocks < M or frames < M * N:
+                # EOF or a max_blocks tail inside the batch: finish the
+                # blocks read one at a time so no samples are dropped, a
+                # snapshot per block (a pending swap crossfades only its
+                # first block, as in run())
+                left = frames if frames < M * N else got_blocks * N
                 for b in range(got_blocks):
-                    f = min(N, frames - b * N)
+                    f = min(N, left - b * N)
                     if f <= 0:
                         break
-                    ctrl, gains, uni, udl = self._snapshot_epoch()
-                    self.state, outs1, meters1, nan1 = self.dio.step(
-                        self.state, ctrl, gains[0], gains[1], self.bank,
-                        [st[b] for st in dstacks], uniform=uni, udelay=udl)
-                    self.blockcounter += 1
-                    self._put(wq, wstats, (outs1, meters1, nan1, f))
+                    epoch = self._snapshot_epoch()
+                    self._step_one(wq, wstats, epoch,
+                                   [st[b] for st in dstacks], f, epoch[4])
                 break
-            ctrl, gains, uni, udl = self._snapshot_epoch()
-            self.state, outs, meters, nan_ok = self.dio.multi_step(
-                self.state, ctrl, gains[0], gains[1], self.bank, dstacks,
-                uniform=uni, udelay=udl)
-            self.blockcounter += M
-            self._put(wq, wstats, (outs, meters, nan_ok, M * N))
+            epoch = self._snapshot_epoch()
+            start = 0
+            while epoch[4] and start < M:
+                # a coefficient swap landed before this batch: each
+                # crossfade applies to ONE block per snapshot (the
+                # reference crossfades where prevcoeff != coeff, and the
+                # next snapshot clears it, bfrun.c:1695-1777). Dispatch
+                # crossfade blocks one at a time until a snapshot comes
+                # back without one, then run the rest under that snapshot
+                self._step_one(wq, wstats, epoch,
+                               [st[start] for st in dstacks], N, True)
+                start += 1
+                if start == M:
+                    # the batch ended on a crossfade block: no further
+                    # snapshot here, since snapshot() advances prev_coeff
+                    # and a swap pending now would lose its crossfade;
+                    # the next batch's snapshot picks it up
+                    break
+                epoch = self._snapshot_epoch()
+            if start == 0:
+                ctrl, gains, uni, udl, _ = epoch
+                self.state, outs, meters, nan_ok = self.dio.multi_step(
+                    self.state, ctrl, gains[0], gains[1], self.bank,
+                    dstacks, uniform=uni, udelay=udl)
+                self.blockcounter += M
+                self._put(wq, wstats, (outs, meters, nan_ok, M * N))
+            else:
+                # the rest of a split batch, block by block under the
+                # same snapshot
+                for b in range(start, M):
+                    self._step_one(wq, wstats, epoch,
+                                   [st[b] for st in dstacks], N, False)
             per = (time.perf_counter() - t0) / M
             self._periods.append(per)
             # full batches only (the offline analog of full_proc rti
             # gating, bfrun.c:1436-1445)
-            self._rti_max = max(self._rti_max, per / budget)
+            self.realtime_index = per / budget
+            self._rti_max = max(self._rti_max, self.realtime_index)

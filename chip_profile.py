@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Where the time goes in a file-to-file run of the 256-channel scale
-shape, of the massive_config shape or of a filter cascade, on one NVIDIA
-GPU.
+shape, of the massive_config shape, of a filter cascade or of bench5's
+crossfade every block, on one NVIDIA GPU.
 
 Usage (from the repository root, one CUDA card):
 
-    python3 chip_profile.py [--shape scale|massive|bench1|massive_cascade]
-                            [--blocks N] [--pair G]
+    python3 chip_profile.py [--shape scale|massive|bench1|massive_cascade|
+                                     bench5] [--blocks N] [--pair G]
 
 Writes the shape's seeded inputs for N blocks (default 64) as
 ``chip_smoke.py`` does: the scale shape (``write_scale_inputs``: 256 x
@@ -16,14 +16,16 @@ coefficient sets, S24_4LE), examples/multichannel_massive.conf (26 x
 (``write_bench1_inputs``: 2 x 2 through 6 filters in two stages, 65536
 taps in 8192 x 8 partitions, six coefficient sets) or the massive shape
 with a second stage (``massive_cascade_config``: 26 x 26 through 52
-filters, one shared coefficient), then runs the port's engine three
-times on
-them: once to warm up (kernel build, cuFFT plans), once timed on the
+filters, one shared coefficient) or the reference's bench5_config
+(``write_bench5_inputs``: 26 crossfading filters of 8192 x 8 whose
+coefficient a CLI script flips every block, through the per-block
+``run()``), then runs the port's engine three times on them: once to warm up (kernel build, cuFFT plans), once timed on the
 host clock, once under ``torch.profiler`` (CPU and CUDA activities).
 Prints the card, the engine's wall time a
 block and realtime factor, the host time a block of each pipeline stage
-in the timed run (the producer's reads, the main thread's dispatch, the
-writer's fetch, meters and writes; the three overlap), the device's busy
+in the timed run (the reads, the main thread's logic hooks, control
+snapshots and dispatch, the writer's fetch, meters and writes; the
+threads overlap), the device's busy
 time a block (the sum of the device time of every kernel and copy in the
 profiled run) and its share of the timed run's wall time, and the device
 time by name, largest first. ``--pair`` sets BRUTEFIR_TPU_PAIR (default:
@@ -59,7 +61,7 @@ def _time_calls(obj, name: str, acc: dict) -> None:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", choices=("scale", "massive", "bench1",
-                                        "massive_cascade"),
+                                        "massive_cascade", "bench5"),
                     default="scale")
     ap.add_argument("--blocks", type=int, default=64)
     ap.add_argument("--pair", default=None)
@@ -83,6 +85,8 @@ def main():
         _, _, cfg = cs.write_scale_inputs(cs.WORK, frames)
     elif args.shape == "bench1":
         _, _, cfg = cs.write_bench1_inputs(cs.WORK, frames)
+    elif args.shape == "bench5":
+        _, _, cfg = cs.write_bench5_inputs(cs.WORK, frames)
     else:
         cs.write_massive_inputs(np.random.default_rng(cs.SEED), frames)
         cfg = (cs.massive_config("profile.conf", False)
@@ -96,6 +100,8 @@ def main():
         if host is not None:
             for obj, name in ((eng, "read_block_dio"), (eng.dio, "step"),
                               (eng.dio, "multi_step"),
+                              (eng, "_block_start_hooks"),
+                              (eng, "_snapshot_epoch"),
                               (eng, "_write_outputs")):
                 _time_calls(obj, name, host)
         torch.cuda.synchronize()

@@ -52,7 +52,40 @@ Phases, in order; any failure exits non-zero:
 8. main path, massive cascade: the massive shape with a second stage (26
    filters from the inputs, each feeding one of 26 filters to the
    outputs, all on the one shared coefficient), within 16 LSB of
-   ``conv(conv(x, h), h)``; two launches a block of the uniform form.
+   ``conv(conv(x, h), h)``; two launches a block of the uniform form;
+9. kernel vs plain, the crossfade dual MAC (``csrc/mac_dual.cu``), at
+   bench5's shape (26 filters of 8192 x 8, one shared row per set), the
+   massive shape, 256 filters of 8192 x 16 with 256 new and 256 old
+   distinct rows, a stage subset (rows 2-5 of 6, 8192 x 8) and the shape
+   where the JAX package falls back to two plain passes (4 filters of
+   65536 x 8); both products within 1e-5 relative of the plain version
+   over the same t, cblocks mask zeros with the previous mask differing,
+   distinct and repeated rows; timed beside two ``mac`` calls, with the
+   wrapper's host time a call beside the spin that hides it;
+10. main path, bench5: ``main()`` on the reference's bench5_config graph
+   (26 crossfading filters, 8192 x 8 partitions) with two seeded
+   65536-tap sets as RAW float32 files and a CLI script that flips every
+   filter's coefficient every block, 19.5 blocks through the per-block
+   ``run()`` (``run_offline``'s fallback for logic modules), within
+   8e-6 of the output's peak + 4 LSB of the float64 linear-ramp oracle on
+   channels 0, 5, ..., 25; one dual MAC launch a block after block 0;
+11. main path, massive with a swap every 64 blocks: the massive shape,
+   every filter crossfading between two sets under the script
+   ``cfc .. 1; sleep b63`` / ``cfc .. 0; sleep b63``, 130.5 blocks,
+   within 16 LSB of the piecewise-ramped float64 oracle on seven
+   channels; three dual MAC launches, the fused MAC + mix elsewhere;
+12. offline split: the massive shape with crossfading filters and no
+   logic module, through ``Engine`` directly: ``run_offline(max_blocks=
+   16)``, a swap on every filter, ``run_offline()`` for the remaining
+   11.5 blocks (a batch split at the crossfade block, then the EOF tail);
+   exactly one dual MAC launch, block 16 ramped, within 16 LSB;
+13. main path, bench1 cascade with a crossfading first stage: phase 7's
+   graph and inputs with filters 2-5 ``crossfade: true`` and a CLI script
+   that swaps their sets on every third block (all four on block 0, then
+   filters 2 and 3), 19.5 blocks through ``run()``, within 2e-5 of the
+   output's peak + 4 LSB of the float64 oracle whose first-stage outputs
+   ramp over each swap block; the per-filter dual MAC on the 7 swap
+   blocks' first stage, the unfused MAC on every other stage.
 
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
@@ -85,7 +118,7 @@ F, B, K, C_OUT, E = 26, 16, 8192, 26, 2   # multichannel_massive.conf
 SCALE_C = 256           # the scale shape: 256 x 256, one set per filter
 BLOCKS = 19.5           # 2 batches of 8, a 3-block tail, a half block
 REPS = 20               # timed calls per kernel and plain version
-SPIN_CYCLES = 400_000   # about 0.2 ms of the card's clock before each call
+SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock before each call
 # one H100 SXM (NVIDIA's data sheet): device memory rate and the FP32
 # rate outside the tensor cores, for the bound of each kernel
 MEM_BYTES_PER_S = 3.35e12
@@ -119,7 +152,8 @@ def time_ms(fn, reps: int, flush) -> float:
     L2 cache flushed before each (a cold caller), after a warm-up. A spin
     kernel queued after the flush keeps the card busy while the host
     enqueues the first event and the call, so the wrapper's host overhead
-    (tens of us) is not timed as device time of a short kernel."""
+    (tens of us, more when the host is busy) is not timed as device time
+    of a short kernel."""
     import torch
     for _ in range(3):
         fn()
@@ -376,6 +410,105 @@ def kernels_mac(tm, rows, flush):
         torch.cuda.empty_cache()
 
 
+def dual_bytes_flops(Fs, B_, K_, rows_used):
+    """Bytes the dual MAC must move (each input once, each output once:
+    Fs ring rows, the bank rows both sets use, both sets' controls, two
+    outputs) and its FP32 operations (two complex multiply-adds, 16
+    operations, per filter, partition and bin)."""
+    plane = 2 * K_ * 4
+    n_bytes = (Fs * B_ * plane + rows_used * B_ * plane + 2 * Fs * plane
+               + Fs * 4 + 2 * (Fs * 4 + Fs * B_ * 4) + 4)
+    return n_bytes, Fs * B_ * K_ * 16
+
+
+def kernels_dual(td, tm, rows, flush):
+    """The crossfade dual MAC (csrc/mac_dual.cu) at five shapes: (name,
+    F, B, K, E, uniform, stage rows or None for all F rows permuted,
+    repeated rows, in the summary). The per-filter shapes take distinct
+    new and previous rows (E = 2F): at the scale shape 256 new and 256
+    old distinct rows."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    e1.record()
+    e1.synchronize()
+    spin_ms = e0.elapsed_time(e1)
+    shapes = (
+        ("bench5", BENCH5_C, BENCH5_B, BENCH5_N, 2, True, None,
+         list(range(13, 26)) + [0, 0], True),
+        ("massive", F, B, K, 2, True, None, [25, 0, 0, 7], False),
+        ("scale", SCALE_C, B, K, 2 * SCALE_C, False, None, [7] * 8, False),
+        ("stage subset", 6, 8, K, 12, False, [2, 3, 4, 5], [5, 2, 2, 3],
+         True),
+        ("two-pass shape", 4, 8, 65536, 8, False, [0, 1, 2, 3], [3, 3, 0],
+         False),
+    )
+    for label, F_, B_, K_, E_, uniform, stage, repeated, summary in shapes:
+        ring = torch.randn(F_, B_, 2, K_, generator=g, device=dev)
+        bank = torch.randn(E_, B_, 2, K_, generator=g, device=dev)
+        if uniform:
+            idx = torch.zeros(F_, dtype=torch.int32, device=dev)
+            pidx = torch.ones(F_, dtype=torch.int32, device=dev)
+            delay = torch.full((F_,), 2, dtype=torch.int32, device=dev)
+        else:
+            perm = torch.randperm(F_, generator=g, device=dev)
+            idx = perm.to(torch.int32)
+            pidx = (perm + F_).to(torch.int32)
+            delay = torch.arange(F_, device=dev, dtype=torch.int32) % 3
+        mask = cblocks_mask(delay, B_)
+        pmask = cblocks_mask((delay + 1).clamp(max=B_ - 1), B_)
+        if stage is None:
+            stage = torch.randperm(F_, generator=g, device=dev).tolist()
+        name = "mac_dual_uniform" if uniform else "mac_dual_rows"
+        worst = max_abs = 0.0
+        for r in (stage, repeated):
+            rt = torch.tensor(r, dtype=torch.int32, device=dev)
+            for tv in (0, 5, B_ - 1, B_, 2 * B_ + 5):
+                t = torch.tensor(tv, dtype=torch.int32, device=dev)
+                got = td.mac_dual(ring, bank, rt, idx, mask, pidx, pmask, t,
+                                  uniform)
+                ref = td.mac_dual_reference(ring, bank, rt, idx, mask, pidx,
+                                            pmask, t, uniform)
+                for a, b in zip(got, ref):
+                    rel, err = check(name, a, b, tv)
+                    worst, max_abs = max(worst, rel), max(max_abs, err)
+                del got, ref
+        rt = torch.tensor(stage, dtype=torch.int32, device=dev)
+        ones = torch.ones(F_, B_, device=dev)
+        t7 = torch.tensor(7, dtype=torch.int32, device=dev)
+        k_ms = time_ms(lambda: td.mac_dual(ring, bank, rt, idx, ones, pidx,
+                                           ones, t7, uniform), REPS, flush)
+        p_ms = time_ms(lambda: td.mac_dual_reference(
+            ring, bank, rt, idx, ones, pidx, ones, t7, uniform), REPS, flush)
+        two_ms = time_ms(lambda: (
+            tm.mac(ring, bank, rt, idx, ones, t7, uniform),
+            tm.mac(ring, bank, rt, pidx, ones, t7, uniform)), REPS, flush)
+        sel = rt.long()[:1] if uniform else rt.long()
+        used = len(set(idx[sel].tolist()) | set(pidx[sel].tolist()))
+        nb, nf = dual_bytes_flops(len(stage), B_, K_, used)
+        report(rows, name, "brutefir_tpu_torch/csrc/mac_dual.cu",
+               404 if uniform else 371, worst, max_abs, k_ms, p_ms, nb, nf,
+               ("mac_dual", name) if summary else None,
+               note=f" ({label}: F={F_}, Fs={len(stage)}, B={B_}, K={K_})")
+        print(f"  {name} ({label}): two mac calls {two_ms:.4f} ms = "
+              f"{two_ms / k_ms:.2f}x the dual kernel", flush=True)
+        host = []
+        for _ in range(REPS):
+            h0 = time.perf_counter()
+            td.mac_dual(ring, bank, rt, idx, ones, pidx, ones, t7, uniform)
+            host.append((time.perf_counter() - h0) * 1e3)
+        torch.cuda.synchronize()
+        print(f"  {name} ({label}): wrapper host time a call, {REPS} calls "
+              f"back to back: median {np.median(host):.4f} ms, max "
+              f"{max(host):.4f} ms (the spin before each timed call: "
+              f"{spin_ms:.4f} ms)", flush=True)
+        del ring, bank
+        torch.cuda.empty_cache()
+
+
 def write_massive_inputs(rng, frames: int):
     """Seeded 131072-tap coefficients (||taps||_2 = 0.5) as TEXT files,
     and an S24_4LE input with std 2^20 (no clipping)."""
@@ -505,6 +638,14 @@ def expect_launches(counts: dict, want: dict, label: str):
         if counts.get(key, 0) != n:
             fail(f"{label}: {key} launched {counts.get(key, 0)} times, "
                  f"expected {n}")
+
+
+def expect_only(counts: dict, want: dict, label: str):
+    """``counts`` by (module, form): every form as in ``want``, every
+    form it does not name 0."""
+    full = {k[1]: 0 for k in counts}
+    full.update(want)
+    expect_launches({k[1]: v for k, v in counts.items()}, full, label)
 
 
 def main_massive(main, mm, launched: dict):
@@ -673,9 +814,7 @@ def run_cascade(main, mods, cfg, frames, channels, label, form):
         m.reset_launches()
     y = run_main(main, cfg, frames, channels, label)
     counts = all_counts(mods)
-    want = {k[1]: 0 for k in counts}
-    want[form] = 2 * int(np.ceil(BLOCKS))
-    expect_launches({k[1]: v for k, v in counts.items()}, want, label)
+    expect_only(counts, {form: 2 * int(np.ceil(BLOCKS))}, label)
     return y, counts
 
 
@@ -734,6 +873,283 @@ def main_massive_cascade(main, mods: dict, launched: dict):
     launched[("mac", "mac_uniform")] = counts[("mac", "mac_uniform")]
 
 
+BENCH5_N, BENCH5_B, BENCH5_C = 8192, 8, 26     # the reference's bench5
+
+
+def xfade_config(work: str, name: str, N_: int, B_: int, C: int,
+                 coeffs, script=None) -> str:
+    """C crossfading filters, input i -> filter i -> output i on
+    coefficient 0, S24_4LE files ``input.raw`` / ``output.raw`` in
+    ``work``; ``coeffs``: (path, format) of each set; ``script``: a CLI
+    script, one line a block (a real newline between lines). Returns the
+    config's path."""
+    chans = ", ".join(str(i) for i in range(C))
+    sets = "\n".join(f'coeff {k} {{ filename: "{path}"; format: "{fmt}"; }};'
+                     for k, (path, fmt) in enumerate(coeffs))
+    logic = (f'logic: "cli" {{ script: "{script}"; echo: false; }};'
+             if script is not None else "")
+    filters = "\n".join(
+        f"filter {i} {{ from_inputs: {i}; to_outputs: {i}; coeff: 0; "
+        f"crossfade: true; }};" for i in range(C))
+    text = f"""
+sampling_rate: 44100;
+filter_length: {N_},{B_};
+show_progress: false;
+{logic}
+{sets}
+input {chans} {{
+    device: "file" {{ path: "{os.path.join(work, 'input.raw')}"; }};
+    sample: "S24_4LE";
+    channels: {C};
+}};
+output {chans} {{
+    device: "file" {{ path: "{os.path.join(work, 'output.raw')}"; }};
+    sample: "S24_4LE";
+    channels: {C};
+    dither: false;
+}};
+{filters}
+"""
+    path = os.path.join(work, name)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def flip_script(C: int, first: int, second: int, sleep: str = "") -> str:
+    """Two script lines: every filter to set ``first``, then every filter
+    to set ``second``, each followed by ``sleep`` (a command or "")."""
+    return "\n".join(" ".join(f"cfc {i} {k};" for i in range(C)) + sleep
+                     for k in (first, second))
+
+
+def ramped_oracle(ya, yb, N_, n, segments):
+    """The piecewise output of a crossfading filter: ``segments`` maps
+    each block index to "a", "b", "ab" (ramp a -> b) or "ba"; ramp
+    arange(N) / (N - 1), the last block cut at n samples."""
+    ramp = np.arange(N_, dtype=np.float64) / (N_ - 1)
+    out = np.empty(n)
+    for k in range(-(-n // N_)):
+        seg = slice(k * N_, min(n, (k + 1) * N_))
+        r = ramp[: seg.stop - seg.start]
+        kind = segments(k)
+        a, b = (ya, yb) if kind in ("a", "ab") else (yb, ya)
+        out[seg] = a[seg] if len(kind) == 1 else a[seg] * (1 - r) + b[seg] * r
+    return out
+
+
+def xfade_lsb(y, x, taps, N_, segments, channels):
+    """Max |y - oracle| (float64, not rounded) over ``channels``, and the
+    largest oracle peak among the two sets."""
+    from scipy.signal import fftconvolve
+    n = y.shape[0]
+    worst = peak = 0.0
+    for c in channels:
+        ya, yb = (fftconvolve(x[:, c].astype(np.float64),
+                              h.astype(np.float64))[:n] for h in taps)
+        ref = ramped_oracle(ya, yb, N_, n, segments)
+        worst = max(worst, float(np.abs(y[:, c] - ref).max()))
+        peak = max(peak, float(np.abs(ya).max()), float(np.abs(yb).max()))
+    return worst, peak
+
+
+def write_bench5_inputs(work: str, frames: int, seed: int = SEED + 7):
+    """The reference's bench5_config at its shipped 8192 x 8 with two
+    seeded 65536-tap sets (uniform in +-0.003, as
+    tests/test_fullshape_parity.py makes them) as RAW float32 files in
+    place of its coefficient and dirac, a 26-channel S24_4LE input
+    uniform in +-2^20, and its script: every filter to set 0, then every
+    filter to set 1, one line a block. Returns (taps, x, config path)."""
+    N_, B_, C = BENCH5_N, BENCH5_B, BENCH5_C
+    rng = np.random.default_rng(seed)
+    taps = [(rng.uniform(-1.0, 1.0, N_ * B_) * 0.003).astype(np.float32)
+            for _ in range(2)]
+    for k, h in enumerate(taps):
+        h.astype("<f4").tofile(os.path.join(work, f"x{k}.raw"))
+    x = rng.integers(-(1 << 20), 1 << 20, (frames, C)).astype("<i4")
+    x.tofile(os.path.join(work, "input.raw"))
+    cfg = xfade_config(work, "bench5.conf", N_, B_, C,
+                       [(os.path.join(work, f"x{k}.raw"), "FLOAT_LE")
+                        for k in range(2)], flip_script(C, 0, 1))
+    return taps, x, cfg
+
+
+def main_bench5(main, mods: dict, launched: dict):
+    N_, C = BENCH5_N, BENCH5_C
+    frames = int(BLOCKS * N_)
+    taps, x, cfg = write_bench5_inputs(WORK, frames)
+    for m in mods.values():
+        m.reset_launches()
+    y = run_main(main, cfg, frames, C, "bench5")
+    counts = all_counts(mods)
+    blocks = int(np.ceil(BLOCKS))
+    expect_only(counts, {"mac_dual_uniform": blocks - 1, "uniform": 1},
+                "bench5")
+    worst, peak = xfade_lsb(
+        y.astype(np.float64), x, taps, N_,
+        lambda k: "a" if k == 0 else ("ab" if k % 2 else "ba"),
+        range(0, C, 5))
+    tol = 8e-6 * peak + 4.0
+    print(f"main path (bench5): max |y - ramp oracle| {worst:.3f} LSB (tol "
+          f"8e-6 * {peak:.0f} + 4 = {tol:.3f}) on channels 0, 5, ..., 25",
+          flush=True)
+    if not worst <= tol:
+        fail("bench5 off the float64 linear-ramp oracle")
+    launched[("mac_dual", "mac_dual_uniform")] = counts[
+        ("mac_dual", "mac_dual_uniform")]
+
+
+SWAP_BLOCKS = 130.5      # crossfades at blocks 0, 64 and 128
+
+
+def main_massive_swap(main, mods: dict):
+    frames = int(SWAP_BLOCKS * K)
+    taps, x = write_massive_inputs(np.random.default_rng(SEED + 8), frames)
+    cfg = xfade_config(WORK, "swap.conf", K, B, F,
+                       [(os.path.join(WORK, f"taps{k}.txt"), "TEXT")
+                        for k in range(2)],
+                       flip_script(F, 1, 0, " sleep b63"))
+    for m in mods.values():
+        m.reset_launches()
+    y = run_main(main, cfg, frames, F, "massive, swap every 64 blocks")
+    blocks = int(np.ceil(SWAP_BLOCKS))
+    expect_only(all_counts(mods), {"mac_dual_uniform": 3,
+                                   "uniform": blocks - 3},
+                "massive, swap every 64 blocks")
+    segments = {0: "ab", 64: "ba", 128: "ab"}
+
+    def seg(k):
+        return segments.get(k, "b" if (k // 64) % 2 == 0 else "a")
+
+    worst, _ = xfade_lsb(y.astype(np.float64), x, taps, K, seg,
+                         range(0, F, 4))
+    print(f"main path (massive, swap every 64 blocks): max |y - oracle| "
+          f"{worst:.3f} LSB (tol {LSB_TOL}) on channels 0, 4, ..., 24",
+          flush=True)
+    if not worst <= LSB_TOL:
+        fail("the massive swap path is off the float64 oracle")
+
+
+SPLIT_BLOCKS = 27.5      # 2 batches, the swap batch, the EOF tail
+
+
+def offline_split(mods: dict):
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.runtime.engine import Engine
+    frames = int(SPLIT_BLOCKS * K)
+    taps, x = write_massive_inputs(np.random.default_rng(SEED + 9), frames)
+    cfg = xfade_config(WORK, "split.conf", K, B, F,
+                       [(os.path.join(WORK, f"taps{k}.txt"), "TEXT")
+                        for k in range(2)])
+    with open(cfg) as fh:
+        eng = Engine(parse_config(fh.read()))
+    out = os.path.join(WORK, "output.raw")
+    for m in mods.values():
+        m.reset_launches()
+    eng.setup()
+    try:
+        eng.run_offline(max_blocks=16, setup=False)
+        for i in range(F):
+            eng.control.change_coeff(i, 1)
+        eng.run_offline(setup=False)
+    finally:
+        eng.teardown()
+    blocks = int(np.ceil(SPLIT_BLOCKS))
+    expect_only(all_counts(mods), {"mac_dual_uniform": 1,
+                                   "uniform": blocks - 1}, "offline split")
+    y = np.fromfile(out, dtype="<i4")
+    if y.size != frames * F:
+        fail(f"offline split wrote {y.size // F} frames, read {frames}")
+    worst, _ = xfade_lsb(
+        y.reshape(frames, F).astype(np.float64), x, taps, K,
+        lambda k: "a" if k < 16 else ("ab" if k == 16 else "b"),
+        range(0, F, 4))
+    print(f"offline split: {blocks} blocks, swap before block 16: max |y - "
+          f"oracle| {worst:.3f} LSB (tol {LSB_TOL}) on channels 0, 4, ..., "
+          f"24", flush=True)
+    if not worst <= LSB_TOL:
+        fail("the offline split is off the float64 oracle")
+
+
+# block 0 swaps every first-stage filter's set, block 3 swaps filters 2
+# and 3 back, and so on every third block
+CASCADE_SCRIPT = ("cfc 2 3; cfc 3 2; cfc 4 5; cfc 5 4; sleep b2\n"
+                  "cfc 2 2; cfc 3 3; sleep b2")
+
+
+def cascade_sets(k):
+    """The coefficient sets of filters 2-5 on block k (k = -1: the
+    config's) under CASCADE_SCRIPT."""
+    if k < 0:
+        return [2, 3, 4, 5]
+    return [3, 2, 5, 4] if (k // 3) % 2 == 0 else [2, 3, 5, 4]
+
+
+def cascade_xfade_oracle(taps, x):
+    """The float64 output of the crossfading bench1 cascade [frames, 2]:
+    each first-stage filter's output ramps linearly (arange(N) / (N - 1))
+    from its old set to its new one over a block where its set changes."""
+    from scipy.signal import fftconvolve
+    n, N_ = x.shape[0], BENCH1_N
+
+    def conv(a, h):
+        return fftconvolve(a, h.astype(np.float64))[:n]
+
+    ramp = np.arange(N_, dtype=np.float64) / (N_ - 1)
+    z = {}
+    for j, (f, c) in enumerate(((2, 0), (3, 0), (4, 1), (5, 1))):
+        ys = {h: conv(x[:, c].astype(np.float64), taps[h])
+              for h in range(2, 6)}
+        out = np.empty(n)
+        for k in range(-(-n // N_)):
+            seg = slice(k * N_, min(n, (k + 1) * N_))
+            old, new = cascade_sets(k - 1)[j], cascade_sets(k)[j]
+            r = ramp[: seg.stop - seg.start]
+            out[seg] = (ys[new][seg] if old == new
+                        else ys[old][seg] * (1 - r) + ys[new][seg] * r)
+        z[f] = out
+    return np.stack([conv(z[2] + z[5], taps[0]), conv(z[3] + z[4], taps[1])],
+                    axis=1)
+
+
+def main_bench1_xfade(main, mods: dict, launched: dict):
+    frames = int(BLOCKS * BENCH1_N)
+    taps, x, _ = write_bench1_inputs(WORK, frames, SEED + 10)
+    text = bench1_config(WORK).replace(
+        "sampling_rate: 44100;",
+        f'sampling_rate: 44100;\nlogic: "cli" {{ script: "{CASCADE_SCRIPT}"; '
+        f'echo: false; }};')
+    for i in range(2, 6):
+        old = f"coeff: {i}; }};"
+        if old not in text:
+            fail(f"could not make filter {i} crossfade in the bench1 config")
+        text = text.replace(old, f"coeff: {i}; crossfade: true; }};")
+    cfg = os.path.join(WORK, "bench1_xfade.conf")
+    with open(cfg, "w") as fh:
+        fh.write(text)
+    label = "bench1 cascade, crossfading first stage"
+    for m in mods.values():
+        m.reset_launches()
+    y = run_main(main, cfg, frames, 2, label)
+    counts = all_counts(mods)
+    blocks = int(np.ceil(BLOCKS))
+    swaps = len(range(0, blocks, 3))
+    expect_only(counts, {"mac_dual_rows": swaps,
+                         "mac_rows": 2 * blocks - swaps}, label)
+    ref = cascade_xfade_oracle(taps, x)
+    for c in range(2):
+        peak = np.abs(ref[:, c]).max()
+        err = np.abs(y[:, c] - ref[:, c]).max()
+        tol = 2e-5 * peak + 4.0
+        print(f"main path ({label}): channel {c}: max |y - oracle| "
+              f"{err:.3f} (tol 2e-5 * {peak:.0f} + 4 = {tol:.3f})",
+              flush=True)
+        if not err <= tol:
+            fail(f"{label} off the float64 oracle on channel {c}")
+    launched[("mac_dual", "mac_dual_rows")] = counts[
+        ("mac_dual", "mac_dual_rows")]
+
+
 def run():
     phase("card")
     # one card: the first visible one, so device_count() below is 1
@@ -748,7 +1164,7 @@ def run():
           f"{torch.version.cuda}", flush=True)
 
     phase("build")
-    from brutefir_tpu_torch.ops import (_build, mac as tm,
+    from brutefir_tpu_torch.ops import (_build, mac as tm, mac_dual as td,
                                         mac_group as mg, mac_mix as mm)
     from brutefir_tpu_torch.__main__ import main
     t0 = time.perf_counter()
@@ -771,6 +1187,8 @@ def run():
     kernels_scale(mm, mg, rows, flush)
     phase("kernel vs plain, the unfused MAC")
     kernels_mac(tm, rows, flush)
+    phase("kernel vs plain, the crossfade dual MAC")
+    kernels_dual(td, tm, rows, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -785,6 +1203,15 @@ def run():
     main_bench1(main, mods, launched)
     phase("main path, massive cascade")
     main_massive_cascade(main, mods, launched)
+    mods["mac_dual"] = td
+    phase("main path, bench5 crossfade every block")
+    main_bench5(main, mods, launched)
+    phase("main path, massive with a swap every 64 blocks")
+    main_massive_swap(main, mods)
+    phase("offline split")
+    offline_split(mods)
+    phase("main path, bench1 cascade with a crossfading first stage")
+    main_bench1_xfade(main, mods, launched)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules

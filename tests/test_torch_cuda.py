@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from brutefir_tpu_torch.config import parse_config
-from brutefir_tpu_torch.ops import mac as tm, mac_group as mg, mac_mix as mm
+from brutefir_tpu_torch.ops import (mac as tm, mac_dual as td,
+                                    mac_group as mg, mac_mix as mm)
 
 
 @pytest.fixture
@@ -114,6 +115,52 @@ def test_unfused_mac_kernel_matches_plain_version(cuda, uniform, F, B, K, E,
         assert tm.launches[form] == before + 1
         assert got.shape == (len(rows), 2, K)
         assert (got - ref).abs().max().item() / ref.abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uniform", [True, False])
+@pytest.mark.parametrize("F,B,K,E,rows", [
+    (26, 8, 8192, 2, list(range(26))),   # bench5's shape
+    (6, 8, 8192, 7, [2, 3, 4, 5]),       # a stage of bench1's topology
+    (5, 6, 1000, 3, [4, 1, 1]),          # K not a multiple of the block
+])
+def test_dual_mac_kernel_matches_plain_version(cuda, uniform, F, B, K, E,
+                                               rows):
+    """csrc/mac_dual.cu: both products against two plain MACs, the
+    stage's rows read in place, prev_mask != mask, t over ring wraps."""
+    ring, bank, idx, mask, _ = _mac_inputs(F * K + 1, F, B, K, E, 1,
+                                           uniform, cuda)
+    mask[:, 0] = 1.0
+    pidx = (idx + 1) % E
+    pmask = mask.clone()
+    pmask[:, B // 2:] = 0.0
+    r = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    form = "mac_dual_uniform" if uniform else "mac_dual_rows"
+    for tv in (0, 5, B - 1, B, 2 * B + 5):
+        t = torch.tensor(tv, dtype=torch.int32, device=cuda)
+        before = td.launches[form]
+        got = td.mac_dual(ring, bank, r, idx, mask, pidx, pmask, t, uniform)
+        ref = td.mac_dual_reference(ring, bank, r, idx, mask, pidx, pmask,
+                                    t, uniform)
+        torch.cuda.synchronize()
+        assert td.launches[form] == before + 1
+        for a, b in zip(got, ref):
+            assert a.shape == (len(rows), 2, K)
+            assert (a - b).abs().max().item() / b.abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_failed_dual_launch_raises(cuda, monkeypatch):
+    class Refused:
+        def __getattr__(self, name):
+            return lambda *a: 9          # cudaErrorInvalidConfiguration
+    monkeypatch.setattr(td._build, "load", lambda stem: Refused())
+    ring, bank, idx, mask, _ = _mac_inputs(2, 3, 2, 128, 2, 1, False, cuda)
+    t = torch.tensor(0, dtype=torch.int32, device=cuda)
+    before = dict(td.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        td.mac_dual(ring, bank, idx[:2], idx, mask, idx, mask, t, False)
+    assert td.launches == before
 
 
 def _group_inputs(seed, F, B, K, E, G, C, dev):
@@ -319,4 +366,47 @@ filter 5 {{ from_inputs: 1; to_filters: 0; coeff: 5; }};
     yg = np.fromfile(tmp_path / "gpu.raw", "<i4").astype(np.int64)
     yc = np.fromfile(tmp_path / "cpu.raw", "<i4").astype(np.int64)
     assert yg.size == frames * 2 and np.abs(yg).max() > 2 ** 16
+    assert np.abs(yg - yc).max() <= 2
+
+
+@pytest.mark.cuda
+def test_crossfade_engine_on_card_matches_cpu(cuda, tmp_path):
+    """A bench5-topology CLI script (every filter's coefficient flipped
+    every block) at 256 x 4 partitions, file to file on the card and on
+    the CPU: one dual MAC launch a block after the first, within 2 LSB."""
+    from brutefir_tpu_torch.runtime.engine import Engine
+    N, B, C = 256, 4, 3
+    rng = np.random.default_rng(11)
+    for k in range(2):
+        (rng.uniform(-1, 1, N * B) * 0.03).astype("<f4").tofile(
+            tmp_path / f"h{k}.raw")
+    frames = N * 9 + 100
+    rng.integers(-(1 << 20), 1 << 20, (frames, C)).astype("<i4").tofile(
+        tmp_path / "in.raw")
+    line0 = " ".join(f"cfc {i} 0;" for i in range(C))
+    line1 = " ".join(f"cfc {i} 1;" for i in range(C))
+
+    def conf(name):
+        filters = "".join(
+            f"filter {i} {{ from_inputs: {i}; to_outputs: {i}; coeff: 0; "
+            f"crossfade: true; }};\n" for i in range(C))
+        return parse_config(f"""
+sampling_rate: 44100;
+filter_length: {N},{B};
+logic: "cli" {{ script: "{line0}\n{line1}"; echo: false; }};
+coeff 0 {{ filename: "{tmp_path / 'h0.raw'}"; format: "FLOAT_LE"; }};
+coeff 1 {{ filename: "{tmp_path / 'h1.raw'}"; format: "FLOAT_LE"; }};
+input 0,1,2 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: {C}; }};
+output 0,1,2 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "S24_4LE"; channels: {C}; dither: false; }};
+{filters}""")
+
+    before = dict(td.launches)
+    sg = Engine(conf("gpu.raw"), device=cuda).run_offline()
+    assert (td.launches["mac_dual_uniform"]
+            - before["mac_dual_uniform"]) == sg["blocks"] - 1
+    sc = Engine(conf("cpu.raw"), device=torch.device("cpu")).run_offline()
+    assert sg["frames"] == sc["frames"] == frames
+    yg = np.fromfile(tmp_path / "gpu.raw", "<i4").astype(np.int64)
+    yc = np.fromfile(tmp_path / "cpu.raw", "<i4").astype(np.int64)
+    assert yg.size == frames * C and np.abs(yg).max() > 2 ** 16
     assert np.abs(yg - yc).max() <= 2

@@ -247,17 +247,20 @@ output 0,1 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "{fmt}"; 
         assert np.all(yt.reshape(-1, 2)[:, 1] == 0)
 
 
+_FILTER0 = 'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; };'
 OUTSIDE = {
-    "crossfade": 'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; '
+    # crossfade and the CLI run in the port; an output channel delay
+    # (item 5) does not
+    "out_delay": 'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; '
                  'crossfade: true; };',
     # cascades run in the port; an input channel delay (below) does not
     "cascade": 'filter 0 { from_inputs: 0; to_filters: 1; coeff: 0; };\n'
                'filter 1 { from_filters: 0; to_outputs: 0; coeff: 0; };',
-    "logic": 'logic: "cli" { script: "ppk"; };\n'
-             'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; };',
+    # the EQ logic module (item 4)
+    "logic_eq": 'logic: "eq" { debug_dump_filter: "/tmp/x%d"; '
+                '{ coeff: 0; bands: 20, 20000; }; };\n' + _FILTER0,
     "dither": None,
-    "float64": 'float_bits: 64;\n'
-               'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; };',
+    "float64": 'float_bits: 64;\n' + _FILTER0,
 }
 
 
@@ -267,14 +270,14 @@ def test_config_outside_the_slice_raises(tmp_path, kind):
     (tmp_path / "in.raw").write_bytes(b"")
     dither = "true" if kind == "dither" else "false"
     in_delay = "delay: 1;" if kind == "cascade" else ""
-    body = OUTSIDE[kind] or \
-        'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; };'
+    out_delay = "delay: 1;" if kind == "out_delay" else ""
+    body = OUTSIDE[kind] or _FILTER0
     conf = parse_config(f"""
 sampling_rate: 44100;
 filter_length: 128,2;
 coeff 0 {{ filename: "dirac pulse"; }};
 input 0 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: 1; {in_delay} }};
-output 0 {{ device: "file" {{ path: "{tmp_path / 'out.raw'}"; }}; sample: "S24_4LE"; channels: 1; dither: {dither}; }};
+output 0 {{ device: "file" {{ path: "{tmp_path / 'out.raw'}"; }}; sample: "S24_4LE"; channels: 1; dither: {dither}; {out_delay} }};
 {body}
 """)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
@@ -337,3 +340,41 @@ def test_offline_output_matches_convolution_oracle(tmp_path):
         ref = np.round(scipy.signal.fftconvolve(
             x[:, c], taps.astype(np.float64))[:frames])
         assert np.abs(y[:, c] - ref).max() <= 2
+
+
+def test_main_runs_a_pipe_block_by_block(tmp_path, monkeypatch):
+    """A file device on a live endpoint (a FIFO) is not batch safe: the
+    port's __main__ runs it through the per-block run(), and the output
+    equals the batched run of the same samples from a regular file."""
+    import threading
+    from brutefir_tpu_torch.__main__ import main
+    from brutefir_tpu_torch.runtime.engine import Engine
+    N = 256
+    _taps_file(tmp_path / "c0.txt", N * 2, seed=13)
+    _s24_input(tmp_path / "in.raw", N * 5 + 30, 2, seed=14)
+    Engine(parse_config(_config(tmp_path, "o_file.raw", [0, 0])),
+           device=CPU).run_offline()
+    fifo = tmp_path / "pipe"
+    os.mkfifo(fifo)
+    cfg = tmp_path / "p.conf"
+    cfg.write_text(_config(tmp_path, "o_pipe.raw", [0, 0]).replace(
+        str(tmp_path / "in.raw"), str(fifo)))
+    used = []
+    for name in ("run", "run_offline"):
+        orig = getattr(Engine, name)
+        monkeypatch.setattr(Engine, name, lambda self, *a, _o=orig,
+                            _n=name, **k: (used.append(_n),
+                                           _o(self, *a, **k))[1])
+    data = (tmp_path / "in.raw").read_bytes()
+
+    def feed():
+        with open(fifo, "wb") as fh:
+            fh.write(data)
+
+    th = threading.Thread(target=feed, daemon=True)
+    th.start()
+    assert main(["-quiet", "-nodefault", str(cfg)], device=CPU) == 0
+    th.join(timeout=10)
+    assert used == ["run"]
+    assert ((tmp_path / "o_pipe.raw").read_bytes()
+            == (tmp_path / "o_file.raw").read_bytes())

@@ -1,7 +1,8 @@
 """brutefir_tpu_torch imports neither jax nor anything of the JAX package
 brutefir_tpu (it keeps its own copies of the framework-free layers), its
-config parser accepts exactly what the JAX one does, and it pins full
-FP32 matmuls."""
+config parser accepts exactly what the JAX one does, its CLI logic
+module is the JAX one's (same file, same answers), and it pins full FP32
+matmuls."""
 
 import os
 import subprocess
@@ -31,6 +32,8 @@ def test_port_imports_no_jax():
         "import brutefir_tpu_torch.ops.mac_mix\n"
         "import brutefir_tpu_torch.convert\n"
         "import brutefir_tpu_torch.ops.mac_group\n"
+        "import brutefir_tpu_torch.ops.mac_dual\n"
+        "import brutefir_tpu_torch.control.cli\n"
         + _NOTHING_OF_JAX +
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -219,3 +222,118 @@ def test_io_modules_other_than_file_are_not_ported_yet():
         with pytest.raises(NotImplementedError,
                            match="ROADMAP queue 1 item 4"):
             get_io_module(name, ".")
+
+
+def _code_lines(path):
+    """The lines of a source file other than its import lines."""
+    with open(path) as fh:
+        return [ln for ln in fh.read().splitlines()
+                if not ln.strip().startswith(("import ", "from "))]
+
+
+def test_cli_module_is_a_copy_of_the_jax_one():
+    """control/cli.py is framework-free: the port's is the JAX package's,
+    line for line apart from import lines."""
+    ours = _code_lines(os.path.join(REPO, "brutefir_tpu_torch", "control",
+                                    "cli.py"))
+    theirs = _code_lines(os.path.join(REPO, "brutefir_tpu", "control",
+                                      "cli.py"))
+    assert ours == theirs
+
+
+_CLI_CONFIG = """
+sampling_rate: 44100;
+filter_length: 128,2;
+logic: "cli" {{ script: "lf"; echo: false; }};
+coeff "a" {{ filename: "dirac pulse"; }};
+coeff "b" {{ filename: "dirac pulse"; }};
+input "l", "r" {{ device: "file" {{ path: "{d}/in.raw"; }}; sample: "S24_4LE"; channels: 2; }};
+output "l", "r" {{ device: "file" {{ path: "{d}/out.raw"; }}; sample: "S24_4LE"; channels: 2; dither: false; }};
+filter "f0" {{ from_inputs: "l"; to_outputs: "l"; to_filters: "f2"; coeff: "a"; crossfade: true; }};
+filter "f1" {{ from_inputs: "r"/-3; to_outputs: "r"; coeff: "a"; }};
+filter "f2" {{ from_inputs: "l"; from_filters: "f0"/2; to_outputs: "r"/6; coeff: "b"; }};
+"""
+_CLI_SCRIPT = [
+    "lf; lc; li; lo; lm; ppk; help; rti",
+    'cfc 0 1; cfoa 0 0 6; cfia 1 "r" M0.5; cffa 2 0 3.5; tmo 1; cfc "f1" "b"',
+    "lf; lo; cfc 9 0; cfoa 0 1 3; cfia 0 0 x; tmo 7; cfd 1 5; bogus",
+    "cfd 1 1; cffa 2 0 M-2; cfc 2 -1; lf; li",
+]
+
+
+def test_cli_commands_match_jax(tmp_path):
+    """The same script through both packages' CLI modules, on CPU engines
+    of one config: the same text, and the same control state after each
+    line (every snapshot field equal)."""
+    import io
+    from brutefir_tpu.config import parse_config as jax_parse_config
+    from brutefir_tpu.control.cli import CliModule as JaxCli
+    from brutefir_tpu.runtime import Engine as JaxEngine
+    from brutefir_tpu_torch.control.cli import CliModule, _SleepTask
+    from brutefir_tpu_torch.convert import ctrl_from_jax
+    from brutefir_tpu_torch.runtime.engine import Engine
+    text = _CLI_CONFIG.format(d=tmp_path)
+    jconf, tconf = jax_parse_config(text), parse_config(text)
+    jeng = JaxEngine(jconf)
+    teng = Engine(tconf, device=torch.device("cpu"))
+    jcli = JaxCli(jconf.logic_modules[0][1], jeng)
+    tcli = CliModule(tconf.logic_modules[0][1], teng)
+    cpu = torch.device("cpu")
+    texts = []
+    for line in _CLI_SCRIPT:
+        outs = []
+        for cli in (jcli, tcli):
+            buf = io.StringIO()
+            assert cli.run_line(buf, line, _SleepTask())
+            outs.append(buf.getvalue())
+        assert outs[0] == outs[1], line
+        texts.append(outs[1])
+        jc, tc = jeng.control, teng.control
+        for a, b in zip(jc.fctrl, tc.fctrl):
+            assert ((a.coeff, a.delayblocks, a.in_scales, a.out_scales,
+                     a.fscales) == (b.coeff, b.delayblocks, b.in_scales,
+                                    b.out_scales, b.fscales)), line
+        assert jc.mute == tc.mute
+        conv = ctrl_from_jax(jc.snapshot(), cpu)
+        tctrl = tc.snapshot()
+        for name in tctrl._fields:
+            assert torch.equal(getattr(tctrl, name), getattr(conv, name)), \
+                (line, name)
+        assert tc.snapshot_xfade == jc.snapshot_xfade
+    assert teng.control.fctrl[0].coeff == 1 and teng.control.mute[1][1]
+    # listings, help and error messages were printed; line 2 is silent
+    assert all(texts[i] for i in (0, 2, 3)) and texts[1] == ""
+    assert "Unknown command" in texts[2] and "Commands:" in texts[0]
+
+
+def test_port_cli_script_run_imports_no_jax(tmp_path):
+    """A crossfade config driven by a CLI script through the port's
+    __main__ (run_offline falls back to the per-block run()) on the CPU
+    pulls in no jax either, and writes every frame."""
+    x = (np.random.default_rng(4).standard_normal((700, 1)) * 2 ** 18)
+    x.astype("<i4").tofile(tmp_path / "in.raw")
+    cfg = tmp_path / "c.conf"
+    cfg.write_text(f"""
+sampling_rate: 44100;
+filter_length: 128,2;
+logic: "cli" {{ script: "cfc 0 1\ncfc 0 0"; echo: false; }};
+coeff 0 {{ filename: "dirac pulse"; }};
+coeff 1 {{ filename: "dirac pulse"; format: "TEXT"; attenuation: 6.0; }};
+input 0 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S32_LE"; channels: 1; }};
+output 0 {{ device: "file" {{ path: "{tmp_path / 'out.raw'}"; }}; sample: "S32_LE"; channels: 1; dither: false; }};
+filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; crossfade: true; }};
+""")
+    code = (
+        "import sys, torch\n"
+        "from brutefir_tpu_torch.__main__ import main\n"
+        f"rc = main(['-quiet', '-nodefault', {str(cfg)!r}],\n"
+        "          device=torch.device('cpu'))\n"
+        "assert rc == 0, rc\n"
+        + _NOTHING_OF_JAX +
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=REPO, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+    assert os.path.getsize(tmp_path / "out.raw") == 700 * 4

@@ -4,8 +4,8 @@ On first use each source is compiled with plain ``nvcc`` into a shared
 library of its own with a C interface, loaded with ``ctypes``. The
 compilers run side by side, one process per source, all started
 together. The libraries land in ``build/brutefir_tpu_torch/`` at the
-repository root, named by a hash of the source and flags, so an edited
-source rebuilds and an unchanged one is reused.
+repository root, named by a hash of the source, the shared headers and
+the flags, so an edited source rebuilds and an unchanged one is reused.
 ``torch.utils.cpp_extension.load`` is not used: a source that includes
 PyTorch's headers takes minutes to compile, a plain C interface seconds.
 
@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# source stem -> {C function: argtypes}; every function returns a cudaError
+# source stem -> {C function: argtypes}; every launch returns a cudaError
 SIGNATURES = {
     "mac": {"bf_mac": [_P] * 7 + [_I] * 6 + [_P]},
     "mac_dual": {"bf_mac_dual": [_P] * 10 + [_I] * 6 + [_P]},
@@ -37,6 +37,11 @@ SIGNATURES = {
     "mac_mix_tiled": {"bf_mac_mix_tiled": [_P] * 7 + [_I] * 5 + [_P]},
     "mac_group": {"bf_mac_group": [_P] * 8 + [_I] * 5 + [_P],
                   "bf_mac_mix_group": [_P] * 9 + [_I] * 6 + [_P]},
+    "fft_glue": {"bf_glue_fwd": [_P] * 3 + [_I] * 2 + [_P],
+                 "bf_glue_inv": [_P] * 3 + [_I] * 2 + [_P]},
+    "fft_fused": {"bf_fft_fused_fwd": [_P] * 5 + [_I] * 2 + [_P],
+                  "bf_fft_fused_inv": [_P] * 5 + [_I] * 3 + [_P],
+                  "bf_fft_fused_needs_scratch": [_I]},
 }
 
 _lock = threading.Lock()
@@ -63,9 +68,12 @@ def sources() -> list:
 
 
 def library_path(src: Path) -> Path:
+    """The library of ``src``, named by a hash of the flags, the source
+    and the shared headers (``csrc/*.cuh``) it may include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(src.name.encode())
-    h.update(src.read_bytes())
+    for part in [src] + sorted(CSRC.glob("*.cuh")):
+        h.update(part.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 

@@ -13,9 +13,12 @@ spectra), the d1s/d2s special case of the reference kernels.
 On the device spectra are separate real/imag float planes ``[..., 2, N]``
 (plane axis second-to-last), the layout the MAC kernel reads.
 
-The FFTs are cuFFT (``torch.fft``) and the channel mixes ``torch.matmul``
-in full FP32, as the JAX package left them to XLA. The plain MACs below
-are the correctness baseline for the CUDA kernels in
+The real transforms are the glue route of
+:mod:`brutefir_tpu_torch.ops.fft_glue` (an M-point complex cuFFT plus the
+hand-written glue kernel, the JAX package's ``BRUTEFIR_TPU_FFT_GLUE=pallas``
+route, taken here at every shape) and the channel mixes ``torch.matmul``
+in full FP32, as the JAX package left them to XLA. The plain MACs
+below are the correctness baseline for the CUDA kernels in
 :mod:`brutefir_tpu_torch.ops.mac_mix`, ``mac_group``, ``mac`` and
 ``mac_dual``.
 """
@@ -26,6 +29,8 @@ import functools
 
 import numpy as np
 import torch
+
+from . import fft_glue
 
 
 # --- numpy helpers (host-side coefficient preprocessing) --------------------
@@ -90,60 +95,12 @@ def dirac_bank_entry(block_length: int, n_blocks: int,
 
 # --- torch transforms --------------------------------------------------------
 
-def rfft_planes(x: torch.Tensor) -> torch.Tensor:
-    """rfft of real ``x [..., 2M]`` -> packed spectrum planes ``[..., 2, M]``."""
-    X = torch.fft.rfft(x, dim=-1)                       # [..., M+1]
-    re = X.real[..., :-1]
-    im = torch.cat([X.real[..., -1:], X.imag[..., 1:-1]], dim=-1)
-    return torch.stack([re, im], dim=-2)
-
-
-@functools.lru_cache(maxsize=16)
-def _untangle_consts(M: int, dtype, device):
-    """``a = (1 + iW)/2``, ``b = (1 - iW)/2`` with ``W[k] = e^{i pi k/M}``,
-    computed in float64 and rounded once to the working type. Cached per
-    (M, dtype, device): building them is a host->device copy, which would
-    stall the host on every block."""
-    W = np.exp(1j * np.pi * np.arange(M) / M)
-    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
-    a = torch.as_tensor((1.0 + 1j * W) * 0.5).to(device=device, dtype=cdt)
-    b = torch.as_tensor((1.0 - 1j * W) * 0.5).to(device=device, dtype=cdt)
-    return a, b
-
-
-def irfft_planes_valid(p: torch.Tensor) -> torch.Tensor:
-    """Valid (lower) half of the inverse transform: packed planes
-    ``[..., 2, M]`` -> real ``[..., M]`` (samples 0..M-1 of the 2M frame).
-
-    The half-size form of the JAX package: an M-point complex inverse FFT
-    of ``V[k] = a[k] X[k] + b[k] conj(X[M-k])``, of which only the first
-    M/2 outputs are interleaved (the overlap-save step keeps the lower
-    half only)."""
-    M = p.shape[-1]
-    re, im = p[..., 0, :], p[..., 1, :]
-    zero = torch.zeros_like(re[..., :1])
-    # X[k] for k = 0..M-1, with bin 0 = DC (real)
-    Xk = torch.complex(re, torch.cat([zero, im[..., 1:]], dim=-1))
-    # X[M-k]: the Nyquist bin at k = 0, conj-mirrored bins after
-    Xr = torch.complex(
-        torch.cat([im[..., :1], torch.flip(re[..., 1:], dims=(-1,))], dim=-1),
-        torch.cat([zero, -torch.flip(im[..., 1:], dims=(-1,))], dim=-1))
-    a, b = _untangle_consts(M, p.dtype, p.device)
-    z = torch.fft.ifft(a * Xk + b * Xr, dim=-1)
-    zv = z[..., : M // 2]
-    return torch.stack([zv.real, zv.imag], dim=-1).reshape(
-        *z.shape[:-1], M)
-
-
-def irfft_planes(p: torch.Tensor) -> torch.Tensor:
-    """Full inverse of :func:`rfft_planes`: packed planes ``[..., 2, M]``
-    -> real ``[..., 2M]`` (cuFFT's irfft of the unpacked M+1 bins)."""
-    M = p.shape[-1]
-    re, im = p[..., 0, :], p[..., 1, :]
-    zero = torch.zeros_like(re[..., :1])
-    X = torch.complex(torch.cat([re, im[..., :1]], dim=-1),
-                      torch.cat([zero, im[..., 1:], zero], dim=-1))
-    return torch.fft.irfft(X, n=2 * M, dim=-1)
+# The three transforms are the glue route of :mod:`.fft_glue`: cuFFT's
+# M-point complex FFT of the even/odd sample pairs around the hand-written
+# Hermitian glue kernel (on a CPU tensor, its plain torch version).
+rfft_planes = fft_glue.rfft_planes_glue            # [..., 2M] -> [..., 2, M]
+irfft_planes = fft_glue.irfft_planes_glue          # [..., 2, M] -> [..., 2M]
+irfft_planes_valid = fft_glue.irfft_planes_valid_glue  # -> [..., M], lower half
 
 
 @functools.lru_cache(maxsize=16)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes in a file-to-file run of the 256-channel scale
-shape, of the massive_config shape, of a filter cascade or of bench5's
-crossfade every block, on one NVIDIA GPU.
+shape, of the massive_config shape, of a filter cascade (crossfading or
+not) or of bench5's crossfade every block, on one NVIDIA GPU.
 
 Usage (from the repository root, one CUDA card):
 
     python3 chip_profile.py [--shape scale|massive|bench1|massive_cascade|
-                                     bench5] [--blocks N] [--pair G]
+                                     bench5|bench1_xfade] [--blocks N]
+                            [--pair G]
 
 Writes the shape's seeded inputs for N blocks (default 64) as
 ``chip_smoke.py`` does: the scale shape (``write_scale_inputs``: 256 x
@@ -19,7 +20,8 @@ with a second stage (``massive_cascade_config``: 26 x 26 through 52
 filters, one shared coefficient) or the reference's bench5_config
 (``write_bench5_inputs``: 26 crossfading filters of 8192 x 8 whose
 coefficient a CLI script flips every block, through the per-block
-``run()``), then runs the port's engine three times on them: once to warm up (kernel build, cuFFT plans), once timed on the
+``run()``) or bench1's cascade with filters 2-5 crossfading under a CLI
+script (``write_bench1_xfade_inputs``, also through ``run()``), then runs the port's engine three times on them: once to warm up (kernel build, cuFFT plans), once timed on the
 host clock, once under ``torch.profiler`` (CPU and CUDA activities).
 Prints the card, the engine's wall time a
 block and realtime factor, the host time a block of each pipeline stage
@@ -61,7 +63,8 @@ def _time_calls(obj, name: str, acc: dict) -> None:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", choices=("scale", "massive", "bench1",
-                                        "massive_cascade", "bench5"),
+                                        "massive_cascade", "bench5",
+                                        "bench1_xfade"),
                     default="scale")
     ap.add_argument("--blocks", type=int, default=64)
     ap.add_argument("--pair", default=None)
@@ -87,6 +90,8 @@ def main():
         _, _, cfg = cs.write_bench1_inputs(cs.WORK, frames)
     elif args.shape == "bench5":
         _, _, cfg = cs.write_bench5_inputs(cs.WORK, frames)
+    elif args.shape == "bench1_xfade":
+        _, _, cfg = cs.write_bench1_xfade_inputs(cs.WORK, frames)
     else:
         cs.write_massive_inputs(np.random.default_rng(cs.SEED), frames)
         cfg = (cs.massive_config("profile.conf", False)

@@ -23,37 +23,14 @@ Phases, in order; any failure exits non-zero:
      bins, 256 distinct coefficient sets): the bin-tiled fused MAC + mix,
      the grouped MAC at G = 4 and G = 3, the grouped fused MAC + mix at
      G = 2;
-4. main path, massive: ``python -m brutefir_tpu_torch``'s ``main()`` on
-   the exact examples/multichannel_massive.conf shape (26 x 26, 131072
-   taps in 8192 x 16 partitions, S24_4LE), seeded random coefficients and
-   input, 19.5 blocks; then again with two coefficients (filters 0-12 and
-   13-25);
-5. main path, scale: ``main()`` on the 256 x 256 x 131072-tap shape of
-   tools/mac_step_compare.py (alldistinct, 256 channels) with 256 seeded
-   coefficient sets as RAW float32 files and 19.5 blocks of S24_4LE
-   input (2 batches of 8, a 3-block tail, a half block): with the
-   default BRUTEFIR_TPU_PAIR (the batches in groups of 4 through the
-   grouped MAC, the tail through the tiled kernel), then with
-   BRUTEFIR_TPU_PAIR=2 (groups of 2 through the grouped fused MAC + mix);
-6. kernel vs plain, the unfused MAC of the stage loop (``csrc/mac.cu``),
+4. kernel vs plain, the unfused MAC of the stage loop (``csrc/mac.cu``),
    at the shapes where the JAX package takes each of its four TPU
    variants: bench1's first stage (rows 2-5 of 6 filters, 8192 x 8, per
    filter: "row"), the massive cascade (52 filters, 8192 x 16, one shared
    coefficient: "uniform"), 256 filters of 8192 x 16 with 256 distinct
    rows ("chunked") and 4 filters of 65536 x 8 ("tile"); distinct and
    repeated rows, the same t and mask zeros as phase 3;
-7. main path, bench1 cascade: ``main()`` on the reference's bench1_config
-   graph (2 inputs -> 4 filters -> 2 filters -> 2 outputs, 8192 x 8
-   partitions) with six seeded 65536-tap coefficient sets as RAW float32
-   files and 19.5 blocks of S24_4LE input, held to 2e-5 of the output's
-   peak + 4 LSB of the float64 oracle ``conv(conv(x0, h2) + conv(x1, h5),
-   h0)``, ``conv(conv(x0, h3) + conv(x1, h4), h1)``; two unfused MAC
-   launches a block;
-8. main path, massive cascade: the massive shape with a second stage (26
-   filters from the inputs, each feeding one of 26 filters to the
-   outputs, all on the one shared coefficient), within 16 LSB of
-   ``conv(conv(x, h), h)``; two launches a block of the uniform form;
-9. kernel vs plain, the crossfade dual MAC (``csrc/mac_dual.cu``), at
+5. kernel vs plain, the crossfade dual MAC (``csrc/mac_dual.cu``), at
    bench5's shape (26 filters of 8192 x 8, one shared row per set), the
    massive shape, 256 filters of 8192 x 16 with 256 new and 256 old
    distinct rows, a stage subset (rows 2-5 of 6, 8192 x 8) and the shape
@@ -62,24 +39,60 @@ Phases, in order; any failure exits non-zero:
    over the same t, cblocks mask zeros with the previous mask differing,
    distinct and repeated rows; timed beside two ``mac`` calls, with the
    wrapper's host time a call beside the spin that hides it;
-10. main path, bench5: ``main()`` on the reference's bench5_config graph
+6. kernel vs plain, the FFT glue (``csrc/fft_glue.cu``, TPU kernel 11):
+   both directions at C = 26 and 256 channels, M = 8192 packed bins,
+   within 1e-5 relative of the plain version; then the routes they serve
+   (the port's only transforms: cuFFT's M-point complex FFT around the
+   glue) within 1e-5 of the library call for the same transform
+   (``torch.fft.rfft``, ``torch.fft.irfft``) and timed beside it;
+7. the fused real FFT's probe path (``csrc/fft_fused.cu``, TPU kernel 12;
+   tools/fused_fft_probe.py's comparison): frame -> digit-permuted planes
+   and permuted planes -> valid half at C = 26 and 256, M = 8192, one
+   launch each a shape; each within 1e-5 relative of its plain version
+   (the same Stockham stages in torch) and of the port's transforms after
+   ``bin_order``, timed beside them and the library call;
+8. main path, massive: ``python -m brutefir_tpu_torch``'s ``main()`` on
+   the exact examples/multichannel_massive.conf shape (26 x 26, 131072
+   taps in 8192 x 16 partitions, S24_4LE), seeded random coefficients and
+   input, 19.5 blocks; then with two coefficients (filters 0-12 and
+   13-25);
+9. main path, scale: ``main()`` on the 256 x 256 x 131072-tap shape of
+   tools/mac_step_compare.py (alldistinct, 256 channels) with 256 seeded
+   coefficient sets as RAW float32 files and 19.5 blocks of S24_4LE
+   input (2 batches of 8, a 3-block tail, a half block): with the
+   default BRUTEFIR_TPU_PAIR (the batches in groups of 4 through the
+   grouped MAC, the tail through the tiled kernel), then with
+   BRUTEFIR_TPU_PAIR=2 (groups of 2 through the grouped
+   fused MAC + mix);
+10. main path, bench1 cascade: ``main()`` on the reference's bench1_config
+   graph (2 inputs -> 4 filters -> 2 filters -> 2 outputs, 8192 x 8
+   partitions) with six seeded 65536-tap coefficient sets as RAW float32
+   files and 19.5 blocks of S24_4LE input, held to 2e-5 of the output's
+   peak + 4 LSB of the float64 oracle ``conv(conv(x0, h2) + conv(x1, h5),
+   h0)``, ``conv(conv(x0, h3) + conv(x1, h4), h1)``; two unfused MAC
+   launches a block;
+11. main path, massive cascade: the massive shape with a second stage (26
+   filters from the inputs, each feeding one of 26 filters to the
+   outputs, all on the one shared coefficient), within 16 LSB of
+   ``conv(conv(x, h), h)``; two launches a block of the uniform form;
+12. main path, bench5: ``main()`` on the reference's bench5_config graph
    (26 crossfading filters, 8192 x 8 partitions) with two seeded
    65536-tap sets as RAW float32 files and a CLI script that flips every
    filter's coefficient every block, 19.5 blocks through the per-block
    ``run()`` (``run_offline``'s fallback for logic modules), within
    8e-6 of the output's peak + 4 LSB of the float64 linear-ramp oracle on
    channels 0, 5, ..., 25; one dual MAC launch a block after block 0;
-11. main path, massive with a swap every 64 blocks: the massive shape,
+13. main path, massive with a swap every 64 blocks: the massive shape,
    every filter crossfading between two sets under the script
    ``cfc .. 1; sleep b63`` / ``cfc .. 0; sleep b63``, 130.5 blocks,
    within 16 LSB of the piecewise-ramped float64 oracle on seven
    channels; three dual MAC launches, the fused MAC + mix elsewhere;
-12. offline split: the massive shape with crossfading filters and no
+14. offline split: the massive shape with crossfading filters and no
    logic module, through ``Engine`` directly: ``run_offline(max_blocks=
    16)``, a swap on every filter, ``run_offline()`` for the remaining
    11.5 blocks (a batch split at the crossfade block, then the EOF tail);
    exactly one dual MAC launch, block 16 ramped, within 16 LSB;
-13. main path, bench1 cascade with a crossfading first stage: phase 7's
+15. main path, bench1 cascade with a crossfading first stage: phase 10's
    graph and inputs with filters 2-5 ``crossfade: true`` and a CLI script
    that swaps their sets on every third block (all four on block 0, then
    filters 2 and 3), 19.5 blocks through ``run()``, within 2e-5 of the
@@ -90,8 +103,12 @@ Phases, in order; any failure exits non-zero:
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
 launch its kernels the expected number of times (launch counts are set
-to 0 just before each run). No module of jax or of the JAX package may
-be loaded at the end.
+to 0 just before each run). Every run launches the glue kernels: a
+single stage one forward and one inverse a block, a two-stage cascade
+two of each (the input, ``convolve_eval`` both ways, the output), and
+``crossfade_spectra`` one forward and two full inverses more on each
+crossfade block of a cascade. No module of jax or of the JAX package
+may be loaded at the end.
 
 The last lines are the kernel summary JSON, the card line, and
 ``{"ok": true, "device": {...}}``. The script imports no jax and nothing
@@ -127,6 +144,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 EXAMPLE = os.path.join(REPO, "examples", "multichannel_massive.conf")
 WORK = os.path.join(REPO, "build", "chip_smoke")
 PALLAS = "brutefir_tpu/ops/pallas_mac.py"
+GLUE_SRC = "brutefir_tpu/ops/pallas_glue.py"
+FUSED_SRC = "brutefir_tpu/ops/pallas_fft.py"
 
 
 def fail(msg: str):
@@ -203,19 +222,23 @@ def check(name, got, ref, t):
 
 
 def report(rows, name, source, line, worst, max_abs, k_ms, p_ms, n_bytes,
-           n_flop, launches_key, note=""):
+           n_flop, launches_key, note="", pallas=PALLAS, lib_ms=None):
+    """Print one kernel's figures; with a ``launches_key``, add its row to
+    the kernels summary (``lib_ms``: one PyTorch call computing the same
+    function, or None)."""
     b_ms, by = bound(n_bytes, n_flop)
+    lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
     print(f"{name}{note}: max rel err {worst:.3e} (tol {REL_TOL:g}), max "
           f"abs err {max_abs:.3e}; kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}: "
-          f"{n_bytes / 1e6:.1f} MB, {n_flop / 1e9:.2f} GFLOP); median of "
+          f"{p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({by}: "
+          f"{n_bytes / 1e6:.1f} MB, {n_flop / 1e9:.4f} GFLOP); median of "
           f"{REPS}, L2 flushed before each", flush=True)
     if launches_key is not None:
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": f"{PALLAS}:{line}",
+                     "replaces": f"{pallas}:{line}",
                      "launches_key": launches_key, "max_abs_err": max_abs,
                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                     "bound_by": by, "library_ms": None})
+                     "bound_by": by, "library_ms": lib_ms})
 
 
 def mac_bytes_flops(F_, B_, K_, C, rows_used, G=1, out_rows=None):
@@ -509,6 +532,150 @@ def kernels_dual(td, tm, rows, flush):
         torch.cuda.empty_cache()
 
 
+FFT_M = 8192            # packed bins of the massive and scale shapes
+
+
+def fft_inputs(C: int, seed: int):
+    """Seeded frames [C, 2M] and packed planes [C, 2, M] on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(C, 2 * FFT_M, generator=g, device="cuda")
+    p = torch.randn(C, 2, FFT_M, generator=g, device="cuda")
+    return x, p
+
+
+def unpacked(p):
+    """Packed planes [C, 2, M] -> the M + 1 complex rfft bins that
+    ``torch.fft.irfft`` takes (DC and Nyquist real)."""
+    import torch
+    zero = torch.zeros_like(p[:, 1, :1])
+    return torch.complex(torch.cat([p[:, 0], p[:, 1, :1]], dim=-1),
+                         torch.cat([zero, p[:, 1, 1:], zero], dim=-1))
+
+
+def fft_bytes_flops(C: int, M: int, table_bytes: int, out_floats: int,
+                    fft: bool):
+    """Bytes a transform must move (its input once, the constant tables
+    once, its output once) and its operations: 14 a bin for a Hermitian
+    combine, plus 5 M log2 M a channel for an M-point complex FFT."""
+    n_bytes = C * 2 * M * 4 + table_bytes + C * out_floats * 4
+    n_flop = C * (14 * M + (5 * M * np.log2(M) if fft else 0))
+    return n_bytes, n_flop
+
+
+def packed(X):
+    """The M + 1 complex rfft bins [C, M + 1] -> packed planes [C, 2, M]
+    (Nyquist in bin 0's imaginary slot)."""
+    import torch
+    return torch.stack([X.real[:, :-1], torch.cat(
+        [X.real[:, -1:], X.imag[:, 1:-1]], dim=-1)], dim=-2)
+
+
+def kernels_glue(tg, rows, flush):
+    """The glue kernels (csrc/fft_glue.cu) at the massive (C = 26) and
+    scale (C = 256) shapes, M = 8192, against their plain versions; then
+    the routes they serve, the port's transforms, against the one library
+    call for the same transform and timed beside it."""
+    import torch
+    M = FFT_M
+    for C in (F, SCALE_C):
+        x, p = fft_inputs(C, SEED + 11 + C)
+        Z = torch.fft.fft(torch.view_as_complex(x.reshape(C, M, 2)), dim=-1)
+        cases = (
+            ("glue_fwd", 89, lambda: tg.glue_fwd(Z),
+             lambda: tg.glue_fwd_reference(Z), 2 * M),
+            ("glue_inv", 106, lambda: torch.view_as_real(tg.glue_inv(p)),
+             lambda: torch.view_as_real(tg.glue_inv_reference(p)), 2 * M))
+        for name, line, kern, plain, out_floats in cases:
+            rel, err = check(name, kern(), plain(), f"C={C}")
+            k_ms = time_ms(kern, REPS, flush)
+            p_ms = time_ms(plain, REPS, flush)
+            nb, nf = fft_bytes_flops(C, M, M * 16, out_floats, False)
+            report(rows, name, "brutefir_tpu_torch/csrc/fft_glue.cu", line,
+                   rel, err, k_ms, p_ms, nb, nf,
+                   ("fft_glue", name) if C == F else None,
+                   note=f" (C={C}, M={M})", pallas=GLUE_SRC)
+        Xfull = unpacked(p)
+        for label, fns, lib_ref in (
+                ("forward, frame -> packed planes",
+                 (("glue route (cuFFT fft + glue_fwd)",
+                   lambda: tg.rfft_planes_glue(x)),
+                  ("library torch.fft.rfft", lambda: torch.fft.rfft(x))),
+                 lambda: packed(torch.fft.rfft(x))),
+                ("inverse, packed planes -> valid half",
+                 (("glue route (glue_inv + cuFFT ifft + slice)",
+                   lambda: tg.irfft_planes_valid_glue(p)),
+                  ("library torch.fft.irfft (full frame)",
+                   lambda: torch.fft.irfft(Xfull, n=2 * M))),
+                 lambda: torch.fft.irfft(Xfull, n=2 * M)[:, :M])):
+            glue, ref = fns[0][1](), lib_ref()
+            rel = ((glue - ref).abs().max() / ref.abs().max()).item()
+            if not rel <= REL_TOL:
+                fail(f"glue route off the library call ({label}, C={C}): "
+                     f"{rel:.3e}")
+            times = ", ".join(f"{what} {time_ms(fn, REPS, flush):.4f} ms"
+                              for what, fn in fns)
+            print(f"  routes at C={C}, M={M}, {label}: {times}; glue route "
+                  f"vs library max rel err {rel:.3e}", flush=True)
+        del x, p, Z, Xfull
+        torch.cuda.empty_cache()
+
+
+def probe_fused(tf, pc, rows, flush, launched: dict):
+    """The fused real FFT (csrc/fft_fused.cu) on its probe path, in place
+    of tools/fused_fft_probe.py: frame -> permuted packed planes and
+    permuted packed planes -> valid half at C = 26 and 256, M = 8192. One
+    probe call of each direction a shape, with the counts set to 0 just
+    before (2 + 2 launches: the rows' launches); then each against its
+    plain version (the same Stockham stages in torch) and against the
+    port's transforms (the glue route) after ``bin_order``, and timed
+    beside them and torch.fft.rfft / irfft of the same frames."""
+    import torch
+    M = FFT_M
+    order = torch.as_tensor(tf.bin_order(M), device="cuda")
+    for C in (F, SCALE_C):
+        x, p = fft_inputs(C, SEED + 12 + C)
+        pp = p[..., order].contiguous()
+        tf.reset_launches()
+        fwd = tf.rfft_planes_fused(x)
+        inv = tf.irfft_planes_valid_fused(pp)
+        expect_launches(tf.launches, {"fft_fused_fwd": 1, "fft_fused_inv": 1},
+                        f"fused FFT probe, C={C}")
+        for k, n in tf.launches.items():
+            launched[("fft_fused", k)] = launched.get(("fft_fused", k), 0) + n
+        Xfull = unpacked(p)
+        cases = (
+            ("fft_fused_fwd", 154, fwd, lambda: tf.rfft_planes_fused(x),
+             lambda: tf.rfft_planes_fused_reference(x),
+             lambda: pc.rfft_planes(x)[..., order],
+             lambda: pc.rfft_planes(x), lambda: torch.fft.rfft(x), 2 * M),
+            ("fft_fused_inv", 184, inv,
+             lambda: tf.irfft_planes_valid_fused(pp),
+             lambda: tf.irfft_planes_fused_reference(pp, M // 2),
+             lambda: pc.irfft_planes_valid(p),
+             lambda: pc.irfft_planes_valid(p),
+             lambda: torch.fft.irfft(Xfull, n=2 * M), M))
+        for (name, line, got, kern, plain, route_ref, route, lib,
+             out_floats) in cases:
+            rel, err = check(name, got, plain(), f"C={C}")
+            rel_route, _ = check(f"{name} against the port's route", got,
+                                 route_ref(), f"C={C}")
+            k_ms = time_ms(kern, REPS, flush)
+            p_ms = time_ms(plain, REPS, flush)
+            r_ms = time_ms(route, REPS, flush)
+            l_ms = time_ms(lib, REPS, flush)
+            nb, nf = fft_bytes_flops(C, M, M * 24, out_floats, True)
+            report(rows, name, "brutefir_tpu_torch/csrc/fft_fused.cu", line,
+                   rel, err, k_ms, p_ms, nb, nf,
+                   ("fft_fused", name) if C == F else None,
+                   note=f" (C={C}, M={M})", pallas=FUSED_SRC, lib_ms=l_ms)
+            print(f"  {name} (C={C}): the port's route (glue) {r_ms:.4f} "
+                  f"ms; max rel err against it {rel_route:.3e}",
+                  flush=True)
+        del x, p, pp, fwd, inv, Xfull
+        torch.cuda.empty_cache()
+
+
 def write_massive_inputs(rng, frames: int):
     """Seeded 131072-tap coefficients (||taps||_2 = 0.5) as TEXT files,
     and an S24_4LE input with std 2^20 (no clipping)."""
@@ -618,17 +785,24 @@ def run_main(main, cfg: str, frames: int, channels: int, label: str):
 def oracle_lsb(y, x, taps_of):
     """Max |y - round(x (*) h)| in LSB over all channels, the convolution
     in float64."""
+    return oracle_lsbs([y], x, taps_of)[0]
+
+
+def oracle_lsbs(ys, x, taps_of):
+    """:func:`oracle_lsb` of several outputs of one input, the oracle
+    computed once."""
     from scipy.signal import fftconvolve
-    frames, C = y.shape
-    worst = 0
+    frames, C = ys[0].shape
+    worst = [0] * len(ys)
     for c0 in range(0, C, 16):
         c1 = min(C, c0 + 16)
         ref = np.round(fftconvolve(
             x[:, c0:c1].T.astype(np.float64),
             np.stack([taps_of(c) for c in range(c0, c1)]), axes=1)
             [:, :frames])
-        worst = max(worst, int(np.abs(y[:, c0:c1].T.astype(np.int64)
-                                      - ref).max()))
+        for i, y in enumerate(ys):
+            worst[i] = max(worst[i], int(np.abs(
+                y[:, c0:c1].T.astype(np.int64) - ref).max()))
     return worst
 
 
@@ -648,18 +822,45 @@ def expect_only(counts: dict, want: dict, label: str):
     expect_launches({k[1]: v for k, v in counts.items()}, full, label)
 
 
-def main_massive(main, mm, launched: dict):
+@contextlib.contextmanager
+def knob(name: str, value):
+    """Set (or, with None, unset) an environment knob for the block."""
+    old = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        os.environ.pop(name, None)
+        if old is not None:
+            os.environ[name] = old
+
+
+def add_glue(launched: dict, counts: dict):
+    """Add a run's glue launches (``counts`` by (module, form)) to the
+    glue rows' launches."""
+    for key in (("fft_glue", "glue_fwd"), ("fft_glue", "glue_inv")):
+        launched[key] = launched.get(key, 0) + counts[key]
+
+
+def glue_want(n_fwd: int, n_inv: int) -> dict:
+    return {"glue_fwd": n_fwd, "glue_inv": n_inv}
+
+
+def main_massive(main, mods: dict, launched: dict):
     rng = np.random.default_rng(SEED)
     frames = int(BLOCKS * K)
+    blocks = int(np.ceil(BLOCKS))
     taps, x = write_massive_inputs(rng, frames)
     for two in (False, True):
         label = "massive, two coefficients" if two else \
             "massive, shared coefficient"
         form = "rows" if two else "uniform"
         cfg = massive_config("run2.conf" if two else "run1.conf", two)
-        mm.reset_launches()
+        for m in mods.values():
+            m.reset_launches()
         y = run_main(main, cfg, frames, F, label)
-        counts = {("mac_mix", k): v for k, v in mm.launches.items()}
+        counts = all_counts(mods)
         lsb = oracle_lsb(y, x, lambda c: taps[1] if (two and c >= 13)
                          else taps[0])
         print(f"main path ({label}): max |y - oracle| {lsb} LSB (tol "
@@ -668,9 +869,11 @@ def main_massive(main, mm, launched: dict):
             fail(f"output off the float64 oracle by {lsb} LSB ({label})")
         if counts[("mac_mix", form)] <= 0:
             fail(f"the main path never launched the {form} kernel form")
+        # one forward and one inverse glue a block
         expect_launches({k[1]: v for k, v in counts.items()},
-                        {"tiled": 0}, label)
+                        {"tiled": 0, **glue_want(blocks, blocks)}, label)
         launched[("mac_mix", form)] = counts[("mac_mix", form)]
+        add_glue(launched, counts)
 
 
 def write_scale_inputs(work: str, frames: int, seed: int = SEED + 2):
@@ -697,39 +900,37 @@ def write_scale_inputs(work: str, frames: int, seed: int = SEED + 2):
     return taps, x, cfg
 
 
-def main_scale(main, mm, mg, launched: dict):
+def main_scale(main, mods: dict, launched: dict):
     C = SCALE_C
     frames = int(BLOCKS * K)
+    blocks = int(np.ceil(BLOCKS))
     taps, x, cfg = write_scale_inputs(WORK, frames)
+    # every block one forward and one inverse glue at C = 256, the groups'
+    # blocks included
     runs = (("scale, groups of 4", None,
              {"group": 4, "tiled": 4, "mix_group": 0},
              (("mac_group", "group"), ("mac_mix", "tiled"))),
             ("scale, BRUTEFIR_TPU_PAIR=2", "2",
              {"mix_group": 8, "tiled": 4, "group": 0},
              (("mac_group", "mix_group"),)))
+    ys = []
     for label, pair, want, keys in runs:
-        old = os.environ.pop("BRUTEFIR_TPU_PAIR", None)
-        if pair is not None:
-            os.environ["BRUTEFIR_TPU_PAIR"] = pair
-        try:
-            mm.reset_launches()
-            mg.reset_launches()
-            y = run_main(main, cfg, frames, C, label)
-            counts = {("mac_mix", k): v for k, v in mm.launches.items()}
-            counts.update({("mac_group", k): v
-                           for k, v in mg.launches.items()})
-        finally:
-            os.environ.pop("BRUTEFIR_TPU_PAIR", None)
-            if old is not None:
-                os.environ["BRUTEFIR_TPU_PAIR"] = old
-        lsb = oracle_lsb(y, x, lambda c: taps[c].astype(np.float64))
+        with knob("BRUTEFIR_TPU_PAIR", pair):
+            for m in mods.values():
+                m.reset_launches()
+            ys.append(run_main(main, cfg, frames, C, label))
+            counts = all_counts(mods)
+        expect_launches({k[1]: v for k, v in counts.items()},
+                        {**want, **glue_want(blocks, blocks)}, label)
+        for key in keys:
+            launched[key] = counts[key]
+        add_glue(launched, counts)
+    for lsb, (label, *_) in zip(
+            oracle_lsbs(ys, x, lambda c: taps[c].astype(np.float64)), runs):
         print(f"main path ({label}): max |y - oracle| {lsb} LSB (tol "
               f"{LSB_TOL}) on all {C} channels", flush=True)
         if lsb > LSB_TOL:
             fail(f"output off the float64 oracle by {lsb} LSB ({label})")
-        expect_launches({k[1]: v for k, v in counts.items()}, want, label)
-        for key in keys:
-            launched[key] = counts[key]
 
 
 BENCH1_N, BENCH1_B = 8192, 8       # the reference's bench1_config
@@ -808,21 +1009,23 @@ def all_counts(mods: dict) -> dict:
 
 def run_cascade(main, mods, cfg, frames, channels, label, form):
     """One cascade run of ``main()`` with every count set to 0 just
-    before it; the unfused MAC's ``form`` must launch two times a block
-    (two stages) and no other kernel at all. Returns (y, counts)."""
+    before it; the unfused MAC's ``form`` and each glue kernel must launch
+    two times a block (two stages) and no other kernel at all. Returns
+    (y, counts)."""
     for m in mods.values():
         m.reset_launches()
     y = run_main(main, cfg, frames, channels, label)
     counts = all_counts(mods)
-    expect_only(counts, {form: 2 * int(np.ceil(BLOCKS))}, label)
+    n = 2 * int(np.ceil(BLOCKS))
+    expect_only(counts, {form: n, **glue_want(n, n)}, label)
     return y, counts
 
 
 def main_bench1(main, mods: dict, launched: dict):
     frames = int(BLOCKS * BENCH1_N)
     taps, x, cfg = write_bench1_inputs(WORK, frames)
-    y, counts = run_cascade(main, mods, cfg, frames, 2, "bench1 cascade",
-                            "mac_rows")
+    label = "bench1 cascade"
+    y, counts = run_cascade(main, mods, cfg, frames, 2, label, "mac_rows")
     ref = bench1_oracle(taps, x)
     for c in range(2):
         peak = np.abs(ref[:, c]).max()
@@ -830,12 +1033,13 @@ def main_bench1(main, mods: dict, launched: dict):
         lsb = int(np.abs(y[:, c].astype(np.int64)
                          - np.round(ref[:, c])).max())
         tol = 2e-5 * peak + 4.0
-        print(f"main path (bench1 cascade): channel {c}: max |y - oracle| "
+        print(f"main path ({label}): channel {c}: max |y - oracle| "
               f"{err:.3f} (tol 2e-5 * {peak:.0f} + 4 = {tol:.3f}); "
               f"{lsb} LSB from the rounded oracle", flush=True)
         if not err <= tol:
-            fail(f"bench1 cascade off the float64 oracle on channel {c}")
+            fail(f"{label} off the float64 oracle on channel {c}")
     launched[("mac", "mac_rows")] = counts[("mac", "mac_rows")]
+    add_glue(launched, counts)
 
 
 def massive_cascade_config(work: str) -> str:
@@ -871,6 +1075,7 @@ def main_massive_cascade(main, mods: dict, launched: dict):
         fail(f"output off the float64 oracle by {lsb} LSB (massive "
              f"cascade)")
     launched[("mac", "mac_uniform")] = counts[("mac", "mac_uniform")]
+    add_glue(launched, counts)
 
 
 BENCH5_N, BENCH5_B, BENCH5_C = 8192, 8, 26     # the reference's bench5
@@ -983,8 +1188,8 @@ def main_bench5(main, mods: dict, launched: dict):
     y = run_main(main, cfg, frames, C, "bench5")
     counts = all_counts(mods)
     blocks = int(np.ceil(BLOCKS))
-    expect_only(counts, {"mac_dual_uniform": blocks - 1, "uniform": 1},
-                "bench5")
+    expect_only(counts, {"mac_dual_uniform": blocks - 1, "uniform": 1,
+                         **glue_want(blocks, blocks)}, "bench5")
     worst, peak = xfade_lsb(
         y.astype(np.float64), x, taps, N_,
         lambda k: "a" if k == 0 else ("ab" if k % 2 else "ba"),
@@ -997,12 +1202,13 @@ def main_bench5(main, mods: dict, launched: dict):
         fail("bench5 off the float64 linear-ramp oracle")
     launched[("mac_dual", "mac_dual_uniform")] = counts[
         ("mac_dual", "mac_dual_uniform")]
+    add_glue(launched, counts)
 
 
 SWAP_BLOCKS = 130.5      # crossfades at blocks 0, 64 and 128
 
 
-def main_massive_swap(main, mods: dict):
+def main_massive_swap(main, mods: dict, launched: dict):
     frames = int(SWAP_BLOCKS * K)
     taps, x = write_massive_inputs(np.random.default_rng(SEED + 8), frames)
     cfg = xfade_config(WORK, "swap.conf", K, B, F,
@@ -1013,9 +1219,11 @@ def main_massive_swap(main, mods: dict):
         m.reset_launches()
     y = run_main(main, cfg, frames, F, "massive, swap every 64 blocks")
     blocks = int(np.ceil(SWAP_BLOCKS))
-    expect_only(all_counts(mods), {"mac_dual_uniform": 3,
-                                   "uniform": blocks - 3},
+    counts = all_counts(mods)
+    expect_only(counts, {"mac_dual_uniform": 3, "uniform": blocks - 3,
+                         **glue_want(blocks, blocks)},
                 "massive, swap every 64 blocks")
+    add_glue(launched, counts)
     segments = {0: "ab", 64: "ba", 128: "ab"}
 
     def seg(k):
@@ -1033,7 +1241,7 @@ def main_massive_swap(main, mods: dict):
 SPLIT_BLOCKS = 27.5      # 2 batches, the swap batch, the EOF tail
 
 
-def offline_split(mods: dict):
+def offline_split(mods: dict, launched: dict):
     from brutefir_tpu_torch.config import parse_config
     from brutefir_tpu_torch.runtime.engine import Engine
     frames = int(SPLIT_BLOCKS * K)
@@ -1055,8 +1263,10 @@ def offline_split(mods: dict):
     finally:
         eng.teardown()
     blocks = int(np.ceil(SPLIT_BLOCKS))
-    expect_only(all_counts(mods), {"mac_dual_uniform": 1,
-                                   "uniform": blocks - 1}, "offline split")
+    counts = all_counts(mods)
+    expect_only(counts, {"mac_dual_uniform": 1, "uniform": blocks - 1,
+                         **glue_want(blocks, blocks)}, "offline split")
+    add_glue(launched, counts)
     y = np.fromfile(out, dtype="<i4")
     if y.size != frames * F:
         fail(f"offline split wrote {y.size // F} frames, read {frames}")
@@ -1112,10 +1322,12 @@ def cascade_xfade_oracle(taps, x):
                     axis=1)
 
 
-def main_bench1_xfade(main, mods: dict, launched: dict):
-    frames = int(BLOCKS * BENCH1_N)
-    taps, x, _ = write_bench1_inputs(WORK, frames, SEED + 10)
-    text = bench1_config(WORK).replace(
+def write_bench1_xfade_inputs(work: str, frames: int, seed: int = SEED + 10):
+    """bench1's inputs (:func:`write_bench1_inputs`) and its graph with
+    filters 2-5 ``crossfade: true`` under CASCADE_SCRIPT. Returns (taps,
+    x, config path)."""
+    taps, x, _ = write_bench1_inputs(work, frames, seed)
+    text = bench1_config(work).replace(
         "sampling_rate: 44100;",
         f'sampling_rate: 44100;\nlogic: "cli" {{ script: "{CASCADE_SCRIPT}"; '
         f'echo: false; }};')
@@ -1124,9 +1336,15 @@ def main_bench1_xfade(main, mods: dict, launched: dict):
         if old not in text:
             fail(f"could not make filter {i} crossfade in the bench1 config")
         text = text.replace(old, f"coeff: {i}; crossfade: true; }};")
-    cfg = os.path.join(WORK, "bench1_xfade.conf")
+    cfg = os.path.join(work, "bench1_xfade.conf")
     with open(cfg, "w") as fh:
         fh.write(text)
+    return taps, x, cfg
+
+
+def main_bench1_xfade(main, mods: dict, launched: dict):
+    frames = int(BLOCKS * BENCH1_N)
+    taps, x, cfg = write_bench1_xfade_inputs(WORK, frames)
     label = "bench1 cascade, crossfading first stage"
     for m in mods.values():
         m.reset_launches()
@@ -1134,8 +1352,12 @@ def main_bench1_xfade(main, mods: dict, launched: dict):
     counts = all_counts(mods)
     blocks = int(np.ceil(BLOCKS))
     swaps = len(range(0, blocks, 3))
+    # bench1's two glue launches each way a block, and on each swap block
+    # crossfade_spectra's two full inverses and one forward
     expect_only(counts, {"mac_dual_rows": swaps,
-                         "mac_rows": 2 * blocks - swaps}, label)
+                         "mac_rows": 2 * blocks - swaps,
+                         **glue_want(2 * blocks + swaps,
+                                     2 * blocks + 2 * swaps)}, label)
     ref = cascade_xfade_oracle(taps, x)
     for c in range(2):
         peak = np.abs(ref[:, c]).max()
@@ -1148,6 +1370,7 @@ def main_bench1_xfade(main, mods: dict, launched: dict):
             fail(f"{label} off the float64 oracle on channel {c}")
     launched[("mac_dual", "mac_dual_rows")] = counts[
         ("mac_dual", "mac_dual_rows")]
+    add_glue(launched, counts)
 
 
 def run():
@@ -1164,8 +1387,10 @@ def run():
           f"{torch.version.cuda}", flush=True)
 
     phase("build")
-    from brutefir_tpu_torch.ops import (_build, mac as tm, mac_dual as td,
-                                        mac_group as mg, mac_mix as mm)
+    from brutefir_tpu_torch.ops import (_build, fft_fused as tf,
+                                        fft_glue as tg, mac as tm,
+                                        mac_dual as td, mac_group as mg,
+                                        mac_mix as mm, partconv as pc)
     from brutefir_tpu_torch.__main__ import main
     t0 = time.perf_counter()
     libs = _build.build()
@@ -1189,16 +1414,22 @@ def run():
     kernels_mac(tm, rows, flush)
     phase("kernel vs plain, the crossfade dual MAC")
     kernels_dual(td, tm, rows, flush)
+    launched = {}
+    phase("kernel vs plain, the FFT glue, and the FFT routes")
+    kernels_glue(tg, rows, flush)
+    phase("the fused real FFT's probe path")
+    probe_fused(tf, pc, rows, flush, launched)
     del flush
     torch.cuda.empty_cache()
 
     os.makedirs(WORK, exist_ok=True)
-    launched = {}
+    mods = {"mac_mix": mm, "fft_glue": tg}
     phase("main path, massive")
-    main_massive(main, mm, launched)
+    main_massive(main, mods, launched)
+    mods["mac_group"] = mg
     phase("main path, scale")
-    main_scale(main, mm, mg, launched)
-    mods = {"mac": tm, "mac_mix": mm, "mac_group": mg}
+    main_scale(main, mods, launched)
+    mods["mac"] = tm
     phase("main path, bench1 cascade")
     main_bench1(main, mods, launched)
     phase("main path, massive cascade")
@@ -1207,9 +1438,9 @@ def run():
     phase("main path, bench5 crossfade every block")
     main_bench5(main, mods, launched)
     phase("main path, massive with a swap every 64 blocks")
-    main_massive_swap(main, mods)
+    main_massive_swap(main, mods, launched)
     phase("offline split")
-    offline_split(mods)
+    offline_split(mods, launched)
     phase("main path, bench1 cascade with a crossfading first stage")
     main_bench1_xfade(main, mods, launched)
     shutil.rmtree(WORK, ignore_errors=True)

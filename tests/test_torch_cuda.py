@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from brutefir_tpu_torch.config import parse_config
-from brutefir_tpu_torch.ops import (mac as tm, mac_dual as td,
+from brutefir_tpu_torch.ops import (fft_fused as tf, fft_glue as tg,
+                                    mac as tm, mac_dual as td,
                                     mac_group as mg, mac_mix as mm)
 
 
@@ -410,3 +411,86 @@ output 0,1,2 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "S24_4L
     yc = np.fromfile(tmp_path / "cpu.raw", "<i4").astype(np.int64)
     assert yg.size == frames * C and np.abs(yg).max() > 2 ** 16
     assert np.abs(yg - yc).max() <= 2
+
+
+# --- the FFT glue route and the fused real FFT -------------------------------
+
+def _fft_pairs(kernel, M, dev):
+    """(kernel output, plain version) pairs of one FFT kernel on seeded
+    inputs of 3 channels."""
+    rng = np.random.default_rng(M)
+    C = 3
+    x = torch.as_tensor(rng.standard_normal((C, 2 * M)).astype(np.float32),
+                        device=dev)
+    p = torch.as_tensor(rng.standard_normal((C, 2, M)).astype(np.float32),
+                        device=dev)
+    if kernel == "glue_fwd":
+        Z = torch.fft.fft(torch.view_as_complex(x.reshape(C, M, 2)), dim=-1)
+        return [(tg.glue_fwd(Z), tg.glue_fwd_reference(Z))]
+    if kernel == "glue_inv":
+        return [(torch.view_as_real(tg.glue_inv(p)),
+                 torch.view_as_real(tg.glue_inv_reference(p)))]
+    if kernel == "fft_fused_fwd":
+        return [(tf.rfft_planes_fused(x), tf.rfft_planes_fused_reference(x))]
+    return [(tf.irfft_planes_fused(p), tf.irfft_planes_fused_reference(p)),
+            (tf.irfft_planes_valid_fused(p),
+             tf.irfft_planes_fused_reference(p, M // 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,M", [
+    (k, M) for k in ("glue_fwd", "glue_inv", "fft_fused_fwd", "fft_fused_inv")
+    for M in (256, 1024, 8192, 65536)] + [
+    (k, M) for k in ("fft_fused_fwd", "fft_fused_inv") for M in (384, 1408)])
+def test_fft_kernels_match_plain_versions(cuda, kernel, M):
+    """csrc/fft_glue.cu and csrc/fft_fused.cu against their plain torch
+    versions: the glue's mirror pairs, bins 0 and M/2; the fused FFT's
+    radix-4/2 stages in shared memory (M <= 8192) and in the scratch
+    buffer (65536), and its radix-3 and radix-11 stages (384, 1408)."""
+    counts = tg.launches if kernel.startswith("glue") else tf.launches
+    before = counts[kernel]
+    pairs = _fft_pairs(kernel, M, cuda)
+    torch.cuda.synchronize()
+    assert counts[kernel] == before + len(pairs)
+    for got, ref in pairs:
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() / ref.abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_glue_kernels_refuse_noncontiguous_prefix(cuda):
+    p = torch.zeros(4, 2, 256, device=cuda)[::2]
+    Z = torch.zeros(4, 256, dtype=torch.complex64, device=cuda)[::2]
+    before = dict(tg.launches)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        tg.glue_inv(p)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        tg.glue_fwd(Z)
+    assert tg.launches == before
+
+
+@pytest.mark.cuda
+def test_failed_fft_launches_raise(cuda, monkeypatch):
+    class Refused:
+        def __getattr__(self, name):
+            return lambda *a: 9          # cudaErrorInvalidConfiguration
+    monkeypatch.setattr(tg._build, "load", lambda stem: Refused())
+    x = torch.zeros(2, 512, device=cuda)
+    p = torch.zeros(2, 2, 256, device=cuda)
+    before = (dict(tg.launches), dict(tf.launches))
+    for fn, arg in ((tg.rfft_planes_glue, x), (tg.irfft_planes_glue, p),
+                    (tf.rfft_planes_fused, x), (tf.irfft_planes_fused, p),
+                    (tf.irfft_planes_valid_fused, p)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn(arg)
+    assert (tg.launches, tf.launches) == before
+
+
+@pytest.mark.cuda
+def test_glue_route_engine_on_card_matches_cpu(cuda, tmp_path):
+    """The glue route, the engine's only FFT route: one forward and one
+    inverse glue kernel a block on the card, within 2 LSB of the CPU
+    engine and of the float64 oracle."""
+    before = dict(tg.launches)
+    _card_and_cpu(cuda, tmp_path, [0, 1, 0])
+    assert tg.launches == {k: v + 12 for k, v in before.items()}

@@ -133,6 +133,8 @@ def test_engine_clipping_meters_match_jax(tmp_path, monkeypatch):
         return _config(tmp_path, name, [0, 0])
 
     monkeypatch.setenv("BRUTEFIR_TPU_MAC", "pallas")
+    # the JAX engine's twin of the port's FFT route (the glue route)
+    monkeypatch.setenv("BRUTEFIR_TPU_FFT_GLUE", "pallas")
     jeng = JaxEngine(jax_parse_config(make_text("out_jax.raw")))
     js = jeng.run_offline(batch_blocks=8)
     teng = Engine(parse_config(make_text("out_torch.raw")), device=CPU)

@@ -33,6 +33,8 @@ def test_port_imports_no_jax():
         "import brutefir_tpu_torch.convert\n"
         "import brutefir_tpu_torch.ops.mac_group\n"
         "import brutefir_tpu_torch.ops.mac_dual\n"
+        "import brutefir_tpu_torch.ops.fft_glue\n"
+        "import brutefir_tpu_torch.ops.fft_fused\n"
         "import brutefir_tpu_torch.control.cli\n"
         + _NOTHING_OF_JAX +
         "print('ok')\n")

@@ -39,9 +39,8 @@ SIGNATURES = {
                   "bf_mac_mix_group": [_P] * 9 + [_I] * 6 + [_P]},
     "fft_glue": {"bf_glue_fwd": [_P] * 3 + [_I] * 2 + [_P],
                  "bf_glue_inv": [_P] * 3 + [_I] * 2 + [_P]},
-    "fft_fused": {"bf_fft_fused_fwd": [_P] * 5 + [_I] * 2 + [_P],
-                  "bf_fft_fused_inv": [_P] * 5 + [_I] * 3 + [_P],
-                  "bf_fft_fused_needs_scratch": [_I]},
+    "fft_fused": {"bf_fft_fused_fwd": [_P] * 6 + [_I] * 3 + [_P],
+                  "bf_fft_fused_inv": [_P] * 6 + [_I] * 4 + [_P]},
 }
 
 _lock = threading.Lock()

@@ -49,8 +49,9 @@ Phases, in order; any failure exits non-zero:
    tools/fused_fft_probe.py's comparison): frame -> digit-permuted planes
    and permuted planes -> valid half at C = 26 and 256, M = 8192, one
    launch each a shape; each within 1e-5 relative of its plain version
-   (the same Stockham stages in torch) and of the port's transforms after
-   ``bin_order``, timed beside them and the library call;
+   (the same four-step stages in torch) and of the port's transforms after
+   ``bin_order``, timed beside them and the library call; each kernel's
+   cluster size, registers and shared memory a block printed;
 8. main path, massive: ``python -m brutefir_tpu_torch``'s ``main()`` on
    the exact examples/multichannel_massive.conf shape (26 x 26, 131072
    taps in 8192 x 16 partitions, S24_4LE), seeded random coefficients and
@@ -621,19 +622,46 @@ def kernels_glue(tg, rows, flush):
         torch.cuda.empty_cache()
 
 
+def ptxas_usage(stem: str) -> dict:
+    """Kernel (mangled name) -> what ``-Xptxas -v`` said of it in the
+    build log of csrc/<stem>.cu: registers, constant memory, spills."""
+    from brutefir_tpu_torch.ops import _build
+    log = _build.library_path(_build.CSRC / f"{stem}.cu").with_suffix(".log")
+    usage, name = {}, None
+    for line in log.read_text().splitlines() if log.exists() else []:
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("Used" in line or "spill" in line):
+            usage[name] = (usage.get(name, "") + " " + line.split(
+                ":", 1)[-1].strip()).strip()
+    return usage
+
+
 def probe_fused(tf, pc, rows, flush, launched: dict):
     """The fused real FFT (csrc/fft_fused.cu) on its probe path, in place
     of tools/fused_fft_probe.py: frame -> permuted packed planes and
     permuted packed planes -> valid half at C = 26 and 256, M = 8192. One
     probe call of each direction a shape, with the counts set to 0 just
     before (2 + 2 launches: the rows' launches); then each against its
-    plain version (the same Stockham stages in torch) and against the
+    plain version (the same four-step stages in torch) and against the
     port's transforms (the glue route) after ``bin_order``, and timed
     beside them and torch.fft.rfft / irfft of the same frames."""
     import torch
     M = FFT_M
     order = torch.as_tensor(tf.bin_order(M), device="cuda")
+    usage = ptxas_usage("fft_fused")
+    for kernel in ("fused_fwd_kernel", "fused_inv_kernel"):
+        said = sorted(u for n, u in usage.items() if kernel in n)
+        if not said:
+            fail(f"no -Xptxas -v line for {kernel} in the build log")
+        print(f"  {kernel} (one instance a cluster size): ptxas: "
+              f"{'; '.join(said)}", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for C in (F, SCALE_C):
+        S = tf.cluster_size(M, C, sms)
+        print(f"  C={C}, M={M}: clusters of {S} blocks a channel ({C * S} "
+              f"blocks on {sms} SMs), {tf.smem_bytes(M, S)} bytes of "
+              f"dynamic shared memory a block", flush=True)
         x, p = fft_inputs(C, SEED + 12 + C)
         pp = p[..., order].contiguous()
         tf.reset_launches()
@@ -664,7 +692,8 @@ def probe_fused(tf, pc, rows, flush, launched: dict):
             p_ms = time_ms(plain, REPS, flush)
             r_ms = time_ms(route, REPS, flush)
             l_ms = time_ms(lib, REPS, flush)
-            nb, nf = fft_bytes_flops(C, M, M * 24, out_floats, True)
+            nb, nf = fft_bytes_flops(C, M, M * 24 + (M // 128 + 128) * 8,
+                                     out_floats, True)
             report(rows, name, "brutefir_tpu_torch/csrc/fft_fused.cu", line,
                    rel, err, k_ms, p_ms, nb, nf,
                    ("fft_fused", name) if C == F else None,

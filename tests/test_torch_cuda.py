@@ -415,11 +415,10 @@ output 0,1,2 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "S24_4L
 
 # --- the FFT glue route and the fused real FFT -------------------------------
 
-def _fft_pairs(kernel, M, dev):
+def _fft_pairs(kernel, M, dev, C=3):
     """(kernel output, plain version) pairs of one FFT kernel on seeded
-    inputs of 3 channels."""
-    rng = np.random.default_rng(M)
-    C = 3
+    inputs of C channels."""
+    rng = np.random.default_rng(M + C)
     x = torch.as_tensor(rng.standard_normal((C, 2 * M)).astype(np.float32),
                         device=dev)
     p = torch.as_tensor(rng.standard_normal((C, 2, M)).astype(np.float32),
@@ -445,16 +444,38 @@ def _fft_pairs(kernel, M, dev):
 def test_fft_kernels_match_plain_versions(cuda, kernel, M):
     """csrc/fft_glue.cu and csrc/fft_fused.cu against their plain torch
     versions: the glue's mirror pairs, bins 0 and M/2; the fused FFT's
-    radix-4/2 stages in shared memory (M <= 8192) and in the scratch
-    buffer (65536), and its radix-3 and radix-11 stages (384, 1408)."""
+    clusters of 2 (M = 256, 384) and 8 blocks (1024 up), its column
+    stages of radix 4/2 and of radix 3 and 11 (384, 1408), and 65536
+    (R = 512, 128 KB of shared memory a block)."""
+    _check_fft_pairs(kernel, M, cuda, 3)
+
+
+def _check_fft_pairs(kernel, M, dev, C):
     counts = tg.launches if kernel.startswith("glue") else tf.launches
     before = counts[kernel]
-    pairs = _fft_pairs(kernel, M, cuda)
+    pairs = _fft_pairs(kernel, M, dev, C)
     torch.cuda.synchronize()
     assert counts[kernel] == before + len(pairs)
     for got, ref in pairs:
         assert got.shape == ref.shape and torch.isfinite(got).all()
         assert (got - ref).abs().max().item() / ref.abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fft_fused_fwd", "fft_fused_inv"])
+@pytest.mark.parametrize("C,M", [(1, 8192), (5, 8192), (1, 256), (5, 384),
+                                 (5, 640), (200, 8192), (2, 131072)])
+def test_fused_fft_cluster_shapes(cuda, kernel, C, M):
+    """The fused FFT's cluster split at channel counts that fill no wave
+    of the card (C = 1, 5), where R = M/128 is below the portable cluster
+    size (M = 256, 384: clusters of 2; 640: of 4, R = 5 odd), on a grid
+    too wide for clusters of 8 (C = 200: clusters of 4), and where a
+    block's column buffers outgrow shared memory (131072: the
+    device-memory scratch path)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    S = tf.cluster_size(M, C, sms)
+    assert tf.needs_scratch(M, S) == (M == 131072)
+    _check_fft_pairs(kernel, M, cuda, C)
 
 
 @pytest.mark.cuda

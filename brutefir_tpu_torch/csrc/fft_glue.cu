@@ -29,7 +29,12 @@
 // What bounds it on an H100: bytes. Per channel it reads 8M bytes and writes
 // 8M: at the massive shape (C = 26, M = 8192) 3.4 MB and the table, about
 // 1.1 us at 3.35 TB/s; at C = 256 33.6 MB, about 10 us. Its arithmetic, 16
-// operations a bin, is far below that.
+// operations a bin, is far below that. Timed cold, it runs within a few
+// tenths of a us of a plain copy of its input (chip_smoke.py prints both),
+// which is the floor it can reach. A tiled form that stages each tile's
+// table once and the channels' runs by 16-byte cp.async, the mirror
+// reversed in shared memory, was slower at every tile and channel group
+// tried: chip_glue_designs.py holds it and times it against this kernel.
 
 #include <cuda_runtime.h>
 

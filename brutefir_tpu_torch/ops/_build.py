@@ -33,7 +33,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "mac": {"bf_mac": [_P] * 7 + [_I] * 6 + [_P]},
     "mac_dual": {"bf_mac_dual": [_P] * 10 + [_I] * 6 + [_P]},
-    "mac_mix": {"bf_mac_mix": [_P] * 7 + [_I] * 6 + [_P]},
+    "mac_mix": {"bf_mac_mix": [_P] * 7 + [_I] * 9 + [_P]},
     "mac_mix_tiled": {"bf_mac_mix_tiled": [_P] * 7 + [_I] * 5 + [_P]},
     "mac_group": {"bf_mac_group": [_P] * 8 + [_I] * 5 + [_P],
                   "bf_mac_mix_group": [_P] * 9 + [_I] * 6 + [_P]},

@@ -14,6 +14,8 @@ CUDA tensor: a failed build or launch raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -37,6 +39,64 @@ def tiled_route(C_out: int, B: int, K: int) -> bool:
     and so the same summation order, in both packages. It is also where
     the tiled kernel's on-chip mix pays on the card: at 256 outputs."""
     return (C_out + 4 * B) * 2 * K * 4 > 12 * 2**20
+
+
+# csrc/mac_mix.cu's constants: warps a block at most, bins a block, stage
+# buffers, the dynamic shared memory a block may have (227 KB)
+MIX_MAX_WARPS = 16
+MIX_TK = 32
+MIX_STAGES = 8
+SMEM_MAX = 232448
+
+
+def smem_bytes(nw: int, FC: int, F: int, B: int, C_out: int,
+               bank_smem: bool) -> int:
+    """Shared memory a block of csrc/mac_mix.cu takes (its ``smem_bytes``):
+    the uniform bank tile [B, 2, MIX_TK] if staged; MIX_STAGES stages of nw
+    items (the ring's runs, the bank's runs when streamed, the mask value;
+    a run of MIX_TK floats takes MIX_TK + 4); the F bank indices; the
+    chunk's Y tiles and w columns; the out tile when the filters take more
+    than one chunk."""
+    run = MIX_TK + 4
+    item = (2 if bank_smem else 4) * run + 4
+    chunks = -(-F // FC) if F > FC else 1
+    floats = ((B * 2 * run if bank_smem else 0) + MIX_STAGES * nw * item
+              + -(-F // 4) * 4 + FC * 2 * MIX_TK + -(-FC * C_out // 4) * 4
+              + (C_out * 2 * MIX_TK if chunks > 1 else 0))
+    return 4 * floats
+
+
+def warps_for(F: int) -> int:
+    """Warps a block, one filter each a round: the fewest rounds of at
+    most MIX_MAX_WARPS, then as few warps as give that (26 filters: two
+    rounds of 13), at least 4."""
+    rounds = max(1, -(-F // MIX_MAX_WARPS))
+    return max(4, -(-F // rounds))
+
+
+@functools.lru_cache(maxsize=256)
+def plan(F: int, B: int, K: int, C_out: int, uniform: bool = False) -> dict:
+    """The launch of csrc/mac_mix.cu, the only place its sizes are chosen:
+    ``nw`` warps a block (:func:`warps_for`), ``TK`` bins a block (MIX_TK:
+    64-bin tiles measured slower on the H100, csrc/mac_mix.cu's note),
+    ``FC`` filters a chunk (a multiple of nw: the largest that fits half of
+    SMEM_MAX, so two blocks share an SM, else the largest that fits it),
+    ``bank_smem`` (the uniform form's bank tile staged in shared memory,
+    where it fits beside the rest), ``smem`` bytes and ``tiles`` (blocks).
+    Raises ValueError where nothing fits."""
+    nw = warps_for(F)
+    top = max(nw, -(-F // nw) * nw)
+    for budget in (SMEM_MAX // 2, SMEM_MAX):
+        for FC in range(top, 0, -nw):
+            if smem_bytes(nw, FC, F, B, C_out, False) > budget:
+                continue
+            bank = uniform and smem_bytes(nw, FC, F, B, C_out,
+                                          True) <= budget
+            return {"nw": nw, "TK": MIX_TK, "FC": FC, "bank_smem": bank,
+                    "smem": smem_bytes(nw, FC, F, B, C_out, bank),
+                    "tiles": -(-K // MIX_TK)}
+    raise ValueError(f"mac_mix: no launch fits {SMEM_MAX} bytes of shared "
+                     f"memory (F={F}, B={B}, K={K}, C_out={C_out})")
 
 
 def mac_mix_reference(ring, bank, coeff_idx, mask, t, w, uniform: bool):
@@ -121,19 +181,23 @@ def mac_mix(ring: torch.Tensor, bank: torch.Tensor, coeff_idx: torch.Tensor,
     F, B, _, K = ring.shape
     C_out = w.shape[0]
     E = bank.shape[0]
+    tiled = tiled_route(C_out, B, K)
+    if not tiled:
+        p = plan(F, B, K, C_out, uniform)
     out = torch.empty((C_out, 2, K), dtype=torch.float32, device=ring.device)
     args = (ring.data_ptr(), bank.data_ptr(), coeff_idx.data_ptr(),
             mask.data_ptr(), t.data_ptr(), w.data_ptr(), out.data_ptr(),
             F, B, K, E, C_out)
     with torch.cuda.device(ring.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if tiled_route(C_out, B, K):
+        if tiled:
             form = "tiled"
             rc = _build.load("mac_mix_tiled").bf_mac_mix_tiled(*args, stream)
         else:
             form = "uniform" if uniform else "rows"
-            rc = _build.load("mac_mix").bf_mac_mix(*args, int(uniform),
-                                                   stream)
+            rc = _build.load("mac_mix").bf_mac_mix(
+                *args, int(uniform), p["nw"], p["FC"], int(p["bank_smem"]),
+                stream)
     if rc != 0:
         raise RuntimeError(
             f"mac_mix: {form} kernel launch failed (cudaError {rc})")

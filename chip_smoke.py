@@ -41,10 +41,12 @@ Phases, in order; any failure exits non-zero:
    wrapper's host time a call beside the spin that hides it;
 6. kernel vs plain, the FFT glue (``csrc/fft_glue.cu``, TPU kernel 11):
    both directions at C = 26 and 256 channels, M = 8192 packed bins,
-   within 1e-5 relative of the plain version; then the routes they serve
-   (the port's only transforms: cuFFT's M-point complex FFT around the
-   glue) within 1e-5 of the library call for the same transform
-   (``torch.fft.rfft``, ``torch.fft.irfft``) and timed beside it;
+   within 1e-5 relative of the plain version, timed beside yardsticks
+   of the timing method (a kernel writing 4 bytes, a clone of the input,
+   cuFFT's fft alone and followed by a 4-byte kernel); then the routes
+   they serve (the port's only transforms: cuFFT's M-point complex FFT
+   around the glue) within 1e-5 of the library call for the same
+   transform (``torch.fft.rfft``, ``torch.fft.irfft``) and timed beside it;
 7. the fused real FFT's probe path (``csrc/fft_fused.cu``, TPU kernel 12;
    tools/fused_fft_probe.py's comparison): frame -> digit-permuted planes
    and permuted planes -> valid half at C = 26 and 256, M = 8192, one
@@ -173,13 +175,17 @@ def time_ms(fn, reps: int, flush) -> float:
     kernel queued after the flush keeps the card busy while the host
     enqueues the first event and the call, so the wrapper's host overhead
     (tens of us, more when the host is busy) is not timed as device time
-    of a short kernel."""
+    of a short kernel. ``flush`` is a 128 MB tensor, written, or a
+    callable that empties the cache another way."""
     import torch
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if callable(flush):
+            flush()
+        else:
+            flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -262,6 +268,11 @@ def kernels_massive(mm, rows, flush):
     """Both forms of the fused MAC + mix at the massive_config shape."""
     import torch
     dev = torch.device("cuda")
+    print_ptxas("mac_mix", ("mac_mix_kernel",),
+                "one instance a bank placement and alignment")
+    for uniform in (True, False):
+        print(f"  plan, {'uniform' if uniform else 'per-filter'} form: "
+              f"{mm.plan(F, B, K, C_OUT, uniform)}", flush=True)
     g = torch.Generator().manual_seed(SEED)
     ring = torch.randn(F, B, 2, K, generator=g).to(dev)
     bank = torch.randn(E, B, 2, K, generator=g).to(dev)
@@ -579,6 +590,8 @@ def kernels_glue(tg, rows, flush):
     call for the same transform and timed beside it."""
     import torch
     M = FFT_M
+    print_ptxas("fft_glue", ("glue_fwd_kernel", "glue_inv_kernel"),
+                "one pair of bins a thread")
     for C in (F, SCALE_C):
         x, p = fft_inputs(C, SEED + 11 + C)
         Z = torch.fft.fft(torch.view_as_complex(x.reshape(C, M, 2)), dim=-1)
@@ -596,6 +609,16 @@ def kernels_glue(tg, rows, flush):
                    rel, err, k_ms, p_ms, nb, nf,
                    ("fft_glue", name) if C == F else None,
                    note=f" (C={C}, M={M})", pallas=GLUE_SRC)
+        tiny = torch.zeros(1, device="cuda")
+        zc = torch.view_as_complex(x.reshape(C, M, 2))
+        floors = (("a kernel writing 4 bytes", lambda: tiny.zero_()),
+                  ("torch clone of Z", lambda: Z.clone()),
+                  ("cuFFT fft alone", lambda: torch.fft.fft(zc, dim=-1)),
+                  ("cuFFT fft, then a kernel writing 4 bytes",
+                   lambda: (torch.fft.fft(zc, dim=-1), tiny.zero_())))
+        print(f"  yardsticks at C={C}, M={M}: " + ", ".join(
+            f"{what} {time_ms(fn, REPS, flush):.4f} ms"
+            for what, fn in floors), flush=True)
         Xfull = unpacked(p)
         for label, fns, lib_ref in (
                 ("forward, frame -> packed planes",
@@ -637,6 +660,17 @@ def ptxas_usage(stem: str) -> dict:
     return usage
 
 
+def print_ptxas(stem: str, kernels, what: str) -> None:
+    """Print what ``-Xptxas -v`` said of each kernel of csrc/<stem>.cu
+    (registers, spills); fails where the log has no line for one."""
+    usage = ptxas_usage(stem)
+    for kernel in kernels:
+        said = sorted(u for n, u in usage.items() if kernel in n)
+        if not said:
+            fail(f"no -Xptxas -v line for {kernel} in the build log")
+        print(f"  {kernel} ({what}): ptxas: {'; '.join(said)}", flush=True)
+
+
 def probe_fused(tf, pc, rows, flush, launched: dict):
     """The fused real FFT (csrc/fft_fused.cu) on its probe path, in place
     of tools/fused_fft_probe.py: frame -> permuted packed planes and
@@ -649,13 +683,8 @@ def probe_fused(tf, pc, rows, flush, launched: dict):
     import torch
     M = FFT_M
     order = torch.as_tensor(tf.bin_order(M), device="cuda")
-    usage = ptxas_usage("fft_fused")
-    for kernel in ("fused_fwd_kernel", "fused_inv_kernel"):
-        said = sorted(u for n, u in usage.items() if kernel in n)
-        if not said:
-            fail(f"no -Xptxas -v line for {kernel} in the build log")
-        print(f"  {kernel} (one instance a cluster size): ptxas: "
-              f"{'; '.join(said)}", flush=True)
+    print_ptxas("fft_fused", ("fused_fwd_kernel", "fused_inv_kernel"),
+                "one instance a cluster size")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for C in (F, SCALE_C):
         S = tf.cluster_size(M, C, sms)

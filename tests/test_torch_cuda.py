@@ -49,15 +49,30 @@ def _mac_inputs(seed, F, B, K, E, C, uniform, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("uniform", [True, False])
-@pytest.mark.parametrize("K,C", [(512, 7), (384, 40), (8192, 26)])
-def test_kernel_matches_plain_version(cuda, uniform, K, C):
-    """C = 40 takes the kernel's global-memory accumulator path; K = 384
-    is not a multiple of the block size."""
-    F, B, E = 5, 6, 3
-    ring, bank, idx, mask, w = _mac_inputs(K + C, F, B, K, E, C, uniform,
-                                           cuda)
+@pytest.mark.parametrize("F,B,K,E,C", [
+    (5, 6, 512, 3, 7),
+    (5, 6, 384, 3, 40),
+    (5, 6, 8192, 3, 26),
+    (26, 16, 8192, 2, 26),     # the massive shape
+    (1, 6, 1000, 3, 1),        # K not a multiple of the 32-bin tile
+    (17, 6, 33, 3, 33),        # two rounds of 9 warps, one idle in the last
+    (13, 6, 200, 3, 128),
+    (255, 4, 100, 3, 256),     # F past one chunk: the shared out tile
+    (3, 2, 65536, 2, 1),       # 2048 tiles
+    (4, 3, 1001, 2, 5),        # K % 4 != 0: runs copied with their skews
+    (2, 3000, 128, 2, 1),      # a bank tile too big to stage: streamed
+])
+def test_kernel_matches_plain_version(cuda, uniform, F, B, K, E, C):
+    """csrc/mac_mix.cu at the edges of its plan (mac_mix.plan): ragged
+    bin tiles, filters that do not fill the warps or one chunk, 1 to 256
+    outputs at small K (the shapes the first form accumulated in device
+    memory), runs with and without 16-byte alignment, the uniform bank
+    tile staged or streamed; t over ring wraps."""
+    assert not mm.tiled_route(C, B, K)
+    ring, bank, idx, mask, w = _mac_inputs(K + C + F, F, B, K, E, C,
+                                           uniform, cuda)
     form = "uniform" if uniform else "rows"
-    for tv in (0, 4, 6, 17):
+    for tv in (0, 4, B - 1, B, 2 * B + 5):
         t = torch.tensor(tv, dtype=torch.int32, device=cuda)
         before = mm.launches[form]
         got = mm.mac_mix(ring, bank, idx, mask, t, w, uniform)
@@ -437,17 +452,23 @@ def _fft_pairs(kernel, M, dev, C=3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,M", [
-    (k, M) for k in ("glue_fwd", "glue_inv", "fft_fused_fwd", "fft_fused_inv")
+@pytest.mark.parametrize("kernel,M,C", [
+    (k, M, 3) for k in ("glue_fwd", "glue_inv", "fft_fused_fwd",
+                        "fft_fused_inv")
     for M in (256, 1024, 8192, 65536)] + [
-    (k, M) for k in ("fft_fused_fwd", "fft_fused_inv") for M in (384, 1408)])
-def test_fft_kernels_match_plain_versions(cuda, kernel, M):
+    (k, M, 3) for k in ("fft_fused_fwd", "fft_fused_inv")
+    for M in (384, 1408)] + [
+    (k, M, C) for k in ("glue_fwd", "glue_inv") for M in (1, 3, 255, 4097)
+    for C in (1, 256)])
+def test_fft_kernels_match_plain_versions(cuda, kernel, M, C):
     """csrc/fft_glue.cu and csrc/fft_fused.cu against their plain torch
-    versions: the glue's mirror pairs, bins 0 and M/2; the fused FFT's
+    versions: the glue's mirror pairs, bins 0 and M/2, M below one tile
+    and odd (1, 3, 255, 4097: a ragged last tile, bin M/2 or none), one
+    channel and 256; the fused FFT's
     clusters of 2 (M = 256, 384) and 8 blocks (1024 up), its column
     stages of radix 4/2 and of radix 3 and 11 (384, 1408), and 65536
     (R = 512, 128 KB of shared memory a block)."""
-    _check_fft_pairs(kernel, M, cuda, 3)
+    _check_fft_pairs(kernel, M, cuda, C)
 
 
 def _check_fft_pairs(kernel, M, dev, C):

@@ -90,6 +90,35 @@ def test_glue_route_any_length(rng, M):
     _close(tpc.irfft_planes_valid(p).numpy(), x[:, :M])
 
 
+_GLUE_THREADS = 256      # csrc/fft_glue.cu's kThreads
+
+
+def _glue_bins(M: int, block: int) -> list:
+    """The bins block ``block`` of csrc/fft_glue.cu writes, as its kernels
+    map them: thread j = block * kThreads + i, j <= M/2, writes bin j and,
+    where it differs, the mirror bin (j ? M - j : 0)."""
+    out = []
+    for j in range(block * _GLUE_THREADS, (block + 1) * _GLUE_THREADS):
+        if j > M // 2:
+            break
+        jm = M - j if j else 0
+        out += [j] if jm == j else [j, jm]
+    return out
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 255, 256, 8192, 131072])
+def test_glue_grid_writes_each_bin_once(M):
+    """The glue kernels' grid (``grid_of``: (M/2 + kThreads) / kThreads
+    blocks a channel) covers the pairs (j, M - j), j <= M/2; walking the
+    block -> bin map, every bin is written exactly once, bins 0 and M/2
+    included, and no block is empty."""
+    blocks = (M // 2 + _GLUE_THREADS) // _GLUE_THREADS
+    bins = [_glue_bins(M, b) for b in range(blocks)]
+    assert all(bins)
+    flat = [k for b in bins for k in b]
+    assert len(flat) == M and sorted(flat) == list(range(M))
+
+
 def _spy(monkeypatch):
     """Count the glue kernels' wrapper calls (on the CPU they run their
     plain versions)."""

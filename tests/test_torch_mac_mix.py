@@ -93,3 +93,71 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(pos, bad, exc):
     args[pos] = bad
     with pytest.raises(exc):
         mm.mac_mix(*args, False)
+
+
+# --- the launch plan of csrc/mac_mix.cu ---------------------------------------
+
+_PLAN_SHAPES = [(F, C, B, K) for F in (1, 26, 255, 256)
+                for C in (1, 32, 33, 128, 256) for B in (1, 8, 16)
+                for K in (1, 64, 256, 1000, 8192, 65536)
+                if not mm.tiled_route(C, B, K)]
+
+
+def _tile_bins(K: int, TK: int, tile: int) -> list:
+    """The bins block ``tile`` of csrc/mac_mix.cu owns, as it maps them
+    (k0 = blockIdx.x * TK): lane l takes bin tile * TK + l below K."""
+    return [k for lane in range(TK) if (k := tile * TK + lane) < K]
+
+
+def _chunk_filters(F: int, nw: int, FC: int, chunk: int, warp: int) -> list:
+    """The filters warp ``warp`` of csrc/mac_mix.cu MACs in chunk
+    ``chunk``, in its order: round r (chunk * FC / nw up to the chunk's
+    end) gives it filter r * nw + warp, below F."""
+    per_chunk = FC // nw
+    return [f for r in range(chunk * per_chunk, (chunk + 1) * per_chunk)
+            if (f := r * nw + warp) < F]
+
+
+@pytest.mark.parametrize("F,C_out,B,K", _PLAN_SHAPES)
+def test_plan_fits_and_covers_every_bin_once(F, C_out, B, K):
+    """Every shape that reaches csrc/mac_mix.cu (F <= 256 filters, C_out
+    <= 256 outputs, tiled_route false) gets a plan in both forms that fits
+    the 227 KB of dynamic shared memory; its blocks own every bin once and
+    its chunks and warps every filter once, in ascending order within a
+    warp."""
+    for uniform in (True, False):
+        p = mm.plan(F, B, K, C_out, uniform)
+        nw = p["nw"]
+        assert 4 <= nw <= mm.MIX_MAX_WARPS and p["FC"] % nw == 0
+        assert p["TK"] == mm.MIX_TK and p["bank_smem"] <= uniform
+        assert p["smem"] == mm.smem_bytes(nw, p["FC"], F, B, C_out,
+                                          p["bank_smem"]) <= mm.SMEM_MAX
+        bins = [k for tile in range(p["tiles"])
+                for k in _tile_bins(K, p["TK"], tile)]
+        assert len(bins) == K and sorted(bins) == list(range(K))
+        chunks = max(1, -(-F // p["FC"]))
+        owned = []
+        for ch in range(chunks):
+            for warp in range(nw):
+                fs = _chunk_filters(F, nw, p["FC"], ch, warp)
+                assert fs == sorted(fs)
+                assert all(ch * p["FC"] <= f < (ch + 1) * p["FC"] for f in fs)
+                owned += fs
+        assert len(owned) == F and sorted(owned) == list(range(F))
+
+
+@pytest.mark.parametrize("uniform", [True, False])
+def test_plan_at_the_massive_shape(uniform):
+    """26 filters of 8192 x 16 to 26 outputs: at least one block a SM of
+    the H100's 132, two rounds of 13 warps, one chunk (no out tile), the
+    uniform bank tile staged once a block, and two blocks' shared memory
+    fitting one SM."""
+    p = mm.plan(26, 16, 8192, 26, uniform)
+    assert p["tiles"] >= 132 and p["nw"] == 13 and p["FC"] == 26
+    assert p["bank_smem"] == uniform
+    assert 2 * p["smem"] <= mm.SMEM_MAX
+
+
+def test_plan_refuses_what_fits_no_block():
+    with pytest.raises(ValueError, match="no launch fits"):
+        mm.plan(8, 4, 64, 10_000)

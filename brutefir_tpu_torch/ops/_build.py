@@ -4,8 +4,10 @@ On first use each source is compiled with plain ``nvcc`` into a shared
 library of its own with a C interface, loaded with ``ctypes``. The
 compilers run side by side, one process per source, all started
 together. The libraries land in ``build/brutefir_tpu_torch/`` at the
-repository root, named by a hash of the source, the shared headers and
-the flags, so an edited source rebuilds and an unchanged one is reused.
+repository root, named by a hash of the source, the shared headers
+(``csrc/*.cuh``: ``fft_common.cuh`` of the FFT sources, ``mac_core.cuh``
+of ``mac.cu`` and ``mac_dual.cu``) and the flags, so an edited source or
+header rebuilds and an unchanged one is reused.
 ``torch.utils.cpp_extension.load`` is not used: a source that includes
 PyTorch's headers takes minutes to compile, a plain C interface seconds.
 
@@ -31,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source stem -> {C function: argtypes}; every launch returns a cudaError
 SIGNATURES = {
-    "mac": {"bf_mac": [_P] * 7 + [_I] * 6 + [_P]},
+    "mac": {"bf_mac": [_P] * 7 + [_I] * 6 + [_P],
+            "bf_mac_plan": [_I] * 3 + [_P]},
     "mac_dual": {"bf_mac_dual": [_P] * 10 + [_I] * 6 + [_P]},
     "mac_mix": {"bf_mac_mix": [_P] * 7 + [_I] * 9 + [_P]},
     "mac_mix_tiled": {"bf_mac_mix_tiled": [_P] * 7 + [_I] * 5 + [_P]},

@@ -10,13 +10,17 @@ read in place at ``rows``: the stage's rows are never gathered into a
 copy. ``coeff_idx`` and ``mask`` are every filter's controls, read at
 ``rows[i]``; ``uniform`` reads the first stage filter's for all of them.
 
-On a CUDA tensor it launches the hand-written kernel ``csrc/mac.cu``; on
-a CPU tensor it runs :func:`mac_reference`, the plain torch version.
+On a CUDA tensor it launches the hand-written kernel ``csrc/mac.cu``, the
+one-set entry of the core it shares with the crossfade dual MAC
+(``csrc/mac_core.cuh``); on a CPU tensor it runs :func:`mac_reference`,
+the plain torch version.
 There is no fallback from the kernel to the plain version on a CUDA
 tensor: a failed build or launch raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -32,6 +36,18 @@ launches = {"mac_uniform": 0, "mac_rows": 0}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def launch_plan(sets: int, Fs: int, K: int) -> dict:
+    """The launch ``csrc/mac_core.cuh``'s ``plan`` makes for ``mac``
+    (``sets`` = 1) or ``mac_dual`` (2) at a stage of ``Fs`` filters and
+    ``K`` bins: ``grid``, ``threads`` a block and ``group``, the
+    partitions a thread loads before their FMAs. Asks the built library
+    (the card's machine only); the kernels choose their launch there, not
+    here."""
+    o = (ctypes.c_int * 4)()
+    _build.load("mac").bf_mac_plan(sets, Fs, K, o)
+    return {"grid": (o[0], o[1]), "threads": o[2], "group": o[3]}
 
 
 def mac_reference(ring, bank, rows, coeff_idx, mask, t, uniform: bool):

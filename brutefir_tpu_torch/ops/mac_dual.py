@@ -9,8 +9,9 @@ results a crossfade block ramps between. The ring is read in place at
 ``rows``. The controls are every filter's, read at ``rows[i]``;
 ``uniform`` reads the first stage filter's for all of them.
 
-On a CUDA tensor it launches the hand-written kernel ``csrc/mac_dual.cu``;
-on a CPU tensor it runs :func:`mac_dual_reference`, the plain torch
+On a CUDA tensor it launches the hand-written kernel ``csrc/mac_dual.cu``,
+the two-set entry of the core it shares with the unfused MAC
+(``csrc/mac_core.cuh``); on a CPU tensor it runs :func:`mac_dual_reference`, the plain torch
 version (two plain MACs). There is no fallback from the kernel to the
 plain version on a CUDA tensor: a failed build or launch raises.
 """

@@ -7,8 +7,8 @@ clusters of 8 would not all be resident at once.
     python3 chip_fft_clusters.py
 
 Needs a card and ``nvcc``; builds the kernels as ``chip_smoke.py`` does.
-Each time is the median of 20 calls with the L2 cache flushed before each
-(``chip_smoke.time_ms``); each output is held against the plain version
+Each time is the median of 20 calls with the L2 cache flushed by a read
+before each (``chip_smoke.time_ms``, ``read_flush``); each output is held against the plain version
 first (1e-5 of its peak).
 """
 
@@ -52,7 +52,7 @@ def main() -> None:
     print(cs.card_line(), flush=True)
     lib = _build.load("fft_fused")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    flush = cs.read_flush()
     for C in CHANNELS:
         x, p = cs.fft_inputs(C, cs.SEED + 20 + C)
         for direction, src, plain in (

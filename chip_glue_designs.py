@@ -19,10 +19,10 @@ a kernel of the port.
 
 Needs a card and ``nvcc``; builds the port's kernels as ``chip_smoke.py``
 does. Every output is held against the plain version first (1e-5 of its
-peak). Each time is the median of 20 calls, cold two ways: the L2 cache
-flushed by a 128 MB write (``chip_smoke.time_ms``, the method of the
-smoke's kernel table), and by a 128 MB read, which leaves no dirty lines
-for the timed kernel to write back. A kernel writing 4 bytes and a clone
+peak). Each time is the median of 20 calls (``chip_smoke.time_ms``),
+cold two ways: the L2 cache flushed by a 128 MB write, and by a 128 MB
+read (``chip_smoke.read_flush``, the method of the smoke's kernel table),
+which leaves no dirty lines for the timed kernel to write back. A kernel writing 4 bytes and a clone
 of the input are timed beside them as yardsticks of each method.
 """
 
@@ -276,11 +276,11 @@ def main() -> None:
     lib = build_candidate()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     wflush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    rflush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
+    rflush = cs.read_flush()
 
     def times(fn) -> str:
-        w = cs.time_ms(fn, cs.REPS, wflush) * 1e3
-        r = cs.time_ms(fn, cs.REPS, rflush.sum) * 1e3
+        w = cs.time_ms(fn, cs.REPS, wflush.zero_) * 1e3
+        r = cs.time_ms(fn, cs.REPS, rflush) * 1e3
         return f"{w:.2f} / {r:.2f} us"
 
     print(f"times: write-flushed / read-flushed; {sms} SMs", flush=True)

@@ -14,9 +14,12 @@ Phases, in order; any failure exits non-zero:
    against its plain torch version on the same CUDA tensors, relative
    error <= 1e-5 of the output's magnitude, at several t (ring wraps
    included), per-filter delays 0 .. G-1 and >= G, and the mask zeros of
-   the host's cblocks clamp; then both timed with CUDA events (L2
-   flushed before each call, all-ones mask and zero delays as the main
-   path has them) beside the byte/operation bound:
+   the host's cblocks clamp; then both timed with CUDA events (the L2
+   cache flushed before each call by reading a 128 MB buffer, so no
+   dirty line is written back inside the timed window; all-ones mask and
+   zero delays as the main path has them) beside the byte/operation
+   bound and the method's floor, the time of a kernel that writes 4
+   bytes, taken once a run the same way:
    - the fused MAC + mix, both forms, at the massive_config shape
      (26 filters, 16 partitions, 8192 bins, 26 outputs);
    - at the 256-channel scale shape (256 x 256, 16 partitions, 8192
@@ -29,7 +32,10 @@ Phases, in order; any failure exits non-zero:
    filter: "row"), the massive cascade (52 filters, 8192 x 16, one shared
    coefficient: "uniform"), 256 filters of 8192 x 16 with 256 distinct
    rows ("chunked") and 4 filters of 65536 x 8 ("tile"); distinct and
-   repeated rows, the same t and mask zeros as phase 3;
+   repeated rows, the same t and mask zeros as phase 3; checked, not
+   timed, also where the core (``csrc/mac_core.cuh``) takes its scalar
+   path: K % 4 != 0 and a ring view that is not 16-byte aligned; prints
+   the kernel's registers and spills a form and each shape's launch plan;
 5. kernel vs plain, the crossfade dual MAC (``csrc/mac_dual.cu``), at
    bench5's shape (26 filters of 8192 x 8, one shared row per set), the
    massive shape, 256 filters of 8192 x 16 with 256 new and 256 old
@@ -38,7 +44,8 @@ Phases, in order; any failure exits non-zero:
    65536 x 8); both products within 1e-5 relative of the plain version
    over the same t, cblocks mask zeros with the previous mask differing,
    distinct and repeated rows; timed beside two ``mac`` calls, with the
-   wrapper's host time a call beside the spin that hides it;
+   wrapper's host time a call beside the spin that hides it; checked, not
+   timed, at phase 4's K % 4 != 0 and unaligned shapes;
 6. kernel vs plain, the FFT glue (``csrc/fft_glue.cu``, TPU kernel 11):
    both directions at C = 26 and 256 channels, M = 8192 packed bins,
    within 1e-5 relative of the plain version, timed beside yardsticks
@@ -136,6 +143,7 @@ REL_TOL = 1e-5          # kernel vs plain, of the output's max magnitude
 LSB_TOL = 16            # main path vs the float64 oracle, S24 LSB
 F, B, K, C_OUT, E = 26, 16, 8192, 26, 2   # multichannel_massive.conf
 SCALE_C = 256           # the scale shape: 256 x 256, one set per filter
+BENCH5_N, BENCH5_B, BENCH5_C = 8192, 8, 26     # the reference's bench5
 BLOCKS = 19.5           # 2 batches of 8, a 3-block tail, a half block
 REPS = 20               # timed calls per kernel and plain version
 SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock before each call
@@ -169,23 +177,30 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def read_flush():
+    """A callable that empties the 50 MB L2 cache by reading a 128 MB
+    buffer (a sum into one float): the dirty lines of earlier calls are
+    written back during the read, so none is left for a timed kernel to
+    write back."""
+    import torch
+    buf = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
+    return buf.sum
+
+
 def time_ms(fn, reps: int, flush) -> float:
     """Median device time of one call, CUDA events around each call, the
-    L2 cache flushed before each (a cold caller), after a warm-up. A spin
-    kernel queued after the flush keeps the card busy while the host
-    enqueues the first event and the call, so the wrapper's host overhead
-    (tens of us, more when the host is busy) is not timed as device time
-    of a short kernel. ``flush`` is a 128 MB tensor, written, or a
-    callable that empties the cache another way."""
+    L2 cache flushed before each (a cold caller) by the callable
+    ``flush`` (``read_flush()``), after a warm-up. A spin kernel queued
+    after the flush keeps the card busy while the host enqueues the first
+    event and the call, so the wrapper's host overhead (tens of us, more
+    when the host is busy) is not timed as device time of a short
+    kernel."""
     import torch
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
-        if callable(flush):
-            flush()
-        else:
-            flush.zero_()
+        flush()
         torch.cuda._sleep(SPIN_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -228,24 +243,31 @@ def check(name, got, ref, t):
     return rel, err
 
 
+# the timing method's floor: a kernel that writes 4 bytes, timed by
+# time_ms once a run (set in run())
+FLOOR_MS = None
+
+
 def report(rows, name, source, line, worst, max_abs, k_ms, p_ms, n_bytes,
            n_flop, launches_key, note="", pallas=PALLAS, lib_ms=None):
-    """Print one kernel's figures; with a ``launches_key``, add its row to
-    the kernels summary (``lib_ms``: one PyTorch call computing the same
-    function, or None)."""
+    """Print one kernel's figures beside its bound and the method's floor;
+    with a ``launches_key``, add its row to the kernels summary
+    (``lib_ms``: one PyTorch call computing the same function, or None)."""
     b_ms, by = bound(n_bytes, n_flop)
     lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
     print(f"{name}{note}: max rel err {worst:.3e} (tol {REL_TOL:g}), max "
           f"abs err {max_abs:.3e}; kernel {k_ms:.4f} ms, plain "
           f"{p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({by}: "
-          f"{n_bytes / 1e6:.1f} MB, {n_flop / 1e9:.4f} GFLOP); median of "
-          f"{REPS}, L2 flushed before each", flush=True)
+          f"{n_bytes / 1e6:.1f} MB, {n_flop / 1e9:.4f} GFLOP), floor "
+          f"{FLOOR_MS:.4f} ms; median of {REPS}, L2 flushed by a read "
+          f"before each", flush=True)
     if launches_key is not None:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": f"{pallas}:{line}",
                      "launches_key": launches_key, "max_abs_err": max_abs,
                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                     "bound_by": by, "library_ms": lib_ms})
+                     "bound_by": by, "library_ms": lib_ms,
+                     "floor_ms": FLOOR_MS})
 
 
 def mac_bytes_flops(F_, B_, K_, C, rows_used, G=1, out_rows=None):
@@ -388,35 +410,85 @@ def kernels_scale(mm, mg, rows, flush):
         torch.cuda.empty_cache()
 
 
+# the unfused MAC at the shape of each TPU variant it replaces: (name, TPU
+# kernel line, F, B, K, E, uniform, stage rows or None for all F rows
+# permuted, repeated rows)
+MAC_SHAPES = (
+    ("mac_rows", 102, 6, 8, K, 7, False, [2, 3, 4, 5], [5, 2, 2, 3]),
+    ("mac_uniform", 149, 2 * F, B, K, 1, True, list(range(2 * F)),
+     list(range(F, 2 * F)) + [0, 0]),
+    ("mac_rows_chunked_shape", 318, SCALE_C, B, K, SCALE_C, False, None,
+     [7] * 8),
+    ("mac_rows_tile_shape", 79, 4, 8, 65536, 4, False, [0, 1, 2, 3],
+     [3, 3, 0]),
+)
+# where csrc/mac_core.cuh takes its scalar path, checked in both forms:
+# (label, F, B, K, E, stage rows, ring offset in floats)
+MAC_EDGES = (
+    ("K % 4 != 0", 6, 8, K + 2, 7, [2, 3, 4, 5], 0),
+    ("a ring view not 16-byte aligned", 2 * F, B, K, 2,
+     list(range(2 * F)), 1),
+)
+
+
+def mac_inputs(g, F_, B_, K_, E_, uniform, stage):
+    """Seeded ring, bank, coefficient indices and cblocks mask of a MAC
+    shape on the card, and the stage rows (all F rows permuted for
+    None)."""
+    import torch
+    dev = torch.device("cuda")
+    ring = torch.randn(F_, B_, 2, K_, generator=g, device=dev)
+    bank = torch.randn(E_, B_, 2, K_, generator=g, device=dev)
+    if uniform:
+        idx = torch.full((F_,), E_ - 1, dtype=torch.int32, device=dev)
+        delay = torch.full((F_,), 2, dtype=torch.int32, device=dev)
+    else:
+        idx = torch.randperm(F_, generator=g, device=dev).remainder(
+            E_).to(torch.int32)
+        delay = torch.arange(F_, device=dev, dtype=torch.int32) % 3
+    if stage is None:
+        stage = torch.randperm(F_, generator=g, device=dev).tolist()
+    return ring, bank, idx, cblocks_mask(delay, B_), stage
+
+
+def at_offset(x, offset: int):
+    """``x`` as a contiguous tensor ``offset`` floats into a larger buffer
+    (offset 1: its runs are not 16-byte aligned)."""
+    import torch
+    buf = torch.zeros(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def print_mac_core(tm) -> None:
+    """Registers and spills of every instance of csrc/mac.cu's and
+    csrc/mac_dual.cu's kernel (``-Xptxas -v``), and the launch plan of
+    each shape phases 4 and 5 time (csrc/mac_core.cuh's ``plan``)."""
+    for stem in ("mac", "mac_dual"):
+        print_ptxas(stem, ("mac_kernel",), "one instance a load group and "
+                    "with and without 16-byte loads; no shared memory")
+    for sets, shapes in ((1, MAC_SHAPES), (2, DUAL_SHAPES)):
+        for shape in shapes:
+            name, F_, K_, stage = ((shape[0], shape[2], shape[4], shape[7])
+                                   if sets == 1 else
+                                   (shape[0], shape[1], shape[3], shape[6]))
+            Fs = F_ if stage is None else len(stage)
+            print(f"  plan, {'mac' if sets == 1 else 'mac_dual'} {name} "
+                  f"(Fs={Fs}, K={K_}): {tm.launch_plan(sets, Fs, K_)}",
+                  flush=True)
+
+
 def kernels_mac(tm, rows, flush):
     """The unfused MAC (csrc/mac.cu) at the shape of each TPU variant it
-    replaces: (name, TPU kernel line, F, B, K, E, uniform, stage rows or
-    None for all F rows permuted, repeated rows)."""
+    replaces (MAC_SHAPES), then checked at MAC_EDGES."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    shapes = (
-        ("mac_rows", 102, 6, 8, K, 7, False, [2, 3, 4, 5], [5, 2, 2, 3]),
-        ("mac_uniform", 149, 2 * F, B, K, 1, True, list(range(2 * F)),
-         list(range(F, 2 * F)) + [0, 0]),
-        ("mac_rows_chunked_shape", 318, SCALE_C, B, K, SCALE_C, False, None,
-         [7] * 8),
-        ("mac_rows_tile_shape", 79, 4, 8, 65536, 4, False, [0, 1, 2, 3],
-         [3, 3, 0]),
-    )
-    for name, line, F_, B_, K_, E_, uniform, stage, repeated in shapes:
-        ring = torch.randn(F_, B_, 2, K_, generator=g, device=dev)
-        bank = torch.randn(E_, B_, 2, K_, generator=g, device=dev)
-        if uniform:
-            idx = torch.full((F_,), E_ - 1, dtype=torch.int32, device=dev)
-            delay = torch.full((F_,), 2, dtype=torch.int32, device=dev)
-        else:
-            idx = torch.randperm(F_, generator=g, device=dev).remainder(
-                E_).to(torch.int32)
-            delay = torch.arange(F_, device=dev, dtype=torch.int32) % 3
-        mask = cblocks_mask(delay, B_)
-        if stage is None:
-            stage = torch.randperm(F_, generator=g, device=dev).tolist()
+    print_mac_core(tm)
+    for name, line, F_, B_, K_, E_, uniform, stage, repeated in MAC_SHAPES:
+        ring, bank, idx, mask, stage = mac_inputs(g, F_, B_, K_, E_, uniform,
+                                                  stage)
         worst = max_abs = 0.0
         for r in (stage, repeated):
             rt = torch.tensor(r, dtype=torch.int32, device=dev)
@@ -443,6 +515,26 @@ def kernels_mac(tm, rows, flush):
                note=f" (F={F_}, Fs={Fs}, B={B_}, K={K_})")
         del ring, bank
         torch.cuda.empty_cache()
+    for label, F_, B_, K_, E_, stage, offset in MAC_EDGES:
+        for uniform in (True, False):
+            name = "mac_uniform" if uniform else "mac_rows"
+            ring, bank, idx, mask, _ = mac_inputs(g, F_, B_, K_, E_, uniform,
+                                                  stage)
+            ring = at_offset(ring, offset)
+            rt = torch.tensor(stage, dtype=torch.int32, device=dev)
+            worst = 0.0
+            for tv in (0, 5, B_ - 1, B_, 2 * B_ + 5):
+                t = torch.tensor(tv, dtype=torch.int32, device=dev)
+                rel, _ = check(f"{name} ({label})",
+                               tm.mac(ring, bank, rt, idx, mask, t, uniform),
+                               tm.mac_reference(ring, bank, rt, idx, mask, t,
+                                                uniform), tv)
+                worst = max(worst, rel)
+            print(f"{name} ({label}: F={F_}, Fs={len(stage)}, B={B_}, "
+                  f"K={K_}): max rel err {worst:.3e} (tol {REL_TOL:g}); "
+                  f"checked, not timed", flush=True)
+            del ring, bank
+        torch.cuda.empty_cache()
 
 
 def dual_bytes_flops(Fs, B_, K_, rows_used):
@@ -456,12 +548,48 @@ def dual_bytes_flops(Fs, B_, K_, rows_used):
     return n_bytes, Fs * B_ * K_ * 16
 
 
+# the dual MAC at the five shapes of its paths: (label, F, B, K, E,
+# uniform, stage rows or None for all F rows permuted, repeated rows, in
+# the summary). The per-filter shapes take distinct new and previous rows
+# (E = 2F): at the scale shape 256 new and 256 old distinct rows.
+DUAL_SHAPES = (
+    ("bench5", BENCH5_C, BENCH5_B, BENCH5_N, 2, True, None,
+     list(range(13, 26)) + [0, 0], True),
+    ("massive", F, B, K, 2, True, None, [25, 0, 0, 7], False),
+    ("scale", SCALE_C, B, K, 2 * SCALE_C, False, None, [7] * 8, False),
+    ("stage subset", 6, 8, K, 12, False, [2, 3, 4, 5], [5, 2, 2, 3], True),
+    ("two-pass shape", 4, 8, 65536, 8, False, [0, 1, 2, 3], [3, 3, 0],
+     False),
+)
+
+
+def dual_inputs(g, F_, B_, K_, E_, uniform, stage):
+    """Seeded ring, bank, both sets' indices and cblocks masks (the
+    previous mask one partition shorter) of a dual MAC shape on the card,
+    and the stage rows (all F rows permuted for None)."""
+    import torch
+    dev = torch.device("cuda")
+    ring = torch.randn(F_, B_, 2, K_, generator=g, device=dev)
+    bank = torch.randn(E_, B_, 2, K_, generator=g, device=dev)
+    if uniform:
+        idx = torch.zeros(F_, dtype=torch.int32, device=dev)
+        pidx = torch.ones(F_, dtype=torch.int32, device=dev)
+        delay = torch.full((F_,), 2, dtype=torch.int32, device=dev)
+    else:
+        perm = torch.randperm(F_, generator=g, device=dev)
+        idx = perm.to(torch.int32)
+        pidx = (perm + F_).to(torch.int32)
+        delay = torch.arange(F_, device=dev, dtype=torch.int32) % 3
+    mask = cblocks_mask(delay, B_)
+    pmask = cblocks_mask((delay + 1).clamp(max=B_ - 1), B_)
+    if stage is None:
+        stage = torch.randperm(F_, generator=g, device=dev).tolist()
+    return ring, bank, idx, mask, pidx, pmask, stage
+
+
 def kernels_dual(td, tm, rows, flush):
-    """The crossfade dual MAC (csrc/mac_dual.cu) at five shapes: (name,
-    F, B, K, E, uniform, stage rows or None for all F rows permuted,
-    repeated rows, in the summary). The per-filter shapes take distinct
-    new and previous rows (E = 2F): at the scale shape 256 new and 256
-    old distinct rows."""
+    """The crossfade dual MAC (csrc/mac_dual.cu) at DUAL_SHAPES, then
+    checked at MAC_EDGES (distinct new and previous rows, E = 2F)."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -471,32 +599,10 @@ def kernels_dual(td, tm, rows, flush):
     e1.record()
     e1.synchronize()
     spin_ms = e0.elapsed_time(e1)
-    shapes = (
-        ("bench5", BENCH5_C, BENCH5_B, BENCH5_N, 2, True, None,
-         list(range(13, 26)) + [0, 0], True),
-        ("massive", F, B, K, 2, True, None, [25, 0, 0, 7], False),
-        ("scale", SCALE_C, B, K, 2 * SCALE_C, False, None, [7] * 8, False),
-        ("stage subset", 6, 8, K, 12, False, [2, 3, 4, 5], [5, 2, 2, 3],
-         True),
-        ("two-pass shape", 4, 8, 65536, 8, False, [0, 1, 2, 3], [3, 3, 0],
-         False),
-    )
-    for label, F_, B_, K_, E_, uniform, stage, repeated, summary in shapes:
-        ring = torch.randn(F_, B_, 2, K_, generator=g, device=dev)
-        bank = torch.randn(E_, B_, 2, K_, generator=g, device=dev)
-        if uniform:
-            idx = torch.zeros(F_, dtype=torch.int32, device=dev)
-            pidx = torch.ones(F_, dtype=torch.int32, device=dev)
-            delay = torch.full((F_,), 2, dtype=torch.int32, device=dev)
-        else:
-            perm = torch.randperm(F_, generator=g, device=dev)
-            idx = perm.to(torch.int32)
-            pidx = (perm + F_).to(torch.int32)
-            delay = torch.arange(F_, device=dev, dtype=torch.int32) % 3
-        mask = cblocks_mask(delay, B_)
-        pmask = cblocks_mask((delay + 1).clamp(max=B_ - 1), B_)
-        if stage is None:
-            stage = torch.randperm(F_, generator=g, device=dev).tolist()
+    for label, F_, B_, K_, E_, uniform, stage, repeated, summary in \
+            DUAL_SHAPES:
+        ring, bank, idx, mask, pidx, pmask, stage = dual_inputs(
+            g, F_, B_, K_, E_, uniform, stage)
         name = "mac_dual_uniform" if uniform else "mac_dual_rows"
         worst = max_abs = 0.0
         for r in (stage, repeated):
@@ -541,6 +647,29 @@ def kernels_dual(td, tm, rows, flush):
               f"{max(host):.4f} ms (the spin before each timed call: "
               f"{spin_ms:.4f} ms)", flush=True)
         del ring, bank
+        torch.cuda.empty_cache()
+    for label, F_, B_, K_, _, stage, offset in MAC_EDGES:
+        for uniform in (True, False):
+            name = "mac_dual_uniform" if uniform else "mac_dual_rows"
+            ring, bank, idx, mask, pidx, pmask, _ = dual_inputs(
+                g, F_, B_, K_, 2 * F_, uniform, stage)
+            ring = at_offset(ring, offset)
+            rt = torch.tensor(stage, dtype=torch.int32, device=dev)
+            worst = 0.0
+            for tv in (0, 5, B_ - 1, B_, 2 * B_ + 5):
+                t = torch.tensor(tv, dtype=torch.int32, device=dev)
+                got = td.mac_dual(ring, bank, rt, idx, mask, pidx, pmask, t,
+                                  uniform)
+                ref = td.mac_dual_reference(ring, bank, rt, idx, mask, pidx,
+                                            pmask, t, uniform)
+                for a, b in zip(got, ref):
+                    worst = max(worst, check(f"{name} ({label})", a, b,
+                                             tv)[0])
+                del got, ref
+            print(f"{name} ({label}: F={F_}, Fs={len(stage)}, B={B_}, "
+                  f"K={K_}): max rel err {worst:.3e} (tol {REL_TOL:g}); "
+                  f"checked, not timed", flush=True)
+            del ring, bank
         torch.cuda.empty_cache()
 
 
@@ -1136,7 +1265,6 @@ def main_massive_cascade(main, mods: dict, launched: dict):
     add_glue(launched, counts)
 
 
-BENCH5_N, BENCH5_B, BENCH5_C = 8192, 8, 26     # the reference's bench5
 
 
 def xfade_config(work: str, name: str, N_: int, B_: int, C: int,
@@ -1465,7 +1593,12 @@ def run():
 
     phase("kernel vs plain")
     rows = []
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    flush = read_flush()
+    global FLOOR_MS
+    tiny = torch.zeros(1, device="cuda")
+    FLOOR_MS = time_ms(lambda: tiny.zero_(), REPS, flush)
+    print(f"timing floor (a kernel writing 4 bytes, L2 flushed by a read "
+          f"before each): {FLOOR_MS:.4f} ms", flush=True)
     kernels_massive(mm, rows, flush)
     kernels_scale(mm, mg, rows, flush)
     phase("kernel vs plain, the unfused MAC")

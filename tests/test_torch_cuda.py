@@ -107,19 +107,41 @@ def test_tiled_kernel_matches_plain_version(cuda, monkeypatch, F, B, K, E,
         assert (got - ref).abs().max().item() / ref.abs().max().item() <= 1e-5
 
 
+def _at_offset(x, offset):
+    """``x`` as a contiguous tensor ``offset`` floats into a larger buffer
+    on its device (offset 1: its runs are not 16-byte aligned)."""
+    buf = torch.zeros(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+# (F, B, K, E, stage rows, ring offset in floats): the shapes of the MAC
+# core's paths (csrc/mac_core.cuh)
+MAC_CORE_SHAPES = [
+    (6, 8, 8192, 7, [2, 3, 4, 5], 0),    # bench1's first stage
+    (5, 6, 1000, 3, [4, 1, 1], 0),       # K not a multiple of the tile
+    (3, 2, 64, 2, [0, 1, 2], 0),         # an xtc-like short partition
+    (5, 6, 1001, 3, [4, 1, 1], 0),       # K % 4 != 0: the scalar path
+    (6, 8, 8192, 7, [2, 3, 4, 5], 1),    # a ring view not 16-byte aligned
+    (4, 8, 8192, 3, [2], 0),             # one stage filter
+    (3, 1, 512, 2, [0, 2], 0),           # one partition
+    (3, 24, 1024, 2, [2, 0, 1], 0),      # several load groups
+    (3, 4, 100, 2, [1, 2], 0),           # K under one block's bins
+    (40, 4, 8192, 2, list(range(40)) + [3, 3], 0),  # more blocks than SMs
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("uniform", [True, False])
-@pytest.mark.parametrize("F,B,K,E,rows", [
-    (6, 8, 8192, 7, [2, 3, 4, 5]),   # bench1's first stage
-    (5, 6, 1000, 3, [4, 1, 1]),      # K not a multiple of the block; repeats
-    (3, 2, 64, 2, [0, 1, 2]),        # an xtc-like short partition
-])
+@pytest.mark.parametrize("F,B,K,E,rows,offset", MAC_CORE_SHAPES)
 def test_unfused_mac_kernel_matches_plain_version(cuda, uniform, F, B, K, E,
-                                                  rows):
+                                                  rows, offset):
     """csrc/mac.cu: the stage's rows read in place, t over ring wraps."""
     ring, bank, idx, mask, _ = _mac_inputs(F * K, F, B, K, E, 1, uniform,
                                            cuda)
     mask[:, 0] = 1.0                 # no all-zero mask row at small B
+    ring = _at_offset(ring, offset)
     r = torch.tensor(rows, dtype=torch.int32, device=cuda)
     form = "mac_uniform" if uniform else "mac_rows"
     for tv in (0, 3, B - 1, B, 2 * B + 5):
@@ -135,21 +157,21 @@ def test_unfused_mac_kernel_matches_plain_version(cuda, uniform, F, B, K, E,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("uniform", [True, False])
-@pytest.mark.parametrize("F,B,K,E,rows", [
-    (26, 8, 8192, 2, list(range(26))),   # bench5's shape
-    (6, 8, 8192, 7, [2, 3, 4, 5]),       # a stage of bench1's topology
-    (5, 6, 1000, 3, [4, 1, 1]),          # K not a multiple of the block
-])
+@pytest.mark.parametrize("F,B,K,E,rows,offset", [
+    (26, 8, 8192, 2, list(range(26)), 0),   # bench5's shape
+] + MAC_CORE_SHAPES)
 def test_dual_mac_kernel_matches_plain_version(cuda, uniform, F, B, K, E,
-                                               rows):
+                                               rows, offset):
     """csrc/mac_dual.cu: both products against two plain MACs, the
-    stage's rows read in place, prev_mask != mask, t over ring wraps."""
+    stage's rows read in place, prev_mask != mask, t over ring wraps;
+    the new-set product equal to csrc/mac.cu's, bit for bit (one core)."""
     ring, bank, idx, mask, _ = _mac_inputs(F * K + 1, F, B, K, E, 1,
                                            uniform, cuda)
     mask[:, 0] = 1.0
+    ring = _at_offset(ring, offset)
     pidx = (idx + 1) % E
     pmask = mask.clone()
-    pmask[:, B // 2:] = 0.0
+    pmask[:, max(1, B // 2):] = 0.0      # B = 1: keep the one partition
     r = torch.tensor(rows, dtype=torch.int32, device=cuda)
     form = "mac_dual_uniform" if uniform else "mac_dual_rows"
     for tv in (0, 5, B - 1, B, 2 * B + 5):
@@ -163,6 +185,25 @@ def test_dual_mac_kernel_matches_plain_version(cuda, uniform, F, B, K, E,
         for a, b in zip(got, ref):
             assert a.shape == (len(rows), 2, K)
             assert (a - b).abs().max().item() / b.abs().max().item() <= 1e-5
+        assert torch.equal(got[0], tm.mac(ring, bank, r, idx, mask, t,
+                                          uniform))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sets", [1, 2])
+@pytest.mark.parametrize("Fs,K", [
+    (4, 8192), (52, 8192), (26, 8192), (256, 8192), (4, 65536), (1, 100),
+    (40, 1024), (33, 1024), (132, 256), (133, 256)])
+def test_mac_core_plan_covers(cuda, sets, Fs, K):
+    """csrc/mac_core.cuh's plan at the engine's and the smoke's shapes: the
+    grid covers every (filter, bin) once as the kernel reads it (a block a
+    filter and 256 bins, 4 a thread), and one set loads 8 partitions a
+    group on a grid of at most one block an SM (132), else 4."""
+    p = tm.launch_plan(sets, Fs, K)
+    tiles, gy = p["grid"]
+    assert p["threads"] == 64 and gy == Fs
+    assert (tiles - 1) * 256 < K <= tiles * 256
+    assert p["group"] == (8 if sets == 1 and tiles * Fs <= 132 else 4)
 
 
 @pytest.mark.cuda

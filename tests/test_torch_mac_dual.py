@@ -10,15 +10,21 @@ place through ``rows``.
 
 Tolerance atol 1e-5, as tests/test_torch_mac.py holds the single MAC:
 O(1) random spectra summed over B partitions in float32, in another
-order."""
+order.
+
+The edge shapes of the kernel's paths (test_torch_mac.py's ``EDGES``)
+go through the same comparison; where K is no multiple of 128, which the
+Pallas kernels refuse, the JAX side is its dense MAC twice."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+from brutefir_tpu.ops import partconv as jpc
 from brutefir_tpu.ops.pallas_mac import pallas_spectral_mac_dual
 from brutefir_tpu_torch.ops import mac as tm, mac_dual as td
+from test_torch_mac import EDGES, _at_offset, _edge_inputs
 
 ATOL = 1e-5
 F, B, K, E = 6, 4, 256, 4
@@ -76,6 +82,36 @@ def test_mac_dual_matches_pallas(rng, uniform, rows):
         np.testing.assert_allclose(y_old, np.asarray(ref_old), rtol=0,
                                    atol=ATOL)
         assert np.abs(y_new - y_old).max() > 1.0   # two distinct products
+
+
+@pytest.mark.parametrize("edge", sorted(EDGES))
+@pytest.mark.parametrize("uniform", [True, False])
+def test_mac_dual_edge_shapes_match_jax(rng, uniform, edge):
+    F_, B_, K_, E_, rows, offset = EDGES[edge]
+    ring, bank, idx, mask = _edge_inputs(rng, F_, B_, K_, E_, uniform)
+    pidx = ((idx + 1) % E_).astype(np.int32)
+    pmask = mask.copy()
+    pmask[:, B_ // 2 + 1:] = 0.0
+    r = np.asarray(rows)
+    ring_t = _at_offset(ring, offset)
+    for t in (0, B_ - 1, 2 * B_ + 5):     # the last slot; past two wraps
+        jargs = [jnp.asarray(a) for a in (ring[r], bank, idx[r], mask[r],
+                                          pidx[r], pmask[r])]
+        if K_ % 128 == 0:
+            refs = pallas_spectral_mac_dual(*jargs, jnp.int32(t),
+                                            uniform=uniform, interpret=True)
+        else:
+            fn = jpc.spectral_mac_uniform if uniform else \
+                jpc.spectral_mac_rollh
+            refs = (fn(*jargs[:4], jnp.int32(t)),
+                    fn(jargs[0], jargs[1], jargs[4], jargs[5], jnp.int32(t)))
+        got = td.mac_dual(ring_t, *_t(bank, r.astype(np.int32), idx, mask,
+                                      pidx, pmask),
+                          torch.tensor(t, dtype=torch.int32), uniform)
+        for y, ref in zip(got, refs):
+            assert y.shape == (r.size, 2, K_)
+            np.testing.assert_allclose(y.numpy(), np.asarray(ref), rtol=0,
+                                       atol=ATOL)
 
 
 @pytest.mark.parametrize("uniform", [True, False])

@@ -48,12 +48,18 @@
 //
 // Design. bf_mac_group: one thread per (filter, bin), G accumulator pairs
 // in registers, 256 bins a block (coalesced rows), grid (K/256, F).
-// bf_mac_mix_group: the tile structure of mac_mix_tiled.cu with G output
-// sets. The accumulators are G x kRows x 2 a thread, so the bin tile is
-// halved to 16 bins (16 filters a chunk, 16 output rows a pass) and kRows
-// is 32 / G rounded down to a power of two: 64 accumulators a thread at
-// G = 2 and 256 outputs, a block per 16 bins covering all 256 outputs;
-// gridDim.y covers wider mixes at larger G.
+// bf_mac_mix_group: see the note above mac_mix_group_kernel below. In
+// short: 32-bin tiles with all 256 output rows at G = 2 in one block of
+// 16 warps, each warp streaming its filter's ring, xnews and bank rows
+// through its own cp.async stage ring, the output mix an FP32
+// register-tiled outer product from shared memory, each warp's share run
+// at its own stage of the next round.
+// The form it replaces (PR 2) kept kRows x G x 2 accumulators a thread
+// with 16-bin tiles, one dependent round trip of loads a partition and a
+// mix of 2 FMAs a shared load, and ran at 31% of the byte bound.
+
+#include <cstddef>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -155,107 +161,6 @@ mac_group_kernel(const float* __restrict__ ring,
   }
 }
 
-constexpr int kTile = 16;                    // bins per block
-constexpr int kFc = kThreads / kTile;        // filters per chunk
-constexpr int kPass = kThreads / kTile;      // output rows per pass
-
-template <int G>
-struct RowsFor {                             // kRows: G * kRows <= 32
-  static constexpr int value = G <= 2 ? 16 : (G <= 4 ? 8 : 4);
-};
-
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-mac_mix_group_kernel(const float* __restrict__ ring,
-                     const float* __restrict__ xnews,
-                     const float* __restrict__ bank,
-                     const int* __restrict__ coeff_idx,
-                     const float* __restrict__ mask,
-                     const int* __restrict__ t_ptr,
-                     const int* __restrict__ delay,
-                     const float* __restrict__ w, float* __restrict__ out,
-                     int F, int B, int K, int E, int C_out) {
-  constexpr int kRows = RowsFor<G>::value;
-  constexpr int kBlockRows = kPass * kRows;
-  __shared__ float ys[G][kFc][2][kTile];
-  __shared__ float ws[kFc][kBlockRows + 1];  // +1: no bank conflict on store
-  const int t = *t_ptr;
-  const int lane = threadIdx.x % kTile;
-  const int sub = threadIdx.x / kTile;
-  const int k = blockIdx.x * kTile + lane;
-  const int c0 = blockIdx.y * kBlockRows;
-  const size_t plane = (size_t)K;
-  const size_t part = 2 * (size_t)K;
-
-  float accr[G][kRows], acci[G][kRows];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      accr[g][r] = 0.f;
-      acci[g][r] = 0.f;
-    }
-  }
-
-  for (int f0 = 0; f0 < F; f0 += kFc) {
-    // 1a. thread (sub, lane) MACs filter f0 + sub at its bin, all G blocks
-    const int f = f0 + sub;
-    float yr[G], yi[G];
-    if (f < F && k < K) {
-      group_mac<G>(ring, xnews, bank, coeff_idx, mask, delay, t, f, k, B,
-                   K, E, yr, yi);
-    } else {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        yr[g] = 0.f;
-        yi[g] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      ys[g][sub][0][lane] = yr[g];
-      ys[g][sub][1][lane] = yi[g];
-    }
-    // 1b. w[c0 .. c0 + kBlockRows, f0 .. f0 + kFc), zero outside C_out x F
-    for (int i = threadIdx.x; i < kFc * kBlockRows; i += kThreads) {
-      const int j = i % kFc, r = i / kFc;
-      const int c = c0 + r, fj = f0 + j;
-      ws[j][r] = (c < C_out && fj < F) ? w[(size_t)c * F + fj] : 0.f;
-    }
-    __syncthreads();
-    // 3. the chunk's filters into this thread's rows, f ascending
-    const int fc = min(kFc, F - f0);
-    for (int j = 0; j < fc; ++j) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float vr = ys[g][j][0][lane], vi = ys[g][j][1][lane];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float wc = ws[j][sub + kPass * r];
-          accr[g][r] = fmaf(wc, vr, accr[g][r]);
-          acci[g][r] = fmaf(wc, vi, acci[g][r]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (k < K) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int c = c0 + sub + kPass * r;
-        if (c < C_out) {
-          float* o = out + ((size_t)g * C_out + c) * part;
-          o[k] = accr[g][r];
-          o[plane + k] = acci[g][r];
-        }
-      }
-    }
-  }
-}
-
 template <int G>
 int launch_group(const float* ring, const float* xnews, const float* bank,
                  const int* coeff_idx, const float* mask, const int* t,
@@ -267,25 +172,446 @@ int launch_group(const float* ring, const float* xnews, const float* bank,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf_mac_mix_group. What limits it on an H100: the bytes (the ring and
+// bank rows read once for G blocks, 175 us a call at the scale shape),
+// but only while the copies stay in flight during the mix, 32768 outputs
+// x F filters a 32-bin tile at G = 2 (64 us of the card's FP32 rate a
+// call), and while the SM's issue slots, shared-memory bandwidth and 128
+// registers a thread suffice for copies, MAC and mix together. The mix
+// from shared memory is bound by both the FMA pipes and the shared-memory
+// reads, and the copies' own instructions compete with it for issue.
+//
+// The block: 16 warps per tile of 32 bins (128-byte runs a plane) and
+// kRows output rows, one block an SM. Filters come in rounds of 16,
+// filter r * 16 + w to warp w. A round walks the B + G - 1 spectra of
+// each filter's window in order, V(G-1) down to V(-(B-1)), and beside
+// V(-b) the bank row b and the mask value: one "position" each. Each warp
+// stages its own filter's positions in a ring of kStages stages of kPos
+// positions in shared memory with 16-byte cp.async copies (lane (run,
+// chunk): runs V re, V im, bank re, bank im), kStages - 1 stages ahead,
+// and waits on its own copies only (a warp barrier, no block barrier a
+// stage). Each lane walks a running pointer to its next run (a ring slot
+// back, a bank partition forward); only a round's first G - 1 positions,
+// which may read xnews, take a general path. Lane l MACs bin l: the window
+// V(g - b), g = 0..G-1, shifts through registers as in group_mac; sums
+// run b ascending in FP32 FMA, and bin 0 takes two real products. At the
+// end of a round each warp's G spectra go to Ys [16][cols] in shared
+// memory, and w's chunk for the round, copied into shared memory a round
+// ahead by cp.async (each thread the elements it moves on), goes
+// transposed beside it (Ws [16][kRows]); one block barrier. During the
+// next round warp w mixes that round at stage w % stages, so that the
+// warps mix at different stages while the others' copies stream: out +=
+// w[:, f] Y_f, FP32 FMA, f ascending, as a register-tiled outer product
+// (a thread owns 8 rows x 8 columns (g, plane, 4 bins x 2) and loads two
+// 16-byte words of w and two of Y for 64 FMAs). The last round's mix runs
+// after the loop. The accumulators are 64 a thread: kRows x padded G x
+// 64 = 32768, so kRows = 256 at G = 2, 128 at G = 3-4 and 64 at G = 5-8
+// (G padded to 4 or 8; the padding's columns are zero and not stored),
+// and gridDim.y covers C_out past kRows (each such block reads the
+// tile's ring and bank rows again). At G = 2 and C_out <= 256 the ring,
+// bank and xnews bytes of a tile are read once a call. Warps whose rows
+// all lie past C_out skip the mix.
+//
+// Forms measured slower on the card and gone (`chip_mix_group_designs.py`
+// rebuilds each as a patch of this file; times in PERF.md): this layout
+// with each warp's mix spread over every stage, which leaves every
+// warp's copies idle at once; its mix as 3xTF32 mma.sync (each operand
+// split into two TF32 halves, three products: its fragments spill, and
+// one product misses 1e-5); a copy warp filling the stages with bulk
+// copies (cp.async.bulk, one 128-byte run each) behind mbarriers; and
+// warpgroups specialized by setmaxnreg into 8 copy + MAC warps and 8 mix
+// warps (8 x 16 outputs a thread).
+
+constexpr int kMixThreads = 512;
+constexpr int kMixWarps = kMixThreads / 32;
+constexpr int kTileBins = 32;                // bins a block: one a lane
+constexpr int kFc = kMixWarps;               // filters a round: one a warp
+constexpr int kPos = 4;                      // window positions a stage
+constexpr int kStages = 3;                   // a warp's stage ring
+constexpr int kItem = 4 * kTileBins + 4;     // V re, V im, H re, H im, mask
+constexpr size_t kSmemMax = 232448;          // dynamic shared memory a block
+
+template <int G>
+struct MixShape {
+  static constexpr int kGP = G <= 2 ? 2 : (G <= 4 ? 4 : 8);  // padded G
+  static constexpr int kCols = kGP * 2 * kTileBins;  // (g, plane, bin)
+  static constexpr int kRows = kMixThreads * 64 / kCols;
+  static constexpr int kWs = kRows + 4;      // a Ws row, padded (stores)
+  static constexpr int kWPer = kFc * kRows / kMixThreads;  // w a thread
+  static constexpr size_t kSmemFloats =
+      (size_t)kMixWarps * kStages * kPos * kItem + 2 * kFc * kCols +
+      2 * kFc * kWs + 2 * kRows * kFc;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, or nothing where `on` is false.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool on) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p cp.async.cg.shared.global [%0], [%1], 16;\n}\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"((int)on)
+      : "memory");
+}
+
+// 4 bytes; zeros where `on` is false (src is not read then).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool on = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(on ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 bytes where `on`, else nothing.
+__device__ __forceinline__ void cp_async4_if(float* dst, const float* src,
+                                             bool on) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p cp.async.ca.shared.global [%0], [%1], 4;\n}\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"((int)on)
+      : "memory");
+}
+
+// kAligned: K % 4 == 0 and ring, xnews, bank and out 16-byte aligned.
+template <int G, bool kAligned>
+__global__ void __launch_bounds__(kMixThreads, 1)
+mac_mix_group_kernel(const float* __restrict__ ring,
+                     const float* __restrict__ xnews,
+                     const float* __restrict__ bank,
+                     const int* __restrict__ coeff_idx,
+                     const float* __restrict__ mask,
+                     const int* __restrict__ t_ptr,
+                     const int* __restrict__ delay,
+                     const float* __restrict__ w, float* __restrict__ out,
+                     int F, int B, int K, int E, int C_out) {
+  using S = MixShape<G>;
+  constexpr int kRows = S::kRows, kCols = S::kCols, kWs = S::kWs;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k0 = blockIdx.x * kTileBins;
+  const int nk = min(kTileBins, K - k0);
+  const int c0 = blockIdx.y * kRows;
+  const size_t part = 2 * (size_t)K;
+  const int NP = B + G - 1;                  // window positions a round
+  const int nst = (NP + kPos - 1) / kPos;    // stages a round
+  const int rounds = (F + kFc - 1) / kFc;
+  const int total = rounds * nst;            // stages of a warp's ring
+  int t = *t_ptr % B;
+  t += t < 0 ? B : 0;
+
+  float* st = sm + warp * (kStages * kPos * kItem);  // this warp's ring
+  float* ys = sm + kMixWarps * (kStages * kPos * kItem);  // [2][kFc][kCols]
+  float* ws = ys + 2 * kFc * kCols;                       // [2][kFc][kWs]
+  float* wraw = ws + 2 * kFc * kWs;                       // [2][kRows][kFc]
+
+  // the padding's columns (g >= G) of both Y buffers stay zero
+  for (int i = tid; i < 2 * kFc * kCols; i += kMixThreads)
+    if (i % kCols >= G * 2 * kTileBins) ys[i] = 0.f;
+
+  // w[c0 + row, r * 16 + fl] -> wraw[r & 1][row][fl]: element
+  // tid + u * kMixThreads, u < kWPer, of the chunk is this thread's
+  auto copy_w = [&](int r) {
+#pragma unroll
+    for (int u = 0; u < S::kWPer; ++u) {
+      const int i = tid + u * kMixThreads;
+      const int c = c0 + i / kFc, f = r * kFc + i % kFc;
+      const bool on = c < C_out && f < F;
+      cp_async4(wraw + (r & 1) * kRows * kFc + i,
+                on ? w + (size_t)c * F + f : w, on);
+    }
+  };
+
+  // The copies: lane (run, chunk) = (lane / 8, lane % 8) of its warp's
+  // positions; lane q also copies position q's mask value. The issue side
+  // walks (round, stage) ahead of the MAC with its own counters: the stage
+  // gi and its buffer gb, its index in the round ii, the round's filter fi
+  // and delay di, the next round's bank row and delay ne, nd in flight.
+  // Each lane keeps a running pointer to its next run: a V lane's ring
+  // slot si of its filter (stepping back a slot a position), a bank lane's
+  // next partition (stepping forward once the bank rows begin), and the
+  // next mask value; only the first G - 1 positions of a round, which may
+  // read xnews, take the general path.
+  const int run = lane >> 3, off = 4 * (lane & 7);
+  const bool is_v = run < 2;
+  const int nfl = max(0, nk - off);          // this lane's bins in range
+  const int top = (t + G - 1) % B;           // slot of V(G-1)
+  const ptrdiff_t step = (ptrdiff_t)part, wrap = (ptrdiff_t)(B - 1) * part;
+  int gi = 0, gb = 0, ii = 0, si = top, fi = warp, di, ne, nd;
+  const float *cur, *xb, *mcur;
+  auto next_ctrl = [&](int f) {
+    ne = f < F ? min(max(coeff_idx[f], 0), E - 1) : 0;
+    nd = f < F ? delay[f] : 0;
+  };
+  auto start_round = [&]() {               // filter fi, from ne and nd
+    const size_t lane_off = (size_t)(run & 1) * K + k0 + off;
+    cur = (is_v ? ring + ((size_t)fi * B + top) * part
+                : bank + (size_t)ne * B * part) + lane_off;
+    xb = xnews + (size_t)fi * (G - 1) * part + lane_off;
+    mcur = mask + (size_t)fi * B;
+    si = top;
+    di = nd;
+    next_ctrl(fi + kFc);
+  };
+  next_ctrl(fi);
+  start_round();
+  auto copy_run = [&](float* d, const float* src, bool on) {
+    if (kAligned) {
+      cp_async16(d, src, on && nfl >= 4);
+    } else if (on) {
+      for (int i = 0; i < nfl && i < 4; ++i) cp_async4(d + i, src + i);
+    }
+  };
+  auto issue = [&]() {
+    float* dst = st + gb * (kPos * kItem);
+    const bool live = fi < F;
+    if (ii * kPos < G - 1) {
+      // the round's first positions: V(d), d >= 1, may come from xnews
+#pragma unroll
+      for (int q = 0; q < kPos; ++q) {
+        const int pos = ii * kPos + q;
+        const int b = pos - (G - 1);         // bank partition, < 0: none
+        const int j = min(G - 2 - pos - di, G - 2);      // xnews index
+        const bool use_x = is_v && j >= 0;
+        const bool in = live && pos < NP;
+        copy_run(dst + q * kItem + run * kTileBins + off,
+                 use_x ? xb + (size_t)max(j, 0) * part : cur,
+                 in && (is_v || b >= 0));
+        cp_async4_if(dst + q * kItem + 4 * kTileBins, mcur,
+                     lane == q && in && b >= 0);
+        cur += is_v ? (si ? -step : wrap) : (b >= 0 ? step : 0);
+        si = si ? si - 1 : B - 1;
+        mcur += b >= 0;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < kPos; ++q) {
+        const bool in = live && ii * kPos + q < NP;
+        copy_run(dst + q * kItem + run * kTileBins + off, cur, in);
+        cp_async4_if(dst + q * kItem + 4 * kTileBins, mcur,
+                     lane == q && in);
+        cur += is_v ? (si ? -step : wrap) : step;
+        si = si ? si - 1 : B - 1;
+        ++mcur;
+      }
+    }
+    ++gi;
+    gb = gb + 1 == kStages ? 0 : gb + 1;
+    if (++ii == nst) {
+      ii = 0;
+      fi += kFc;
+      start_round();
+    }
+  };
+  copy_w(0);
+#pragma unroll 1
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (gi < total) issue();
+    cp_async_commit();
+  }
+
+  // The mix: thread (rg, cg) owns rows {h * kRows/2 + 4 rg + i} and
+  // columns {h * kCols/2 + 4 cg + j}, h in {0, 1}, i, j in 0..3; a warp
+  // is 4 rg x 8 cg, so its w loads are 64 and its Y loads 128 contiguous
+  // bytes.
+  const int cg = (warp % S::kGP) * 8 + (lane & 7);
+  const int rg = (warp / S::kGP) * 4 + (lane >> 3);
+  const bool mixes = (warp / S::kGP) * 16 < C_out - c0;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  auto mix_step = [&](int buf, int fl) {
+    const float* wrow = ws + (buf * kFc + fl) * kWs;
+    const float* yrow = ys + (buf * kFc + fl) * kCols;
+    const float4 a0 = *reinterpret_cast<const float4*>(wrow + 4 * rg);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(wrow + kRows / 2 + 4 * rg);
+    const float4 b0 = *reinterpret_cast<const float4*>(yrow + 4 * cg);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(yrow + kCols / 2 + 4 * cg);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float v[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
+  };
+
+  const bool bin0 = k0 + lane == 0;
+  int g = 0;                                 // the stage the MAC reads
+#pragma unroll 1
+  for (int r = 0; r < rounds; ++r) {
+    float vr[G], vi[G], yr[G], yi[G];
+#pragma unroll
+    for (int p = 0; p < G; ++p) {
+      vr[p] = vi[p] = 0.f;
+      yr[p] = yi[p] = 0.f;
+    }
+#pragma unroll 1
+    for (int s = 0; s < nst; ++s) {
+      cp_async_wait<kStages - 2>();          // this lane's copies of g
+      __syncwarp();                          // ... and the warp's
+      if (gi < total) issue();               // refill stage g - 1's buffer
+      if (s == 0 && r + 1 < rounds) copy_w(r + 1);
+      cp_async_commit();
+      const float* sg = st + g * (kPos * kItem);
+      g = g + 1 == kStages ? 0 : g + 1;
+#pragma unroll
+      for (int q = 0; q < kPos; ++q) {
+        const int pos = s * kPos + q;
+        if (pos >= NP) break;
+        const float* item = sg + q * kItem;
+#pragma unroll
+        for (int p = G - 1; p > 0; --p) {
+          vr[p] = vr[p - 1];
+          vi[p] = vi[p - 1];
+        }
+        vr[0] = item[lane];
+        vi[0] = item[kTileBins + lane];
+        if (pos >= G - 1) {
+          // V(g - b) against bank row b; at bin 0 DC and Nyquist are
+          // two real products (hx = 0, hy = the Nyquist coefficient)
+          const float m = item[4 * kTileBins];
+          const float hr = item[2 * kTileBins + lane] * m;
+          const float hi = item[3 * kTileBins + lane] * m;
+          const float hx = bin0 ? 0.f : hi, hy = bin0 ? hi : hr;
+#pragma unroll
+          for (int p = 0; p < G; ++p) {
+            yr[p] = fmaf(vr[p], hr, yr[p]);
+            yr[p] = fmaf(-vi[p], hx, yr[p]);
+            yi[p] = fmaf(vr[p], hx, yi[p]);
+            yi[p] = fmaf(vi[p], hy, yi[p]);
+          }
+        }
+      }
+      // the previous round's mix, at stage warp % nst of this round: the
+      // warps mix at different stages while the others' copies stream
+      if (r > 0 && mixes && s == warp % nst) {
+        for (int fl = 0; fl < kFc; ++fl) mix_step((r - 1) & 1, fl);
+      }
+    }
+    const int buf = r & 1;
+    const bool live = r * kFc + warp < F;
+    float* y = ys + (buf * kFc + warp) * kCols;
+#pragma unroll
+    for (int p = 0; p < G; ++p) {
+      y[2 * kTileBins * p + lane] = live ? yr[p] : 0.f;
+      y[2 * kTileBins * p + kTileBins + lane] = live ? yi[p] : 0.f;
+    }
+    // this thread's copied elements of w's chunk, transposed; its copies
+    // of this chunk were issued a round ago (or before round 0) and the
+    // waits since have seen them land
+    if (nst < kStages) cp_async_wait<0>();
+#pragma unroll
+    for (int u = 0; u < S::kWPer; ++u) {
+      const int i = tid + u * kMixThreads;
+      ws[(buf * kFc + i % kFc) * kWs + i / kFc] =
+          wraw[buf * kRows * kFc + i];
+    }
+    __syncthreads();
+  }
+  if (rounds > 0 && mixes) {
+    const int fc = F - (rounds - 1) * kFc;
+    for (int fl = 0; fl < fc; ++fl) mix_step((rounds - 1) & 1, fl);
+  }
+
+  // out[g, c0 + row, plane, k0 + bin]: four bins a store
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int col = h * (kCols / 2) + 4 * cg;
+    const int gg = col / (2 * kTileBins), p = (col / kTileBins) & 1;
+    const int kk = col % kTileBins;
+    if (gg >= G || kk >= nk) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = c0 + (i >> 2) * (kRows / 2) + 4 * rg + (i & 3);
+      if (c >= C_out) continue;
+      float* o = out + (((size_t)gg * C_out + c) * 2 + p) * K + k0 + kk;
+      const float* a = &acc[i][4 * h];
+      if (kAligned) {
+        *reinterpret_cast<float4*>(o) = make_float4(a[0], a[1], a[2], a[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (kk + j < nk) o[j] = a[j];
+      }
+    }
+  }
+}
+
+template <int G>
+size_t mix_group_smem() {
+  return MixShape<G>::kSmemFloats * sizeof(float);
+}
+
+template <int G, bool kAligned>
+int launch_mix_group(const float* ring, const float* xnews,
+                     const float* bank, const int* coeff_idx,
+                     const float* mask, const int* t, const int* delay,
+                     const float* w, float* out, int F, int B, int K, int E,
+                     int C_out, cudaStream_t s) {
+  const size_t bytes = mix_group_smem<G>();
+  if (bytes > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  // raise the kernel's shared-memory limit once per device
+  static bool granted[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!granted[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mac_mix_group_kernel<G, kAligned>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted[dev] = true;
+  }
+  constexpr int rows = MixShape<G>::kRows;
+  const dim3 grid((K + kTileBins - 1) / kTileBins, (C_out + rows - 1) / rows);
+  mac_mix_group_kernel<G, kAligned><<<grid, kMixThreads, bytes, s>>>(
+      ring, xnews, bank, coeff_idx, mask, t, delay, w, out, F, B, K, E,
+      C_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int G>
 int launch_mix_group(const float* ring, const float* xnews,
                      const float* bank, const int* coeff_idx,
                      const float* mask, const int* t, const int* delay,
                      const float* w, float* out, int F, int B, int K, int E,
                      int C_out, cudaStream_t s) {
-  constexpr int rows = kPass * RowsFor<G>::value;
-  const dim3 grid((K + kTile - 1) / kTile, (C_out + rows - 1) / rows);
-  mac_mix_group_kernel<G><<<grid, kThreads, 0, s>>>(
-      ring, xnews, bank, coeff_idx, mask, t, delay, w, out, F, B, K, E,
-      C_out);
-  return static_cast<int>(cudaGetLastError());
+  auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (K % 4 == 0 && a16(ring) && a16(xnews) && a16(bank) && a16(out))
+    return launch_mix_group<G, true>(ring, xnews, bank, coeff_idx, mask, t,
+                                     delay, w, out, F, B, K, E, C_out, s);
+  return launch_mix_group<G, false>(ring, xnews, bank, coeff_idx, mask, t,
+                                    delay, w, out, F, B, K, E, C_out, s);
 }
 
 }  // namespace
 
 // Both launch on `stream` and return cudaGetLastError() (0 on success),
-// or cudaErrorInvalidValue for a group size outside 2 .. kMaxGroup. The
-// caller allocates `out` and checks shapes; nothing here synchronises.
+// or cudaErrorInvalidValue for a group size outside 2 .. kMaxGroup (and,
+// for bf_mac_mix_group, B < 1); a refused shared-memory attribute comes
+// back as its own error. The caller allocates `out` and checks shapes;
+// nothing here synchronises.
 extern "C" int bf_mac_group(const float* ring, const float* xnews,
                             const float* bank, const int* coeff_idx,
                             const float* mask, const int* t,
@@ -313,6 +639,7 @@ extern "C" int bf_mac_mix_group(const float* ring, const float* xnews,
                                 int F, int B, int K, int E, int C_out, int G,
                                 void* stream) {
   if (K <= 0 || C_out <= 0) return 0;
+  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (G) {
 #define BF_CASE(g)                                                        \
@@ -325,6 +652,34 @@ extern "C" int bf_mac_mix_group(const float* ring, const float* xnews,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The launch bf_mac_mix_group makes at group size G and C_out outputs:
+// out[0] bins a block, out[1] threads a block, out[2] output rows a block,
+// out[3] gridDim.y, out[4] stages of a warp's copy ring, out[5] window
+// positions a stage, out[6] dynamic shared memory a block in bytes, out[7]
+// the column padding of G. For reports and tests; launches nothing.
+// Returns cudaErrorInvalidValue for G outside 2 .. kMaxGroup.
+extern "C" int bf_mac_mix_group_plan(int G, int C_out, int* out) {
+  switch (G) {
+#define BF_CASE(g)                                                        \
+  case g:                                                                 \
+    out[2] = MixShape<g>::kRows;                                          \
+    out[6] = static_cast<int>(mix_group_smem<g>());                       \
+    out[7] = MixShape<g>::kGP;                                            \
+    break;
+    BF_CASE(2) BF_CASE(3) BF_CASE(4) BF_CASE(5) BF_CASE(6) BF_CASE(7)
+    BF_CASE(8)
+#undef BF_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  out[0] = kTileBins;
+  out[1] = kMixThreads;
+  out[3] = ((C_out > 1 ? C_out : 1) + out[2] - 1) / out[2];
+  out[4] = kStages;
+  out[5] = kPos;
+  return 0;
 }
 
 static_assert(kMaxGroup == 8, "the launch switches cover G = 2 .. 8");

@@ -39,7 +39,8 @@ SIGNATURES = {
     "mac_mix": {"bf_mac_mix": [_P] * 7 + [_I] * 9 + [_P]},
     "mac_mix_tiled": {"bf_mac_mix_tiled": [_P] * 7 + [_I] * 5 + [_P]},
     "mac_group": {"bf_mac_group": [_P] * 8 + [_I] * 5 + [_P],
-                  "bf_mac_mix_group": [_P] * 9 + [_I] * 6 + [_P]},
+                  "bf_mac_mix_group": [_P] * 9 + [_I] * 6 + [_P],
+                  "bf_mac_mix_group_plan": [_I] * 2 + [_P]},
     "fft_glue": {"bf_glue_fwd": [_P] * 3 + [_I] * 2 + [_P],
                  "bf_glue_inv": [_P] * 3 + [_I] * 2 + [_P]},
     "fft_fused": {"bf_fft_fused_fwd": [_P] * 6 + [_I] * 3 + [_P],

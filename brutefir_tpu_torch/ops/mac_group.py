@@ -23,6 +23,8 @@ raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -39,6 +41,23 @@ launches = {"group": 0, "mix_group": 0}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def mix_group_plan(G: int, C_out: int) -> dict:
+    """The launch ``csrc/mac_group.cu`` makes for ``mac_mix_group`` at
+    group size ``G`` and ``C_out`` outputs: ``bins`` and ``rows`` a block
+    (``grid_y`` blocks over C_out), ``threads``, the ``stages`` of a
+    warp's copy ring and the window ``positions`` a stage, dynamic
+    ``smem`` bytes a block and G's column padding ``padded_g``. Asks the
+    built library (the card's machine only); the kernel chooses its
+    launch there, not here."""
+    o = (ctypes.c_int * 8)()
+    rc = _build.load("mac_group").bf_mac_mix_group_plan(G, C_out, o)
+    if rc != 0:
+        raise ValueError(f"mix_group_plan: no plan for G = {G}")
+    keys = ("bins", "threads", "rows", "grid_y", "stages", "positions",
+            "smem", "padded_g")
+    return dict(zip(keys, o))
 
 
 def group_rows(ring, xnews, t, delay, g: int) -> torch.Tensor:

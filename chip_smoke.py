@@ -25,7 +25,10 @@ Phases, in order; any failure exits non-zero:
    - at the 256-channel scale shape (256 x 256, 16 partitions, 8192
      bins, 256 distinct coefficient sets): the bin-tiled fused MAC + mix,
      the grouped MAC at G = 4 and G = 3, the grouped fused MAC + mix at
-     G = 2;
+     G = 2, timed beside two routes to the same result (two launches of
+     the tiled kernel; the grouped MAC at G = 2 with the mix outside),
+     with its launch plan and ptxas usage; then checked, not timed, at
+     G = 3 .. 8 on a reduced shape (256 x 256 at 1024 bins);
 4. kernel vs plain, the unfused MAC of the stage loop (``csrc/mac.cu``),
    at the shapes where the JAX package takes each of its four TPU
    variants: bench1's first stage (rows 2-5 of 6 filters, 8192 x 8, per
@@ -407,7 +410,79 @@ def kernels_scale(mm, mg, rows, flush):
         report(rows, name, "brutefir_tpu_torch/csrc/mac_group.cu",
                768 if fused else 956, worst, max_abs, k_ms, p_ms, nb, nf,
                key, note=f" G={G}")
+        if fused:
+            mix_group_yardsticks(mm, mg, ring, xnews, bank, idx, ones, w,
+                                 zeros, flush)
+        del xnews
         torch.cuda.empty_cache()
+    mix_group_wider(mg, g)
+
+
+def mix_group_yardsticks(mm, mg, ring, xnews, bank, idx, ones, w, zeros,
+                         flush):
+    """Two routes beside bf_mac_mix_group at G = 2 (no single PyTorch call
+    computes its function): two launches of the per-block tiled kernel
+    (row 3, reading ring and bank twice), and the unfused route of
+    BRUTEFIR_TPU_GROUP_FORM=unfused (bf_mac_group at G = 2, then the
+    FP32 output mix per block, ``partconv.complex_mix``); the latter held
+    against the plain version first. Prints the kernel's launch plan and
+    ptxas usage."""
+    import torch
+    from brutefir_tpu_torch.ops.partconv import complex_mix
+    dev = torch.device("cuda")
+    G = xnews.shape[1] + 1
+    t7 = torch.tensor(7, dtype=torch.int32, device=dev)
+    t8 = torch.tensor(8, dtype=torch.int32, device=dev)
+
+    def unfused():
+        ys = mg.mac_group(ring, xnews, bank, idx, ones, t7, zeros)
+        return torch.stack([complex_mix(w, y) for y in ys])
+    rel, _ = check(f"the unfused route G={G}", unfused(),
+                   mg.mac_mix_group_reference(ring, xnews, bank, idx, ones,
+                                              t7, w, zeros), 7)
+    two = time_ms(lambda: (mm.mac_mix(ring, bank, idx, ones, t7, w, False),
+                           mm.mac_mix(ring, bank, idx, ones, t8, w, False)),
+                  REPS, flush)
+    unf = time_ms(unfused, REPS, flush)
+    print(f"  yardsticks at G={G}: two launches of mac_mix_tiled {two:.4f} "
+          f"ms; the unfused route (mac_group G={G} + {G} complex_mix) "
+          f"{unf:.4f} ms (max rel err {rel:.3e}); median of {REPS}, L2 "
+          f"flushed by a read before each", flush=True)
+    print_ptxas("mac_group", ("mac_mix_group_kernel",),
+                "one instance a G and alignment")
+    print(f"  launch plan at C_out={w.shape[0]}: "
+          f"{mg.mix_group_plan(G, w.shape[0])}", flush=True)
+
+
+def mix_group_wider(mg, g):
+    """bf_mac_mix_group at G = 3 .. 8 against its plain version on a
+    reduced scale shape (C_out = F = E = 256, B = 16, K = 1024): the same
+    t values, delays 0 .. G+1 and cblocks mask as at G = 2."""
+    import torch
+    dev = torch.device("cuda")
+    Fs = Cs = Es = SCALE_C
+    Kr = 1024
+    ring = torch.randn(Fs, B, 2, Kr, generator=g, device=dev)
+    bank = torch.randn(Es, B, 2, Kr, generator=g, device=dev)
+    w = torch.randn(Cs, Fs, generator=g, device=dev) / 16.0
+    idx = torch.randperm(Fs, generator=g, device=dev).to(torch.int32)
+    for G in range(3, mg.MAX_GROUP + 1):
+        xnews = torch.randn(Fs, G - 1, 2, Kr, generator=g, device=dev)
+        delay = (torch.arange(Fs, device=dev, dtype=torch.int32)
+                 % (G + 2)).to(torch.int32)
+        mask = cblocks_mask(delay, B)
+        worst = 0.0
+        for tv in (0, 5, B - 1, B, 37):
+            t = torch.tensor(tv, dtype=torch.int32, device=dev)
+            rel, _ = check(f"mac_mix_group G={G} (K={Kr})",
+                           mg.mac_mix_group(ring, xnews, bank, idx, mask, t,
+                                            w, delay),
+                           mg.mac_mix_group_reference(ring, xnews, bank, idx,
+                                                      mask, t, w, delay), tv)
+            worst = max(worst, rel)
+        print(f"mac_mix_group G={G} (C_out = F = E = {Fs}, B={B}, K={Kr}): "
+              f"max rel err {worst:.3e} (tol {REL_TOL:g}) over 5 t; plan "
+              f"{mg.mix_group_plan(G, Cs)}", flush=True)
 
 
 # the unfused MAC at the shape of each TPU variant it replaces: (name, TPU

@@ -237,11 +237,17 @@ def _group_inputs(seed, F, B, K, E, G, C, dev):
 @pytest.mark.parametrize("G", [2, 3, 4, 5, 8])
 @pytest.mark.parametrize("F,B,K,E,C", [
     (7, 6, 1000, 3, 9),        # K not a multiple of any tile
-    (19, 9, 300, 5, 70),       # F % 16 != 0, C past one block at G >= 3
+    (19, 9, 300, 5, 70),       # F % 16 != 0, C past one block at G >= 5
+    (256, 16, 1024, 256, 256),  # the full-width rows, 16 rounds of 16
+    (20, 5, 1000, 4, 300),     # C past one block's rows at every G
+    (40, 3, 96, 3, 33),        # E < F: every bank row used many times
 ])
 def test_group_kernels_match_plain_versions(cuda, G, F, B, K, E, C):
     """Both grouped kernels: delays 0 .. G+1 (clamped to B-1), the
-    cblocks mask, start times that wrap the ring inside the group."""
+    cblocks mask, start times that wrap the ring inside the group; for
+    bf_mac_mix_group the full-width accumulator layout (C = F = E = 256),
+    outputs past one block's rows (gridDim.y), a ragged last bin tile
+    and repeated bank rows."""
     ring, xnews, bank, idx, mask, delay, w = _group_inputs(
         G * 100 + K, F, B, K, E, G, C, cuda)
     for tv in (0, B - 1, 2 * B + 1):
@@ -258,6 +264,53 @@ def test_group_kernels_match_plain_versions(cuda, G, F, B, K, E, C):
         assert got.shape == (G, F, 2, K) and gotm.shape == (G, C, 2, K)
         for a, b in ((got, ref), (gotm, refm)):
             assert (a - b).abs().max().item() / b.abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [2, 3, 5, 8])
+@pytest.mark.parametrize("K", [1000, 1003])
+def test_mix_group_unaligned_operands(cuda, G, K):
+    """bf_mac_mix_group where its runs cannot be copied 16 bytes at a
+    time: ring and xnews views one float into their buffers (K = 1000),
+    and K % 4 != 0 (every run unaligned)."""
+    F, B, E, C = 18, 5, 4, 40
+    ring, xnews, bank, idx, mask, delay, w = _group_inputs(
+        G + K, F, B, K, E, G, C, cuda)
+
+    def at_offset(x):
+        buf = torch.zeros(x.numel() + 1, device=cuda)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        return view
+    ring, xnews = at_offset(ring), at_offset(xnews)
+    for tv in (0, B - 1, 2 * B + 1):
+        t = torch.tensor(tv, dtype=torch.int32, device=cuda)
+        got = mg.mac_mix_group(ring, xnews, bank, idx, mask, t, w, delay)
+        ref = mg.mac_mix_group_reference(ring, xnews, bank, idx, mask, t,
+                                         w, delay)
+        torch.cuda.synchronize()
+        assert (got - ref).abs().max().item() / ref.abs().max().item() \
+            <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", range(2, mg.MAX_GROUP + 1))
+@pytest.mark.parametrize("C_out", [1, 9, 70, 256, 300])
+def test_mix_group_plan_fits_the_card(cuda, G, C_out):
+    """The launch bf_mac_mix_group makes: 32-bin tiles, its rows over
+    gridDim.y cover C_out, its shared memory fits a block (232,448 bytes)
+    and the device's limit, its threads the block limit; 64 accumulators
+    a thread (rows x padded G x 64 = threads x 64)."""
+    p = mg.mix_group_plan(G, C_out)
+    props = torch.cuda.get_device_properties(cuda)
+    assert p["bins"] == 32 and p["padded_g"] >= G
+    assert p["grid_y"] * p["rows"] >= C_out > (p["grid_y"] - 1) * p["rows"]
+    assert p["smem"] <= 232448
+    assert p["smem"] <= getattr(props, "shared_memory_per_block_optin",
+                                232448)
+    assert p["threads"] <= 1024 and p["threads"] % 32 == 0
+    assert p["rows"] * p["padded_g"] == p["threads"]
+    assert p["stages"] >= 2 and p["positions"] >= 1
 
 
 @pytest.mark.cuda

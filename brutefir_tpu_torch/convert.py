@@ -1,9 +1,11 @@
 """Carry the JAX package's weights, state and controls over to the port.
 
 The "weights" of this system are the coefficient bank and its state is
-the spectra ring plus the overlap tails. The JAX package keeps ring and
-bank in the lane-tiled ``[.., 2, N/128, 128]`` layout when its Pallas MAC
-runs, or flat ``[.., 2, N]`` otherwise; the port always keeps them flat.
+the spectra ring plus the overlap tails, and the device-IO state
+(dither pointers and feedback, delay windows, subdelay rests). The JAX
+package keeps ring and bank in the lane-tiled ``[.., 2, N/128, 128]``
+layout when its Pallas MAC runs, or flat ``[.., 2, N]`` otherwise; the
+port always keeps them flat.
 Every function takes numpy arrays (``np.asarray`` of the JAX values) and
 a target device, so both packages can start from one mid-stream state.
 The results are copies: the port writes its ring in place, and a view of
@@ -65,3 +67,23 @@ def ctrl_from_jax(ctrl, device) -> StepCtrl:
         out[name] = torch.as_tensor(np.array(a, order="C", copy=True),
                                     device=device)
     return StepCtrl(**out)
+
+
+# DeviceIO.dstate keys and their dtypes: the dither pointers and last
+# bytes, its error feedback, the integer delay windows, the subdelay rests
+_DSTATE_DTYPES = {"ptr": torch.int32, "last": torch.int32,
+                  "sf": torch.float32, "dlw_in": torch.float32,
+                  "dlw_out": torch.float32, "sdr_in": torch.float32,
+                  "sdr_out": torch.float32}
+
+
+def dstate_from_jax(dstate, device) -> dict:
+    """The JAX package's ``DeviceIO.dstate`` (a dict of arrays) -> the
+    port's, on ``device``: a stream the JAX engine started continues in
+    the port from the same dither, delay and subdelay state. Raises on a
+    key the port does not know, so no state is dropped."""
+    unknown = sorted(set(dstate) - set(_DSTATE_DTYPES))
+    if unknown:
+        raise ValueError(f"unknown device-IO state keys {unknown}")
+    return {k: torch.as_tensor(np.array(v, copy=True), device=device)
+            .to(_DSTATE_DTYPES[k]) for k, v in dstate.items()}

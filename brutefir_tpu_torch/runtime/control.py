@@ -7,9 +7,9 @@ per-channel delays, subdelays, mutes) lives here, mutated by logic modules
 tensors on the engine's device at each block boundary, so changes land on
 exact block edges like the reference's icomm snapshot
 (`bfrun.c:1460-1484`). Mutes ride ``mute_version`` into the engine's gain
-vectors. Channel delays and subdelays are kept and validated here, but a
-config that needs them on the device still raises in ``DeviceIO`` (ROADMAP
-queue 1 item 5).
+vectors. Channel delays and subdelays are kept and validated here; the
+engine copies them with each snapshot into ``DeviceIO.update_delays`` and
+``update_subdelays``.
 
 The JAX package's manual ``process:`` placement permutation
 (``spec_rows``/``f2row``) comes with multi-device sharding (ROADMAP queue 1

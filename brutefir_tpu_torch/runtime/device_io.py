@@ -4,17 +4,25 @@ Torch twin of :mod:`brutefir_tpu.runtime.device_io`. One step takes the
 raw input words of every input device and returns the raw output words
 of every output device plus per-channel meters:
 
-    input_half:  p24/raw3 sign-extend -> decode -> mute gain
+    input_half:  p24/raw3 sign-extend -> decode -> mute gain ->
+                 input delay -> input subdelay
     step_impl:   rfft -> mix -> ring -> fused MAC + mix -> irfft, the
                  fused time-domain crossfade, or the stage loop (per
                  stage: mix, cascade input, ring, MAC or dual MAC)
-    output_half: NaN gate -> gains -> per-device output mix ->
-                 no-dither quantize -> p24/raw3 pack -> meters
+    output_half: NaN gate -> output subdelay -> output delay -> gains ->
+                 per-device output mix -> dithered quantize
+                 (ops/device_dither.py) or encode -> p24/raw3 pack ->
+                 meters
 
 Host work per block is file reads and writes; transfers are the wire
-format's width. Integer delay windows, subsample delays and device
-dither are not in this slice of the port: a config that needs them
-raises NotImplementedError (ROADMAP queue 1 item 5).
+format's width. The IO halves carry state from block to block in
+``dstate`` (the JAX package's keys): the dither pointers, last bytes and
+error feedback (``ptr``, ``last``, ``sf``), the integer delay windows
+(``dlw_in``, ``dlw_out``) and the subdelay rests (``sdr_in``,
+``sdr_out``). They are plain torch, as the JAX package computes them in
+``jnp`` outside its Pallas kernels. Runtime delay and subdelay changes
+reach them through ``update_delays`` and ``update_subdelays``, which the
+engine calls with each control snapshot.
 
 ``multi_step`` runs m blocks as a Python loop (the ``lax.scan`` analog)
 with controls frozen across the batch; nothing in the loop synchronises
@@ -28,10 +36,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config.model import BFConfig, IN, OUT
+from ..config.model import BFConfig, BF_UNDEFINED_SUBDELAY, IN, OUT
 from ..graph.compile import group_size, group_step_impl, step_impl
 from ..ops.device_codec import (device_format_word, decode_words,
-                                encode_words, torch_dtype)
+                                encode_words, scatter_words, torch_dtype)
+from ..ops.device_dither import dither_quantize, dither_window
 
 
 def _wire3(fmt) -> bool:
@@ -57,24 +66,16 @@ def eligible(conf: BFConfig) -> bool:
     return True
 
 
-def _check_slice(conf: BFConfig) -> None:
-    """Raise for device-IO features outside this slice of the port."""
-    for io in (IN, OUT):
-        for ch in range(conf.n_channels[io]):
-            if conf.delay[io][ch] > 0 or conf.maxdelay[io][ch] > 0:
-                raise NotImplementedError(
-                    "channel delays on the device are not ported yet "
-                    "(ROADMAP queue 1 item 5)")
-        if conf.use_subdelay[io]:
-            raise NotImplementedError(
-                "subsample delays are not ported yet (ROADMAP queue 1 "
-                "item 5)")
+def dithered_phys(conf: BFConfig) -> list:
+    """The dithered physical output channels, sorted: int formats with
+    sbytes < 4 on ``dither: true`` devices (bfconf.c:3174-3238). Channel
+    j of this list reads the shared table from j * spacing + 1."""
+    phys = []
     for dev in conf.iodevs[OUT]:
         fmt = dev.sample_format
         if dev.apply_dither and not fmt.is_float and fmt.sbytes < 4:
-            raise NotImplementedError(
-                "dither on the device is not ported yet (ROADMAP queue 1 "
-                "item 5)")
+            phys.extend(dev.phys_base + i for i in range(dev.used_channels))
+    return sorted(phys)
 
 
 def sext24(w: torch.Tensor) -> torch.Tensor:
@@ -91,6 +92,34 @@ def pack24(words: torch.Tensor) -> torch.Tensor:
                        dim=-1).to(torch.uint8)
 
 
+def apply_delay(x: torch.Tensor, win: torch.Tensor, dvec: torch.Tensor,
+                W: int):
+    """Integer delay lines: out[c, n] = (win | x)[c, W + n - dvec[c]];
+    returns (out, the new window of the last W samples)."""
+    joined = torch.cat([win, x], dim=1)
+    idx = (W + torch.arange(x.shape[1], device=x.device)[None, :]
+           - dvec[:, None])
+    return torch.gather(joined, 1, idx), joined[:, -W:]
+
+
+def apply_subdelay(x: torch.Tensor, rest: torch.Tensor, hrows: torch.Tensor,
+                   byp: torch.Tensor, B: int):
+    """The subdelay FIRs as overlap-save in chunks of B: within a block
+    the chunk's rest is the chunk before it, so every chunk goes through
+    one batched rfft ([C, N/B, 2B]). ``hrows`` [C, B+1] are the channels'
+    bank rows; ``byp`` channels pass x through. Returns (out, the new
+    rest: the last B samples)."""
+    C, N = x.shape
+    n = N // B
+    frames = torch.cat([rest, x], dim=1)                      # [C, N+B]
+    lo = frames[:, :N].reshape(C, n, B)
+    hi = frames[:, B:].reshape(C, n, B)
+    w = torch.cat([lo, hi], dim=2)                            # [C, n, 2B]
+    Y = torch.fft.rfft(w, dim=2) * hrows[:, None, :]
+    y = torch.fft.irfft(Y, n=2 * B, dim=2)[:, :, :B].reshape(C, N)
+    return torch.where(byp[:, None], x, y), frames[:, N:]
+
+
 def aggregate_meters(meters: list) -> torch.Tensor:
     """Per-block meter rows [ch, 4] of a batch -> one row set: clip
     counts sum, peaks max."""
@@ -102,7 +131,6 @@ def aggregate_meters(meters: list) -> torch.Tensor:
 class DeviceIO:
     def __init__(self, engine):
         conf = engine.conf
-        _check_slice(conf)
         self.conf = conf
         self.spec = engine.spec
         self.device = engine.device
@@ -157,35 +185,190 @@ class DeviceIO:
                 mix = ("matrix", torch.as_tensor(m, device=dev_))
             self._out_devs.append((on_dev(dev.channel_selection), mix,
                                    dev.open_channels, fmt))
+        self.dstate = {}
 
+        # integer delay lines: per virtual channel a window of the last W
+        # pre-delay samples, out[n] = window[W + n - delay]. The capacity
+        # is maxdelay where the delay can change at runtime, else the
+        # fixed delay; ``cur`` clamps the initial delay to it
+        # (delay.c:351-362)
+        self._dly = [None, None]
+        for io, key in ((IN, "dlw_in"), (OUT, "dlw_out")):
+            C = conf.n_channels[io]
+            caps = [md if md >= 0 else d0 for md, d0 in
+                    zip(conf.maxdelay[io], conf.delay[io])]
+            W = max(caps, default=0)
+            if W > 0:
+                cur = [min(conf.delay[io][ch], caps[ch]) for ch in range(C)]
+                self._dly[io] = {"W": W, "cur": cur,
+                                 "max": list(conf.maxdelay[io]),
+                                 "arr": on_dev(cur)}
+                self.dstate[key] = torch.zeros((C, W), dtype=torch.float32,
+                                               device=dev_)
+
+        # subsample delays (runtime/subdelay.py's bank, on the device): on
+        # a side that uses them, channels without a subdelay run the
+        # centred dirac row, the same sdf_length latency as the reference's
+        # compensating integer delay (bfrun.c:1512-1516)
+        self._sd = [None, None]
+        if engine.subdelay is not None:
+            sdh = engine.subdelay
+            for io, key in ((IN, "sdr_in"), (OUT, "sdr_out")):
+                if not conf.use_subdelay[io]:
+                    continue
+                C = conf.n_channels[io]
+                defined = [conf.subdelay[io][ch] != BF_UNDEFINED_SUBDELAY
+                           for ch in range(C)]
+                self._sd[io] = {
+                    "B": sdh.blocklen, "steps": sdh.steps,
+                    "H": torch.as_tensor(sdh.H, device=dev_),
+                    "defined": defined,
+                    "cur": [conf.subdelay[io][ch] if defined[ch] else 0
+                            for ch in range(C)],
+                }
+                self._sd_refresh(io)
+                self.dstate[key] = torch.zeros((C, sdh.blocklen),
+                                               dtype=torch.float32,
+                                               device=dev_)
+
+        # dither: one shared Tausworthe table (the engine's), channel j of
+        # dithered_phys reading from j * spacing + 1; per output device the
+        # rows of its used channels in that order
+        self._dither = None
+        self._dith_rows = [None] * len(self._out_devs)
+        dith = dithered_phys(conf)
+        if dith:
+            table = engine.dither_table
+            order = {p: j for j, p in enumerate(dith)}
+            for di, dev in enumerate(conf.iodevs[OUT]):
+                phys = [dev.phys_base + i for i in range(dev.used_channels)]
+                if phys and phys[0] in order:    # a dithered device
+                    self._dith_rows[di] = on_dev([order[p] for p in phys])
+            self._dither = (torch.as_tensor(table.tab, device=dev_),
+                            torch.as_tensor(table.randmap, device=dev_),
+                            table.size)
+            ptr0 = np.asarray([j * table.spacing + 1
+                               for j in range(len(dith))], np.int32)
+            self.dstate.update(
+                ptr=torch.as_tensor(ptr0, device=dev_),
+                last=torch.as_tensor(table.tab[ptr0 - 1].astype(np.int32),
+                                     device=dev_),
+                sf=torch.zeros((len(dith), 2), dtype=torch.float32,
+                               device=dev_))
+
+    # ----- runtime delay and subdelay changes --------------------------------
+    def _sd_refresh(self, io):
+        """The bank row and bypass flag of each channel from ``cur``:
+        undefined channels take the centred dirac row; out-of-range
+        values bypass the filter (delay_subsample_update, delay.c:424)."""
+        d = self._sd[io]
+        steps = d["steps"]
+        rows, byp = [], []
+        for ch, v in enumerate(d["cur"]):
+            if d["defined"][ch] and -steps < v < steps:
+                rows.append(v + steps - 1)
+                byp.append(False)
+            else:
+                rows.append(steps - 1)               # centred dirac row
+                byp.append(d["defined"][ch])
+        d["hrows"] = d["H"][torch.as_tensor(rows, device=self.device)]
+        d["byp"] = torch.as_tensor(byp, device=self.device)
+
+    def update_subdelays(self, in_vals, out_vals):
+        for io, vals in ((IN, in_vals), (OUT, out_vals)):
+            d = self._sd[io]
+            if d is not None and list(vals) != d["cur"]:
+                d["cur"] = list(vals)
+                self._sd_refresh(io)
+
+    def update_delays(self, in_delays, out_delays):
+        """Runtime delay changes with the reference's change_delay
+        semantics (delay.c:283-317): channels beyond their maxdelay or
+        fixed (maxdelay < 0) are silently refused; an increase to ``new``
+        zeroes the channel's last ``new`` window samples, so the next
+        ``new`` output samples are silence; a decrease keeps the true last
+        samples (the JAX package's rule, docs/PARITY.md)."""
+        for io, vals, key in ((IN, in_delays, "dlw_in"),
+                              (OUT, out_delays, "dlw_out")):
+            d = self._dly[io]
+            if d is None:
+                continue
+            changed = False
+            for ch, new in enumerate(vals):
+                old, md = d["cur"][ch], d["max"][ch]
+                if new == old or md < 0 or new > md:
+                    continue
+                if new > old:
+                    self.dstate[key][ch, d["W"] - new:] = 0.0
+                d["cur"][ch] = new
+                changed = True
+            if changed:
+                d["arr"] = torch.as_tensor(np.asarray(d["cur"], np.int64),
+                                           device=self.device)
+
+    # ----- the IO halves ----------------------------------------------------
     def input_half(self, in_words, in_gain):
         """Per-device words -> [C_in, N] float: sign-extend packed S24,
-        decode, mute gain."""
+        decode, mute gain, then the input delay and subdelay. The mute
+        comes first, so the delay state advances on zeros while muted."""
         xs = []
         for di, (sel, vmap) in enumerate(self._in_devs):
             w = in_words[di]
             if self.in_wire[di] != "word":
                 w = sext24(w)
             xs.append(decode_words(w, sel, vmap, torch.float32))
-        return torch.cat(xs, dim=0) * in_gain[:, None]
+        x = torch.cat(xs, dim=0) * in_gain[:, None]
+        ds, dly, sd = self.dstate, self._dly[IN], self._sd[IN]
+        if dly is not None:
+            x, ds["dlw_in"] = apply_delay(x, ds["dlw_in"], dly["arr"],
+                                          dly["W"])
+        if sd is not None:
+            x, ds["sdr_in"] = apply_subdelay(x, ds["sdr_in"], sd["hrows"],
+                                             sd["byp"], sd["B"])
+        return x
 
     def output_half(self, y, out_gain):
         """y [C_out, N] -> (per-device wire words, per-device meters
-        [used, 4], nan_ok scalar bool tensor)."""
+        [used, 4], nan_ok scalar bool tensor): the output subdelay and
+        delay, gains, then per device the mix and the dithered quantize
+        (one shared dither window a block) or encode."""
         # NaN gate on the first sample of each channel (bfrun.c:1900-1911)
         nan_ok = (torch.all(torch.isfinite(y[:, 0])) if y.shape[0]
                   else torch.ones((), dtype=torch.bool, device=y.device))
+        ds, dly, sd = self.dstate, self._dly[OUT], self._sd[OUT]
+        if sd is not None:
+            y, ds["sdr_out"] = apply_subdelay(y, ds["sdr_out"], sd["hrows"],
+                                              sd["byp"], sd["B"])
+        if dly is not None:
+            y, ds["dlw_out"] = apply_delay(y, ds["dlw_out"], dly["arr"],
+                                           dly["W"])
         y = y * out_gain[:, None]
+        if self._dither is not None:
+            # one shared window a block advances every dithered channel's
+            # pointer by N
+            tab, randmap, size = self._dither
+            d_all, ptr, last = dither_window(tab, randmap, ds["ptr"],
+                                             ds["last"], y.shape[1], size)
+            sf_all = ds["sf"].clone()
         outs, meters = [], []
         for di, (sel, (kind, mix), open_ch, fmt) in enumerate(self._out_devs):
             phys = y[mix] if kind == "perm" else torch.matmul(mix, y)
             peak = torch.amax(torch.abs(phys), dim=1)
-            words, m = encode_words(phys, fmt, sel, open_ch,
-                                    self.out_words[di])
+            rows = self._dith_rows[di]
+            if rows is not None:
+                q, sf_new, m = dither_quantize(
+                    phys, d_all[rows], sf_all[rows], fmt.imin, fmt.imax)
+                sf_all[rows] = sf_new
+                words = scatter_words(q, sel, open_ch, self.out_words[di])
+            else:
+                words, m = encode_words(phys, fmt, sel, open_ch,
+                                        self.out_words[di])
             if self.out_wire[di] != "word":
                 words = pack24(words)
             outs.append(words)
             meters.append(torch.cat([m, peak[:, None]], dim=1))
+        if self._dither is not None:
+            ds.update(ptr=ptr, last=last, sf=sf_all)
         return outs, meters, nan_ok
 
     def step(self, state, ctrl, in_gain, out_gain, bank, in_words,
@@ -206,7 +389,8 @@ class DeviceIO:
         dispatches crossfade blocks one at a time, as the JAX package
         groups only then, device_io.py:587-613): per-device stacked words
         [m, N, ...] -> (state', per-device stacked outs [m, N, ...],
-        per-device aggregated meters, nan_ok over all blocks)."""
+        per-device aggregated meters, nan_ok over all blocks). ``dstate``
+        chains block by block in order, as m calls of ``step`` chain it."""
         m = in_words[0].shape[0]
         outs_b, meters_b, nans = [], [], []
         G = group_size(self.spec, m)

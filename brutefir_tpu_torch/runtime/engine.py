@@ -20,14 +20,17 @@ The fixed-latency contract holds: output frame m is the convolution of
 input frames <= m, and file-to-file output length equals input length
 (the EOF tail runs block by block).
 
+Channel delays, subsample delays and dither run on the device
+(``runtime/device_io.py``); runtime delay and subdelay changes land on
+the block boundary of the control snapshot that carries them.
+
 Not ported (each a ROADMAP queue 1 item 4 entry, or NotImplementedError
 naming its item): clocked devices and the realtime pacing around them,
 the host codec, the EQ and external logic modules, timed and
 frequency-domain module hooks, the powersave dispatch skip (the JAX
 package makes it byte-identical to always dispatching, so the port always
 dispatches), the sink mode with its prefetch pool, the stall watchdog and
-the clock-drift monitor; channel delays, subdelay and dither (item 5);
-float64 (item 9).
+the clock-drift monitor; float64 (item 9).
 """
 
 from __future__ import annotations
@@ -46,13 +49,15 @@ from ..config.coeffs import build_bank
 from ..config.model import BFConfig, IN, OUT
 from ..control import check_logic_module, load_logic_module
 from ..core.codecs import Overflow
+from ..core.dither import DitherTable
 from ..errors import BFError, BF_EXIT_INVALID_INPUT
 from ..graph.compile import check_supported, init_state
 from ..graph.spec import build_graph_spec
 from ..io import get_io_module
 from ..ops.partconv import np_c2p
 from .control import RuntimeControl
-from .device_io import DeviceIO, eligible
+from .device_io import DeviceIO, dithered_phys, eligible
+from .subdelay import SubsampleDelay
 
 # blocks per offline dispatch: block latency becomes BATCH_BLOCKS * N
 BATCH_BLOCKS = 8
@@ -124,6 +129,17 @@ class Engine:
                         f'device "{dev.device_name}" did not resolve AUTO '
                         'format')
                 self.devices[io].append(inst)
+
+        self.subdelay = (SubsampleDelay(conf, self.rd)
+                         if conf.use_subdelay[IN] or conf.use_subdelay[OUT]
+                         else None)
+        # one shared random table for the dithered output channels
+        # (dither_init, bfconf.c:3174-3238)
+        dith = dithered_phys(conf)
+        self.dither_table = (DitherTable(len(dith), conf.sampling_rate,
+                                         conf.max_dither_table_size, self.N,
+                                         dtype=self.rd.type)
+                             if dith else None)
 
         # overflow meters, per virtual output channel; shared per physical
         self.overflow: List[Overflow] = []
@@ -239,13 +255,20 @@ class Engine:
     def _snapshot_epoch(self):
         """One control epoch for a dispatch: (ctrl, gains, uniform,
         uniform_delay, xfade), taken under the control mutex so that a
-        concurrent CLI line is never seen half applied."""
+        concurrent CLI line is never seen half applied; the device-IO
+        delays and subdelays are updated from the same epoch
+        (bfrun.c:1574-1601)."""
         with self.control_mutex:
             ctrl = self.control.snapshot()
             gains = self._mute_gains()
-            return (ctrl, gains, self.control.snapshot_uniform,
-                    self.control.snapshot_uniform_delay,
-                    self.control.snapshot_xfade)
+            epoch = (ctrl, gains, self.control.snapshot_uniform,
+                     self.control.snapshot_uniform_delay,
+                     self.control.snapshot_xfade)
+            delays = [list(d) for d in self.control.delay]
+            subdelays = [list(d) for d in self.control.subdelay]
+        self.dio.update_delays(*delays)
+        self.dio.update_subdelays(*subdelays)
+        return epoch
 
     # ----- device-IO host side ---------------------------------------------
     def read_block_dio(self):

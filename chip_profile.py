@@ -6,7 +6,8 @@ not) or of bench5's crossfade every block, on one NVIDIA GPU.
 Usage (from the repository root, one CUDA card):
 
     python3 chip_profile.py [--shape scale|massive|bench1|massive_cascade|
-                                     bench5|bench1_xfade] [--blocks N]
+                                     bench5|bench1_xfade|aligned]
+                            [--blocks N]
                             [--pair G]
 
 Writes the shape's seeded inputs for N blocks (default 64) as
@@ -21,7 +22,10 @@ filters, one shared coefficient) or the reference's bench5_config
 (``write_bench5_inputs``: 26 crossfading filters of 8192 x 8 whose
 coefficient a CLI script flips every block, through the per-block
 ``run()``) or bench1's cascade with filters 2-5 crossfading under a CLI
-script (``write_bench1_xfade_inputs``, also through ``run()``), then runs the port's engine three times on them: once to warm up (kernel build, cuFFT plans), once timed on the
+script (``write_bench1_xfade_inputs``, also through ``run()``) or the
+massive shape time-aligned and dithered (``aligned_config``: dithered
+S24_LE outputs, output channel c delayed 37 c samples, subsample delays
+on channels 0-12), then runs the port's engine three times on them: once to warm up (kernel build, cuFFT plans), once timed on the
 host clock, once under ``torch.profiler`` (CPU and CUDA activities).
 Prints the card, the engine's wall time a
 block and realtime factor, the host time a block of each pipeline stage
@@ -64,7 +68,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", choices=("scale", "massive", "bench1",
                                         "massive_cascade", "bench5",
-                                        "bench1_xfade"),
+                                        "bench1_xfade", "aligned"),
                     default="scale")
     ap.add_argument("--blocks", type=int, default=64)
     ap.add_argument("--pair", default=None)
@@ -94,9 +98,10 @@ def main():
         _, _, cfg = cs.write_bench1_xfade_inputs(cs.WORK, frames)
     else:
         cs.write_massive_inputs(np.random.default_rng(cs.SEED), frames)
-        cfg = (cs.massive_config("profile.conf", False)
-               if args.shape == "massive"
-               else cs.massive_cascade_config(cs.WORK))
+        cfg = {"massive": lambda: cs.massive_config("profile.conf", False),
+               "aligned": lambda: cs.aligned_config("profile.conf"),
+               "massive_cascade": lambda: cs.massive_cascade_config(cs.WORK),
+               }[args.shape]()
     with open(cfg) as fh:
         text = fh.read()
 

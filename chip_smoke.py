@@ -111,7 +111,30 @@ Phases, in order; any failure exits non-zero:
    filters 2 and 3), 19.5 blocks through ``run()``, within 2e-5 of the
    output's peak + 4 LSB of the float64 oracle whose first-stage outputs
    ramp over each swap block; the per-filter dual MAC on the 7 swap
-   blocks' first stage, the unfused MAC on every other stage.
+   blocks' first stage, the unfused MAC on every other stage;
+16. main path, the massive shape time-aligned and dithered: phase 8's
+   shared-coefficient config with dithered S24_LE (3-byte) outputs,
+   output channel c delayed 37 c samples (maxdelay 2048), sdf_length 32
+   and output subdelays spread over -99 .. 99 on channels 0-12 (13-25
+   undefined: the sdf_length latency), 19.5 blocks through ``main()``,
+   within 16 LSB of the float64 oracle (convolution, subdelay FIR,
+   integer shift) with the error's RMS in 0.5 .. 2 LSB (dithered; plain
+   rounding gives 0.29); the fused MAC + mix once a block; the dither
+   table's host time (under 2 s); the dither on the card bit-equal to
+   the CPU's on the same inputs; the device time of the output half
+   with and without subdelay, delay and dither, and of each step;
+17. main path, examples/crossover_2way.conf (two coefficient sets,
+   4096 x 4, delays 0, 0, 90, 90, dithered S24_LE) with ``maxdelay:
+   512`` and a CLI script that raises output 2's delay to 300 at block 8
+   and lowers output 3's to 20 at block 12, seeded taps and FLOAT_LE
+   input, 19.5 blocks through ``run()``, within 16 LSB of the oracle
+   whose delay lines follow the same changes; the per-filter fused MAC
+   + mix once a block;
+18. main path, examples/xtc_lowlatency.conf as shipped (64 x 64, four
+   filters in a 2 x 2 lattice, dithered S24_LE), two seconds of seeded
+   FLOAT_LE input, within 16 LSB of the oracle; the unfused MAC of the
+   stage loop once a block; first the MAC's plan and kernel and the glue
+   kernels at K = M = 64 against their plain versions.
 
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
@@ -190,21 +213,22 @@ def read_flush():
     return buf.sum
 
 
-def time_ms(fn, reps: int, flush) -> float:
+def time_ms(fn, reps: int, flush, spin: int = SPIN_CYCLES) -> float:
     """Median device time of one call, CUDA events around each call, the
     L2 cache flushed before each (a cold caller) by the callable
-    ``flush`` (``read_flush()``), after a warm-up. A spin kernel queued
-    after the flush keeps the card busy while the host enqueues the first
-    event and the call, so the wrapper's host overhead (tens of us, more
-    when the host is busy) is not timed as device time of a short
-    kernel."""
+    ``flush`` (``read_flush()``), after a warm-up. A spin kernel of
+    ``spin`` clock cycles queued after the flush keeps the card busy
+    while the host enqueues the first event and the call, so the
+    wrapper's host overhead (tens of us, more when the host is busy) is
+    not timed as device time of a short kernel; a call of many launches
+    needs a longer spin."""
     import torch
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -1017,10 +1041,19 @@ output {chans} {{
 """
 
 
-def run_main(main, cfg: str, frames: int, channels: int, label: str):
+def read_s24_3(path: str) -> np.ndarray:
+    """An S24_LE file (3 little-endian bytes a sample) as int32 words."""
+    b = np.fromfile(path, dtype=np.uint8).reshape(-1, 3).astype(np.int32)
+    w = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
+    return w - ((w & 0x800000) << 1)
+
+
+def run_main(main, cfg: str, frames: int, channels: int, label: str,
+             out: str = "output.raw", width: int = 4):
     """One run of the port's __main__.main (its writer thread has
-    fetched every output when main() returns); the output words."""
-    out = os.path.join(WORK, "output.raw")
+    fetched every output when main() returns); the output words of the
+    file ``out`` in WORK, 4-byte words or (``width`` 3) S24_LE."""
+    out = os.path.join(WORK, out)
     if os.path.exists(out):
         os.remove(out)
     err = io.StringIO()
@@ -1031,7 +1064,7 @@ def run_main(main, cfg: str, frames: int, channels: int, label: str):
     sys.stderr.write(err.getvalue())
     if rc != 0:
         fail(f"main() exited {rc} ({label})")
-    y = np.fromfile(out, dtype="<i4")
+    y = np.fromfile(out, dtype="<i4") if width == 4 else read_s24_3(out)
     if y.size != frames * channels:
         fail(f"output has {y.size // channels} frames, input {frames} "
              f"({label})")
@@ -1634,6 +1667,387 @@ def main_bench1_xfade(main, mods: dict, launched: dict):
     add_glue(launched, counts)
 
 
+# ---- phases 16-18: channel delays, subsample delays and dither ------------
+
+SDF_LENGTH = 32          # phase 16: subdelay FIRs of 65 taps in chunks of 128
+ALIGN_STEP = 37          # phase 16: output channel c delayed 37 c samples
+ALIGN_MAXDELAY = 2048
+# phase 16's output subdelays: channels 0-12 spread over -99 .. 99 (in
+# 1/100 of a sample), 13-25 undefined (the dirac row: sdf_length latency)
+ALIGN_SUBDELAYS = ([int(v) for v in np.round(np.linspace(-99, 99, 13))]
+                   + [-100] * 13)
+DITHER_RMS = (0.5, 2.0)  # LSB of the error's RMS: plain rounding gives 0.29
+S24_MIN, S24_MAX = -(1 << 23), (1 << 23) - 1
+
+
+def aligned_config(name: str) -> str:
+    """Phase 16's config: examples/multichannel_massive.conf (the shared
+    coefficient ``taps0.txt``) with dithered S24_LE (3-byte) outputs,
+    output channel c delayed 37 c samples under maxdelay 2048,
+    sdf_length 32 and ALIGN_SUBDELAYS on the outputs."""
+    with open(massive_config(name, False)) as fh:
+        text = fh.read()
+    head, out = text.split("\noutput ", 1)
+    fields = (f"dither: true;\n    delay: "
+              + ", ".join(str(ALIGN_STEP * c) for c in range(F))
+              + f";\n    maxdelay: {ALIGN_MAXDELAY};\n    subdelay: "
+              + ", ".join(str(v) for v in ALIGN_SUBDELAYS) + ";")
+    for old, new in (('sample: "S24_4LE";', 'sample: "S24_LE";'),
+                     ("dither: false;", fields)):
+        if old not in out:
+            fail(f"could not set {old!r} in the example's output block")
+        out = out.replace(old, new, 1)
+    head = head.replace("sampling_rate: 44100;",
+                        f"sampling_rate: 44100;\nsdf_length: {SDF_LENGTH};", 1)
+    path = os.path.join(WORK, name)
+    with open(path, "w") as fh:
+        fh.write(head + "\noutput " + out)
+    return path
+
+
+def subdelay_taps(sd: int) -> np.ndarray:
+    """The FIR of subdelay ``sd`` (1/100 sample) in float64, as the bank
+    of runtime/subdelay.py builds it: the Kaiser-windowed sinc (beta 9)
+    of 2 sdf_length + 1 float32 taps, or a dirac at sdf_length for 0 and
+    for an undefined subdelay."""
+    from brutefir_tpu_torch.core.firwindow import sample_sinc
+    if sd == 0 or sd <= -100:
+        h = np.zeros(2 * SDF_LENGTH + 1)
+        h[SDF_LENGTH] = 1.0
+        return h
+    return sample_sinc(SDF_LENGTH, sd / 100.0, 9.0,
+                       np.float32).astype(np.float64)
+
+
+def aligned_oracle(x, h):
+    """Phase 16's float64 output [frames, F]: each channel's convolution
+    with ``h``, then its subdelay FIR, then its integer delay."""
+    from scipy.signal import fftconvolve
+    frames = x.shape[0]
+    ref = np.zeros((frames, F))
+    for c0 in range(0, F, 13):
+        z = fftconvolve(x[:, c0:c0 + 13].T.astype(np.float64), h[None, :],
+                        axes=1)[:, :frames]
+        for i, c in enumerate(range(c0, min(F, c0 + 13))):
+            zc = np.convolve(z[i], subdelay_taps(ALIGN_SUBDELAYS[c]))[:frames]
+            d = ALIGN_STEP * c
+            ref[d:, c] = zc[:frames - d]
+    return ref
+
+
+def dither_card_vs_cpu(dio):
+    """The massive shape's dither window and dithered quantize on the card
+    and on CPU copies of the same inputs: bit-equal, at a normal level, at
+    a clipping level, and across the table's wrap."""
+    import torch
+    from brutefir_tpu_torch.ops.device_dither import (dither_quantize,
+                                                      dither_window)
+    tab, randmap, size = dio._dither
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(SEED + 13)
+    ptr, last = dio.dstate["ptr"].clone(), dio.dstate["last"].clone()
+    ptr[::5] = size - K // 2                      # these wrap in this block
+    n_diff = 0
+    for amp in (2.0 ** 20, 1.2 * 2.0 ** 23):
+        y = torch.randn(F, K, generator=g) * amp
+        sf = torch.rand(F, 2, generator=g) - 0.5
+        card = dither_window(tab, randmap, ptr, last, K, size)
+        host = dither_window(tab.to(cpu), randmap.to(cpu), ptr.to(cpu),
+                             last.to(cpu), K, size)
+        card += dither_quantize(y.cuda(), card[0], sf.cuda(), S24_MIN,
+                                S24_MAX)
+        host += dither_quantize(y, host[0], sf, S24_MIN, S24_MAX)
+        for a, b in zip(card, host):
+            n_diff += int((a.cpu() != b).sum())
+        ptr, last = card[1], card[2]
+    print(f"dither on the card vs the CPU at {F} x {K} (S24, normal and "
+          f"clipping levels, {F // 5 + 1} channels wrapping): dither "
+          f"floats, pointers, words, feedback and meters differ in "
+          f"{n_diff} elements (must be 0)", flush=True)
+    if n_diff:
+        fail("the dither on the card is not bit-equal to the CPU's")
+
+
+def time_io_halves(eng_aligned, eng_plain, flush):
+    """Device time of the output half a block at the massive shape: with
+    subdelay, delay and dither (phase 16's config) against the plain
+    encode path, and each step alone."""
+    import torch
+    from brutefir_tpu_torch.config.model import OUT
+    from brutefir_tpu_torch.ops.device_codec import encode_words
+    from brutefir_tpu_torch.ops.device_dither import (dither_quantize,
+                                                      dither_window)
+    from brutefir_tpu_torch.runtime.device_io import (apply_delay,
+                                                      apply_subdelay)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    y = torch.randn(F, K, generator=g, device="cuda") * 2.0 ** 20
+    ones = torch.ones(F, device="cuda")
+    dio = eng_aligned.dio
+    sd, dl, ds = dio._sd[OUT], dio._dly[OUT], dio.dstate
+    tab, randmap, size = dio._dither
+    sel, _, open_ch, fmt = eng_plain.dio._out_devs[0]
+
+    def dither():
+        d, _, _ = dither_window(tab, randmap, ds["ptr"], ds["last"], K, size)
+        return dither_quantize(y, d, ds["sf"], S24_MIN, S24_MAX)
+
+    parts = (
+        ("output_half, subdelay + delay + dither (phase 16's config)",
+         lambda: dio.output_half(y, ones)),
+        ("output_half, plain encode (the massive config)",
+         lambda: eng_plain.dio.output_half(y, ones)),
+        ("  the subdelay FFTs (apply_subdelay)",
+         lambda: apply_subdelay(y, ds["sdr_out"], sd["hrows"], sd["byp"],
+                                sd["B"])),
+        ("  the delay gather (apply_delay)",
+         lambda: apply_delay(y, ds["dlw_out"], dl["arr"], dl["W"])),
+        ("  the dither (dither_window + dither_quantize)", dither),
+        ("  the plain quantize (encode_words)",
+         lambda: encode_words(y, fmt, sel, open_ch, torch.int32)))
+    for label, fn in parts:
+        # a spin of about 20 ms: the host enqueues every launch of the
+        # call before the card reaches the first event
+        print(f"device time a block at {F} x {K}: {label} "
+              f"{time_ms(fn, REPS, flush, 20 * SPIN_CYCLES):.4f} ms "
+              f"(median of {REPS}, CUDA events, L2 flushed by a read "
+              f"before each)", flush=True)
+
+
+def main_aligned(main, mods: dict, launched: dict):
+    import torch
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.core.dither import DitherTable
+    from brutefir_tpu_torch.runtime.engine import Engine
+    label = "massive, time-aligned and dithered"
+    frames = int(BLOCKS * K)
+    blocks = int(np.ceil(BLOCKS))
+    taps, x = write_massive_inputs(np.random.default_rng(SEED + 12), frames)
+    t0 = time.perf_counter()
+    table = DitherTable(F, 44100, 0, K)
+    gen_s = time.perf_counter() - t0
+    print(f"dither table for {F} channels at 44.1 kHz: {table.size} bytes "
+          f"in {gen_s:.3f} s on the host (must be under 2 s)", flush=True)
+    if gen_s >= 2.0:
+        fail(f"the dither table took {gen_s:.3f} s")
+    cfg = aligned_config("aligned.conf")
+    for m in mods.values():
+        m.reset_launches()
+    y = run_main(main, cfg, frames, F, label, width=3)
+    counts = all_counts(mods)
+    expect_only(counts, {"uniform": blocks, **glue_want(blocks, blocks)},
+                label)
+    err = y - aligned_oracle(x, taps[0])
+    worst = np.abs(err).max(axis=0)
+    rms = np.sqrt(np.mean(err ** 2, axis=0))
+    print(f"main path ({label}): max |y - oracle| {worst.max():.3f} LSB "
+          f"(tol {LSB_TOL}) on all {F} channels; error RMS "
+          f"{rms.min():.3f} .. {rms.max():.3f} LSB (band "
+          f"{DITHER_RMS[0]} .. {DITHER_RMS[1]}: dithered)", flush=True)
+    if worst.max() > LSB_TOL:
+        fail(f"{label} off the float64 oracle by {worst.max():.3f} LSB")
+    if not (DITHER_RMS[0] <= rms.min() and rms.max() <= DITHER_RMS[1]):
+        fail(f"{label}: error RMS outside the dither band")
+    key = ("mac_mix", "uniform")
+    launched[key] = launched.get(key, 0) + counts[key]
+    add_glue(launched, counts)
+    with open(cfg) as fh:
+        eng = Engine(parse_config(fh.read()))
+    dither_card_vs_cpu(eng.dio)
+    with open(massive_config("run1.conf", False)) as fh:
+        plain = Engine(parse_config(fh.read()))
+    flush = read_flush()
+    time_io_halves(eng, plain, flush)
+    del eng, plain, flush
+    torch.cuda.empty_cache()
+
+
+def config_oracle(cfg: str, taps: dict, x) -> np.ndarray:
+    """The float64 output [frames, C_out] at integer output scale of a
+    single-stage config read by the port's parser: per filter the
+    convolution of its scaled input mix with ``taps[coeff index]``, summed
+    into its outputs with their scales (runtime/control.py's mixes)."""
+    from scipy.signal import fftconvolve
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.config.model import IN, OUT
+    with open(cfg) as fh:
+        conf = parse_config(fh.read())
+
+    def scale(io, ch):
+        return conf.physical_format(io, conf.virt2phys[io][ch]).scale
+
+    frames = x.shape[0]
+    y = np.zeros((frames, conf.n_channels[OUT]))
+    for f in conf.filters:
+        xin = sum(s * scale(IN, ch) * x[:, ch].astype(np.float64)
+                  for ch, s in f.in_channels)
+        z = fftconvolve(xin, taps[f.coeff])[:frames]
+        for ch, s in f.out_channels:
+            y[:, ch] += s / scale(OUT, ch) * z
+    return y
+
+
+def write_float_example(work: str, example: str, frames: int, n_taps: int,
+                        coeff_files, seed: int, script: str = ""):
+    """An example config with FLOAT_LE input ``input.f32`` (2 channels,
+    std 0.1), S24_LE output ``output.s24`` and seeded ``n_taps``-tap TEXT
+    coefficients (||h||_2 = 0.5) for ``coeff_files``, all in ``work``;
+    with ``script``, a CLI logic module running it. Returns (taps by
+    coefficient index, x, config path)."""
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(REPO, "examples", example)) as fh:
+        text = fh.read()
+    x = (rng.standard_normal((frames, 2)) * 0.1).astype("<f4")
+    x.tofile(os.path.join(work, "input.f32"))
+    text = text.replace('"input.f32"', f'"{os.path.join(work, "input.f32")}"')
+    text = text.replace('"output.s24"',
+                        f'"{os.path.join(work, "output.s24")}"')
+    taps = {}
+    for i, name in enumerate(coeff_files):
+        h = rng.standard_normal(n_taps) * np.exp(-np.arange(n_taps)
+                                                 / (n_taps / 8))
+        h = (0.5 * h / np.linalg.norm(h)).astype(np.float32)
+        with open(os.path.join(work, name), "w") as fh:
+            fh.write("\n".join(repr(float(v)) for v in h) + "\n")
+        text = text.replace(f'"{name}"', f'"{os.path.join(work, name)}"')
+        taps[i] = h.astype(np.float64)
+    if script:
+        text = text.replace(
+            "sampling_rate: 44100;",
+            f'sampling_rate: 44100;\nlogic: "cli" {{ script: "{script}"; '
+            f'echo: false; }};', 1)
+    path = os.path.join(work, example)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return taps, x, path
+
+
+def delayed(z, d0: int, changes=()):
+    """``z`` through a delay line of delay ``d0`` changed at runtime by
+    ``changes`` [(first sample, new delay)]: an increase to ``new``
+    silences the first ``new`` samples from its change on, then reads z
+    ``new`` samples back; a decrease reads the true samples ``new`` back
+    (update_delays' rule)."""
+    out = np.zeros_like(z)
+    n = np.arange(z.shape[0])
+    bounds = [(0, d0, False)] + [(n0, d, d > prev) for (n0, d), prev in
+                                 zip(changes, [d0] + [c[1] for c in
+                                                      changes[:-1]])]
+    for k, (n0, d, silence) in enumerate(bounds):
+        n1 = bounds[k + 1][0] if k + 1 < len(bounds) else z.shape[0]
+        seg = (n >= n0) & (n < n1) & (n >= d)
+        if silence:
+            seg &= n >= n0 + d
+        out[seg] = z[n[seg] - d]
+    return out
+
+
+XO_BLOCKS = 19.5
+XO_N = 4096
+# block 8 raises output 2's delay from 90 to 300, block 12 lowers output
+# 3's from 90 to 20 (one script line a block; ``sleep bN`` skips N)
+XO_SCRIPT = "sleep b7\ncod 2 300; sleep b3\ncod 3 20; sleep b99999"
+
+
+def main_crossover(main, mods: dict, launched: dict):
+    label = "crossover_2way.conf, cod at blocks 8 and 12"
+    frames = int(XO_BLOCKS * XO_N)
+    blocks = int(np.ceil(XO_BLOCKS))
+    taps, x, cfg = write_float_example(WORK, "crossover_2way.conf", frames,
+                                       4 * XO_N, ("lp.txt", "hp.txt"),
+                                       SEED + 15, XO_SCRIPT)
+    with open(cfg) as fh:
+        text = fh.read()
+    old = "delay: 0, 0, 90, 90;"
+    if old not in text:
+        fail("could not add maxdelay to the crossover example")
+    with open(cfg, "w") as fh:
+        fh.write(text.replace(old, old + " maxdelay: 512;", 1))
+    for m in mods.values():
+        m.reset_launches()
+    y = run_main(main, cfg, frames, 4, label, out="output.s24", width=3)
+    counts = all_counts(mods)
+    expect_only(counts, {"rows": blocks, **glue_want(blocks, blocks)}, label)
+    z = config_oracle(cfg, taps, x)
+    ref = np.stack([z[:, 0], z[:, 1],
+                    delayed(z[:, 2], 90, [(8 * XO_N, 300)]),
+                    delayed(z[:, 3], 90, [(12 * XO_N, 20)])], axis=1)
+    worst = np.abs(y - ref).max(axis=0)
+    quiet = np.abs(y[8 * XO_N:8 * XO_N + 300, 2]).max()
+    print(f"main path ({label}): max |y - oracle| per channel "
+          f"{', '.join(f'{w:.3f}' for w in worst)} LSB (tol {LSB_TOL}); "
+          f"channel 2 on the 300 silenced samples from {8 * XO_N}: max |y| "
+          f"{quiet} LSB (dither only)", flush=True)
+    if worst.max() > LSB_TOL:
+        fail(f"{label} off the float64 oracle")
+    key = ("mac_mix", "rows")
+    launched[key] = launched.get(key, 0) + counts[key]
+    add_glue(launched, counts)
+
+
+XTC_FRAMES = 2 * 44100
+XTC_N, XTC_B = 64, 64
+
+
+def check_small_partitions(tm, tg):
+    """The unfused MAC's launch plan and kernel, and the glue kernels, at
+    the XTC example's K = M = 64 (4 filters), against their plain
+    versions."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    print(f"mac plan at Fs = 4, K = {XTC_N}: {tm.launch_plan(1, 4, XTC_N)}",
+          flush=True)
+    ring, bank, idx, mask, stage = mac_inputs(g, 4, XTC_B, XTC_N, 2, False,
+                                              [0, 1, 2, 3])
+    rt = torch.tensor(stage, dtype=torch.int32, device=dev)
+    worst = 0.0
+    for tv in (0, 5, XTC_B - 1, XTC_B, 2 * XTC_B + 5):
+        t = torch.tensor(tv, dtype=torch.int32, device=dev)
+        rel, _ = check("mac_rows (K = 64)",
+                       tm.mac(ring, bank, rt, idx, mask, t, False),
+                       tm.mac_reference(ring, bank, rt, idx, mask, t, False),
+                       tv)
+        worst = max(worst, rel)
+    x = torch.randn(2, 2 * XTC_N, generator=g, device=dev)
+    Z = torch.fft.fft(torch.view_as_complex(x.reshape(2, XTC_N, 2)), dim=-1)
+    p = torch.randn(4, 2, XTC_N, generator=g, device=dev)
+    for name, kern, plain in (
+            ("glue_fwd", lambda: tg.glue_fwd(Z),
+             lambda: tg.glue_fwd_reference(Z)),
+            ("glue_inv", lambda: torch.view_as_real(tg.glue_inv(p)),
+             lambda: torch.view_as_real(tg.glue_inv_reference(p)))):
+        rel, _ = check(f"{name} (M = 64)", kern(), plain(), "-")
+        worst = max(worst, rel)
+    print(f"mac_rows and the glue at K = M = {XTC_N}: max rel err "
+          f"{worst:.3e} (tol {REL_TOL:g}); checked, not timed", flush=True)
+
+
+def main_xtc(main, tm, tg, mods: dict, launched: dict):
+    check_small_partitions(tm, tg)
+    label = "xtc_lowlatency.conf"
+    frames = XTC_FRAMES
+    blocks = -(-frames // XTC_N)
+    taps, x, cfg = write_float_example(WORK, "xtc_lowlatency.conf", frames,
+                                       XTC_N * XTC_B,
+                                       ("direct.txt", "cross.txt"),
+                                       SEED + 17)
+    for m in mods.values():
+        m.reset_launches()
+    y = run_main(main, cfg, frames, 2, label, out="output.s24", width=3)
+    counts = all_counts(mods)
+    expect_only(counts, {"mac_rows": blocks, **glue_want(blocks, blocks)},
+                label)
+    worst = np.abs(y - config_oracle(cfg, taps, x)).max(axis=0)
+    print(f"main path ({label}): {blocks} blocks of {XTC_N}; max |y - "
+          f"oracle| per channel {', '.join(f'{w:.3f}' for w in worst)} LSB "
+          f"(tol {LSB_TOL})", flush=True)
+    if worst.max() > LSB_TOL:
+        fail(f"{label} off the float64 oracle")
+    key = ("mac", "mac_rows")
+    launched[key] = launched.get(key, 0) + counts[key]
+    add_glue(launched, counts)
+
+
 def run():
     phase("card")
     # one card: the first visible one, so device_count() below is 1
@@ -1709,6 +2123,12 @@ def run():
     offline_split(mods, launched)
     phase("main path, bench1 cascade with a crossfading first stage")
     main_bench1_xfade(main, mods, launched)
+    phase("main path, massive, time-aligned and dithered")
+    main_aligned(main, mods, launched)
+    phase("main path, crossover_2way.conf with a CLI script")
+    main_crossover(main, mods, launched)
+    phase("main path, xtc_lowlatency.conf")
+    main_xtc(main, tm, tg, mods, launched)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules

@@ -122,6 +122,7 @@ MAC_CORE_SHAPES = [
     (6, 8, 8192, 7, [2, 3, 4, 5], 0),    # bench1's first stage
     (5, 6, 1000, 3, [4, 1, 1], 0),       # K not a multiple of the tile
     (3, 2, 64, 2, [0, 1, 2], 0),         # an xtc-like short partition
+    (4, 64, 64, 2, [0, 1, 2, 3], 0),     # xtc_lowlatency.conf: 64 x 64
     (5, 6, 1001, 3, [4, 1, 1], 0),       # K % 4 != 0: the scalar path
     (6, 8, 8192, 7, [2, 3, 4, 5], 1),    # a ring view not 16-byte aligned
     (4, 8, 8192, 3, [2], 0),             # one stage filter
@@ -193,7 +194,7 @@ def test_dual_mac_kernel_matches_plain_version(cuda, uniform, F, B, K, E,
 @pytest.mark.parametrize("sets", [1, 2])
 @pytest.mark.parametrize("Fs,K", [
     (4, 8192), (52, 8192), (26, 8192), (256, 8192), (4, 65536), (1, 100),
-    (40, 1024), (33, 1024), (132, 256), (133, 256)])
+    (40, 1024), (33, 1024), (132, 256), (133, 256), (4, 64)])
 def test_mac_core_plan_covers(cuda, sets, Fs, K):
     """csrc/mac_core.cuh's plan at the engine's and the smoke's shapes: the
     grid covers every (filter, bin) once as the kernel reads it (a block a
@@ -552,13 +553,13 @@ def _fft_pairs(kernel, M, dev, C=3):
     for M in (256, 1024, 8192, 65536)] + [
     (k, M, 3) for k in ("fft_fused_fwd", "fft_fused_inv")
     for M in (384, 1408)] + [
-    (k, M, C) for k in ("glue_fwd", "glue_inv") for M in (1, 3, 255, 4097)
+    (k, M, C) for k in ("glue_fwd", "glue_inv") for M in (1, 3, 64, 255, 4097)
     for C in (1, 256)])
 def test_fft_kernels_match_plain_versions(cuda, kernel, M, C):
     """csrc/fft_glue.cu and csrc/fft_fused.cu against their plain torch
     versions: the glue's mirror pairs, bins 0 and M/2, M below one tile
     and odd (1, 3, 255, 4097: a ragged last tile, bin M/2 or none), one
-    channel and 256; the fused FFT's
+    channel and 256, and M = 64 (xtc_lowlatency.conf); the fused FFT's
     clusters of 2 (M = 256, 384) and 8 blocks (1024 up), its column
     stages of radix 4/2 and of radix 3 and 11 (384, 1408), and 65536
     (R = 512, 128 KB of shared memory a block)."""
@@ -630,3 +631,121 @@ def test_glue_route_engine_on_card_matches_cpu(cuda, tmp_path):
     before = dict(tg.launches)
     _card_and_cpu(cuda, tmp_path, [0, 1, 0])
     assert tg.launches == {k: v + 12 for k, v in before.items()}
+
+
+# --- delays, subsample delays and dither on the card -----------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("imin,imax", [(-(1 << 15), (1 << 15) - 1),
+                                       (-(1 << 23), (1 << 23) - 1)])
+@pytest.mark.parametrize("N", [1, 2, 8192])
+def test_dither_on_card_matches_cpu(cuda, imin, imax, N):
+    """ops/device_dither.py on the card: the window (with a pointer wrap)
+    and the quantize (small, 2^22 and clipping levels) bit-equal to the
+    same calls on CPU copies of the inputs."""
+    from brutefir_tpu_torch.core.dither import DitherTable
+    from brutefir_tpu_torch.ops.device_dither import (dither_quantize,
+                                                      dither_window)
+    cpu = torch.device("cpu")
+    table = DitherTable(5, 8000, 0, max(N, 64))
+    tab, rm = torch.as_tensor(table.tab), torch.as_tensor(table.randmap)
+    ptr = torch.tensor([j * table.spacing + 1 for j in range(5)],
+                       dtype=torch.int32)
+    ptr[2] = table.size - max(N // 2, 1)          # wraps in this window
+    last = torch.as_tensor(table.tab[ptr.numpy() - 1].astype(np.int32))
+    g = torch.Generator().manual_seed(N)
+    for amp in (3.0, 2.0 ** 22, 1.5 * imax):
+        x = torch.randn(5, N, generator=g) * amp
+        sf = torch.rand(5, 2, generator=g) - 0.5
+        host = dither_window(tab, rm, ptr, last, N, table.size)
+        card = dither_window(tab.to(cuda), rm.to(cuda), ptr.to(cuda),
+                             last.to(cuda), N, table.size)
+        host += dither_quantize(x, host[0], sf, imin, imax)
+        card += dither_quantize(x.to(cuda), card[0], sf.to(cuda), imin,
+                                imax)
+        for a, b in zip(card, host):
+            assert a.dtype == b.dtype and torch.equal(a.to(cpu), b)
+        ptr, last = host[1], host[2]
+
+
+@pytest.mark.cuda
+def test_delay_and_subdelay_on_card_match_cpu(cuda):
+    """device_io.apply_delay (a gather: exact) and apply_subdelay (batched
+    rfft/irfft: within 1e-5 of the peak, cuFFT against the CPU's FFT),
+    with bypassed channels passing x through exactly."""
+    from brutefir_tpu_torch.runtime.device_io import (apply_delay,
+                                                      apply_subdelay)
+    g = torch.Generator().manual_seed(5)
+    C, N, W, Bsd = 4, 1024, 300, 32
+    x = torch.randn(C, N, generator=g) * 2.0 ** 20
+    win = torch.randn(C, W, generator=g)
+    dvec = torch.tensor([0, 7, 299, 300])
+    host = apply_delay(x, win, dvec, W)
+    card = apply_delay(x.to(cuda), win.to(cuda), dvec.to(cuda), W)
+    for a, b in zip(card, host):
+        assert torch.equal(a.cpu(), b)
+    rest = torch.randn(C, Bsd, generator=g)
+    H = torch.randn(C, Bsd + 1, 2, generator=g)
+    hrows = torch.complex(H[..., 0], H[..., 1])
+    byp = torch.tensor([False, True, False, True])
+    host = apply_subdelay(x, rest, hrows, byp, Bsd)
+    card = apply_subdelay(x.to(cuda), rest.to(cuda), hrows.to(cuda),
+                          byp.to(cuda), Bsd)
+    assert torch.equal(card[1].cpu(), host[1])
+    assert torch.equal(card[0].cpu()[byp], x[byp])
+    peak = host[0].abs().max()
+    assert (card[0].cpu() - host[0]).abs().max() <= 1e-5 * peak
+
+
+@pytest.mark.cuda
+def test_aligned_engine_on_card(cuda, tmp_path):
+    """Dither, input and output delays and output subdelays through the
+    engine on the card: run() and run_offline() byte-equal, and the
+    output within 6 LSB of the float64 oracle (dither error up to 4.5 LSB
+    plus the float32 engine's) with the error's RMS in the dither band
+    0.5 .. 2 LSB (plain rounding gives 0.29)."""
+    from brutefir_tpu_torch.core.firwindow import sample_sinc
+    from brutefir_tpu_torch.runtime.engine import Engine
+    N, B, C, half = 256, 4, 3, 15
+    rng = np.random.default_rng(31)
+    taps = (rng.standard_normal(N * B) * 0.05).astype(np.float32)
+    (tmp_path / "c0.txt").write_text(
+        "\n".join(repr(float(v)) for v in taps))
+    frames = N * 13 + 77
+    x = np.clip(np.round(rng.standard_normal((frames, C)) * 2.0 ** 19),
+                -(2 ** 23), 2 ** 23 - 1).astype("<i4")
+    x.tofile(tmp_path / "in.raw")
+    in_delay, out_delay, subdelay = (5, 0, 300), (0, 9, 1), (37, -100, -60)
+
+    def conf(name):
+        return parse_config(f"""
+sampling_rate: 44100;
+filter_length: {N},{B};
+sdf_length: {half};
+coeff 0 {{ filename: "{tmp_path / 'c0.txt'}"; format: "TEXT"; }};
+input 0,1,2 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: {C}; delay: {", ".join(map(str, in_delay))}; }};
+output 0,1,2 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "S24_LE"; channels: {C}; dither: true; delay: {", ".join(map(str, out_delay))}; subdelay: {", ".join(map(str, subdelay))}; }};
+""" + "".join(f"filter {c} {{ from_inputs: {c}; to_outputs: {c}; "
+              f"coeff: 0; }};\n" for c in range(C)))
+
+    def read(name):
+        b = np.fromfile(tmp_path / name, np.uint8).reshape(-1, 3)
+        w = b.astype(np.int64) @ np.array([1, 256, 65536])
+        return (w - ((w & 0x800000) << 1)).reshape(frames, C)
+
+    Engine(conf("offline.raw"), device=cuda).run_offline()
+    Engine(conf("run.raw"), device=cuda).run()
+    y = read("offline.raw")
+    assert np.array_equal(y, read("run.raw"))
+    for c in range(C):
+        z = np.convolve(x[:, c].astype(np.float64), taps)[:frames]
+        if subdelay[c] > -100:
+            z = np.convolve(z, sample_sinc(half, subdelay[c] / 100, 9.0,
+                                           np.float32))[:frames]
+        else:
+            z = np.concatenate([np.zeros(half), z])[:frames]
+        d = in_delay[c] + out_delay[c]
+        ref = np.concatenate([np.zeros(d), z])[:frames]
+        err = y[:, c] - ref
+        assert np.abs(err).max() <= 6
+        assert 0.5 <= np.sqrt(np.mean(err ** 2)) <= 2.0

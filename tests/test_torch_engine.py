@@ -4,8 +4,8 @@ on both sides).
 
 S24 words agree within +-1 LSB (docs/PARITY.md "Float-tolerance": the
 two packages round float32 sums in different orders); frame counts and
-overflow meters agree. Configs outside the port's slice raise
-NotImplementedError."""
+overflow meters agree. Configs outside the port's slice (the EQ logic
+module, float64) raise NotImplementedError."""
 
 import os
 
@@ -251,17 +251,9 @@ output 0,1 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "{fmt}"; 
 
 _FILTER0 = 'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; };'
 OUTSIDE = {
-    # crossfade and the CLI run in the port; an output channel delay
-    # (item 5) does not
-    "out_delay": 'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; '
-                 'crossfade: true; };',
-    # cascades run in the port; an input channel delay (below) does not
-    "cascade": 'filter 0 { from_inputs: 0; to_filters: 1; coeff: 0; };\n'
-               'filter 1 { from_filters: 0; to_outputs: 0; coeff: 0; };',
     # the EQ logic module (item 4)
     "logic_eq": 'logic: "eq" { debug_dump_filter: "/tmp/x%d"; '
                 '{ coeff: 0; bands: 20, 20000; }; };\n' + _FILTER0,
-    "dither": None,
     "float64": 'float_bits: 64;\n' + _FILTER0,
 }
 
@@ -270,17 +262,13 @@ OUTSIDE = {
 def test_config_outside_the_slice_raises(tmp_path, kind):
     from brutefir_tpu_torch.runtime.engine import Engine
     (tmp_path / "in.raw").write_bytes(b"")
-    dither = "true" if kind == "dither" else "false"
-    in_delay = "delay: 1;" if kind == "cascade" else ""
-    out_delay = "delay: 1;" if kind == "out_delay" else ""
-    body = OUTSIDE[kind] or _FILTER0
     conf = parse_config(f"""
 sampling_rate: 44100;
 filter_length: 128,2;
 coeff 0 {{ filename: "dirac pulse"; }};
-input 0 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: 1; {in_delay} }};
-output 0 {{ device: "file" {{ path: "{tmp_path / 'out.raw'}"; }}; sample: "S24_4LE"; channels: 1; dither: {dither}; {out_delay} }};
-{body}
+input 0 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: 1; }};
+output 0 {{ device: "file" {{ path: "{tmp_path / 'out.raw'}"; }}; sample: "S24_4LE"; channels: 1; dither: false; }};
+{OUTSIDE[kind]}
 """)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         Engine(conf, device=CPU)

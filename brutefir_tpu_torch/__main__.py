@@ -8,8 +8,10 @@ run) is parsed first, then the main config. A config of file devices on
 storage runs through ``Engine.run_offline`` (which falls back to the
 per-block ``Engine.run`` for logic modules such as a CLI script); file
 devices on live endpoints (pipes, FIFOs, ttys) run through
-``Engine.run``. Clocked devices and the benchmark and debug modes are not
-ported yet and exit with an error saying so.
+``Engine.run``, and so do ``benchmark: true;`` and ``debug: true;``
+configs: the per-10-periods stage table (bfrun.c:2035-2078) and the event
+timeline live there. Clocked devices are not ported yet and exit with an
+error saying so.
 """
 
 from __future__ import annotations
@@ -112,15 +114,18 @@ def main(argv=None, device=None) -> int:
 
     clocked = any(inst.uses_sample_clock
                   for io in (0, 1) for inst in eng.devices[io])
-    if clocked or conf.benchmark or conf.debug:
+    if clocked:
         sys.stderr.write(
-            "brutefir_tpu_torch: clocked devices and the benchmark and "
-            "debug modes are not ported yet (ROADMAP queue 1 item 4)\n")
+            "brutefir_tpu_torch: clocked devices are not ported yet "
+            "(ROADMAP queue 1 item 4d)\n")
         return BF_EXIT_OTHER
     # batching adds batch_blocks * N of latency and bursty writes, which a
-    # peer on a live endpoint would see: those run block by block
-    batch_safe = all(inst.batch_safe
-                     for io in (0, 1) for inst in eng.devices[io])
+    # peer on a live endpoint would see: those run block by block, and so
+    # do benchmark and debug runs (their stage table and timeline live in
+    # run())
+    batch_safe = (all(inst.batch_safe
+                      for io in (0, 1) for inst in eng.devices[io])
+                  and not conf.benchmark and not conf.debug)
 
     def _stop(signum, frame):
         eng.stop()

@@ -11,7 +11,7 @@ int32 word (`raw2real.h:7-160`).
 
 The output quantizer runs on the device (``ops/device_codec.py``); the
 host quantizer and the native C++ codec come with the host codec path
-(ROADMAP queue 1 item 4).
+(ROADMAP queue 1 item 4c).
 """
 
 from __future__ import annotations

@@ -104,12 +104,12 @@ def register_io_module(name: str, cls: Type[IoDevice]) -> None:
 def get_io_module(name: str, modules_path: str = "") -> Type[IoDevice]:
     """The device class for ``device: "name"``. Only the file module is in
     the port so far: the sound-server backends (alsa, oss, jack, pulse)
-    and external ``bfio_<name>.py`` modules come with the per-block
-    ``run()`` (ROADMAP queue 1 item 4)."""
+    and external ``bfio_<name>.py`` modules come with the clocked
+    ``run()`` (ROADMAP queue 1 item 4d)."""
     if name not in _REGISTRY:
         if name != "file":
             raise NotImplementedError(
                 f'I/O module "{name}" is not ported yet: only "file" is '
-                "(ROADMAP queue 1 item 4)")
+                "(ROADMAP queue 1 item 4d)")
         from . import file_module  # noqa: F401
     return _REGISTRY[name]

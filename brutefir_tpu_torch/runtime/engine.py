@@ -16,6 +16,14 @@ two loops:
   blocks one at a time and the rest under the same snapshot. A config
   with logic modules falls back to ``run``.
 
+Under ``benchmark: true;`` or ``debug: true;`` ``run`` prints the
+reference's stage table every 10 periods (bfrun.c:2035-2078): host ms a
+block to read, to snapshot and dispatch ("device": the host's enqueue
+time, as dispatch is asynchronous), to hand the block to the writer, and
+in all; with ``BRUTEFIR_TPU_STAGE_BREAKDOWN=1`` the device column is split
+by ``runtime/stageprobe.py``'s per-op device times. ``debug: true;`` also
+dumps the input/filter/output event timeline at the end of the run.
+
 The fixed-latency contract holds: output frame m is the convolution of
 input frames <= m, and file-to-file output length equals input length
 (the EOF tail runs block by block).
@@ -24,10 +32,14 @@ Channel delays, subsample delays and dither run on the device
 (``runtime/device_io.py``); runtime delay and subdelay changes land on
 the block boundary of the control snapshot that carries them.
 
+The EQ logic module hot-swaps coefficient sets through
+``update_bank_entry``, which rebinds a new bank tensor: a block takes the
+bank of its control snapshot, so blocks already dispatched keep theirs.
+
 Not ported (each a ROADMAP queue 1 item 4 entry, or NotImplementedError
 naming its item): clocked devices and the realtime pacing around them,
-the host codec, the EQ and external logic modules, timed and
-frequency-domain module hooks, the powersave dispatch skip (the JAX
+the host codec, external logic modules, timed and frequency-domain
+module hooks, the powersave dispatch skip (the JAX
 package makes it byte-identical to always dispatching, so the port always
 dispatches), the sink mode with its prefetch pool, the stall watchdog and
 the clock-drift monitor; float64 (item 9).
@@ -36,7 +48,9 @@ the clock-drift monitor; float64 (item 9).
 from __future__ import annotations
 
 import collections
+import os
 import queue
+import sys
 import threading
 import time
 from typing import List, Optional
@@ -100,7 +114,7 @@ class Engine:
         if not eligible(conf):
             raise NotImplementedError(
                 "this config needs the host codec, not ported yet "
-                "(ROADMAP queue 1 item 4)")
+                "(ROADMAP queue 1 item 4c)")
 
         filter_inputs = [[src for src, _ in f.in_filters]
                          for f in conf.filters]
@@ -163,6 +177,14 @@ class Engine:
         self._peak_hooks = []        # bfevents.peak analogs
         self._last_peak_state = None
         self._stopped = False
+        self._stage_t = np.zeros(4)   # read, device, write, total
+        self._stage_blocks = 0
+        # debug timeline ring (print_debug, bfrun.c:230-434): (wall time,
+        # stage, event, block) from the main and writer threads (deque
+        # append is thread-safe); 1024 periods of ~8 events, the
+        # reference's DEBUG_MAX ring depth
+        self._debug_ring = (collections.deque(maxlen=8192) if conf.debug
+                            else None)
         self.dio = DeviceIO(self)
         self._gain_version = -1
         self._in_gain = self._out_gain = None
@@ -171,6 +193,26 @@ class Engine:
 
     def stop(self):
         self._stopped = True
+
+    def update_bank_entry(self, coeff_index: int, H: np.ndarray):
+        """Hot-swap one coefficient set's spectral partitions (the EQ
+        render), out of place like the JAX package's functional update: a
+        new bank tensor is rebound under the control mutex, so a block
+        dispatched with the old one (its snapshot's) is unaffected, even
+        when the EQ runs on a CLI socket thread."""
+        H = torch.as_tensor(np.asarray(H).reshape(self.bank.shape[1:]),
+                            dtype=self.bank.dtype, device=self.device)
+        idx = torch.tensor([coeff_index], device=self.device)
+        bank = self.bank.index_copy(0, idx, H[None])
+        with self.control_mutex:
+            self.bank = bank
+
+    def _dbg(self, stage: str, event: str, block: int):
+        """Append one event to the debug timeline ring (no-op unless
+        ``debug: true;``)."""
+        if self._debug_ring is not None:
+            self._debug_ring.append(
+                (time.perf_counter(), stage, event, block))
 
     # ----- logic modules ---------------------------------------------------
     def attach_logic(self):
@@ -188,7 +230,7 @@ class Engine:
             if hooks:
                 raise NotImplementedError(
                     f"logic module hooks {', '.join(hooks)} are not ported "
-                    "yet (ROADMAP queue 1 item 4)")
+                    "yet (ROADMAP queue 1 item 4b)")
         self.control.coeff_final_mod_hooks = [
             m.coeff_final for m in self.logic
             if getattr(m, "coeff_final", None) is not None]
@@ -254,8 +296,8 @@ class Engine:
 
     def _snapshot_epoch(self):
         """One control epoch for a dispatch: (ctrl, gains, uniform,
-        uniform_delay, xfade), taken under the control mutex so that a
-        concurrent CLI line is never seen half applied; the device-IO
+        uniform_delay, xfade, bank), taken under the control mutex so that
+        a concurrent CLI line is never seen half applied; the device-IO
         delays and subdelays are updated from the same epoch
         (bfrun.c:1574-1601)."""
         with self.control_mutex:
@@ -263,7 +305,7 @@ class Engine:
             gains = self._mute_gains()
             epoch = (ctrl, gains, self.control.snapshot_uniform,
                      self.control.snapshot_uniform_delay,
-                     self.control.snapshot_xfade)
+                     self.control.snapshot_xfade, self.bank)
             delays = [list(d) for d in self.control.delay]
             subdelays = [list(d) for d in self.control.subdelay]
         self.dio.update_delays(*delays)
@@ -342,7 +384,7 @@ class Engine:
         and writes block k while the main thread dispatches block k+1.
         Returns (queue, stats, thread); queue depth 2 bounds latency."""
         wq: "queue.Queue" = queue.Queue(maxsize=2)
-        wstats = {"frames": 0, "err": None}
+        wstats = {"frames": 0, "blocks": 0, "err": None}
 
         def writer():
             while True:
@@ -351,8 +393,12 @@ class Engine:
                     return
                 outs, meters, nan_ok, fk = item
                 try:
+                    wblk = wstats["blocks"]
+                    self._dbg("output", "call write", wblk)
                     self._write_outputs(outs, meters, nan_ok, fk)
                     wstats["frames"] += fk
+                    wstats["blocks"] += 1
+                    self._dbg("output", f"ret {fk} frames", wblk)
                 except Exception as e:
                     wstats["err"] = e
                     return
@@ -430,6 +476,8 @@ class Engine:
                 self._teardown_quietly()
             raise
         stats = self._stats(wstats["frames"], time.perf_counter() - t_run0)
+        if self._debug_ring is not None:
+            self._dump_debug_timeline()
         if setup:
             self.teardown()
         return stats
@@ -452,6 +500,7 @@ class Engine:
 
     def _run_blocks(self, max_blocks, wq, wstats, budget):
         N = self.N
+        show = self.conf.benchmark or self.conf.debug
         eof = False
         while not self._stopped and not eof:
             if max_blocks is not None and self.blockcounter >= max_blocks:
@@ -459,25 +508,102 @@ class Engine:
             if wstats["err"] is not None:
                 break
             t0 = time.perf_counter()
+            self._dbg("input", "call read", self.blockcounter)
             self._block_start_hooks()
             xw, frames = self.read_block_dio()
+            self._dbg("input", f"ret {frames} frames", self.blockcounter)
             if frames < N:
                 eof = True
+            t1 = time.perf_counter()
+            item = None
             if frames > 0:
-                ctrl, gains, uni, udl, xf = self._snapshot_epoch()
+                self._dbg("filter", "call dispatch", self.blockcounter)
+                ctrl, gains, uni, udl, xf, bank = self._snapshot_epoch()
                 # np.array: a writable copy of the (read-only) file words
                 words = [torch.as_tensor(np.array(w), device=self.device)
                          for w in xw]
                 self.state, outs, meters, nan_ok = self.dio.step(
-                    self.state, ctrl, gains[0], gains[1], self.bank, words,
+                    self.state, ctrl, gains[0], gains[1], bank, words,
                     uniform=uni, udelay=udl, xfade=xf)
+                item = (outs, meters, nan_ok, frames)
+                self._dbg("filter", "ret", self.blockcounter)
                 self.blockcounter += 1
-                self._put(wq, wstats, (outs, meters, nan_ok, frames))
-            period = time.perf_counter() - t0
+            t2 = time.perf_counter()
+            if item is not None:
+                self._put(wq, wstats, item)
+            t3 = time.perf_counter()
+            period = t3 - t0
             self._periods.append(period)
             if self._update_full_proc(self._input_silent_words(xw)):
                 self.realtime_index = period / budget
                 self._rti_max = max(self._rti_max, self.realtime_index)
+            self._stage_t += (t1 - t0, t2 - t1, t3 - t2, period)
+            self._stage_blocks += 1
+            if show and self._stage_blocks % 10 == 0:
+                self._print_stage_table()
+
+    def _print_stage_table(self):
+        """The reference's benchmark table (bfrun.c:2035-2078), the JAX
+        package's text: host ms a block averaged over the periods since
+        the last print. With ``BRUTEFIR_TPU_STAGE_BREAKDOWN`` set, the
+        device column is apportioned by per-op device times taken once,
+        at the first print, at this engine's shapes
+        (``stageprobe.device_stage_slopes``)."""
+        t = self._stage_t / max(self._stage_blocks, 1) * 1e3
+        if os.environ.get("BRUTEFIR_TPU_STAGE_BREAKDOWN"):
+            from .stageprobe import STAGES, device_stage_slopes
+            if not hasattr(self, "_stage_slopes"):
+                self._stage_slopes = device_stage_slopes(
+                    self.spec, self.bank, self.device)
+                tot = sum(self._stage_slopes.values())
+                sys.stderr.write(
+                    "device stage calibration (ms/block): "
+                    + " ".join(f"{k} {self._stage_slopes[k] * 1e3:.3f}"
+                               for k in STAGES)
+                    + f"  (sum {tot * 1e3:.3f})\n")
+            sl = self._stage_slopes
+            tot = sum(sl.values()) or 1.0
+            parts = {k: t[1] * sl[k] / tot for k in STAGES}
+            sys.stderr.write(
+                f"decode {t[0]:7.3f} | "
+                + " | ".join(f"{k} {parts[k]:7.3f}" for k in STAGES)
+                + f" | encode {t[2]:7.3f} | total {t[3]:7.3f} | "
+                f"rti {self.realtime_index:6.3f}  "
+                "(ms; device split calibrated)\n")
+        else:
+            sys.stderr.write(
+                f"decode/ms {t[0]:9.3f} | device/ms {t[1]:9.3f} | "
+                f"encode/ms {t[2]:9.3f} | total/ms {t[3]:9.3f} | "
+                f"rti {self.realtime_index:6.3f}\n")
+        self._stage_t[:] = 0
+        self._stage_blocks = 0
+
+    def _dump_debug_timeline(self):
+        """Full-ring timeline dump (print_debug, bfrun.c:230-434), the
+        JAX package's text: one section per pipeline stage (input, filter,
+        output), each listing every retained period's call/ret events in
+        microseconds from the first retained event."""
+        events = list(self._debug_ring)
+        if not events:
+            sys.stderr.write("debug timeline: no events recorded\n")
+            return
+        t0 = min(e[0] for e in events)
+        sys.stderr.write(
+            f"\ndebug timeline ({len(events)} events; timestamps in "
+            "microseconds from first retained event):\n\n")
+        for stage in ("input", "filter", "output"):
+            sec = [e for e in events if e[1] == stage]
+            if not sec:
+                continue
+            sys.stderr.write(f"{stage}_process:\n")
+            last_blk = None
+            for ts, _, ev, blk in sec:
+                if blk != last_blk:
+                    sys.stderr.write(f"  period {blk}:\n")
+                    last_blk = blk
+                sys.stderr.write(
+                    f"    {int((ts - t0) * 1e6)}\t{ev}\n")
+            sys.stderr.write("\n")
 
     # ----- offline run -----------------------------------------------------
     def run_offline(self, max_blocks: Optional[int] = None,
@@ -584,9 +710,9 @@ class Engine:
                   xfade: bool):
         """Dispatch one block of a batch under ``epoch`` (a
         ``_snapshot_epoch``) and queue its ``frames`` frames."""
-        ctrl, gains, uni, udl, _ = epoch
+        ctrl, gains, uni, udl, _, bank = epoch
         self.state, outs, meters, nan_ok = self.dio.step(
-            self.state, ctrl, gains[0], gains[1], self.bank, words,
+            self.state, ctrl, gains[0], gains[1], bank, words,
             uniform=uni, udelay=udl, xfade=xfade)
         self.blockcounter += 1
         self._put(wq, wstats, (outs, meters, nan_ok, frames))
@@ -641,9 +767,9 @@ class Engine:
                     break
                 epoch = self._snapshot_epoch()
             if start == 0:
-                ctrl, gains, uni, udl, _ = epoch
+                ctrl, gains, uni, udl, _, bank = epoch
                 self.state, outs, meters, nan_ok = self.dio.multi_step(
-                    self.state, ctrl, gains[0], gains[1], self.bank,
+                    self.state, ctrl, gains[0], gains[1], bank,
                     dstacks, uniform=uni, udelay=udl)
                 self.blockcounter += M
                 self._put(wq, wstats, (outs, meters, nan_ok, M * N))

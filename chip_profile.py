@@ -6,7 +6,8 @@ not) or of bench5's crossfade every block, on one NVIDIA GPU.
 Usage (from the repository root, one CUDA card):
 
     python3 chip_profile.py [--shape scale|massive|bench1|massive_cascade|
-                                     bench5|bench1_xfade|aligned]
+                                     bench5|bench1_xfade|aligned|
+                                     benchmark|eq]
                             [--blocks N]
                             [--pair G]
 
@@ -25,8 +26,14 @@ coefficient a CLI script flips every block, through the per-block
 script (``write_bench1_xfade_inputs``, also through ``run()``) or the
 massive shape time-aligned and dithered (``aligned_config``: dithered
 S24_LE outputs, output channel c delayed 37 c samples, subsample delays
-on channels 0-12), then runs the port's engine three times on them: once to warm up (kernel build, cuFFT plans), once timed on the
-host clock, once under ``torch.profiler`` (CPU and CUDA activities).
+on channels 0-12) or the massive shape under ``benchmark: true;``
+(``mode_config``: the per-block ``run()``, printing the stage table) or
+examples/room_correction_eq.conf with a CLI script changing the EQ at
+block 8 (``eq_config``: 2 channels, 8192 x 8, FLOAT_LE, 48 kHz, through
+``run()``), then runs the port's engine three times on them: once to
+warm up (kernel build, cuFFT plans), once timed on the host clock (its
+stage-table lines printed), once under ``torch.profiler`` (CPU and CUDA
+activities).
 Prints the card, the engine's wall time a
 block and realtime factor, the host time a block of each pipeline stage
 in the timed run (the reads, the main thread's logic hooks, control
@@ -41,6 +48,8 @@ the engine's own).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import os
 import shutil
 import time
@@ -68,7 +77,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", choices=("scale", "massive", "bench1",
                                         "massive_cascade", "bench5",
-                                        "bench1_xfade", "aligned"),
+                                        "bench1_xfade", "aligned",
+                                        "benchmark", "eq"),
                     default="scale")
     ap.add_argument("--blocks", type=int, default=64)
     ap.add_argument("--pair", default=None)
@@ -96,17 +106,25 @@ def main():
         _, _, cfg = cs.write_bench5_inputs(cs.WORK, frames)
     elif args.shape == "bench1_xfade":
         _, _, cfg = cs.write_bench1_xfade_inputs(cs.WORK, frames)
+    elif args.shape == "eq":
+        rng = np.random.default_rng(cs.SEED + 20)
+        (rng.standard_normal((frames, 2)) * 0.1).astype("<f4").tofile(
+            os.path.join(cs.WORK, "input.f32"))
+        cfg = cs.eq_config(cs.WORK, "profile.conf", script=cs.EQ_SCRIPT)
     else:
         cs.write_massive_inputs(np.random.default_rng(cs.SEED), frames)
         cfg = {"massive": lambda: cs.massive_config("profile.conf", False),
                "aligned": lambda: cs.aligned_config("profile.conf"),
                "massive_cascade": lambda: cs.massive_cascade_config(cs.WORK),
+               "benchmark": lambda: cs.mode_config("profile.conf",
+                                                   "benchmark: true;"),
                }[args.shape]()
     with open(cfg) as fh:
         text = fh.read()
 
     def run(host=None):
         eng = Engine(parse_config(text))
+        per_block = eng.conf.benchmark or eng.conf.debug
         if host is not None:
             for obj, name in ((eng, "read_block_dio"), (eng.dio, "step"),
                               (eng.dio, "multi_step"),
@@ -116,9 +134,16 @@ def main():
                 _time_calls(obj, name, host)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats = eng.run_offline()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            stats = eng.run() if per_block else eng.run_offline()
         torch.cuda.synchronize()
-        return eng, stats, time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        if host is not None:
+            for ln in err.getvalue().splitlines():
+                if ln.startswith(("decode", "device stage")):
+                    print(f"  {ln}", flush=True)
+        return eng, stats, wall
 
     eng, _, _ = run()                                      # warm-up
     G = group_size(eng.spec, BATCH_BLOCKS)
@@ -157,7 +182,7 @@ def main():
               f"{busy_ms / wall_ms * 100:.1f}% of the timed run's wall "
               f"time (profiled run: {pwall / pstats['blocks'] * 1e3:.3f} "
               f"ms a block)", flush=True)
-        for dev_us, count, key in rows[:25]:
+        for dev_us, count, key in rows[:40]:
             print(f"  {dev_us / 1e3 / pstats['blocks']:9.4f} ms a block "
                   f"{count:7d} calls  {key[:90]}", flush=True)
     shutil.rmtree(cs.WORK, ignore_errors=True)

@@ -134,7 +134,28 @@ Phases, in order; any failure exits non-zero:
    filters in a 2 x 2 lattice, dithered S24_LE), two seconds of seeded
    FLOAT_LE input, within 16 LSB of the oracle; the unfused MAC of the
    stage loop once a block; first the MAC's plan and kernel and the glue
-   kernels at K = M = 64 against their plain versions.
+   kernels at K = M = 64 against their plain versions;
+19. main path, the massive shape under ``benchmark: true;``: 40.5 blocks
+   through ``main()``, which takes the per-block ``run()``, within 16 LSB
+   of the oracle; the stage table printed once every 10 periods (4
+   lines); then the same run under BRUTEFIR_TPU_STAGE_BREAKDOWN=1, bit-
+   equal, with the stage probe's calibration line naming its five stages
+   and its launches of the unfused MAC and the glue counted exactly
+   (``runtime/stageprobe.py``: 1 + CALLS x REPS each); then ``debug:
+   true;`` on the first 19.5 blocks of the input: bit-equal to the
+   benchmark run over its full blocks (its half block within 1 LSB),
+   its timeline one call/ret pair a period for input, filter and output;
+20. main path, examples/room_correction_eq.conf as shipped (2 channels,
+   8192 x 8, FLOAT_LE, 48 kHz, a CLI on a Unix socket and the EQ on
+   sets 0 and 1), its socket under build/chip_smoke: ``lmc eq 0 info``
+   and ``lmc eq 0 mag 63/3,1000/0,8000/-2`` over the socket, the host ms
+   of three EQ commands (render, preprocess, bank update), then 19.5
+   blocks of seeded input through ``Engine.run``; then a variant with a
+   CLI script changing the EQ at block 8 through ``main()``; each within
+   2e-5 of the output's peak of the float64 oracle (the port's rendered
+   impulses, switching at block 8); the fused MAC + mix's uniform form
+   once a block; last, the host ms of three EQ commands at the scale
+   shape's bank (257 sets of 8192 x 16, 269 MB).
 
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
@@ -1049,10 +1070,12 @@ def read_s24_3(path: str) -> np.ndarray:
 
 
 def run_main(main, cfg: str, frames: int, channels: int, label: str,
-             out: str = "output.raw", width: int = 4):
+             out: str = "output.raw", width: int = 4, dtype: str = "<i4",
+             with_err: bool = False, rate: int = 44100):
     """One run of the port's __main__.main (its writer thread has
     fetched every output when main() returns); the output words of the
-    file ``out`` in WORK, 4-byte words or (``width`` 3) S24_LE."""
+    file ``out`` in WORK, 4-byte words of ``dtype`` or (``width`` 3)
+    S24_LE; with ``with_err``, also what main() wrote to stderr."""
     out = os.path.join(WORK, out)
     if os.path.exists(out):
         os.remove(out)
@@ -1064,16 +1087,18 @@ def run_main(main, cfg: str, frames: int, channels: int, label: str,
     sys.stderr.write(err.getvalue())
     if rc != 0:
         fail(f"main() exited {rc} ({label})")
-    y = np.fromfile(out, dtype="<i4") if width == 4 else read_s24_3(out)
+    y = np.fromfile(out, dtype=dtype) if width == 4 else read_s24_3(out)
     if y.size != frames * channels:
         fail(f"output has {y.size // channels} frames, input {frames} "
              f"({label})")
-    audio_s = frames / 44100.0
+    audio_s = frames / rate
     engine_line = (err.getvalue().strip().splitlines() or ["-"])[-1]
     print(f"main path ({label}): rc 0, {frames} frames in and out, end to "
           f"end {wall:.3f} s for {audio_s:.3f} s of audio = "
           f"{audio_s / wall:.2f}x realtime (incl. config parse and bank "
           f"build); engine: {engine_line}", flush=True)
+    if with_err:
+        return y.reshape(frames, channels), err.getvalue()
     return y.reshape(frames, channels)
 
 
@@ -2048,6 +2073,312 @@ def main_xtc(main, tm, tg, mods: dict, launched: dict):
     add_glue(launched, counts)
 
 
+BENCH_BLOCKS = 40.5      # phase 19: 41 periods, 4 stage-table lines
+DEBUG_BLOCKS = 19.5      # phase 19's debug run
+TABLE_PREFIXES = ("decode/ms", "decode ")
+
+
+def mode_config(name: str, mode: str, inp: str = "input.raw") -> str:
+    """massive_config's shared-coefficient config with ``mode`` (such as
+    ``benchmark: true;``) and its input file ``inp`` in WORK."""
+    path = massive_config(name, False)
+    with open(path) as fh:
+        text = fh.read()
+    old = "show_progress: false;"
+    if old not in text:
+        fail("could not add a mode to the massive example config")
+    text = text.replace(old, f"{old}\n{mode}", 1)
+    text = text.replace(os.path.join(WORK, "input.raw"),
+                        os.path.join(WORK, inp))
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def debug_events(err: str):
+    """The dumped debug timeline as {stage: [(event, period)]}."""
+    if "debug timeline (" not in err:
+        fail("debug: true dumped no timeline")
+    ev, stage, blk = {}, None, None
+    for ln in err[err.index("debug timeline ("):].splitlines()[1:]:
+        if ln.endswith("_process:"):
+            stage = ln[:-len("_process:")]
+            ev[stage] = []
+        elif ln.startswith("  period "):
+            blk = int(ln[len("  period "):-1])
+        elif ln.startswith("    ") and "\t" in ln:
+            ev[stage].append((ln.split("\t", 1)[1], blk))
+    return ev
+
+
+def main_benchmark(main, mods: dict, launched: dict):
+    """Phase 19: the massive shape under benchmark: true (run(), the stage
+    table), then with the stage probe's calibration, then debug: true."""
+    from brutefir_tpu_torch.runtime import stageprobe
+    rng = np.random.default_rng(SEED + 19)
+    frames = int(BENCH_BLOCKS * K)
+    blocks = int(np.ceil(BENCH_BLOCKS))
+    taps, x = write_massive_inputs(rng, frames)
+    cfg = mode_config("bench.conf", "benchmark: true;")
+    ys = []
+    n_probe = 1 + stageprobe.CALLS * stageprobe.REPS
+    for breakdown in (None, "1"):
+        label = ("massive, benchmark: true"
+                 + (", BRUTEFIR_TPU_STAGE_BREAKDOWN=1" if breakdown else ""))
+        for m in mods.values():
+            m.reset_launches()
+        with knob("BRUTEFIR_TPU_STAGE_BREAKDOWN", breakdown):
+            y, err = run_main(main, cfg, frames, F, label, with_err=True)
+        counts = all_counts(mods)
+        probe = n_probe if breakdown else 0
+        expect_only(counts, {"uniform": blocks, "mac_rows": probe,
+                             **glue_want(blocks + probe, blocks + probe)},
+                    label)
+        table = [ln for ln in err.splitlines()
+                 if ln.startswith(TABLE_PREFIXES)]
+        calib = [ln for ln in err.splitlines()
+                 if ln.startswith("device stage calibration")]
+        for ln in calib + table:
+            print(f"  {ln}", flush=True)
+        if len(table) != blocks // 10:
+            fail(f"{label}: {len(table)} stage-table lines, expected "
+                 f"{blocks // 10}")
+        if breakdown and (len(calib) != 1 or not all(
+                f" {k} " in calib[0] for k in stageprobe.STAGES)):
+            fail(f"{label}: no calibration line naming every stage")
+        launched[("mac_mix", "uniform")] += counts[("mac_mix", "uniform")]
+        launched[("mac", "mac_rows")] += counts[("mac", "mac_rows")]
+        add_glue(launched, counts)
+        ys.append(y)
+    if not np.array_equal(ys[0], ys[1]):
+        fail("the calibrated benchmark run's output differs from the first")
+    lsb = oracle_lsb(ys[0], x, lambda c: taps[0])
+    print(f"main path (massive, benchmark: true): max |y - oracle| {lsb} "
+          f"LSB (tol {LSB_TOL}) on all {F} channels; the calibrated run "
+          f"bit-equal", flush=True)
+    if lsb > LSB_TOL:
+        fail(f"benchmark run off the float64 oracle by {lsb} LSB")
+
+    label = "massive, debug: true"
+    dframes = int(DEBUG_BLOCKS * K)
+    dblocks = int(np.ceil(DEBUG_BLOCKS))
+    x[:dframes].tofile(os.path.join(WORK, "input_debug.raw"))
+    cfg = mode_config("debug.conf", "debug: true;", "input_debug.raw")
+    for m in mods.values():
+        m.reset_launches()
+    y, err = run_main(main, cfg, dframes, F, label, with_err=True)
+    counts = all_counts(mods)
+    expect_only(counts, {"uniform": dblocks,
+                         **glue_want(dblocks, dblocks)}, label)
+    # the debug run's last block is half input, half zero padding: its
+    # transforms round differently, so it is held to 1 LSB, the rest to
+    # the bit
+    full = int(DEBUG_BLOCKS) * K
+    tail = int(np.abs(y[full:].astype(np.int64)
+                      - ys[0][full:dframes]).max())
+    if not np.array_equal(y[:full], ys[0][:full]) or tail > 1:
+        fail("the debug run's output differs from the benchmark run's")
+    ev = debug_events(err)
+    for stage, call in (("input", "call read"), ("filter", "call dispatch"),
+                        ("output", "call write")):
+        got = ev.get(stage, [])
+        want = [e for b in range(dblocks) for e in ((call, b), ("ret", b))]
+        if [(e if e == call else e.split()[0], b) for e, b in got] != want:
+            fail(f"debug timeline: the {stage} section is not one call/ret "
+                 f"pair a period over {dblocks} periods")
+    print(f"main path ({label}): output bit-equal to the benchmark run's "
+          f"first {full} frames, its last half block within {tail} LSB; "
+          f"timeline: one call/ret pair a period for input, filter and "
+          f"output over {dblocks} periods", flush=True)
+    launched[("mac_mix", "uniform")] += counts[("mac_mix", "uniform")]
+    add_glue(launched, counts)
+
+
+EQ_EXAMPLE = os.path.join(REPO, "examples", "room_correction_eq.conf")
+EQ_N, EQ_B, EQ_RATE = 8192, 8, 48000
+EQ_BLOCKS = 19.5
+EQ_MAG = "63/3,1000/0,8000/-2"
+EQ_SCRIPT = f"sleep b7\nlmc eq 0 mag {EQ_MAG}\nsleep b99999"
+EQ_TOL = 2e-5            # of the output's peak, FLOAT_LE
+
+
+def eq_config(work: str, name: str, sock: str = "", script: str = "") -> str:
+    """examples/room_correction_eq.conf as shipped, its files in ``work``
+    and its CLI socket at ``sock``, or (``script``) a CLI script in place
+    of the socket."""
+    with open(EQ_EXAMPLE) as fh:
+        text = fh.read()
+    old = '"cli" { port: "/tmp/brutefir.sock"; }'
+    if old not in text:
+        fail("could not find the EQ example's CLI socket")
+    new = (f'"cli" {{ script: "{script}"; echo: false; }}' if script
+           else f'"cli" {{ port: "{sock}"; }}')
+    text = text.replace(old, new)
+    text = text.replace('"input.f32"', f'"{os.path.join(work, "input.f32")}"')
+    text = text.replace('"output.f32"',
+                        f'"{os.path.join(work, "output.f32")}"')
+    path = os.path.join(work, name)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def socket_talk(path: str, lines) -> str:
+    """Send ``lines`` and ``quit`` to a CLI on a Unix socket; its
+    replies."""
+    import socket
+    s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    s.settimeout(60)
+    s.connect(path)
+    s.sendall(("".join(ln + "\n" for ln in lines) + "quit\n").encode())
+    got = b""
+    while True:
+        chunk = s.recv(65536)
+        if not chunk:
+            break
+        got += chunk
+    s.close()
+    return got.decode()
+
+
+def eq_oracle(x, impulses, switch: int):
+    """The float64 output: ``x`` convolved with impulses[0] before sample
+    ``switch`` and with impulses[1] from it on."""
+    from scipy.signal import fftconvolve
+    n = x.shape[0]
+    ys = [fftconvolve(x.T.astype(np.float64), h[None].astype(np.float64),
+                      axes=1)[:, :n].T for h in impulses]
+    return np.where(np.arange(n)[:, None] < switch, ys[0], ys[-1])
+
+
+def time_eq_commands(eq, label: str):
+    """Host ms of three EQ commands (render + preprocess + bank update),
+    and ms until the card has the new bank; the last leaves the EQ at
+    EQ_MAG."""
+    import torch
+    for val in ("63/0", "63/6", EQ_MAG):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok, msg = eq.command(f"0 mag {val}")
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not ok:
+            fail(f"EQ command refused ({label}): {msg.strip()}")
+        print(f"EQ command ({label}): 0 mag {val}: host "
+              f"{(t1 - t0) * 1e3:.3f} ms (render + preprocess + bank "
+              f"update), {(t2 - t0) * 1e3:.3f} ms until the card has the "
+              f"bank", flush=True)
+
+
+def eq_scale_config(work: str) -> str:
+    """The 256-channel scale shape (8192 x 16, 256 coefficient sets) with
+    the EQ example's equaliser on sets 0 and 1: its bank of 257 sets
+    (269 MB) is what one EQ command copies."""
+    C = SCALE_C
+    coeffs = "\n".join(f'coeff {i} {{ filename: "dirac pulse"; '
+                       f'shared_mem: true; }};' for i in range(C))
+    chans = ", ".join(str(i) for i in range(C))
+    filters = "\n".join(
+        f"filter {i} {{ from_inputs: {i}; to_outputs: {i}; coeff: {i}; }};"
+        for i in range(C))
+    path = os.path.join(work, "eq_scale.conf")
+    with open(path, "w") as fh:
+        fh.write(f"""
+sampling_rate: {EQ_RATE};
+filter_length: {K},{B};
+logic: "eq" {{ coeff: 0, 1; bands: "ISO 1/3 octave"; }};
+{coeffs}
+input {chans} {{ device: "file" {{ path: "/dev/zero"; }}; sample: "FLOAT_LE"; channels: {C}; }};
+output {chans} {{ device: "file" {{ path: "/dev/null"; }}; sample: "FLOAT_LE"; channels: {C}; }};
+{filters}
+""")
+    return path
+
+
+def main_eq(main, mods: dict, launched: dict):
+    """Phase 20: examples/room_correction_eq.conf over its CLI socket,
+    then a script variant changing the EQ at block 8 through main()."""
+    import torch
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.runtime.engine import Engine
+    frames = int(EQ_BLOCKS * EQ_N)
+    blocks = int(np.ceil(EQ_BLOCKS))
+    rng = np.random.default_rng(SEED + 20)
+    x = (rng.standard_normal((frames, 2)) * 0.1).astype("<f4")
+    x.tofile(os.path.join(WORK, "input.f32"))
+    sock = os.path.join(WORK, "eq.sock")
+    if len(sock) > 100:                   # sun_path holds 108 bytes
+        sock = os.path.relpath(sock)
+    with open(eq_config(WORK, "eq_socket.conf", sock=sock)) as fh:
+        eng = Engine(parse_config(fh.read()))
+    eng.attach_logic()
+    eng.setup()
+    cli, eq = eng.logic
+    try:
+        h_flat = eq.render_impulse(eq.equalisers[0])
+        reply = socket_talk(sock, ["lmc eq 0 info",
+                                   f"lmc eq 0 mag {EQ_MAG}"])
+        print("CLI socket replies:\n" + "".join(
+            f"  {ln}\n" for ln in reply.splitlines()), end="", flush=True)
+        if not (reply.startswith("coefficient 0,1:\n band:")
+                and reply.endswith("ok\n") and "Command failed" not in reply):
+            fail("unexpected EQ replies over the CLI socket")
+        h_new = eq.render_impulse(eq.equalisers[0])
+        time_eq_commands(eq, "the example's bank, 3 sets of 8 x 8192")
+        for m in mods.values():
+            m.reset_launches()
+        label = "room_correction_eq.conf after the socket commands"
+        out = os.path.join(WORK, "output.f32")
+        stats = eng.run(setup=False)
+        eng.teardown()
+    finally:
+        cli.close()
+    counts = all_counts(mods)
+    expect_only(counts, {"uniform": blocks, **glue_want(blocks, blocks)},
+                label)
+    y = np.fromfile(out, "<f4").reshape(-1, 2)
+    ref = eq_oracle(x, [h_new], 0)
+    err = np.abs(y - ref).max() / np.abs(ref).max()
+    print(f"main path ({label}): {stats['blocks']} blocks, {y.shape[0]} "
+          f"frames; max |y - oracle| {err:.3e} of the peak (tol "
+          f"{EQ_TOL:g})", flush=True)
+    if y.shape != x.shape or not err <= EQ_TOL:
+        fail(f"{label} off the float64 oracle")
+    key = ("mac_mix", "uniform")
+    launched[key] += counts[key]
+    add_glue(launched, counts)
+
+    label = "room_correction_eq.conf, lmc eq at block 8 from a script"
+    cfg = eq_config(WORK, "eq_script.conf", script=EQ_SCRIPT)
+    for m in mods.values():
+        m.reset_launches()
+    y = run_main(main, cfg, frames, 2, label, out="output.f32",
+                 dtype="<f4", rate=EQ_RATE)
+    counts = all_counts(mods)
+    expect_only(counts, {"uniform": blocks, **glue_want(blocks, blocks)},
+                label)
+    ref = eq_oracle(x, [h_flat, h_new], 8 * EQ_N)
+    err = np.abs(y - ref).max() / np.abs(ref).max()
+    moved = np.abs(eq_oracle(x, [h_flat], 0) - ref).max() / np.abs(ref).max()
+    print(f"main path ({label}): max |y - oracle| {err:.3e} of the peak "
+          f"(tol {EQ_TOL:g}); the flat EQ's output is {moved:.3e} of the "
+          f"peak away from it", flush=True)
+    if not err <= EQ_TOL or not moved > 100 * EQ_TOL:
+        fail(f"{label} off the float64 oracle")
+    launched[key] += counts[key]
+    add_glue(launched, counts)
+
+    with open(eq_scale_config(WORK)) as fh:
+        eng = Engine(parse_config(fh.read()))
+    eng.attach_logic()
+    print(f"bank at the scale shape: {tuple(eng.bank.shape)}, "
+          f"{eng.bank.numel() * 4 / 1e6:.0f} MB", flush=True)
+    time_eq_commands(eng.logic[0], "the scale shape's bank")
+    del eng
+    torch.cuda.empty_cache()
+
+
 def run():
     phase("card")
     # one card: the first visible one, so device_count() below is 1
@@ -2129,6 +2460,10 @@ def run():
     main_crossover(main, mods, launched)
     phase("main path, xtc_lowlatency.conf")
     main_xtc(main, tm, tg, mods, launched)
+    phase("main path, massive under benchmark: true and debug: true")
+    main_benchmark(main, mods, launched)
+    phase("main path, room_correction_eq.conf with its CLI socket")
+    main_eq(main, mods, launched)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules

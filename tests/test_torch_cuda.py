@@ -749,3 +749,76 @@ output 0,1,2 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "S24_LE
         err = y[:, c] - ref
         assert np.abs(err).max() <= 6
         assert 0.5 <= np.sqrt(np.mean(err ** 2)) <= 2.0
+
+
+# --- the stage probe and the EQ on the card ---------------------------------
+
+@pytest.mark.cuda
+def test_stage_probe_on_card(cuda):
+    """``stageprobe.device_stage_slopes`` on the card: five positive times,
+    and its launches of the unfused MAC and the glue kernels are
+    1 + CALLS * REPS each."""
+    from brutefir_tpu_torch.graph.spec import build_graph_spec
+    from brutefir_tpu_torch.runtime import stageprobe as sp
+    N, B, F = 1024, 4, 6
+    spec = build_graph_spec(N, B, 3, 2, [[]] * F, [False] * F,
+                            np.dtype(np.float32))
+    bank = torch.randn(3, B, 2, N, device=cuda)
+    tm.reset_launches()
+    tg.reset_launches()
+    got = sp.device_stage_slopes(spec, bank, cuda)
+    assert list(got) == list(sp.STAGES)
+    assert all(0 < v < 0.01 for v in got.values()), got
+    n = 1 + sp.CALLS * sp.REPS
+    assert tm.launches == {"mac_uniform": 0, "mac_rows": n}
+    assert tg.launches == {"glue_fwd": n, "glue_inv": n}
+
+
+def _eq_xfade_conf(tmp_path, name):
+    N, B = 256, 4
+    cli = ('"cli" { script: "sleep b2\nlmc eq 0 mag 1000/-6\n'
+           'lmc eq 0 mag 1000/3,8000/-12\nsleep b999"; echo: false; }')
+    return parse_config(f"""
+sampling_rate: 44100;
+filter_length: {N},{B};
+logic: {cli}, "eq" {{ coeff: 0, 1; bands: "ISO octave"; }};
+coeff 0 {{ filename: "dirac pulse"; shared_mem: true; }};
+coeff 1 {{ filename: "dirac pulse"; shared_mem: true; }};
+input 0,1 {{ device: "file" {{ path: "{tmp_path / 'in.f32'}"; }}; sample: "FLOAT_LE"; channels: 2; }};
+output 0,1 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "FLOAT_LE"; channels: 2; }};
+filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; crossfade: true; }};
+filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 0; crossfade: true; }};
+""")
+
+
+@pytest.mark.cuda
+def test_eq_crossfade_on_card_matches_cpu(cuda, tmp_path):
+    """Crossfading filters on an EQ pair, with EQ commands from a CLI
+    script on blocks 3 and 4 (each block's old set is the one the command
+    before rendered), on the card and on the CPU: the dual MAC on blocks
+    0, 3 and 4, outputs within 1e-5 of the peak. A bank update leaves the
+    bank of a block already dispatched as it was."""
+    from brutefir_tpu_torch.runtime.engine import Engine
+    frames = 256 * 9 + 50
+    x = (np.random.default_rng(12).standard_normal((frames, 2))
+         * 0.25).astype("<f4")
+    x.tofile(tmp_path / "in.f32")
+    td.reset_launches()
+    sg = Engine(_eq_xfade_conf(tmp_path, "gpu.f32"), device=cuda).run()
+    assert sum(td.launches.values()) == 3
+    sc = Engine(_eq_xfade_conf(tmp_path, "cpu.f32"),
+                device=torch.device("cpu")).run()
+    assert sg["frames"] == sc["frames"] == frames
+    yg = np.fromfile(tmp_path / "gpu.f32", "<f4")
+    yc = np.fromfile(tmp_path / "cpu.f32", "<f4")
+    assert yg.size == frames * 2 and np.abs(yc).max() > 0.1
+    assert np.abs(yg - yc).max() <= 1e-5 * np.abs(yc).max()
+
+    eng = Engine(_eq_xfade_conf(tmp_path, "unused.f32"), device=cuda)
+    old = eng._snapshot_epoch()[5]
+    kept = old.clone()
+    eng.update_bank_entry(0, np.ones((4, 2, 256), np.float32))
+    torch.cuda.synchronize()
+    assert eng.bank is not old and torch.equal(old, kept)
+    assert bool((eng.bank[0] == 1).all()) and torch.equal(eng.bank[1],
+                                                          kept[1])

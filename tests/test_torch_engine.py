@@ -4,8 +4,8 @@ on both sides).
 
 S24 words agree within +-1 LSB (docs/PARITY.md "Float-tolerance": the
 two packages round float32 sums in different orders); frame counts and
-overflow meters agree. Configs outside the port's slice (the EQ logic
-module, float64) raise NotImplementedError."""
+overflow meters agree. Configs outside the port's slice (external logic
+modules, float64) raise NotImplementedError."""
 
 import os
 
@@ -251,9 +251,8 @@ output 0,1 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "{fmt}"; 
 
 _FILTER0 = 'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; };'
 OUTSIDE = {
-    # the EQ logic module (item 4)
-    "logic_eq": 'logic: "eq" { debug_dump_filter: "/tmp/x%d"; '
-                '{ coeff: 0; bands: 20, 20000; }; };\n' + _FILTER0,
+    # an external bflogic_<name>.py logic module (item 4b)
+    "logic_mymod": 'logic: "mymod" { a: 1; };\n' + _FILTER0,
     "float64": 'float_bits: 64;\n' + _FILTER0,
 }
 
@@ -270,8 +269,11 @@ input 0 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE
 output 0 {{ device: "file" {{ path: "{tmp_path / 'out.raw'}"; }}; sample: "S24_4LE"; channels: 1; dither: false; }};
 {OUTSIDE[kind]}
 """)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item") as ei:
         Engine(conf, device=CPU)
+    if kind == "logic_mymod":
+        assert "item 4b" in str(ei.value)
 
 
 def test_main_runs_on_cpu_and_matches_engine(tmp_path):

@@ -36,6 +36,9 @@ def test_port_imports_no_jax():
         "import brutefir_tpu_torch.ops.fft_glue\n"
         "import brutefir_tpu_torch.ops.fft_fused\n"
         "import brutefir_tpu_torch.control.cli\n"
+        "import brutefir_tpu_torch.control.eq\n"
+        "import brutefir_tpu_torch.runtime.stageprobe\n"
+        "import brutefir_tpu_torch.config.coeffs\n"
         "import brutefir_tpu_torch.core.dither\n"
         "import brutefir_tpu_torch.core.firwindow\n"
         "import brutefir_tpu_torch.ops.device_dither\n"

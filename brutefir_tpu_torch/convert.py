@@ -1,8 +1,10 @@
 """Carry the JAX package's weights, state and controls over to the port.
 
 The "weights" of this system are the coefficient bank and its state is
-the spectra ring plus the overlap tails, and the device-IO state
-(dither pointers and feedback, delay windows, subdelay rests). The JAX
+the spectra ring plus the overlap tails, the device-IO state (dither
+pointers and feedback, delay windows, subdelay rests) and, on the host
+codec path, the host IO state (delay lines, dither states, overflow
+meters, subdelay rests). The JAX
 package keeps ring and bank in the lane-tiled ``[.., 2, N/128, 128]``
 layout when its Pallas MAC runs, or flat ``[.., 2, N]`` otherwise; the
 port always keeps them flat.
@@ -87,3 +89,56 @@ def dstate_from_jax(dstate, device) -> dict:
         raise ValueError(f"unknown device-IO state keys {unknown}")
     return {k: torch.as_tensor(np.array(v, copy=True), device=device)
             .to(_DSTATE_DTYPES[k]) for k, v in dstate.items()}
+
+
+# DelayLine's machine state (core/delayline.py): scalars, then buffers
+_DL_SCALARS = ("maxdelay", "delay", "_cap", "_frag", "_n_rest", "_n_fbufs",
+               "_curbuf")
+
+
+def _copy_buf(v):
+    if v is None:
+        return None
+    if isinstance(v, list):
+        return [np.array(b, copy=True) for b in v]
+    return np.array(v, copy=True)
+
+
+def host_io_state_from_jax(jax_engine, port_engine) -> None:
+    """Copy the JAX engine's host IO state into the port engine of the
+    same config, so that a run the JAX engine began on its host codec
+    path goes on in the port: every ``DelayLine``'s machine (cursor,
+    rest and buffers), every ``DitherState``'s table pointer and error
+    feedback (``sf``) with the shared table's first byte (a wrap rewrites
+    it), the ``Overflow`` meters and the ``SubsampleDelay`` rests. Copies,
+    never views."""
+    for io in (0, 1):
+        jl, tl = jax_engine.dlines[io], port_engine.dlines[io]
+        if len(jl) != len(tl):
+            raise ValueError(f"delay lines differ in number on side {io}")
+        for a, b in zip(jl, tl):
+            for name in _DL_SCALARS:
+                setattr(b, name, getattr(a, name))
+            for name in ("_fbufs", "_rbuf", "_shortbuf"):
+                setattr(b, name, _copy_buf(getattr(a, name)))
+    if len(jax_engine.dither_state) != len(port_engine.dither_state):
+        raise ValueError("dither states differ in number")
+    for a, b in zip(jax_engine.dither_state, port_engine.dither_state):
+        if (a is None) != (b is None):
+            raise ValueError("dithered channels differ")
+        if a is not None:
+            b.randtab_ptr = a.randtab_ptr
+            b.sf[:] = a.sf
+            b.table.tab[0] = a.table.tab[0]
+    for a, b in zip(jax_engine._phys_overflow, port_engine._phys_overflow):
+        b.n_overflows, b.intlargest, b.largest = (
+            a.n_overflows, a.intlargest, a.largest)
+    js, ts = jax_engine.subdelay, port_engine.subdelay
+    if (js is None) != (ts is None):
+        raise ValueError("subsample delays differ")
+    if js is not None:
+        for io in (0, 1):
+            if set(js.rest[io]) != set(ts.rest[io]):
+                raise ValueError(f"subdelay channels differ on side {io}")
+            for ch, rest in js.rest[io].items():
+                ts.rest[io][ch] = np.array(rest, copy=True)

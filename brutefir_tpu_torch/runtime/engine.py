@@ -28,9 +28,25 @@ The fixed-latency contract holds: output frame m is the convolution of
 input frames <= m, and file-to-file output length equals input length
 (the EOF tail runs block by block).
 
-Channel delays, subsample delays and dither run on the device
-(``runtime/device_io.py``); runtime delay and subdelay changes land on
-the block boundary of the control snapshot that carries them.
+Two routes carry a block's samples, chosen once from the config as the
+JAX package chooses them (``self.dio``):
+
+- the device-IO path (``runtime/device_io.py``), when every device's
+  format has a device codec: raw words go to the card, and decode,
+  channel delays, subsample delays, dither and encode run there;
+- the host codec path, when one does not (big-endian words, 3-byte
+  big-endian S24, 8-byte floats), for every device of the config:
+  ``read_block`` decodes (``core/codecs.py``, the native C++ codec of
+  ``core/native`` or numpy) and runs the input mutes, delay lines
+  (``core/delayline.py``) and subsample delays on the host; the block
+  goes up through a pinned staging buffer, ``graph/compile.step_impl``
+  runs on the card with the same kernels as on the device path, and the
+  writer thread fetches the output and ``write_block`` runs the output
+  subdelays, delay lines, mutes, dither (``DitherState.quantize``),
+  meters and encode.
+
+Runtime delay and subdelay changes land on the block boundary of the
+control snapshot that carries them.
 
 The EQ logic module hot-swaps coefficient sets through
 ``update_bank_entry``, which rebinds a new bank tensor: a block takes the
@@ -38,11 +54,12 @@ bank of its control snapshot, so blocks already dispatched keep theirs.
 
 Not ported (each a ROADMAP queue 1 item 4 entry, or NotImplementedError
 naming its item): clocked devices and the realtime pacing around them,
-the host codec, external logic modules, timed and frequency-domain
-module hooks, the powersave dispatch skip (the JAX
-package makes it byte-identical to always dispatching, so the port always
-dispatches), the sink mode with its prefetch pool, the stall watchdog and
-the clock-drift monitor; float64 (item 9).
+external logic modules, timed and frequency-domain module hooks (the
+host path keeps the JAX package's ``input_timed`` / ``output_timed``
+calls, which no loadable module reaches yet), the powersave dispatch
+skip (the JAX package makes it byte-identical to always dispatching, so
+the port always dispatches), the sink mode with its prefetch pool, the
+stall watchdog and the clock-drift monitor; float64 (item 9).
 """
 
 from __future__ import annotations
@@ -62,10 +79,11 @@ from .. import resolve_device
 from ..config.coeffs import build_bank
 from ..config.model import BFConfig, IN, OUT
 from ..control import check_logic_module, load_logic_module
-from ..core.codecs import Overflow
+from ..core.codecs import Overflow, float_to_raw, raw_to_float
+from ..core.delayline import DelayLine
 from ..core.dither import DitherTable
 from ..errors import BFError, BF_EXIT_INVALID_INPUT
-from ..graph.compile import check_supported, init_state
+from ..graph.compile import check_supported, init_state, step_impl
 from ..graph.spec import build_graph_spec
 from ..io import get_io_module
 from ..ops.partconv import np_c2p
@@ -111,10 +129,6 @@ class Engine:
         self.N = conf.filter_length
         self.B = conf.n_blocks
         self.rd = np.dtype(np.float32 if conf.realsize == 4 else np.float64)
-        if not eligible(conf):
-            raise NotImplementedError(
-                "this config needs the host codec, not ported yet "
-                "(ROADMAP queue 1 item 4c)")
 
         filter_inputs = [[src for src, _ in f.in_filters]
                          for f in conf.filters]
@@ -147,13 +161,34 @@ class Engine:
         self.subdelay = (SubsampleDelay(conf, self.rd)
                          if conf.use_subdelay[IN] or conf.use_subdelay[OUT]
                          else None)
+        # the host path's per-virtual-channel delay lines. The subdelay's
+        # compensating integer delay EXTENDS the capacity past the user's
+        # maxdelay, as the reference allocates maxdelay + sdf_length
+        # (bfrun.c:1152-1162), so a channel at its full delay stays
+        # aligned with the subdelay-filtered channels
+        self.dlines = [[], []]
+        for io in (IN, OUT):
+            for ch in range(conf.n_channels[io]):
+                init = conf.delay[io][ch]
+                md = conf.maxdelay[io][ch]
+                if self.subdelay is not None:
+                    extra = self.subdelay.extra_delay(io, ch)
+                    init += extra
+                    if md >= 0:
+                        md += extra
+                self.dlines[io].append(DelayLine(init, md, self.rd))
         # one shared random table for the dithered output channels
-        # (dither_init, bfconf.c:3174-3238)
+        # (dither_init, bfconf.c:3174-3238), read on the card by the
+        # device-IO path and on the host by the host path's per physical
+        # channel states (channel j of dithered_phys from j * spacing + 1)
         dith = dithered_phys(conf)
         self.dither_table = (DitherTable(len(dith), conf.sampling_rate,
                                          conf.max_dither_table_size, self.N,
                                          dtype=self.rd.type)
                              if dith else None)
+        self.dither_state = [None] * conf.n_physical_channels[OUT]
+        for j, p in enumerate(dith):
+            self.dither_state[p] = self.dither_table.new_state(j)
 
         # overflow meters, per virtual output channel; shared per physical
         self.overflow: List[Overflow] = []
@@ -185,11 +220,30 @@ class Engine:
         # reference's DEBUG_MAX ring depth
         self._debug_ring = (collections.deque(maxlen=8192) if conf.debug
                             else None)
-        self.dio = DeviceIO(self)
+        self._has_timed_hooks = False    # no loadable module has them yet
+        # the device-IO path when every device format has a device codec,
+        # else the host codec path for all devices (engine.py:456)
+        self.dio = DeviceIO(self) if eligible(conf) else None
         self._gain_version = -1
         self._in_gain = self._out_gain = None
+        self._v2p_in = np.asarray(conf.virt2phys[IN], dtype=np.int64)
+        self._out_is_permutation = all(n == 1
+                                       for n in conf.n_virtperphys[OUT])
+        if self._out_is_permutation:
+            self._p2v_out = np.asarray(
+                [conf.phys2virt[OUT][p][0]
+                 for p in range(conf.n_physical_channels[OUT])],
+                dtype=np.int64)
         self._in_framebytes = [
             d.sample_format.bytes * d.open_channels for d in conf.iodevs[IN]]
+        self._out_framebytes = [
+            d.sample_format.bytes * d.open_channels for d in conf.iodevs[OUT]]
+        # host path: per-device parallel encode (made in setup(), for more
+        # than one output device on a multi-core host; the C codec
+        # releases the GIL) and two pinned staging buffers for the upload
+        self._encode_pool = None
+        self._staging = []
+        self._staged = 0
 
     def stop(self):
         self._stopped = True
@@ -265,6 +319,13 @@ class Engine:
 
     # ----- setup / teardown ----------------------------------------------
     def setup(self):
+        if (self.dio is None and len(self.conf.iodevs[OUT]) > 1
+                and (os.cpu_count() or 1) > 1):
+            from concurrent.futures import ThreadPoolExecutor
+            self._encode_pool = ThreadPoolExecutor(
+                max_workers=min(len(self.conf.iodevs[OUT]),
+                                max(1, (os.cpu_count() or 2) - 1)),
+                thread_name_prefix="bf-encode")
         for io in (IN, OUT):
             for inst in self.devices[io]:
                 inst.init(self.N)
@@ -276,6 +337,9 @@ class Engine:
                 inst.synch_start()
 
     def teardown(self):
+        if self._encode_pool is not None:
+            self._encode_pool.shutdown(wait=True)
+            self._encode_pool = None
         for io in (IN, OUT):
             for inst in self.devices[io]:
                 inst.synch_stop()
@@ -296,21 +360,216 @@ class Engine:
 
     def _snapshot_epoch(self):
         """One control epoch for a dispatch: (ctrl, gains, uniform,
-        uniform_delay, xfade, bank), taken under the control mutex so that
-        a concurrent CLI line is never seen half applied; the device-IO
-        delays and subdelays are updated from the same epoch
-        (bfrun.c:1574-1601)."""
+        uniform_delay, xfade, bank, out_snap), taken under the control
+        mutex so that a concurrent CLI line is never seen half applied
+        (bfrun.c:1574-1601). The device-IO path's delays and subdelays
+        are updated from the same epoch; on the host path ``out_snap`` is
+        the output side's (delay, mute, subdelay) lists for
+        ``write_block`` (engine.py:1522-1538), else None."""
         with self.control_mutex:
             ctrl = self.control.snapshot()
             gains = self._mute_gains()
+            out_snap = None
+            if self.dio is not None:
+                delays = [list(d) for d in self.control.delay]
+                subdelays = [list(d) for d in self.control.subdelay]
+            else:
+                out_snap = (list(self.control.delay[OUT]),
+                            list(self.control.mute[OUT]),
+                            list(self.control.subdelay[OUT]))
             epoch = (ctrl, gains, self.control.snapshot_uniform,
                      self.control.snapshot_uniform_delay,
-                     self.control.snapshot_xfade, self.bank)
-            delays = [list(d) for d in self.control.delay]
-            subdelays = [list(d) for d in self.control.subdelay]
-        self.dio.update_delays(*delays)
-        self.dio.update_subdelays(*subdelays)
+                     self.control.snapshot_xfade, self.bank, out_snap)
+        if self.dio is not None:
+            self.dio.update_delays(*delays)
+            self.dio.update_subdelays(*subdelays)
         return epoch
+
+    # ----- host codec path: input ---------------------------------------------
+    def read_block(self):
+        """Read one fragment from all input devices and decode it on the
+        host (engine.py:627-679): (x [C_in, N] float, frames), frames < N
+        at EOF (the block is zero padded). Input mutes zero a channel
+        BEFORE its delay line and subdelay, whose state keeps advancing."""
+        conf = self.conf
+        N = self.N
+        phys = np.zeros((conf.n_physical_channels[IN], N), self.rd)
+        frames = N
+        for di, dev in enumerate(conf.iodevs[IN]):
+            want = N * self._in_framebytes[di]
+            raw = self.devices[IN][di].read(want)
+            got_frames = len(raw) // self._in_framebytes[di]
+            if got_frames < N:
+                frames = min(frames, got_frames)
+            buf = np.frombuffer(raw, dtype=np.uint8)
+            if len(raw) < want:
+                buf = np.concatenate(
+                    [buf, np.zeros(want - len(raw), np.uint8)])
+            rows = raw_to_float(buf, dev.sample_format, N, dev.open_channels,
+                                dev.channel_selection, self.rd)
+            phys[dev.phys_base: dev.phys_base + dev.used_channels] = rows
+        # map to virtual channels with per-virtual delay and mute
+        if self._plain_path(IN) and not self._has_timed_hooks:
+            return np.ascontiguousarray(phys[self._v2p_in]), frames
+        x = np.zeros((conf.n_channels[IN], N), self.rd)
+        zero_row = np.zeros(N, self.rd)
+        for ch in range(conf.n_channels[IN]):
+            row = (zero_row if self.control.mute[IN][ch]
+                   else phys[conf.virt2phys[IN][ch]])
+            dl = self.dlines[IN][ch]
+            dl.set_delay(self._total_delay(IN, ch))
+            row = dl.process(row)
+            if self.subdelay is not None:
+                row = self.subdelay.process(IN, ch, row,
+                                            self.control.subdelay[IN][ch])
+            x[ch] = row
+        for mod in self.logic:
+            hook = getattr(mod, "input_timed", None)
+            if hook is not None:
+                for ch in range(conf.n_channels[IN]):
+                    hook(x[ch], ch)
+        return x, frames
+
+    def _plain_path(self, io: int) -> bool:
+        """True when no delay, mute or subdelay is active on any channel
+        of this side, so the virtual mapping reduces to a gather."""
+        ctrl = self.control
+        return (self.subdelay is None
+                and not any(ctrl.mute[io])
+                and all(d == 0 for d in ctrl.delay[io])
+                and all(dl.delay == 0 for dl in self.dlines[io]))
+
+    def _total_delay(self, io: int, ch: int) -> int:
+        d = self.control.delay[io][ch]
+        if self.subdelay is not None:
+            d += self.subdelay.extra_delay(io, ch)
+        return d
+
+    def _input_silent(self, x) -> bool:
+        """Powersave silence of a decoded input block (test_silent,
+        bfrun.c:722-772): exact zero for digital powersave, below the
+        analog threshold (in the step's float32 rounding) when one is
+        configured; it only gates the rti meter here."""
+        if not self.conf.powersave or x is None:
+            return False
+        thr = self.conf.analog_powersave
+        if thr >= 1.0:
+            peak = float(np.abs(x).max()) if x.size else 0.0
+            return peak == 0.0
+        if not x.size:
+            return True
+        scales = np.maximum(
+            np.asarray(self.control.virtscale[IN], np.float64), 1e-30)
+        thr32 = (thr / scales[: x.shape[0]]).astype(self.rd)
+        peaks = np.abs(np.asarray(x, self.rd)).max(axis=-1)
+        return bool(np.all(peaks < thr32))
+
+    def _dispatch_host(self, x: np.ndarray, epoch) -> torch.Tensor:
+        """The host path's dispatch: upload x [C_in, N] and run the step
+        under ``epoch``; returns y [C_out, N] on the device, unfetched.
+        On the card x goes through one of two pinned staging buffers, each
+        reused only once the copy that last read it has completed."""
+        ctrl, _, uni, udl, xf, bank, _ = epoch
+        if self.device.type == "cuda":
+            if not self._staging:
+                self._staging = [
+                    (torch.empty(x.shape, dtype=torch.float32,
+                                 pin_memory=True), torch.cuda.Event())
+                    for _ in range(2)]
+            buf, done = self._staging[self._staged]
+            self._staged ^= 1
+            done.synchronize()
+            buf.numpy()[...] = x
+            xd = buf.to(self.device, non_blocking=True)
+            done.record()
+        else:
+            xd = torch.as_tensor(x)
+        self.state, y = step_impl(self.spec, self.state, ctrl, bank, xd,
+                                  uniform=uni, uniform_delay=udl,
+                                  xfade_now=xf)
+        return y
+
+    # ----- host codec path: output ----------------------------------------------
+    def write_block(self, y: np.ndarray, frames: int, out_snap=None):
+        """Encode and write one block on the host (engine.py:698-779).
+        ``out_snap`` is the output side's (delay, mute, subdelay) lists
+        taken with the block's control snapshot, so a block written later
+        by the writer thread applies the controls of its own block
+        (bfrun.c:1460-1484); None reads the current ones."""
+        conf = self.conf
+        N = self.N
+        if out_snap is None:
+            out_snap = (list(self.control.delay[OUT]),
+                        list(self.control.mute[OUT]),
+                        list(self.control.subdelay[OUT]))
+        snap_delay, snap_mute, snap_subdelay = out_snap
+        for mod in self.logic:
+            hook = getattr(mod, "output_timed", None)
+            if hook is not None:
+                for ch in range(conf.n_channels[OUT]):
+                    hook(y[ch], ch)
+        # NaN guard (bfrun.c:1900-1911): one sample per channel
+        if y.shape[0] and not np.all(np.isfinite(y[:, 0])):
+            raise EngineError("NaN or Inf values in the system! "
+                              "Invalid input?",
+                              exit_code=BF_EXIT_INVALID_INPUT)
+
+        plain = (self.subdelay is None
+                 and not any(snap_mute)
+                 and all(d == 0 for d in snap_delay)
+                 and all(dl.delay == 0 for dl in self.dlines[OUT]))
+        if plain and self._out_is_permutation:
+            phys = np.ascontiguousarray(y[self._p2v_out])
+        else:
+            phys = np.zeros((conf.n_physical_channels[OUT], N), self.rd)
+            for ch in range(conf.n_channels[OUT]):
+                row = y[ch]
+                if self.subdelay is not None:
+                    row = self.subdelay.process(OUT, ch, row,
+                                                snap_subdelay[ch])
+                dl = self.dlines[OUT][ch]
+                d = snap_delay[ch]
+                if self.subdelay is not None:
+                    d += self.subdelay.extra_delay(OUT, ch)
+                dl.set_delay(d)
+                row = dl.process(row)
+                if snap_mute[ch]:
+                    continue
+                phys[conf.virt2phys[OUT][ch]] += row
+
+        limit = conf.safety_limit
+
+        def encode_one(di, dev):
+            rows = phys[dev.phys_base: dev.phys_base + dev.used_channels]
+            if limit != 0.0:
+                for i in range(dev.used_channels):
+                    ovf = self._phys_overflow[dev.phys_base + i]
+                    peak = (float(np.abs(rows[i]).max()) if rows.shape[1]
+                            else 0.0)
+                    if peak > limit * ovf.max:
+                        raise EngineError(
+                            f"safety limit exceeded on output "
+                            f"({20 * np.log10(peak / ovf.max):.2f} > "
+                            f"{20 * np.log10(limit):.2f} dB)")
+            raw = np.zeros(N * self._out_framebytes[di], np.uint8)
+            dstate = [self.dither_state[dev.phys_base + i]
+                      for i in range(dev.used_channels)]
+            ovfs = [self._phys_overflow[dev.phys_base + i]
+                    for i in range(dev.used_channels)]
+            float_to_raw(rows, dev.sample_format, dev.open_channels,
+                         dev.channel_selection, raw, ovfs, dstate)
+            self.devices[OUT][di].write(
+                raw[: frames * self._out_framebytes[di]].tobytes())
+
+        devs = list(enumerate(conf.iodevs[OUT]))
+        if len(devs) > 1 and self._encode_pool is not None:
+            # devices own disjoint physical channels, so their dither and
+            # overflow state never meet; every future's result is read
+            list(self._encode_pool.map(lambda a: encode_one(*a), devs))
+        else:
+            for di, dev in devs:
+                encode_one(di, dev)
+        self._peak_push()
 
     # ----- device-IO host side ---------------------------------------------
     def read_block_dio(self):
@@ -382,7 +641,10 @@ class Engine:
         """The output stage on its own thread (the analog of the
         reference's output process, bfrun.c:846-964): it fetches, meters
         and writes block k while the main thread dispatches block k+1.
-        Returns (queue, stats, thread); queue depth 2 bounds latency."""
+        An item is ("dio", frames, outs, meters, nan_ok) from the
+        device-IO path or ("host", frames, y, out_snap) from the host
+        path. Returns (queue, stats, thread); queue depth 2 bounds
+        latency."""
         wq: "queue.Queue" = queue.Queue(maxsize=2)
         wstats = {"frames": 0, "blocks": 0, "err": None}
 
@@ -391,11 +653,18 @@ class Engine:
                 item = wq.get()
                 if item is None:
                     return
-                outs, meters, nan_ok, fk = item
+                kind, fk, *rest = item
                 try:
                     wblk = wstats["blocks"]
                     self._dbg("output", "call write", wblk)
-                    self._write_outputs(outs, meters, nan_ok, fk)
+                    if kind == "dio":
+                        self._write_outputs(*rest, fk)
+                    else:
+                        y, out_snap = rest
+                        # C-contiguous float32 rows, as float_to_raw
+                        # takes them: one copy off the card
+                        self.write_block(y.contiguous().cpu().numpy(), fk,
+                                         out_snap)
                     wstats["frames"] += fk
                     wstats["blocks"] += 1
                     self._dbg("output", f"ret {fk} frames", wblk)
@@ -510,7 +779,12 @@ class Engine:
             t0 = time.perf_counter()
             self._dbg("input", "call read", self.blockcounter)
             self._block_start_hooks()
-            xw, frames = self.read_block_dio()
+            if self.dio is not None:
+                xw, frames = self.read_block_dio()
+                silent = self._input_silent_words(xw)
+            else:
+                x, frames = self.read_block()
+                silent = self._input_silent(x if frames > 0 else None)
             self._dbg("input", f"ret {frames} frames", self.blockcounter)
             if frames < N:
                 eof = True
@@ -518,14 +792,19 @@ class Engine:
             item = None
             if frames > 0:
                 self._dbg("filter", "call dispatch", self.blockcounter)
-                ctrl, gains, uni, udl, xf, bank = self._snapshot_epoch()
-                # np.array: a writable copy of the (read-only) file words
-                words = [torch.as_tensor(np.array(w), device=self.device)
-                         for w in xw]
-                self.state, outs, meters, nan_ok = self.dio.step(
-                    self.state, ctrl, gains[0], gains[1], bank, words,
-                    uniform=uni, udelay=udl, xfade=xf)
-                item = (outs, meters, nan_ok, frames)
+                epoch = self._snapshot_epoch()
+                ctrl, gains, uni, udl, xf, bank, out_snap = epoch
+                if self.dio is not None:
+                    # np.array: a writable copy of the (read-only) words
+                    words = [torch.as_tensor(np.array(w), device=self.device)
+                             for w in xw]
+                    self.state, outs, meters, nan_ok = self.dio.step(
+                        self.state, ctrl, gains[0], gains[1], bank, words,
+                        uniform=uni, udelay=udl, xfade=xf)
+                    item = ("dio", frames, outs, meters, nan_ok)
+                else:
+                    item = ("host", frames, self._dispatch_host(x, epoch),
+                            out_snap)
                 self._dbg("filter", "ret", self.blockcounter)
                 self.blockcounter += 1
             t2 = time.perf_counter()
@@ -534,7 +813,7 @@ class Engine:
             t3 = time.perf_counter()
             period = t3 - t0
             self._periods.append(period)
-            if self._update_full_proc(self._input_silent_words(xw)):
+            if self._update_full_proc(silent):
                 self.realtime_index = period / budget
                 self._rti_max = max(self._rti_max, self.realtime_index)
             self._stage_t += (t1 - t0, t2 - t1, t3 - t2, period)
@@ -615,10 +894,10 @@ class Engine:
         producer thread reads and uploads batch k+1 while batch k runs,
         and a writer thread fetches and writes results. Offline only:
         block latency becomes batch_blocks * N samples. Falls back to
-        ``run()`` for logic modules (script lines pace per block) and for
-        ``batch_blocks <= 1``. ``max_blocks`` and ``setup`` as in
-        ``run()``."""
-        if self.conf.logic_modules or batch_blocks <= 1:
+        ``run()`` on the host codec path (engine.py:1633), for logic
+        modules (script lines pace per block) and for ``batch_blocks <=
+        1``. ``max_blocks`` and ``setup`` as in ``run()``."""
+        if self.dio is None or self.conf.logic_modules or batch_blocks <= 1:
             return self.run(max_blocks, setup=setup)
         if setup:
             self.setup()
@@ -710,12 +989,12 @@ class Engine:
                   xfade: bool):
         """Dispatch one block of a batch under ``epoch`` (a
         ``_snapshot_epoch``) and queue its ``frames`` frames."""
-        ctrl, gains, uni, udl, _, bank = epoch
+        ctrl, gains, uni, udl, _, bank, _ = epoch
         self.state, outs, meters, nan_ok = self.dio.step(
             self.state, ctrl, gains[0], gains[1], bank, words,
             uniform=uni, udelay=udl, xfade=xfade)
         self.blockcounter += 1
-        self._put(wq, wstats, (outs, meters, nan_ok, frames))
+        self._put(wq, wstats, ("dio", frames, outs, meters, nan_ok))
 
     def _run_offline_batches(self, max_blocks, M, wq, wstats, pq, pstate,
                              budget):
@@ -767,12 +1046,12 @@ class Engine:
                     break
                 epoch = self._snapshot_epoch()
             if start == 0:
-                ctrl, gains, uni, udl, _, bank = epoch
+                ctrl, gains, uni, udl, _, bank, _ = epoch
                 self.state, outs, meters, nan_ok = self.dio.multi_step(
                     self.state, ctrl, gains[0], gains[1], bank,
                     dstacks, uniform=uni, udelay=udl)
                 self.blockcounter += M
-                self._put(wq, wstats, (outs, meters, nan_ok, M * N))
+                self._put(wq, wstats, ("dio", M * N, outs, meters, nan_ok))
             else:
                 # the rest of a split batch, block by block under the
                 # same snapshot

@@ -1,8 +1,9 @@
 """Subsample (fractional) delay filtering.
 
-A copy of :mod:`brutefir_tpu.runtime.subdelay`. The engine runs the
-filter on the device (``runtime/device_io.py``, the bank ``H`` below);
-``process`` is the host reference the tests use.
+A copy of :mod:`brutefir_tpu.runtime.subdelay`. On the device-IO path
+the engine runs the filter on the device (``runtime/device_io.py``, the
+bank ``H`` below); on the host codec path ``Engine.read_block`` and
+``write_block`` run ``process``.
 
 Reimplements the reference subsample-delay subsystem (`delay.c:409-506`,
 `convolver_td_*` fftw_convolver.c:682-783): a bank of 2*BF_SAMPLE_SLOTS-1

@@ -7,7 +7,7 @@ Usage (from the repository root, one CUDA card):
 
     python3 chip_profile.py [--shape scale|massive|bench1|massive_cascade|
                                      bench5|bench1_xfade|aligned|
-                                     benchmark|eq]
+                                     benchmark|eq|hostcodec]
                             [--blocks N]
                             [--pair G]
 
@@ -30,7 +30,10 @@ on channels 0-12) or the massive shape under ``benchmark: true;``
 (``mode_config``: the per-block ``run()``, printing the stage table) or
 examples/room_correction_eq.conf with a CLI script changing the EQ at
 block 8 (``eq_config``: 2 channels, 8192 x 8, FLOAT_LE, 48 kHz, through
-``run()``), then runs the port's engine three times on them: once to
+``run()``) or the massive shape with S24_BE devices (``hostcodec_config``,
+``chip_smoke.py``'s phase 21: the host codec path, block by block through
+``run()``; the host stages are the main thread's ``read_block`` and
+``_dispatch_host`` and the writer's ``write_block``), then runs the port's engine three times on them: once to
 warm up (kernel build, cuFFT plans), once timed on the host clock (its
 stage-table lines printed), once under ``torch.profiler`` (CPU and CUDA
 activities).
@@ -59,26 +62,12 @@ import numpy as np
 import chip_smoke as cs
 
 
-def _time_calls(obj, name: str, acc: dict) -> None:
-    """Wrap ``obj.name`` so that its host time adds up in ``acc[name]``."""
-    fn = getattr(obj, name)
-
-    def timed(*args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
-
-    setattr(obj, name, timed)
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", choices=("scale", "massive", "bench1",
                                         "massive_cascade", "bench5",
                                         "bench1_xfade", "aligned",
-                                        "benchmark", "eq"),
+                                        "benchmark", "eq", "hostcodec"),
                     default="scale")
     ap.add_argument("--blocks", type=int, default=64)
     ap.add_argument("--pair", default=None)
@@ -111,6 +100,11 @@ def main():
         (rng.standard_normal((frames, 2)) * 0.1).astype("<f4").tofile(
             os.path.join(cs.WORK, "input.f32"))
         cfg = cs.eq_config(cs.WORK, "profile.conf", script=cs.EQ_SCRIPT)
+    elif args.shape == "hostcodec":
+        _, x = cs.write_massive_inputs(np.random.default_rng(cs.SEED + 21),
+                                       frames)
+        cs.s24_bytes(x, True).tofile(os.path.join(cs.WORK, "input.s24be"))
+        cfg = cs.hostcodec_config("profile.conf", "S24_BE", "s24be")
     else:
         cs.write_massive_inputs(np.random.default_rng(cs.SEED), frames)
         cfg = {"massive": lambda: cs.massive_config("profile.conf", False),
@@ -125,17 +119,21 @@ def main():
     def run(host=None):
         eng = Engine(parse_config(text))
         per_block = eng.conf.benchmark or eng.conf.debug
-        if host is not None:
-            for obj, name in ((eng, "read_block_dio"), (eng.dio, "step"),
-                              (eng.dio, "multi_step"),
-                              (eng, "_block_start_hooks"),
-                              (eng, "_snapshot_epoch"),
-                              (eng, "_write_outputs")):
-                _time_calls(obj, name, host)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         err = io.StringIO()
-        with contextlib.redirect_stderr(err):
+        with contextlib.ExitStack() as stack:
+            if host is not None:
+                # the host time of each stage's calls, seconds in a list
+                stages = ((eng, "read_block"), (eng, "_dispatch_host"),
+                          (eng, "write_block")) if eng.dio is None else (
+                    (eng, "read_block_dio"), (eng.dio, "step"),
+                    (eng.dio, "multi_step"), (eng, "_write_outputs"))
+                for obj, name in stages + ((eng, "_block_start_hooks"),
+                                           (eng, "_snapshot_epoch")):
+                    host[name] = stack.enter_context(
+                        cs.timed_method(obj, name, []))
+            stack.enter_context(contextlib.redirect_stderr(err))
             stats = eng.run() if per_block else eng.run_offline()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -157,7 +155,7 @@ def main():
           f"{stats['xrt']:.2f}, p50 batch period {stats['p50_block_ms']:.3f}"
           f" ms a block", flush=True)
     print("host a block: " + ", ".join(
-        f"{name} {sec / blocks * 1e3:.3f} ms"
+        f"{name} {sum(sec) / blocks * 1e3:.3f} ms"
         for name, sec in sorted(host.items())), flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,

@@ -155,7 +155,27 @@ Phases, in order; any failure exits non-zero:
    2e-5 of the output's peak of the float64 oracle (the port's rendered
    impulses, switching at block 8); the fused MAC + mix's uniform form
    once a block; last, the host ms of three EQ commands at the scale
-   shape's bank (257 sets of 8192 x 16, 269 MB).
+   shape's bank (257 sets of 8192 x 16, 269 MB);
+21. main path, the host codec: phase 8's shared-coefficient massive
+   config with S24_BE (3-byte big-endian) input and output, 19.5 blocks
+   through ``main()`` (``run_offline`` falls back to ``run()`` on the
+   host path), within 16 LSB of the float64 oracle; the fused MAC + mix
+   once a block, the native C++ codec (``core/native``) built and called
+   once a block each way (its call counts reset and read); then the same
+   samples as S24_LE through the device-IO path block by block
+   (``Engine.run``): within 1 LSB of the host path's output, the share
+   of equal words printed;
+22. main path, the host codec time-aligned and dithered: phase 16's
+   config and input with S24_BE outputs (the host delay lines, subsample
+   delays and the native dither, 26 calls a block), within 5 LSB of
+   phase 16's oracle with the error's RMS in the dither band; the share
+   of words equal to phase 16's output printed (the host and device
+   subdelays round differently) and the host ms a block of
+   ``write_block``;
+23. main path, 8-byte floats: examples/crossover_2way.conf with a
+   FLOAT_BE input and FLOAT64_LE outputs through ``main()``, within 2e-5
+   of the output's peak of the float64 oracle; the per-filter fused MAC
+   + mix once a block.
 
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
@@ -1062,9 +1082,12 @@ output {chans} {{
 """
 
 
-def read_s24_3(path: str) -> np.ndarray:
-    """An S24_LE file (3 little-endian bytes a sample) as int32 words."""
+def read_s24_3(path: str, big: bool = False) -> np.ndarray:
+    """An S24_LE file (3 little-endian bytes a sample; with ``big``, an
+    S24_BE file) as int32 words."""
     b = np.fromfile(path, dtype=np.uint8).reshape(-1, 3).astype(np.int32)
+    if big:
+        b = b[:, ::-1]
     w = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
     return w - ((w & 0x800000) << 1)
 
@@ -1075,7 +1098,8 @@ def run_main(main, cfg: str, frames: int, channels: int, label: str,
     """One run of the port's __main__.main (its writer thread has
     fetched every output when main() returns); the output words of the
     file ``out`` in WORK, 4-byte words of ``dtype`` or (``width`` 3)
-    S24_LE; with ``with_err``, also what main() wrote to stderr."""
+    3-byte words in ``dtype``'s byte order; with ``with_err``, also what
+    main() wrote to stderr."""
     out = os.path.join(WORK, out)
     if os.path.exists(out):
         os.remove(out)
@@ -1087,7 +1111,8 @@ def run_main(main, cfg: str, frames: int, channels: int, label: str,
     sys.stderr.write(err.getvalue())
     if rc != 0:
         fail(f"main() exited {rc} ({label})")
-    y = np.fromfile(out, dtype=dtype) if width == 4 else read_s24_3(out)
+    y = (np.fromfile(out, dtype=dtype) if width == 4
+         else read_s24_3(out, big=dtype.startswith(">")))
     if y.size != frames * channels:
         fail(f"output has {y.size // channels} frames, input {frames} "
              f"({label})")
@@ -1884,6 +1909,7 @@ def main_aligned(main, mods: dict, launched: dict):
     time_io_halves(eng, plain, flush)
     del eng, plain, flush
     torch.cuda.empty_cache()
+    return y
 
 
 def config_oracle(cfg: str, taps: dict, x) -> np.ndarray:
@@ -2379,6 +2405,233 @@ def main_eq(main, mods: dict, launched: dict):
     torch.cuda.empty_cache()
 
 
+# ---- phases 21-23: the host codec path ------------------------------------
+
+HOST_BLOCKS = 19.5       # phases 21-23: run() block by block, a half block
+
+
+def s24_bytes(x, big: bool) -> np.ndarray:
+    """int32 words -> their 3-byte files' bytes, little- or big-endian."""
+    b = x.astype("<i4").view(np.uint8).reshape(x.shape + (4,))[..., :3]
+    return np.ascontiguousarray(b[..., ::-1] if big else b)
+
+
+def retarget(path: str, pairs) -> str:
+    """Rewrite a config file with each (old, new, count) replaced
+    exactly ``count`` times."""
+    with open(path) as fh:
+        text = fh.read()
+    for old, new, count in pairs:
+        if text.count(old) != count:
+            fail(f"{os.path.basename(path)}: {old!r} found "
+                 f"{text.count(old)} times, expected {count}")
+        text = text.replace(old, new)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def hostcodec_config(name: str, fmt: str, ext: str) -> str:
+    """The massive shared-coefficient config with ``fmt`` on its input and
+    its output device, the files ``input.<ext>`` and ``output.<ext>``."""
+    return retarget(massive_config(name, False), (
+        ('sample: "S24_4LE";', f'sample: "{fmt}";', 2),
+        (os.path.join(WORK, "input.raw"), os.path.join(WORK, f"input.{ext}"),
+         1),
+        (os.path.join(WORK, "output.raw"),
+         os.path.join(WORK, f"output.{ext}"), 1)))
+
+
+@contextlib.contextmanager
+def timed_method(cls, name: str, acc: list):
+    """Time every call of ``cls.name`` into ``acc`` (seconds) while the
+    block runs."""
+    fn = getattr(cls, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc.append(time.perf_counter() - t0)
+
+    setattr(cls, name, timed)
+    try:
+        yield acc
+    finally:
+        setattr(cls, name, fn)
+
+
+def expect_native(calls: dict, want: dict, label: str):
+    """The native codec's call counts of a run (``core.native.calls``)
+    against ``want``; the library must be built."""
+    from brutefir_tpu_torch.core import native
+    print(f"native codec calls in this run ({label}): {calls}; library "
+          f"{native.library_path().name}", flush=True)
+    if not native.library_path().exists():
+        fail(f"{label}: the native codec was not built")
+    for key, n in want.items():
+        if calls[key] != n:
+            fail(f"{label}: native {key} called {calls[key]} times, "
+                 f"expected {n}")
+
+
+def main_hostcodec(main, mods: dict, launched: dict):
+    """Phase 21: the massive shape with S24_BE devices (the host codec
+    path) through main(), then the same samples as S24_LE through the
+    device-IO path block by block: within 1 LSB of each other."""
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.core import native
+    from brutefir_tpu_torch.runtime.engine import Engine
+    label = "massive, S24_BE through the host codec"
+    frames = int(HOST_BLOCKS * K)
+    blocks = int(np.ceil(HOST_BLOCKS))
+    taps, x = write_massive_inputs(np.random.default_rng(SEED + 21), frames)
+    s24_bytes(x, True).tofile(os.path.join(WORK, "input.s24be"))
+    s24_bytes(x, False).tofile(os.path.join(WORK, "input.s24le"))
+    cfg = hostcodec_config("host.conf", "S24_BE", "s24be")
+    for m in mods.values():
+        m.reset_launches()
+    native.reset_calls()
+    y = run_main(main, cfg, frames, F, label, out="output.s24be", width=3,
+                 dtype=">i4")
+    counts, calls = all_counts(mods), dict(native.calls)
+    expect_only(counts, {"uniform": blocks, **glue_want(blocks, blocks)},
+                label)
+    expect_native(calls, {"decode_f32": blocks, "encode_int": blocks,
+                          "quantize_rows_no_dither": blocks,
+                          "dither_quantize": 0}, label)
+    lsb = oracle_lsb(y, x, lambda c: taps[0])
+    print(f"main path ({label}): max |y - oracle| {lsb} LSB (tol "
+          f"{LSB_TOL}) on all {F} channels", flush=True)
+    if lsb > LSB_TOL:
+        fail(f"{label} off the float64 oracle by {lsb} LSB")
+    key = ("mac_mix", "uniform")
+    launched[key] += counts[key]
+    add_glue(launched, counts)
+
+    dlabel = "massive, S24_LE through the device-IO path, run()"
+    with open(hostcodec_config("dev.conf", "S24_LE", "s24le")) as fh:
+        eng = Engine(parse_config(fh.read()))
+    if eng.dio is None:
+        fail(f"{dlabel}: not on the device-IO path")
+    for m in mods.values():
+        m.reset_launches()
+    t0 = time.perf_counter()
+    eng.run()
+    wall = time.perf_counter() - t0
+    counts = all_counts(mods)
+    expect_only(counts, {"uniform": blocks, **glue_want(blocks, blocks)},
+                dlabel)
+    launched[key] += counts[key]
+    add_glue(launched, counts)
+    yd = read_s24_3(os.path.join(WORK, "output.s24le")).reshape(frames, F)
+    d = np.abs(y.astype(np.int64) - yd)
+    print(f"host codec path vs device-IO path on the same samples: "
+          f"{np.mean(d == 0) * 100:.4f}% of {d.size} words equal, max "
+          f"|diff| {d.max()} LSB (tol 1); device path run() "
+          f"{wall / blocks * 1e3:.3f} ms a block", flush=True)
+    if d.max() > 1:
+        fail("the host codec path is more than 1 LSB off the device path")
+
+
+def main_hostcodec_aligned(main, mods: dict, launched: dict, y16):
+    """Phase 22: phase 16's config and input with S24_BE outputs: the
+    host delay lines, subsample delays and native dither."""
+    from brutefir_tpu_torch.core import native
+    from brutefir_tpu_torch.core.delayline import DelayLine
+    from brutefir_tpu_torch.core.dither import DitherState
+    from brutefir_tpu_torch.runtime.engine import Engine
+    from brutefir_tpu_torch.runtime.subdelay import SubsampleDelay
+    label = "massive, time-aligned and dithered, S24_BE (host codec)"
+    frames = int(BLOCKS * K)
+    blocks = int(np.ceil(BLOCKS))
+    taps, x = write_massive_inputs(np.random.default_rng(SEED + 12), frames)
+    cfg = retarget(aligned_config("aligned_be.conf"),
+                   (('sample: "S24_LE";', 'sample: "S24_BE";', 1),))
+    for m in mods.values():
+        m.reset_launches()
+    native.reset_calls()
+    parts = {"SubsampleDelay.process": (SubsampleDelay, "process"),
+             "DelayLine.process": (DelayLine, "process"),
+             "DitherState.quantize": (DitherState, "quantize")}
+    with contextlib.ExitStack() as stack:
+        wtimes = stack.enter_context(timed_method(Engine, "write_block", []))
+        ptimes = {k: stack.enter_context(timed_method(c, n, []))
+                  for k, (c, n) in parts.items()}
+        y = run_main(main, cfg, frames, F, label, width=3, dtype=">i4")
+    counts, calls = all_counts(mods), dict(native.calls)
+    expect_only(counts, {"uniform": blocks, **glue_want(blocks, blocks)},
+                label)
+    expect_native(calls, {"decode_f32": blocks, "encode_int": blocks,
+                          "dither_quantize": F * blocks}, label)
+    err = y - aligned_oracle(x, taps[0])
+    worst = np.abs(err).max(axis=0)
+    rms = np.sqrt(np.mean(err ** 2, axis=0))
+    same = np.mean(y == y16) * 100
+    print(f"main path ({label}): max |y - oracle| {worst.max():.3f} LSB "
+          f"(tol {HOST_DITHER_TOL}) on all {F} channels; error RMS "
+          f"{rms.min():.3f} .. {rms.max():.3f} LSB (band {DITHER_RMS[0]} "
+          f".. {DITHER_RMS[1]}); {same:.4f}% of the words equal to phase "
+          f"16's device-path output (not gated: the host and device "
+          f"subdelays round differently); write_block (native dither of "
+          f"{F} channels) {np.median(wtimes) * 1e3:.3f} ms a block on the "
+          f"host (median of {len(wtimes)})", flush=True)
+    print("  of it, host ms a block (all calls, on the writer thread): "
+          + ", ".join(f"{k} {sum(v) / blocks * 1e3:.3f} ({len(v)} calls)"
+                      for k, v in ptimes.items()), flush=True)
+    if worst.max() > HOST_DITHER_TOL:
+        fail(f"{label} off the float64 oracle by {worst.max():.3f} LSB")
+    if not (DITHER_RMS[0] <= rms.min() and rms.max() <= DITHER_RMS[1]):
+        fail(f"{label}: error RMS outside the dither band")
+    key = ("mac_mix", "uniform")
+    launched[key] += counts[key]
+    add_glue(launched, counts)
+
+
+def main_hostcodec_floats(main, mods: dict, launched: dict):
+    """Phase 23: examples/crossover_2way.conf with a FLOAT_BE input and
+    FLOAT64_LE outputs through main(): the per-filter fused MAC + mix."""
+    from brutefir_tpu_torch.core import native
+    label = "crossover_2way.conf, FLOAT_BE in, FLOAT64_LE out"
+    frames = int(HOST_BLOCKS * XO_N)
+    blocks = int(np.ceil(HOST_BLOCKS))
+    taps, x, cfg = write_float_example(WORK, "crossover_2way.conf", frames,
+                                       4 * XO_N, ("lp.txt", "hp.txt"),
+                                       SEED + 23)
+    x.astype(">f4").tofile(os.path.join(WORK, "input.f32be"))
+    retarget(cfg, (('sample: "FLOAT_LE";', 'sample: "FLOAT_BE";', 1),
+                   ('sample: "S24_LE";', 'sample: "FLOAT64_LE";', 1),
+                   (os.path.join(WORK, "input.f32"),
+                    os.path.join(WORK, "input.f32be"), 1),
+                   (os.path.join(WORK, "output.s24"),
+                    os.path.join(WORK, "output.f64"), 1)))
+    for m in mods.values():
+        m.reset_launches()
+    native.reset_calls()
+    y = run_main(main, cfg, frames, 4, label, out="output.f64",
+                 dtype="<f8")
+    counts, calls = all_counts(mods), dict(native.calls)
+    expect_only(counts, {"rows": blocks, **glue_want(blocks, blocks)}, label)
+    expect_native(calls, {"decode_f32": blocks, "encode_float": blocks},
+                  label)
+    z = config_oracle(cfg, taps, x)
+    ref = np.stack([z[:, 0], z[:, 1], delayed(z[:, 2], 90),
+                    delayed(z[:, 3], 90)], axis=1)
+    err = np.abs(y - ref).max() / np.abs(ref).max()
+    print(f"main path ({label}): max |y - oracle| {err:.3e} of the peak "
+          f"(tol {FLOAT_TOL:g})", flush=True)
+    if not err <= FLOAT_TOL:
+        fail(f"{label} off the float64 oracle")
+    key = ("mac_mix", "rows")
+    launched[key] += counts[key]
+    add_glue(launched, counts)
+
+
+HOST_DITHER_TOL = 5      # phase 22, LSB: the HP-TPDF error reaches 4.5
+FLOAT_TOL = 2e-5         # phase 23, of the output's peak
+
+
 def run():
     phase("card")
     # one card: the first visible one, so device_count() below is 1
@@ -2455,7 +2708,7 @@ def run():
     phase("main path, bench1 cascade with a crossfading first stage")
     main_bench1_xfade(main, mods, launched)
     phase("main path, massive, time-aligned and dithered")
-    main_aligned(main, mods, launched)
+    y16 = main_aligned(main, mods, launched)
     phase("main path, crossover_2way.conf with a CLI script")
     main_crossover(main, mods, launched)
     phase("main path, xtc_lowlatency.conf")
@@ -2464,6 +2717,13 @@ def run():
     main_benchmark(main, mods, launched)
     phase("main path, room_correction_eq.conf with its CLI socket")
     main_eq(main, mods, launched)
+    phase("main path, massive, S24_BE through the host codec")
+    main_hostcodec(main, mods, launched)
+    phase("main path, host codec, time-aligned and dithered")
+    main_hostcodec_aligned(main, mods, launched, y16)
+    del y16
+    phase("main path, host codec, 8-byte floats and per-filter sets")
+    main_hostcodec_floats(main, mods, launched)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules

@@ -822,3 +822,60 @@ def test_eq_crossfade_on_card_matches_cpu(cuda, tmp_path):
     assert eng.bank is not old and torch.equal(old, kept)
     assert bool((eng.bank[0] == 1).all()) and torch.equal(eng.bank[1],
                                                           kept[1])
+
+
+@pytest.mark.cuda
+def test_host_codec_engine_on_card_matches_cpu(cuda, tmp_path):
+    """The host codec path (S32_BE in, S24_BE and FLOAT64_LE out, output
+    delays and a subdelay) on the card and on the CPU: the step's fused
+    MAC + mix once a block on the card, the native codec called, S24
+    within 2 LSB and the float64 device within 2e-6 of the peak."""
+    from brutefir_tpu_torch.core import native
+    from brutefir_tpu_torch.core.codecs import (Overflow, float_to_raw,
+                                                raw_to_float)
+    from brutefir_tpu_torch.core.sampleformat import parse_sample_format
+    from brutefir_tpu_torch.runtime.engine import Engine
+    N, B, C = 256, 4, 3
+    rng = np.random.default_rng(13)
+    h = (rng.standard_normal(N * B) * 0.1).astype(np.float32)
+    (tmp_path / "c0.txt").write_text(
+        "\n".join(repr(float(v)) for v in h) + "\n")
+    frames = N * 11 + 77
+    s32 = parse_sample_format("S32_BE")
+    x = np.round(rng.standard_normal((C, frames)) * 2.0 ** 27).astype(
+        np.float32)
+    raw = np.zeros(frames * C * 4, np.uint8)
+    float_to_raw(x, s32, C, [0, 1, 2], raw, [Overflow(max=2.0 ** 31)] * C)
+    raw.tofile(tmp_path / "in.raw")
+
+    def conf(tag):
+        return parse_config(f"""
+sampling_rate: 44100;
+sdf_length: 15;
+filter_length: {N},{B};
+coeff 0 {{ filename: "{tmp_path / 'c0.txt'}"; format: "TEXT"; }};
+input 0,1,2 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S32_BE"; channels: {C}; }};
+output 0,1 {{ device: "file" {{ path: "{tmp_path / (tag + '.s24')}"; }}; sample: "S24_BE"; channels: 2; dither: false; delay: 0, 31; subdelay: 45, -100; }};
+output 2 {{ device: "file" {{ path: "{tmp_path / (tag + '.f64')}"; }}; sample: "FLOAT64_LE"; channels: 1; }};
+filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; }};
+filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 0; }};
+filter 2 {{ from_inputs: 2; to_outputs: 2; coeff: 0; }};
+""")
+
+    mm.reset_launches()
+    native.reset_calls()
+    eg = Engine(conf("gpu"), device=cuda)
+    assert eg.dio is None
+    sg = eg.run_offline()
+    assert mm.launches["uniform"] == 12
+    assert native.calls["decode_f32"] == 12 and native.calls["encode_int"]
+    sc = Engine(conf("cpu"), device=torch.device("cpu")).run_offline()
+    assert sg["frames"] == sc["frames"] == frames
+    fmt24, fmt64 = (parse_sample_format(n) for n in ("S24_BE", "FLOAT64_LE"))
+    ys = [raw_to_float(np.fromfile(tmp_path / f"{t}.s24", np.uint8), fmt24,
+                       frames, 2, [0, 1], np.float64) for t in ("gpu", "cpu")]
+    assert np.abs(ys[1]).max() > 2.0 ** 20
+    assert np.abs(ys[0] - ys[1]).max() <= 2
+    yf = [np.fromfile(tmp_path / f"{t}.f64", "<f8") for t in ("gpu", "cpu")]
+    assert yf[0].size == frames
+    assert np.abs(yf[0] - yf[1]).max() <= 2e-6 * np.abs(yf[1]).max()

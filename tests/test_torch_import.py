@@ -43,6 +43,9 @@ def test_port_imports_no_jax():
         "import brutefir_tpu_torch.core.firwindow\n"
         "import brutefir_tpu_torch.ops.device_dither\n"
         "import brutefir_tpu_torch.runtime.subdelay\n"
+        "import brutefir_tpu_torch.core.codecs\n"
+        "import brutefir_tpu_torch.core.native\n"
+        "import brutefir_tpu_torch.core.delayline\n"
         + _NOTHING_OF_JAX +
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -346,3 +349,44 @@ filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; crossfade: true; }};
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
     assert os.path.getsize(tmp_path / "out.raw") == 700 * 4
+
+
+def test_port_host_codec_run_imports_no_jax(tmp_path):
+    """A config with big-endian and 8-byte float devices and a dithered
+    output takes the host codec path through the port's __main__ on the
+    CPU (native codec, delay lines, host dither), pulls in no jax, and
+    writes every frame of both outputs."""
+    frames = 600
+    x = np.round(np.random.default_rng(5).standard_normal((frames, 2))
+                 * 2 ** 20).astype(">i4")
+    x.tofile(tmp_path / "in.raw")
+    cfg = tmp_path / "c.conf"
+    cfg.write_text(f"""
+sampling_rate: 8000;
+filter_length: 128,2;
+coeff 0 {{ filename: "dirac pulse"; }};
+input 0,1 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S32_BE"; channels: 2; }};
+output 0 {{ device: "file" {{ path: "{tmp_path / 'a.raw'}"; }}; sample: "S24_BE"; channels: 1; dither: true; delay: 7; }};
+output 1 {{ device: "file" {{ path: "{tmp_path / 'b.raw'}"; }}; sample: "FLOAT64_BE"; channels: 1; }};
+filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; }};
+filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 0; }};
+""")
+    code = (
+        "import sys, torch\n"
+        "from brutefir_tpu_torch.__main__ import main\n"
+        "from brutefir_tpu_torch.runtime import engine\n"
+        "seen = []\n"
+        "real = engine.Engine.read_block\n"
+        "engine.Engine.read_block = lambda self: seen.append(1) or real(self)\n"
+        f"rc = main(['-quiet', '-nodefault', {str(cfg)!r}],\n"
+        "          device=torch.device('cpu'))\n"
+        "assert rc == 0 and seen, (rc, seen)\n"
+        + _NOTHING_OF_JAX +
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=REPO, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+    assert os.path.getsize(tmp_path / "a.raw") == frames * 3
+    assert os.path.getsize(tmp_path / "b.raw") == frames * 8

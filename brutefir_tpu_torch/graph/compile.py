@@ -1,11 +1,21 @@
 """The per-block device step: ``step_impl(spec, state, ctrl, bank, x)``.
 
 Torch twin of ``_step_impl`` in :mod:`brutefir_tpu.graph.compile`
-(compile.py:241-533), without spectral taps. One block is
+(compile.py:241-533). One block is
 
     frame = [prev_in, x] -> (powersave gate) -> rfft -> per stage:
     input mix (+ cascade input) -> ring write at (t + delay[f]) % B -> MAC
     -> output mix -> valid-half irfft -> y [C_out, N]
+
+``taps`` (from ``Engine.attach_logic``) maps the frequency-domain module
+hooks to functions ``tap(planes, idx) -> planes``, called as the JAX
+step's ordered host callbacks are (compile.py:165-178): ``input_freqd``
+on the input spectra after the rfft, ``pre_convolve`` on each stage's
+mixed spectra before the ring write (so a mutation stays in the ring's
+history), ``post_convolve`` on each stage's filter spectra after the
+crossfade selection, ``output_freqd`` on the output spectra before the
+inverse transform. Taps take the stage loop: the fused routes have no
+tap sites.
 
 Three routes, chosen as the JAX package chooses them: a single stage of
 every filter takes the fused MAC + output mix kernel (``mac_mix``,
@@ -144,31 +154,35 @@ def mix_fusable(F: int, B: int, K: int, C_out: int) -> bool:
     return (C_out + Fc + 4 * B) * 2 * 16 * 128 * 4 <= _VMEM_BUDGET
 
 
-def fused_mix_route(spec: GraphSpec, xfade_now: bool = False) -> bool:
+def fused_mix_route(spec: GraphSpec, xfade_now: bool = False,
+                    taps=None) -> bool:
     """Whether a block takes the fused MAC + output mix (``mac_mix``)
     rather than the stage loop or the fused time-domain crossfade: the JAX
-    package's ``fused_mix`` predicate (compile.py:323-330) without
-    spectral taps and mesh. A single stage of every filter in order, not
-    crossfading this block, at a shape where the JAX package runs its
-    Pallas kernels (``pallas_available``: K a multiple of 128, K >= 256;
-    elsewhere it runs the dense stage loop) and its fused kernel fits
+    package's ``fused_mix`` predicate (compile.py:323-330) without the
+    mesh. No frequency-domain taps, a single stage of every filter in
+    order, not crossfading this block, at a shape where the JAX package
+    runs its Pallas kernels (``pallas_available``: K a multiple of 128,
+    K >= 256; elsewhere it runs the dense stage loop) and its fused
+    kernel fits
     (``mix_fusable``), unless ``BRUTEFIR_TPU_FUSED_MIX=0``. The card needs
     none of these limits; they are kept so that a config takes the same
     route, and so the same summation order, in both packages."""
     K = spec.n_bins
-    return (spec.single_full_stage and K % 128 == 0 and K >= 256
+    return (not taps and spec.single_full_stage and K % 128 == 0
+            and K >= 256
             and not (spec.stages[0].any_crossfade and xfade_now)
             and mix_fusable(spec.n_filters, spec.n_blocks, K,
                             spec.n_outputs)
             and os.environ.get("BRUTEFIR_TPU_FUSED_MIX", "1") != "0")
 
 
-def fused_xfade_route(spec: GraphSpec, xfade_now: bool) -> bool:
+def fused_xfade_route(spec: GraphSpec, xfade_now: bool,
+                      taps=None) -> bool:
     """Whether a crossfade block takes the fused time-domain crossfade:
     the JAX package's ``fused_xf`` predicate (compile.py:369-373) at its
-    default, without spectral taps. A single stage of every filter in
-    order holding a crossfading filter."""
-    return (xfade_now and spec.single_full_stage
+    default. No frequency-domain taps, and a single stage of every
+    filter in order holding a crossfading filter."""
+    return (xfade_now and not taps and spec.single_full_stage
             and spec.stages[0].any_crossfade)
 
 
@@ -193,6 +207,14 @@ def _gate(spec: GraphSpec, ctrl: StepCtrl, frame: torch.Tensor):
                        frame)
 
 
+def _tap(taps, name: str, planes: torch.Tensor, idx) -> torch.Tensor:
+    """The frequency-domain hooks of kind ``name`` on ``planes`` [C, 2, N]
+    with their ids ``idx`` (a numpy vector): the tapped planes, or
+    ``planes`` when no module hooks that kind."""
+    fn = taps.get(name) if taps else None
+    return planes if fn is None else fn(planes, idx)
+
+
 def _write_ring(ring, blk, t, delay, uniform_delay: bool, rows=None) -> None:
     """Write spectra [Fs, 2, N] in place at each filter's delayed slot
     (t + delay[f]) % B (the cbuf curblock + delay of bfrun.c:1688-1690).
@@ -212,16 +234,17 @@ def _write_ring(ring, blk, t, delay, uniform_delay: bool, rows=None) -> None:
 
 def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
                 bank: torch.Tensor, X: torch.Tensor, uniform: bool,
-                uniform_delay: bool, xfade_now: bool) -> torch.Tensor:
-    """The stage loop of compile.py:418-533 without taps: per stage, the
-    input mix of its filters, the cascade input of those with filter
-    inputs, the ring write and the unfused MAC of its filters (read in
-    place in the ring); then every filter's spectra [F, 2, N] in filter
-    order. On a crossfade block a stage holding a crossfading filter runs
-    the dual MAC and ``crossfade_spectra`` instead, and keeps the ramped
-    spectra of the filters whose ``xfade`` is set (compile.py:456-505
-    without the cond). Updates the ring and ``state.eval_prev`` in
-    place."""
+                uniform_delay: bool, xfade_now: bool,
+                taps=None) -> torch.Tensor:
+    """The stage loop of compile.py:418-533: per stage, the input mix of
+    its filters, the cascade input of those with filter inputs, the
+    ``pre_convolve`` tap, the ring write and the unfused MAC of its
+    filters (read in place in the ring), the ``post_convolve`` tap; then
+    every filter's spectra [F, 2, N] in filter order. On a crossfade
+    block a stage holding a crossfading filter runs the dual MAC and
+    ``crossfade_spectra`` instead, and keeps the ramped spectra of the
+    filters whose ``xfade`` is set (compile.py:456-505 without the
+    cond). Updates the ring and ``state.eval_prev`` in place."""
     ring, t, eval_prev = state.ring, state.t, state.eval_prev
     dev = ring.device
     F, N = spec.n_filters, spec.block_length
@@ -244,6 +267,10 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
             eval_prev.index_copy_(0, slots, tails)
             mixed.index_add_(0, _index(tuple(stage.casc_local.tolist()), dev),
                              e)
+        # the ring takes the tapped spectra: a mutation persists in its
+        # history, as the reference's in-place cbuf[n][curblock]
+        # (bfrun.c:1688-1690)
+        mixed = _tap(taps, "pre_convolve", mixed, stage.idx)
         full = idx == tuple(range(F))
         _write_ring(ring, mixed, t, ctrl.delay, uniform_delay,
                     None if full else rows)
@@ -257,6 +284,10 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
         else:
             y = mac(ring, bank, rows32, ctrl.coeff_idx, ctrl.mask, t,
                     uniform)                                # [Fs, 2, N]
+        # the filter's result, as the JAX package hands it (the reference
+        # hands the ring block, docs/PARITY.md); later stages mix the
+        # tapped spectra
+        y = _tap(taps, "post_convolve", y, stage.idx)
         ys.append(y)
         done.append(rows)
     y_all = ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
@@ -294,7 +325,8 @@ def _fused_xfade(spec: GraphSpec, ctrl: StepCtrl, bank: torch.Tensor,
 
 def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
               bank: torch.Tensor, x: torch.Tensor, uniform: bool = False,
-              uniform_delay: bool = False, xfade_now: bool = False):
+              uniform_delay: bool = False, xfade_now: bool = False,
+              taps=None):
     """One block: x [C_in, N] -> (state', y [C_out, N]).
 
     ``uniform``: the host asserts every filter shares one coefficient row
@@ -305,18 +337,20 @@ def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     instead of a per-filter scatter. Both give the same values as the
     general form. ``xfade_now``: the host asserts that ``ctrl.xfade``
     marks a crossfade on this block (RuntimeControl.snapshot_xfade);
-    False asserts it is all zero.
+    False asserts it is all zero. ``taps``: the frequency-domain hooks
+    (see the module docstring), or None.
 
     The ring and the cascade tails are updated in place (see the module
-    docstring); nothing here synchronises with the host."""
+    docstring); nothing here synchronises with the host but the taps."""
     check_supported(spec)
     frame = _gate(spec, ctrl, torch.cat([state.prev_in, x], dim=-1))
     X = partconv.rfft_planes(frame)                         # [C_in, 2, N]
+    X = _tap(taps, "input_freqd", X, np.arange(spec.n_inputs))
     ring, t = state.ring, state.t
     new_state = StepState(prev_in=x, ring=ring, eval_prev=state.eval_prev,
                           t=t + 1)
-    td_xfade = fused_xfade_route(spec, xfade_now)
-    if td_xfade or fused_mix_route(spec, xfade_now):
+    td_xfade = fused_xfade_route(spec, xfade_now, taps)
+    if td_xfade or fused_mix_route(spec, xfade_now, taps):
         mixed = partconv.complex_mix(ctrl.in_mix, X)        # [F, 2, N]
         # the block lands at each filter's delayed slot BEFORE the MAC
         # reads the ring
@@ -329,8 +363,10 @@ def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
                            ctrl.out_mix, uniform)           # [C_out, 2, N]
     else:
         y_all = _stage_loop(spec, state, ctrl, bank, X, uniform,
-                            uniform_delay, xfade_now)       # [F, 2, N]
-        out_spec = partconv.complex_mix(ctrl.out_mix, y_all)
+                            uniform_delay, xfade_now, taps)  # [F, 2, N]
+        out_spec = _tap(taps, "output_freqd",
+                        partconv.complex_mix(ctrl.out_mix, y_all),
+                        np.arange(spec.n_outputs))
     return new_state, partconv.irfft_planes_valid(out_spec)  # [C_out, N]
 
 

@@ -1,6 +1,7 @@
 """I/O module system -- the bfio plugin contract, pythonic.
 
-A copy of :mod:`brutefir_tpu.io` with the file module only.
+A copy of :mod:`brutefir_tpu.io` with the file module and the loader of
+external ``bfio_<name>.py`` modules, without the sound-server backends.
 
 The reference loads `.bfio` shared objects exposing the symbol set of
 `bfmod.h:217-275` (preinit/init/read/write/start/stop/synch/command). Here a
@@ -102,14 +103,40 @@ def register_io_module(name: str, cls: Type[IoDevice]) -> None:
 
 
 def get_io_module(name: str, modules_path: str = "") -> Type[IoDevice]:
-    """The device class for ``device: "name"``. Only the file module is in
-    the port so far: the sound-server backends (alsa, oss, jack, pulse)
-    and external ``bfio_<name>.py`` modules come with the clocked
-    ``run()`` (ROADMAP queue 1 item 4d)."""
+    """The device class for ``device: "name"``: the file module, or an
+    external ``bfio_<name>.py`` on ``modules_path``. The sound-server
+    backends (alsa, oss, jack, pulse) come with the clocked ``run()``
+    (ROADMAP queue 1 item 4d), which also runs a loaded device whose
+    ``uses_sample_clock`` is True; ``__main__`` refuses those."""
     if name not in _REGISTRY:
-        if name != "file":
+        if name == "file":
+            from . import file_module  # noqa: F401
+        elif name in ("alsa", "oss", "jack", "pulse"):
             raise NotImplementedError(
-                f'I/O module "{name}" is not ported yet: only "file" is '
-                "(ROADMAP queue 1 item 4d)")
-        from . import file_module  # noqa: F401
-    return _REGISTRY[name]
+                f'I/O module "{name}" is not ported yet: the sound-server '
+                "backends come with the clocked run() (ROADMAP queue 1 "
+                "item 4d)")
+        else:
+            _load_external(name, modules_path)
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise IoModuleError(f"unknown I/O module: {name}") from None
+
+
+def _load_external(name: str, modules_path: str) -> None:
+    """Search modules_path for bfio_<name>.py -- the analog of the
+    reference's dlopen module search (bfconf.c:2069-2170). The module file
+    must call register_io_module(name, cls), importing both from
+    ``brutefir_tpu_torch.io``."""
+    import importlib.util
+    import os
+    for d in filter(None, (modules_path or "").split(":")):
+        path = os.path.join(os.path.expanduser(d), f"bfio_{name}.py")
+        if os.path.exists(path):
+            spec = importlib.util.spec_from_file_location(f"bfio_{name}", path)
+            mod = importlib.util.module_from_spec(spec)
+            import sys
+            sys.modules[spec.name] = mod  # importable/introspectable after
+            spec.loader.exec_module(mod)
+            return

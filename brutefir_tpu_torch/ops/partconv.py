@@ -41,6 +41,14 @@ def pack_spectrum(H: np.ndarray) -> np.ndarray:
     return np.concatenate([dc.astype(H.dtype), H[..., 1:-1]], axis=-1)
 
 
+def unpack_spectrum(Hp: np.ndarray) -> np.ndarray:
+    """packed [..., N] -> [..., N+1] rfft spectrum, the inverse of
+    :func:`pack_spectrum` (the DC and Nyquist bins come back real)."""
+    dc = Hp[..., :1].real.astype(Hp.dtype)
+    nyq = Hp[..., :1].imag.astype(Hp.dtype)
+    return np.concatenate([dc, Hp[..., 1:], nyq], axis=-1)
+
+
 def np_c2p(z: np.ndarray) -> np.ndarray:
     """complex [..., N] -> float planes [..., 2, N] (numpy)."""
     return np.ascontiguousarray(np.stack([z.real, z.imag], axis=-2))

@@ -52,14 +52,22 @@ The EQ logic module hot-swaps coefficient sets through
 ``update_bank_entry``, which rebinds a new bank tensor: a block takes the
 bank of its control snapshot, so blocks already dispatched keep theirs.
 
-Not ported (each a ROADMAP queue 1 item 4 entry, or NotImplementedError
+Logic modules (``attach_logic``): ``cli``, ``eq`` and external
+``bflogic_<name>.py`` modules from ``modules_path``, with every bfevents
+hook of bfmod.h:192-215. A module that defines ``input_timed`` /
+``output_timed`` or a frequency-domain hook (``input_freqd``,
+``pre_convolve``, ``post_convolve``, ``output_freqd``) puts the engine on
+the host codec path, as in the JAX package: the timed hooks see the host
+blocks of ``read_block`` / ``write_block``, and each frequency-domain
+hook is a tap in the step (``_make_freqd_tap``) that fetches its spectra
+to the host, calls the hooks and uploads the result.
+
+Not ported (each a ROADMAP queue 1 item 4d entry, or NotImplementedError
 naming its item): clocked devices and the realtime pacing around them,
-external logic modules, timed and frequency-domain module hooks (the
-host path keeps the JAX package's ``input_timed`` / ``output_timed``
-calls, which no loadable module reaches yet), the powersave dispatch
-skip (the JAX package makes it byte-identical to always dispatching, so
-the port always dispatches), the sink mode with its prefetch pool, the
-stall watchdog and the clock-drift monitor; float64 (item 9).
+the powersave dispatch skip (the JAX package makes it byte-identical to
+always dispatching, so the port always dispatches), the sink mode with
+its prefetch pool, the stall watchdog and the clock-drift monitor;
+float64 (item 9).
 """
 
 from __future__ import annotations
@@ -78,7 +86,7 @@ import torch
 from .. import resolve_device
 from ..config.coeffs import build_bank
 from ..config.model import BFConfig, IN, OUT
-from ..control import check_logic_module, load_logic_module
+from ..control import load_logic_module
 from ..core.codecs import Overflow, float_to_raw, raw_to_float
 from ..core.delayline import DelayLine
 from ..core.dither import DitherTable
@@ -86,7 +94,7 @@ from ..errors import BFError, BF_EXIT_INVALID_INPUT
 from ..graph.compile import check_supported, init_state, step_impl
 from ..graph.spec import build_graph_spec
 from ..io import get_io_module
-from ..ops.partconv import np_c2p
+from ..ops.partconv import np_c2p, np_p2c, pack_spectrum, unpack_spectrum
 from .control import RuntimeControl
 from .device_io import DeviceIO, dithered_phys, eligible
 from .subdelay import SubsampleDelay
@@ -95,8 +103,26 @@ from .subdelay import SubsampleDelay
 BATCH_BLOCKS = 8
 
 
+FREQD_HOOKS = ("input_freqd", "pre_convolve", "post_convolve",
+               "output_freqd")
+
+
 class EngineError(BFError):
     pass
+
+
+def _spectra_to_host(planes: torch.Tensor) -> np.ndarray:
+    """A tap's fetch: packed planes [C, 2, N] -> natural rfft rows
+    [C, N+1], writable and C-contiguous (one copy off the card)."""
+    return np.ascontiguousarray(unpack_spectrum(np_p2c(
+        planes.cpu().numpy())))
+
+
+def _spectra_to_device(z: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A tap's upload: natural rfft rows [C, N+1] -> packed planes
+    [C, 2, N] of ``like``'s dtype on its device (one copy)."""
+    return torch.from_numpy(np_c2p(pack_spectrum(z))).to(like.device,
+                                                         like.dtype)
 
 
 def _expand_p24(raw: np.ndarray) -> np.ndarray:
@@ -121,8 +147,6 @@ class Engine:
     only when passed explicitly)."""
 
     def __init__(self, conf: BFConfig, device=None):
-        for name, _ in conf.logic_modules:
-            check_logic_module(name)
         self.device = resolve_device(device)
         pin_fp32_matmul()
         self.conf = conf
@@ -220,7 +244,10 @@ class Engine:
         # reference's DEBUG_MAX ring depth
         self._debug_ring = (collections.deque(maxlen=8192) if conf.debug
                             else None)
-        self._has_timed_hooks = False    # no loadable module has them yet
+        # set by attach_logic: input_timed / output_timed hooks, and the
+        # frequency-domain taps of the step by hook kind
+        self._has_timed_hooks = False
+        self.taps = {}
         # the device-IO path when every device format has a device codec,
         # else the host codec path for all devices (engine.py:456)
         self.dio = DeviceIO(self) if eligible(conf) else None
@@ -270,21 +297,35 @@ class Engine:
 
     # ----- logic modules ---------------------------------------------------
     def attach_logic(self):
-        """Load the config's logic modules and wire their hooks
-        (engine.py:488-572 without timed and frequency-domain hooks,
-        which raise): the coeff_final hooks, the peak push, and each
-        module's ``initialised``."""
+        """Load the config's logic modules (``cli``, ``eq`` or an external
+        ``bflogic_<name>.py`` from ``modules_path``) and wire their hooks,
+        those of modules appended to ``self.logic`` beforehand included
+        (engine.py:488-572 without the mesh branch and the relay probe,
+        ROADMAP queue 1 item 13): the timed hooks, the frequency-domain
+        taps, the coeff_final hooks, the peak push, and each module's
+        ``initialised``. Timed hooks or any tap put every block on the
+        host codec path (``self.dio`` None, engine.py:497-499, :556);
+        ``run()`` attaches before ``setup()``, which makes that path's
+        encode pool."""
         for name, params in self.conf.logic_modules:
-            self.logic.append(load_logic_module(name, params, self))
-        for m in self.logic:
-            hooks = [h for h in ("input_timed", "output_timed",
-                                 "input_freqd", "pre_convolve",
-                                 "post_convolve", "output_freqd")
-                     if getattr(m, h, None) is not None]
+            self.logic.append(load_logic_module(name, params, self,
+                                                self.conf.modules_path))
+        self._has_timed_hooks = any(
+            getattr(m, "input_timed", None) is not None
+            or getattr(m, "output_timed", None) is not None
+            for m in self.logic)
+        # frequency-domain hooks (bfevents input_freqd / pre_convolve /
+        # post_convolve / output_freqd), each kind one tap of the step
+        # calling its hooks in module order
+        taps = {}
+        for kind in FREQD_HOOKS:
+            hooks = [getattr(m, kind) for m in self.logic
+                     if getattr(m, kind, None) is not None]
             if hooks:
-                raise NotImplementedError(
-                    f"logic module hooks {', '.join(hooks)} are not ported "
-                    "yet (ROADMAP queue 1 item 4b)")
+                taps[kind] = self._make_freqd_tap(hooks)
+        self.taps = taps
+        if self._has_timed_hooks or taps:
+            self.dio = None
         self.control.coeff_final_mod_hooks = [
             m.coeff_final for m in self.logic
             if getattr(m, "coeff_final", None) is not None]
@@ -297,6 +338,43 @@ class Engine:
             hook = getattr(m, "initialised", None)
             if hook is not None:
                 hook()
+
+    @staticmethod
+    def _make_freqd_tap(hooks, row2conf=None):
+        """A tap of the step (engine.py:574-602): planes [C, 2, N] ->
+        natural rfft rows [C, N+1] (complex64 from float32 planes,
+        writable, C-contiguous) -> ``h(row, id)`` for each row and each
+        hook in order -> planes back, of the planes' dtype on their
+        device. ``id`` is the input channel, the filter or the output
+        channel of the row, in config numbering. A hook mutates its row
+        in place; the imaginary parts of the DC and Nyquist bins are
+        dropped on the way back (the packed layout has no room for them).
+
+        On the card each tap is one copy to the host, which waits for the
+        step's work queued before it, and one copy back: a host sync in
+        the middle of the step, the cost of the module ABI (the reference
+        hands its modules host buffers), not a fallback.
+
+        ``row2conf`` maps spec rows to config filters (padding rows -1
+        skip the hooks); the port's spec rows are config order until
+        multi-device placement (ROADMAP queue 1 item 11), so it is None.
+        The JAX package's ``_warming`` gate has no counterpart: the port
+        has no warm-up program, so a hook sees only real blocks."""
+
+        def tapfn(planes, idx):
+            z = _spectra_to_host(planes)
+            for ch in range(z.shape[0]):
+                fid = int(idx[ch])
+                if row2conf is not None:
+                    fid = row2conf[fid]
+                    if fid < 0:
+                        continue
+                row = z[ch]
+                for h in hooks:
+                    h(row, fid)
+            return _spectra_to_device(z, planes)
+
+        return tapfn
 
     def _peak_push(self):
         """Push a peak event to logic modules when an overflow meter
@@ -486,7 +564,7 @@ class Engine:
             xd = torch.as_tensor(x)
         self.state, y = step_impl(self.spec, self.state, ctrl, bank, xd,
                                   uniform=uni, uniform_delay=udl,
-                                  xfade_now=xf)
+                                  xfade_now=xf, taps=self.taps)
         return y
 
     # ----- host codec path: output ----------------------------------------------
@@ -899,6 +977,9 @@ class Engine:
         1``. ``max_blocks`` and ``setup`` as in ``run()``."""
         if self.dio is None or self.conf.logic_modules or batch_blocks <= 1:
             return self.run(max_blocks, setup=setup)
+        # taps drop the device-IO path, so they never reach the batches
+        # (group_step_impl has no tap sites)
+        assert not self.taps
         if setup:
             self.setup()
         conf = self.conf

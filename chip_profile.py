@@ -7,7 +7,7 @@ Usage (from the repository root, one CUDA card):
 
     python3 chip_profile.py [--shape scale|massive|bench1|massive_cascade|
                                      bench5|bench1_xfade|aligned|
-                                     benchmark|eq|hostcodec]
+                                     benchmark|eq|hostcodec|hooks]
                             [--blocks N]
                             [--pair G]
 
@@ -33,7 +33,11 @@ block 8 (``eq_config``: 2 channels, 8192 x 8, FLOAT_LE, 48 kHz, through
 ``run()``) or the massive shape with S24_BE devices (``hostcodec_config``,
 ``chip_smoke.py``'s phase 21: the host codec path, block by block through
 ``run()``; the host stages are the main thread's ``read_block`` and
-``_dispatch_host`` and the writer's ``write_block``), then runs the port's engine three times on them: once to
+``_dispatch_host`` and the writer's ``write_block``) or the massive shape
+with ``chip_smoke.py``'s phase 24 module ``bflogic_spectap.py`` (all six
+hooks, a gain each; the host codec path through ``run()``, the taps'
+transfers and the hook calls timed as well), then runs the port's
+engine three times on them: once to
 warm up (kernel build, cuFFT plans), once timed on the host clock (its
 stage-table lines printed), once under ``torch.profiler`` (CPU and CUDA
 activities).
@@ -67,7 +71,8 @@ def main():
     ap.add_argument("--shape", choices=("scale", "massive", "bench1",
                                         "massive_cascade", "bench5",
                                         "bench1_xfade", "aligned",
-                                        "benchmark", "eq", "hostcodec"),
+                                        "benchmark", "eq", "hostcodec",
+                                        "hooks"),
                     default="scale")
     ap.add_argument("--blocks", type=int, default=64)
     ap.add_argument("--pair", default=None)
@@ -81,6 +86,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
     from brutefir_tpu_torch.config import parse_config
     from brutefir_tpu_torch.graph.compile import group_size
+    from brutefir_tpu_torch.runtime import engine as eng_mod
     from brutefir_tpu_torch.runtime.engine import BATCH_BLOCKS, Engine
 
     print(f"card: {cs.card_line()}; torch {torch.__version__}, CUDA "
@@ -105,6 +111,14 @@ def main():
                                        frames)
         cs.s24_bytes(x, True).tofile(os.path.join(cs.WORK, "input.s24be"))
         cfg = cs.hostcodec_config("profile.conf", "S24_BE", "s24be")
+    elif args.shape == "hooks":
+        cs.write_massive_inputs(np.random.default_rng(cs.SEED + 24), frames,
+                                cs.HOOK_LEVEL)
+        folder = cs.write_module("spectap", cs.SPECTAP_MODULE.format(
+            kinds=cs.HOOK_KINDS, seed=cs.SEED + 25, c=cs.F,
+            copy_block=cs.COPY_BLOCK))
+        cfg = cs.with_module(cs.massive_config("profile.conf", False),
+                             "spectap", folder)
     else:
         cs.write_massive_inputs(np.random.default_rng(cs.SEED), frames)
         cfg = {"massive": lambda: cs.massive_config("profile.conf", False),
@@ -124,13 +138,19 @@ def main():
         err = io.StringIO()
         with contextlib.ExitStack() as stack:
             if host is not None:
-                # the host time of each stage's calls, seconds in a list
+                # the host time of each stage's calls, seconds in a list;
+                # a logic module may drop the device-IO path when run()
+                # attaches it, so the host path's stages are always timed
                 stages = ((eng, "read_block"), (eng, "_dispatch_host"),
-                          (eng, "write_block")) if eng.dio is None else (
-                    (eng, "read_block_dio"), (eng.dio, "step"),
-                    (eng.dio, "multi_step"), (eng, "_write_outputs"))
-                for obj, name in stages + ((eng, "_block_start_hooks"),
-                                           (eng, "_snapshot_epoch")):
+                          (eng, "write_block"), (eng, "_block_start_hooks"),
+                          (eng, "_snapshot_epoch"),
+                          (eng_mod, "_spectra_to_host"),
+                          (eng_mod, "_spectra_to_device"))
+                if eng.dio is not None:
+                    stages += ((eng, "read_block_dio"), (eng.dio, "step"),
+                               (eng.dio, "multi_step"),
+                               (eng, "_write_outputs"))
+                for obj, name in stages:
                     host[name] = stack.enter_context(
                         cs.timed_method(obj, name, []))
             stack.enter_context(contextlib.redirect_stderr(err))
@@ -156,7 +176,12 @@ def main():
           f" ms a block", flush=True)
     print("host a block: " + ", ".join(
         f"{name} {sum(sec) / blocks * 1e3:.3f} ms"
-        for name, sec in sorted(host.items())), flush=True)
+        for name, sec in sorted(host.items()) if sec), flush=True)
+    if args.shape == "hooks":
+        tap = cs.loaded_module("spectap").SpecTap.instances[-1]
+        print("hook calls, host a block: " + ", ".join(
+            f"{k} {v / blocks * 1e3:.3f} ms" for k, v in tap.seconds.items())
+            + " (output_timed on the writer thread)", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -33,7 +33,8 @@ Phases, in order; any failure exits non-zero:
    at the shapes where the JAX package takes each of its four TPU
    variants: bench1's first stage (rows 2-5 of 6 filters, 8192 x 8, per
    filter: "row"), the massive cascade (52 filters, 8192 x 16, one shared
-   coefficient: "uniform"), 256 filters of 8192 x 16 with 256 distinct
+   coefficient: "uniform"), the massive shape's single stage (26 filters,
+   the uniform form phase 24 runs), 256 filters of 8192 x 16 with 256 distinct
    rows ("chunked") and 4 filters of 65536 x 8 ("tile"); distinct and
    repeated rows, the same t and mask zeros as phase 3; checked, not
    timed, also where the core (``csrc/mac_core.cuh``) takes its scalar
@@ -175,7 +176,29 @@ Phases, in order; any failure exits non-zero:
 23. main path, 8-byte floats: examples/crossover_2way.conf with a
    FLOAT_BE input and FLOAT64_LE outputs through ``main()``, within 2e-5
    of the output's peak of the float64 oracle; the per-filter fused MAC
-   + mix once a block.
+   + mix once a block;
+24. main path, a spectral logic module: phase 8's shared-coefficient
+   massive config with ``modules_path`` and the external module
+   ``bflogic_spectap.py`` (written to build/chip_smoke/mods), whose six
+   hooks each scale their buffer by a seeded gain (0.5 .. 1.5) of its
+   channel or filter, 40.5 blocks of input at std 2^18 through
+   ``main()``: within 16 LSB of the float64 oracle scaled by each path's
+   product of gains; ``Engine.dio`` None (the host codec path); the
+   unfused MAC's uniform form (``mac_uniform``) and each glue kernel
+   once a block, the fused MAC + mix never; every hook 26 times a block;
+   ``input_freqd``'s copy of channel 0 at block 3 within 1e-5 of the
+   peak of ``np.fft.rfft`` of the float64 frame [prev, x] with
+   ``input_timed``'s gain; the host ms a block of the taps' transfers
+   (``engine._spectra_to_host`` / ``_spectra_to_device``) and of the
+   hook calls beside the wall; then the same graph and input without
+   the module through ``main()`` (``run_offline``), for comparison;
+25. main path, crossfade under hooks: bench5 (phase 11) with a second
+   module ``bflogic_xfgain.py`` whose ``post_convolve`` scales each
+   filter by a seeded gain: the stage loop's dual MAC on every block
+   after the first, ``crossfade_spectra``'s extra forward and two
+   inverse glue launches on each crossfade block, the fused time-domain
+   crossfade never; within 8e-6 of the peak + 4 LSB of the ramp oracle
+   scaled by the gains.
 
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
@@ -557,6 +580,8 @@ MAC_SHAPES = (
     ("mac_rows", 102, 6, 8, K, 7, False, [2, 3, 4, 5], [5, 2, 2, 3]),
     ("mac_uniform", 149, 2 * F, B, K, 1, True, list(range(2 * F)),
      list(range(F, 2 * F)) + [0, 0]),
+    ("mac_uniform_single_stage", 149, F, B, K, 1, True, list(range(F)),
+     list(range(13, F)) + [0, 0]),
     ("mac_rows_chunked_shape", 318, SCALE_C, B, K, SCALE_C, False, None,
      [7] * 8),
     ("mac_rows_tile_shape", 79, 4, 8, 65536, 4, False, [0, 1, 2, 3],
@@ -1003,9 +1028,9 @@ def probe_fused(tf, pc, rows, flush, launched: dict):
         torch.cuda.empty_cache()
 
 
-def write_massive_inputs(rng, frames: int):
+def write_massive_inputs(rng, frames: int, level: float = 2.0 ** 20):
     """Seeded 131072-tap coefficients (||taps||_2 = 0.5) as TEXT files,
-    and an S24_4LE input with std 2^20 (no clipping)."""
+    and an S24_4LE input with std ``level`` (2^20: no clipping)."""
     n_taps = K * B
     taps = []
     for k in range(2):
@@ -1016,7 +1041,7 @@ def write_massive_inputs(rng, frames: int):
             fh.write("\n".join(repr(float(v)) for v in h))
             fh.write("\n")
         taps.append(h.astype(np.float64))
-    x = np.clip(np.round(rng.standard_normal((frames, F)) * 2.0 ** 20),
+    x = np.clip(np.round(rng.standard_normal((frames, F)) * level),
                 -(2 ** 23), 2 ** 23 - 1).astype("<i4")
     x.tofile(os.path.join(WORK, "input.raw"))
     return taps, x
@@ -1487,15 +1512,17 @@ def ramped_oracle(ya, yb, N_, n, segments):
     return out
 
 
-def xfade_lsb(y, x, taps, N_, segments, channels):
+def xfade_lsb(y, x, taps, N_, segments, channels, gains=None):
     """Max |y - oracle| (float64, not rounded) over ``channels``, and the
-    largest oracle peak among the two sets."""
+    largest oracle peak among the two sets; ``gains``: a factor of each
+    channel's oracle."""
     from scipy.signal import fftconvolve
     n = y.shape[0]
     worst = peak = 0.0
     for c in channels:
-        ya, yb = (fftconvolve(x[:, c].astype(np.float64),
-                              h.astype(np.float64))[:n] for h in taps)
+        g = 1.0 if gains is None else float(gains[c])
+        ya, yb = (g * fftconvolve(x[:, c].astype(np.float64),
+                                  h.astype(np.float64))[:n] for h in taps)
         ref = ramped_oracle(ya, yb, N_, n, segments)
         worst = max(worst, float(np.abs(y[:, c] - ref).max()))
         peak = max(peak, float(np.abs(ya).max()), float(np.abs(yb).max()))
@@ -2627,6 +2654,251 @@ def main_hostcodec_floats(main, mods: dict, launched: dict):
     launched[key] += counts[key]
     add_glue(launched, counts)
 
+# ---- phases 24-25: logic-module hooks -------------------------------------
+
+HOOK_BLOCKS = 40.5       # phase 24: 41 blocks through run(), a half block
+HOOK_LEVEL = 2.0 ** 18   # phase 24's input std: the six gains' product
+                         # reaches 3.2, so outputs stay clear of clipping
+HOOK_KINDS = ("input_timed", "input_freqd", "pre_convolve", "post_convolve",
+              "output_freqd", "output_timed")
+COPY_BLOCK = 3           # phase 24: input_freqd copies channel 0 here
+COPY_TOL = 1e-5          # of the copied spectrum's peak
+
+# phase 24's module: all six hooks, each a fixed gain a channel or filter
+# (0.5 .. 1.5, from the seed); input_freqd also copies channel 0's
+# spectrum at COPY_BLOCK before its own gain; host seconds per kind
+SPECTAP_MODULE = """
+import time
+
+import numpy as np
+
+from brutefir_tpu_torch.control import register_logic_module
+
+KINDS = {kinds!r}
+GAINS = np.random.default_rng({seed}).uniform(0.5, 1.5, (len(KINDS), {c}))
+
+
+class SpecTap:
+    instances = []
+
+    def __init__(self, params, engine):
+        self.engine = engine
+        self.block = -1
+        self.copy = None
+        self.calls = dict.fromkeys(KINDS, 0)
+        self.seconds = dict.fromkeys(KINDS, 0.0)
+        SpecTap.instances.append(self)
+        for k, kind in enumerate(KINDS):
+            setattr(self, kind, self._hook(kind, GAINS[k]))
+
+    def block_start(self, k):
+        self.block = k
+
+    def _hook(self, kind, gains):
+        def hook(buf, i):
+            t0 = time.perf_counter()
+            if (kind == "input_freqd" and i == 0
+                    and self.block == {copy_block}):
+                self.copy = buf.copy()
+            buf *= gains[i]
+            self.calls[kind] += 1
+            self.seconds[kind] += time.perf_counter() - t0
+        return hook
+
+
+register_logic_module("spectap", SpecTap)
+"""
+
+# phase 25's module: post_convolve only, a gain a filter
+XFGAIN_MODULE = """
+import numpy as np
+
+from brutefir_tpu_torch.control import register_logic_module
+
+GAINS = np.random.default_rng({seed}).uniform(0.5, 1.5, {c})
+
+
+class XfGain:
+    instances = []
+
+    def __init__(self, params, engine):
+        self.engine = engine
+        self.calls = 0
+        XfGain.instances.append(self)
+
+    def post_convolve(self, buf, f):
+        buf *= GAINS[f]
+        self.calls += 1
+
+
+register_logic_module("xfgain", XfGain)
+"""
+
+
+def write_module(name: str, text: str) -> str:
+    """A logic module file bflogic_<name>.py in WORK/mods; returns the
+    folder (the config's modules_path)."""
+    mods = os.path.join(WORK, "mods")
+    os.makedirs(mods, exist_ok=True)
+    with open(os.path.join(mods, f"bflogic_{name}.py"), "w") as fh:
+        fh.write(text)
+    return mods
+
+
+def loaded_module(name: str):
+    """The module object of the external logic module bflogic_<name>."""
+    mod = sys.modules.get(f"bflogic_{name}")
+    if mod is None:
+        fail(f"bflogic_{name} was not loaded")
+    return mod
+
+
+def with_module(cfg: str, name: str, mods: str, cli: bool = False) -> str:
+    """Add ``modules_path`` and the logic module ``name`` to the config
+    file ``cfg`` (after its CLI script module with ``cli``)."""
+    if cli:
+        return retarget(cfg, (("echo: false; };",
+                               f'echo: false; }}, "{name}" {{ }};', 1),
+                              ("show_progress: false;",
+                               f'show_progress: false;\nmodules_path: '
+                               f'"{mods}";', 1)))
+    return retarget(cfg, (("show_progress: false;",
+                           f'show_progress: false;\nmodules_path: '
+                           f'"{mods}";\nlogic: "{name}" {{ }};', 1),))
+
+
+def main_hooks(main, mods: dict, launched: dict):
+    """Phase 24: the massive shape through main() with the external
+    module bflogic_spectap.py defining all six hooks, then the same graph
+    without it."""
+    from brutefir_tpu_torch.runtime import engine as eng_mod
+    label = "massive with a spectral logic module"
+    frames = int(HOOK_BLOCKS * K)
+    blocks = int(np.ceil(HOOK_BLOCKS))
+    taps, x = write_massive_inputs(np.random.default_rng(SEED + 24), frames,
+                                   HOOK_LEVEL)
+    seed = SEED + 25
+    folder = write_module("spectap", SPECTAP_MODULE.format(
+        kinds=HOOK_KINDS, seed=seed, c=F, copy_block=COPY_BLOCK))
+    gains = np.random.default_rng(seed).uniform(0.5, 1.5, (len(HOOK_KINDS),
+                                                           F))
+    cfg = with_module(massive_config("hooks.conf", False), "spectap", folder)
+    for m in mods.values():
+        m.reset_launches()
+    with contextlib.ExitStack() as stack:
+        wall = stack.enter_context(timed_method(eng_mod.Engine, "run_offline",
+                                                []))
+        fetch = stack.enter_context(timed_method(eng_mod, "_spectra_to_host",
+                                                 []))
+        upload = stack.enter_context(timed_method(
+            eng_mod, "_spectra_to_device", []))
+        y = run_main(main, cfg, frames, F, label)
+    counts = all_counts(mods)
+    inst = loaded_module("spectap").SpecTap.instances[-1]
+    if inst.engine.dio is not None:
+        fail(f"{label}: the engine kept the device-IO path")
+    expect_only(counts, {"mac_uniform": blocks, **glue_want(blocks, blocks)},
+                label)
+    print(f"hook calls in this run ({label}): {inst.calls}", flush=True)
+    for kind, n in inst.calls.items():
+        if n != F * blocks:
+            fail(f"{label}: {kind} called {n} times, expected {F * blocks}")
+    # the oracle: each channel's convolution times the product of the
+    # six gains along its path (input c -> filter c -> output c)
+    lsb = oracle_lsb(y, x * gains.prod(axis=0), lambda c: taps[0])
+    print(f"main path ({label}): max |y - oracle| {lsb} LSB (tol "
+          f"{LSB_TOL}) on all {F} channels", flush=True)
+    if lsb > LSB_TOL:
+        fail(f"{label} off the float64 oracle by {lsb} LSB")
+    # input_freqd's copy of channel 0 at COPY_BLOCK: the natural [N+1]
+    # spectrum of the frame [prev, x] after input_timed's gain
+    frame = gains[0, 0] * x[(COPY_BLOCK - 1) * K:(COPY_BLOCK + 1) * K, 0]
+    ref = np.fft.rfft(frame.astype(np.float64))
+    if inst.copy is None or inst.copy.shape != ref.shape:
+        fail(f"{label}: input_freqd's copy is missing or not [N+1]")
+    err = np.abs(inst.copy - ref).max() / np.abs(ref).max()
+    print(f"input_freqd's copy of channel 0 at block {COPY_BLOCK}: "
+          f"{inst.copy.dtype} {inst.copy.shape}, max |copy - rfft(frame)| "
+          f"{err:.3e} of the peak (tol {COPY_TOL:g})", flush=True)
+    if not err <= COPY_TOL:
+        fail(f"{label}: input_freqd's spectrum is off np.fft.rfft")
+    ms = {"wall": sum(wall) / blocks * 1e3,
+          "fetch": sum(fetch) / blocks * 1e3,
+          "upload": sum(upload) / blocks * 1e3,
+          "hooks": sum(v for k, v in inst.seconds.items()
+                       if k != "output_timed") / blocks * 1e3,
+          "output_timed": inst.seconds["output_timed"] / blocks * 1e3}
+    rest = ms["wall"] - ms["fetch"] - ms["upload"] - ms["hooks"]
+    print(f"main path ({label}): {ms['wall']:.3f} ms a block in run(), "
+          f"host: the taps' transfers {ms['fetch'] + ms['upload']:.3f} "
+          f"(fetch {ms['fetch']:.3f}, which waits for the step's work "
+          f"before each tap; upload {ms['upload']:.3f}; {len(fetch)} taps), "
+          f"the hook calls on the main thread {ms['hooks']:.3f}, the rest "
+          f"{rest:.3f}; output_timed on the writer thread "
+          f"{ms['output_timed']:.3f}", flush=True)
+    key = ("mac", "mac_uniform")
+    launched[key] = launched.get(key, 0) + counts[key]
+    add_glue(launched, counts)
+
+    plain = "massive without the module, the same input"
+    for m in mods.values():
+        m.reset_launches()
+    with timed_method(eng_mod.Engine, "run_offline", []) as wall0:
+        y0 = run_main(main, massive_config("plain.conf", False), frames, F,
+                      plain)
+    counts = all_counts(mods)
+    expect_only(counts, {"uniform": blocks, **glue_want(blocks, blocks)},
+                plain)
+    add_glue(launched, counts)
+    launched[("mac_mix", "uniform")] += counts[("mac_mix", "uniform")]
+    print(f"main path ({plain}): {sum(wall0) / blocks * 1e3:.3f} ms a "
+          f"block in run_offline(), against {ms['wall']:.3f} with the "
+          f"module; max |y| {np.abs(y0).max()} LSB", flush=True)
+
+
+def main_xfade_hooks(main, mods: dict, launched: dict):
+    """Phase 25: bench5 with a module whose post_convolve scales each
+    filter: the stage loop's dual MAC on every crossfade block."""
+    from brutefir_tpu_torch.graph import compile as tcomp
+    label = "bench5 with a post_convolve module"
+    N_, C = BENCH5_N, BENCH5_C
+    frames = int(BLOCKS * N_)
+    blocks = int(np.ceil(BLOCKS))
+    taps, x, cfg = write_bench5_inputs(WORK, frames, SEED + 26)
+    seed = SEED + 27
+    folder = write_module("xfgain", XFGAIN_MODULE.format(seed=seed, c=C))
+    gains = np.random.default_rng(seed).uniform(0.5, 1.5, C)
+    cfg = with_module(cfg, "xfgain", folder, cli=True)
+    for m in mods.values():
+        m.reset_launches()
+    with timed_method(tcomp, "_fused_xfade", []) as fused:
+        y = run_main(main, cfg, frames, C, label)
+    counts = all_counts(mods)
+    inst = loaded_module("xfgain").XfGain.instances[-1]
+    if fused or inst.engine.dio is not None:
+        fail(f"{label}: the fused time-domain crossfade ran "
+             f"{len(fused)} times, or the engine kept the device-IO path")
+    # the stage loop: a crossfade block adds crossfade_spectra's forward
+    # and two full inverse transforms
+    xf = blocks - 1
+    expect_only(counts, {"mac_dual_uniform": xf, "mac_uniform": 1,
+                         **glue_want(blocks + xf, blocks + 2 * xf)}, label)
+    if inst.calls != C * blocks:
+        fail(f"{label}: post_convolve called {inst.calls} times")
+    worst, peak = xfade_lsb(
+        y.astype(np.float64), x, taps, N_,
+        lambda k: "a" if k == 0 else ("ab" if k % 2 else "ba"),
+        range(0, C, 5), gains)
+    tol = 8e-6 * peak + 4.0
+    print(f"main path ({label}): max |y - scaled ramp oracle| {worst:.3f} "
+          f"LSB (tol 8e-6 * {peak:.0f} + 4 = {tol:.3f}) on channels 0, 5, "
+          f"..., 25; the fused time-domain crossfade not taken", flush=True)
+    if not worst <= tol:
+        fail(f"{label} off the scaled float64 linear-ramp oracle")
+    for key in (("mac_dual", "mac_dual_uniform"), ("mac", "mac_uniform")):
+        launched[key] = launched.get(key, 0) + counts[key]
+    add_glue(launched, counts)
+
 
 HOST_DITHER_TOL = 5      # phase 22, LSB: the HP-TPDF error reaches 4.5
 FLOAT_TOL = 2e-5         # phase 23, of the output's peak
@@ -2724,6 +2996,10 @@ def run():
     del y16
     phase("main path, host codec, 8-byte floats and per-filter sets")
     main_hostcodec_floats(main, mods, launched)
+    phase("main path, massive with a spectral logic module")
+    main_hooks(main, mods, launched)
+    phase("main path, bench5 crossfade under a post_convolve module")
+    main_xfade_hooks(main, mods, launched)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules

@@ -879,3 +879,69 @@ filter 2 {{ from_inputs: 2; to_outputs: 2; coeff: 0; }};
     yf = [np.fromfile(tmp_path / f"{t}.f64", "<f8") for t in ("gpu", "cpu")]
     assert yf[0].size == frames
     assert np.abs(yf[0] - yf[1]).max() <= 2e-6 * np.abs(yf[1]).max()
+
+
+class _ScaleHooks:
+    """All six bfevents hooks, each scaling its buffer by a fixed gain of
+    its id, counting its calls. The gains are 0.5 .. 1: a gain above 1
+    after the point where the card and the CPU round apart would amplify
+    their 2 LSB gap (with gains to 1.5 the H100 measured 3 LSB)."""
+
+    GAINS = np.random.default_rng(13).uniform(0.5, 1.0, 8)
+
+    def __init__(self):
+        self.calls = dict.fromkeys(
+            ("input_timed", "input_freqd", "pre_convolve", "post_convolve",
+             "output_freqd", "output_timed"), 0)
+        for kind in self.calls:
+            setattr(self, kind, self._hook(kind))
+
+    def _hook(self, kind):
+        def hook(buf, i):
+            self.calls[kind] += 1
+            buf *= self.GAINS[i]
+        return hook
+
+
+@pytest.mark.cuda
+def test_hooked_engine_on_card_matches_cpu(cuda, tmp_path):
+    """A module with all six hooks on a shared-coefficient engine at
+    256 x 4 partitions, on the card and on the CPU: the host codec path
+    (``dio`` None), the unfused uniform MAC and each glue kernel once a
+    block, the fused MAC + mix never, every hook once a channel a block,
+    and the card within 2 LSB of the CPU."""
+    from brutefir_tpu_torch.runtime.engine import Engine
+    N, B, C = 256, 4, 3
+    rng = np.random.default_rng(17)
+    (tmp_path / "c0.txt").write_text("\n".join(
+        repr(float(v)) for v in rng.standard_normal(N * B) * 0.05) + "\n")
+    frames = N * 9 + 31
+    np.round(rng.standard_normal((frames, C)) * 2 ** 18).astype(
+        "<i4").tofile(tmp_path / "in.raw")
+
+    def run(tag, device):
+        eng = Engine(parse_config(f"""
+sampling_rate: 44100;
+filter_length: {N},{B};
+coeff 0 {{ filename: "{tmp_path / 'c0.txt'}"; format: "TEXT"; }};
+input 0,1,2 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: {C}; }};
+output 0,1,2 {{ device: "file" {{ path: "{tmp_path / (tag + '.raw')}"; }}; sample: "S24_4LE"; channels: {C}; dither: false; }};
+""" + "".join(f"filter {c} {{ from_inputs: {c}; to_outputs: {c}; "
+              f"coeff: 0; }};\n" for c in range(C))), device=device)
+        hooks = _ScaleHooks()
+        eng.logic.append(hooks)
+        stats = eng.run()
+        assert eng.dio is None and stats["frames"] == frames
+        assert all(n == C * stats["blocks"] for n in hooks.calls.values())
+        return np.fromfile(tmp_path / (tag + ".raw"), "<i4").astype(np.int64)
+
+    for m in (tm, mm, tg):
+        m.reset_launches()
+    yg = run("gpu", cuda)
+    blocks = -(-frames // N)
+    assert tm.launches == {"mac_uniform": blocks, "mac_rows": 0}
+    assert not any(mm.launches.values())
+    assert tg.launches["glue_fwd"] == tg.launches["glue_inv"] == blocks
+    yc = run("cpu", torch.device("cpu"))
+    assert yg.size == frames * C and np.abs(yc).max() > 2 ** 18
+    assert np.abs(yg - yc).max() <= 2

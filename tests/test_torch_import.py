@@ -225,15 +225,19 @@ def test_parse_config_rejects_what_jax_rejects():
 
 
 def test_io_modules_other_than_file_are_not_ported_yet():
-    """The port carries the file module only; sound-server backends and
-    external bfio_<name>.py modules raise, naming their ROADMAP item."""
+    """The port carries the file module and loads external
+    bfio_<name>.py modules; the sound-server backends raise, naming their
+    ROADMAP item, and a name no module registers raises the JAX
+    package's IoModuleError."""
     import pytest
-    from brutefir_tpu_torch.io import get_io_module
+    from brutefir_tpu_torch.io import IoModuleError, get_io_module
     assert get_io_module("file").__name__ == "FileDevice"
-    for name in ("alsa", "oss", "jack", "pulse", "mymodule"):
+    for name in ("alsa", "oss", "jack", "pulse"):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 4"):
+                           match="ROADMAP queue 1 item 4d"):
             get_io_module(name, ".")
+    with pytest.raises(IoModuleError, match="unknown I/O module: mymodule"):
+        get_io_module("mymodule", ".")
 
 
 def _code_lines(path):
@@ -390,3 +394,53 @@ filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 0; }};
     assert r.stdout.strip() == "ok"
     assert os.path.getsize(tmp_path / "a.raw") == frames * 3
     assert os.path.getsize(tmp_path / "b.raw") == frames * 8
+
+
+def test_port_external_modules_import_no_jax(tmp_path):
+    """A config with an external bflogic_<name>.py (a spectral hook) and
+    an external bfio_<name>.py input device, written for the port, runs
+    through the port's __main__ on the CPU and pulls in no jax."""
+    mods = tmp_path / "mods"
+    mods.mkdir()
+    (mods / "bflogic_halver.py").write_text(
+        "from brutefir_tpu_torch.control import register_logic_module\n"
+        "class Halver:\n"
+        "    def __init__(self, params, engine):\n"
+        "        pass\n"
+        "    def output_freqd(self, buf, ch):\n"
+        "        buf *= 0.5\n"
+        "register_logic_module('halver', Halver)\n")
+    (mods / "bfio_rawfile.py").write_text(
+        "from brutefir_tpu_torch.io import register_io_module\n"
+        "from brutefir_tpu_torch.io.file_module import FileDevice\n"
+        "register_io_module('rawfile', FileDevice)\n")
+    x = np.round(np.random.default_rng(6).standard_normal(500) * 2 ** 18)
+    x.astype("<i4").tofile(tmp_path / "in.raw")
+    cfg = tmp_path / "c.conf"
+    cfg.write_text(f"""
+sampling_rate: 44100;
+filter_length: 128,2;
+modules_path: "{mods}";
+logic: "halver" {{ }};
+coeff 0 {{ filename: "dirac pulse"; }};
+input 0 {{ device: "rawfile" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S32_LE"; channels: 1; }};
+output 0 {{ device: "file" {{ path: "{tmp_path / 'out.raw'}"; }}; sample: "S32_LE"; channels: 1; dither: false; }};
+filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; }};
+""")
+    code = (
+        "import sys, torch\n"
+        "from brutefir_tpu_torch.__main__ import main\n"
+        f"rc = main(['-quiet', '-nodefault', {str(cfg)!r}],\n"
+        "          device=torch.device('cpu'))\n"
+        "assert rc == 0, rc\n"
+        "assert 'bflogic_halver' in sys.modules\n"
+        "assert 'bfio_rawfile' in sys.modules\n"
+        + _NOTHING_OF_JAX +
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=REPO, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+    y = np.fromfile(tmp_path / "out.raw", "<i4")
+    assert y.size == 500 and np.abs(y - x / 2).max() <= 1

@@ -9,9 +9,12 @@ storage runs through ``Engine.run_offline`` (which falls back to the
 per-block ``Engine.run`` for logic modules such as a CLI script); file
 devices on live endpoints (pipes, FIFOs, ttys) run through
 ``Engine.run``, and so do ``benchmark: true;`` and ``debug: true;``
-configs: the per-10-periods stage table (bfrun.c:2035-2078) and the event
-timeline live there. Clocked devices are not ported yet and exit with an
-error saying so.
+configs (the per-10-periods stage table, bfrun.c:2035-2078, and the event
+timeline live there) and configs with a clocked device (alsa, oss, jack,
+pulse, or an external module with ``uses_sample_clock``): they keep the
+per-block pipeline and its fixed latency of 2N samples. A device's abort
+exits with the reference's code, e.g. an ALSA buffer underflow with
+``BF_EXIT_BUFFER_UNDERFLOW``.
 """
 
 from __future__ import annotations
@@ -112,18 +115,11 @@ def main(argv=None, device=None) -> int:
         return _exit_code(e)
     _report_ready(BF_EXIT_OK)
 
-    clocked = any(inst.uses_sample_clock
-                  for io in (0, 1) for inst in eng.devices[io])
-    if clocked:
-        sys.stderr.write(
-            "brutefir_tpu_torch: clocked devices are not ported yet "
-            "(ROADMAP queue 1 item 4d)\n")
-        return BF_EXIT_OTHER
     # batching adds batch_blocks * N of latency and bursty writes, which a
-    # peer on a live endpoint would see: those run block by block, and so
-    # do benchmark and debug runs (their stage table and timeline live in
-    # run())
-    batch_safe = (all(inst.batch_safe
+    # peer on a live endpoint or a sound card would see: those run block
+    # by block at the fixed 2N latency, and so do benchmark and debug
+    # runs (their stage table and timeline live in run())
+    batch_safe = (all(not inst.uses_sample_clock and inst.batch_safe
                       for io in (0, 1) for inst in eng.devices[io])
                   and not conf.benchmark and not conf.debug)
 
@@ -135,6 +131,9 @@ def main(argv=None, device=None) -> int:
     try:
         stats = eng.run_offline() if batch_safe else eng.run()
     except BFError as e:
+        # a typed abort keeps its code: BF_EXIT_BUFFER_UNDERFLOW for an
+        # xrun without ignore_xrun, BF_EXIT_INVALID_INPUT for a NaN or an
+        # invalid signal (bfmod.h:64-70)
         sys.stderr.write(f"{e}\n")
         return _exit_code(e)
     if not quiet:

@@ -1,7 +1,9 @@
 """I/O module system -- the bfio plugin contract, pythonic.
 
-A copy of :mod:`brutefir_tpu.io` with the file module and the loader of
-external ``bfio_<name>.py`` modules, without the sound-server backends.
+A copy of :mod:`brutefir_tpu.io`: the file module, the sound-server
+modules (``sound_backends.py``: alsa, oss, jack, pulse, a copy of the JAX
+file with two ALSA fixes), the callback bridge (``callback.py``) and the
+loader of external ``bfio_<name>.py`` modules.
 
 The reference loads `.bfio` shared objects exposing the symbol set of
 `bfmod.h:217-275` (preinit/init/read/write/start/stop/synch/command). Here a
@@ -103,19 +105,16 @@ def register_io_module(name: str, cls: Type[IoDevice]) -> None:
 
 
 def get_io_module(name: str, modules_path: str = "") -> Type[IoDevice]:
-    """The device class for ``device: "name"``: the file module, or an
-    external ``bfio_<name>.py`` on ``modules_path``. The sound-server
-    backends (alsa, oss, jack, pulse) come with the clocked ``run()``
-    (ROADMAP queue 1 item 4d), which also runs a loaded device whose
-    ``uses_sample_clock`` is True; ``__main__`` refuses those."""
+    """The device class for ``device: "name"``: the file module, a
+    sound-server module (alsa, oss, jack, pulse; each needs its library
+    only when a device opens), or an external ``bfio_<name>.py`` on
+    ``modules_path``."""
     if name not in _REGISTRY:
+        # lazily import built-ins so optional backends do not break import
         if name == "file":
             from . import file_module  # noqa: F401
         elif name in ("alsa", "oss", "jack", "pulse"):
-            raise NotImplementedError(
-                f'I/O module "{name}" is not ported yet: the sound-server '
-                "backends come with the clocked run() (ROADMAP queue 1 "
-                "item 4d)")
+            from . import sound_backends  # noqa: F401
         else:
             _load_external(name, modules_path)
     try:

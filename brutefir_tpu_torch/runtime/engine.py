@@ -1,14 +1,14 @@
 """The engine: host pipeline around the per-block device step.
 
-Torch twin of :mod:`brutefir_tpu.runtime.engine` for file devices, with
-two loops:
+Torch twin of :mod:`brutefir_tpu.runtime.engine`, with two loops:
 
 - ``run``: the per-block loop (engine.py:1118-1310, 1390-1620). The main
   thread reads a block of raw words, fires the logic modules'
   ``block_start`` hooks (the CLI's script mode runs one script line
   there), takes one control snapshot under ``control_mutex`` and
   dispatches the block through the device-IO program; a writer thread
-  fetches, meters and writes the results.
+  fetches, meters and writes the results. Clocked devices (a sound card,
+  ``uses_sample_clock``) run here at the fixed latency of 2N samples.
 - ``run_offline``: the batched loop. A producer thread reads and uploads
   batches of ``BATCH_BLOCKS`` blocks, the main thread dispatches each
   batch with its controls frozen, and the same writer thread writes. A
@@ -62,12 +62,23 @@ blocks of ``read_block`` / ``write_block``, and each frequency-domain
 hook is a tap in the step (``_make_freqd_tap``) that fetches its spectra
 to the host, calls the hooks and uploads the result.
 
-Not ported (each a ROADMAP queue 1 item 4d entry, or NotImplementedError
-naming its item): clocked devices and the realtime pacing around them,
-the powersave dispatch skip (the JAX package makes it byte-identical to
-always dispatching, so the port always dispatches), the sink mode with
-its prefetch pool, the stall watchdog and the clock-drift monitor;
-float64 (item 9).
+Clocked devices (engine.py:471-483, 781-936, 1001-1028, 1147-1257,
+1312-1388, 1599-1620): ``setup()`` opens the devices, runs every step
+variant once on zeros before a clocked device starts
+(``_warm_programs``: the kernels' build, cuFFT plans, the allocator's
+blocks; no module hook and no persistent state sees it), asks for
+SCHED_FIFO and ``mlockall`` (``_maybe_go_realtime``), starts the
+devices, writes two silent fragments to each clocked output
+(``_iodelay_fill``) and fires ``synch_start``. Inputs that cannot
+signal period boundaries run in poll mode (``_read_device``).
+``run()`` echoes the rti under ``show_progress``, aborts on a sample
+rate drift past 2% under ``monitor_rate``, arms the opt-in stall
+watchdog (``BRUTEFIR_TPU_WATCHDOG``) and, with ``sink_output``, runs the
+sink mode with its prefetch pool.
+
+Not ported: the powersave dispatch skip (the JAX package makes it
+byte-identical to always dispatching, so the port always dispatches);
+float64 (a NotImplementedError naming ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -90,7 +101,7 @@ from ..control import load_logic_module
 from ..core.codecs import Overflow, float_to_raw, raw_to_float
 from ..core.delayline import DelayLine
 from ..core.dither import DitherTable
-from ..errors import BFError, BF_EXIT_INVALID_INPUT
+from ..errors import BFError, BF_EXIT_INVALID_INPUT, BF_EXIT_OTHER
 from ..graph.compile import check_supported, init_state, step_impl
 from ..graph.spec import build_graph_spec
 from ..io import get_io_module
@@ -109,6 +120,32 @@ FREQD_HOOKS = ("input_freqd", "pre_convolve", "post_convolve",
 
 class EngineError(BFError):
     pass
+
+
+def _locked_kib() -> dict:
+    """The process's locked and resident memory, KiB (/proc/self/status
+    VmLck and VmRSS); empty where the file is missing."""
+    out = {}
+    try:
+        with open("/proc/self/status") as fh:
+            for line in fh:
+                key, _, val = line.partition(":")
+                if key in ("VmLck", "VmRSS"):
+                    out[key.lower() + "_kib"] = int(val.split()[0])
+    except OSError:
+        pass
+    return out
+
+
+def _wait_for(result) -> None:
+    """Block until the device work behind ``result`` (a tensor or a list
+    of tensors from the step) is done, without fetching it: the stream is
+    in order, so an event recorded now covers it and everything before."""
+    t = result[0] if isinstance(result, (list, tuple)) else result
+    if isinstance(t, torch.Tensor) and t.is_cuda:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(t.device))
+        ev.synchronize()
 
 
 def _spectra_to_host(planes: torch.Tensor) -> np.ndarray:
@@ -169,9 +206,18 @@ class Engine:
         self.control = RuntimeControl(conf, self.spec, self.device)
 
         self.devices: List[list] = [[], []]
+        reset_done = set()
         for io in (IN, OUT):
             for dev in conf.iodevs[io]:
                 cls = get_io_module(dev.device_name, conf.modules_path)
+                if cls not in reset_done:
+                    reset_done.add(cls)
+                    # clear module-global state a FAILED earlier config
+                    # build left behind (ALSA's link group: a parse error
+                    # raises before any handle opens, engine.py:306-318)
+                    reset = getattr(cls, "reset_module_state", None)
+                    if reset is not None:
+                        reset()
                 inst = cls(dev.device_params, io, dev.sample_format,
                            conf.sampling_rate, dev.open_channels)
                 if inst.sample_format is not None:
@@ -271,6 +317,27 @@ class Engine:
         self._encode_pool = None
         self._staging = []
         self._staged = 0
+        # set while _warm_programs runs the step on zeros: the taps skip
+        # their hooks, so no module sees the warm-up
+        self._warming = False
+        # what _maybe_go_realtime got: SCHED_FIFO, mlockall's return code
+        # and errno, and the process's locked and resident KiB after it
+        self.realtime_state = {}
+
+        # input poll mode (dai.c:905-931): every clocked, non-callback
+        # input misaligned -> reads paced by short sleeps
+        clocked_in = [i for i in self.devices[IN]
+                      if i.uses_sample_clock and not i.is_callback]
+        self._poll_mode = (bool(clocked_in)
+                           and all(i.bad_alignment for i in clocked_in))
+        if self._poll_mode:
+            if not conf.allow_poll_mode:
+                raise EngineError(
+                    "sound input hardware requires poll mode to be "
+                    "activated but current configuration does not allow "
+                    "it (allow_poll_mode: false;)")
+            if not getattr(conf, "quiet", False):
+                sys.stderr.write("Input poll mode activated\n")
 
     def stop(self):
         self._stopped = True
@@ -322,7 +389,8 @@ class Engine:
             hooks = [getattr(m, kind) for m in self.logic
                      if getattr(m, kind, None) is not None]
             if hooks:
-                taps[kind] = self._make_freqd_tap(hooks)
+                taps[kind] = self._make_freqd_tap(
+                    hooks, warming=lambda: self._warming)
         self.taps = taps
         if self._has_timed_hooks or taps:
             self.dio = None
@@ -340,7 +408,7 @@ class Engine:
                 hook()
 
     @staticmethod
-    def _make_freqd_tap(hooks, row2conf=None):
+    def _make_freqd_tap(hooks, row2conf=None, warming=None):
         """A tap of the step (engine.py:574-602): planes [C, 2, N] ->
         natural rfft rows [C, N+1] (complex64 from float32 planes,
         writable, C-contiguous) -> ``h(row, id)`` for each row and each
@@ -358,10 +426,13 @@ class Engine:
         ``row2conf`` maps spec rows to config filters (padding rows -1
         skip the hooks); the port's spec rows are config order until
         multi-device placement (ROADMAP queue 1 item 11), so it is None.
-        The JAX package's ``_warming`` gate has no counterpart: the port
-        has no warm-up program, so a hook sees only real blocks."""
+        ``warming`` (the engine's ``_warming`` gate, engine.py:586-589):
+        while it returns True the tap hands the planes back untouched and
+        calls no hook, so a module never sees ``_warm_programs``' blocks."""
 
         def tapfn(planes, idx):
+            if warming is not None and warming():
+                return planes
             z = _spectra_to_host(planes)
             for ch in range(z.shape[0]):
                 fid = int(idx[ch])
@@ -407,17 +478,157 @@ class Engine:
         for io in (IN, OUT):
             for inst in self.devices[io]:
                 inst.init(self.N)
+        self._warm_programs()
+        self._maybe_go_realtime()
         for io in (IN, OUT):
             for inst in self.devices[io]:
                 inst.start()
+        self._iodelay_fill()
+        # synchronized start fires when processing begins, after the
+        # iodelay fill (dai.c:720 for callback modules, dai.c:1178 for
+        # modules that declare it, e.g. ALSA's linked snd_pcm_start)
         for io in (IN, OUT):
             for inst in self.devices[io]:
                 inst.synch_start()
+
+    def _clocked(self) -> bool:
+        return any(inst.uses_sample_clock
+                   for io in (IN, OUT) for inst in self.devices[io])
+
+    def _warm_programs(self):
+        """Run every step variant that ``_snapshot_epoch`` can pick once on
+        zeros before a clocked device starts (engine.py:798-862), so the
+        first audio block and a later control change pay no first-use
+        cost: the kernels' nvcc build and ctypes load, cuFFT plans, the
+        glue tables, the caching allocator's blocks and, on the host path,
+        the pinned staging buffers. The variants: ``uniform`` False and
+        True, ``xfade`` True as well when a filter can crossfade, the
+        snapshot's ``uniform_delay``; each on a fresh ``init_state``.
+
+        The warm-up leaves no trace: the device-IO path's ``dstate`` (the
+        dither pointers are part of the bit-exact dither sequence) is
+        cloned before and restored after; the host path steps the graph
+        only, never ``read_block`` / ``write_block``, so delay lines and
+        host dither states stay put; ``_warming`` silences the taps.
+        Clockless (file) runs skip it, as in the JAX package. A failure
+        is reported and left to the audio path, as there."""
+        if not self._clocked():
+            return
+        # run() attaches the logic modules before setup(), so the
+        # variants warmed here are the ones that run (taps, host path)
+        self._warming = True
+        try:
+            with self.control_mutex:
+                ctrl = self.control.snapshot()
+                g0, g1 = self._mute_gains()
+                udl = self.control.snapshot_uniform_delay
+            xfs = ((False, True)
+                   if any(f.crossfade for f in self.conf.filters)
+                   else (False,))
+            if self.dio is not None:
+                words = [torch.as_tensor(
+                    np.zeros((self.N,) + tuple(self.dio.in_wire_shape[i]),
+                             self.dio.in_wire_dtype[i]), device=self.device)
+                    for i in range(len(self.conf.iodevs[IN]))]
+                dstate0 = {k: v.clone() for k, v in self.dio.dstate.items()}
+                try:
+                    for uni in (False, True):
+                        for xf in xfs:
+                            self.dio.step(init_state(self.spec, self.device),
+                                          ctrl, g0, g1, self.bank,
+                                          list(words), uniform=uni,
+                                          udelay=udl, xfade=xf)
+                finally:
+                    self.dio.dstate = dstate0
+            else:
+                x = np.zeros((self.conf.n_channels[IN], self.N), self.rd)
+                for uni in (False, True):
+                    for xf in xfs:
+                        step_impl(self.spec, init_state(self.spec,
+                                                        self.device),
+                                  ctrl, self.bank, self._upload_host(x),
+                                  uniform=uni, uniform_delay=udl,
+                                  xfade_now=xf, taps=self.taps)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        except Exception as e:
+            sys.stderr.write(
+                f"Warning: step-program warmup failed ({type(e).__name__}: "
+                f"{e}); the first use will be retried on the audio path.\n")
+        finally:
+            self._warming = False
+
+    def _iodelay_fill(self):
+        """Pre-write 2 silent fragments to each clocked, non-callback
+        output (engine.py:864-888; the reference's iodelay_fill,
+        dai.c:1451-1457): the fixed 2N-sample I/O latency, a full double
+        buffer of cushion against block-time jitter."""
+        clocked = [(di, inst) for di, inst in enumerate(self.devices[OUT])
+                   if inst.uses_sample_clock and not inst.is_callback]
+        if not clocked:
+            return
+        conf = self.conf
+        if not getattr(conf, "quiet", False):
+            delay = 2 * self.N
+            if conf.use_subdelay[IN]:
+                delay += conf.sdf_length
+            if conf.use_subdelay[OUT]:
+                delay += conf.sdf_length
+            sys.stderr.write(f"Fixed I/O-delay is {delay} samples\n"
+                             "Audio processing starts now\n")
+        for _ in range(2):
+            for di, inst in clocked:
+                inst.write(b"\0" * (self.N * self._out_framebytes[di]))
+
+    def _maybe_go_realtime(self):
+        """SCHED_FIFO at priority 4 and, under ``lock_memory``,
+        ``mlockall(MCL_CURRENT | MCL_FUTURE)`` when a device is clocked,
+        with the reference's EPERM fallback (engine.py:890-913,
+        bf_make_realtime, bfrun.c:2735-2788). It runs after
+        ``_warm_programs``, so the allocator's blocks and the pinned
+        buffers exist before the lock. ``realtime_state`` records what
+        took."""
+        if not self._clocked():
+            return
+        try:
+            os.sched_setscheduler(0, os.SCHED_FIFO, os.sched_param(4))
+        except (PermissionError, OSError):
+            sys.stderr.write(
+                "Warning: failed to set realtime priority (not permitted); "
+                "continuing with default scheduling.\n")
+            self.realtime_state = {"sched_fifo": False}
+            return
+        self.realtime_state = {"sched_fifo": True}
+        if self.conf.lock_memory:
+            try:
+                import ctypes
+                libc = ctypes.CDLL(None, use_errno=True)
+                rc = libc.mlockall(3)    # MCL_CURRENT | MCL_FUTURE
+                self.realtime_state.update(mlockall=rc,
+                                           errno=ctypes.get_errno())
+            except OSError:
+                pass
+            self.realtime_state.update(_locked_kib())
 
     def teardown(self):
         if self._encode_pool is not None:
             self._encode_pool.shutdown(wait=True)
             self._encode_pool = None
+        # xrun report of callback-bridged devices (engine.py:915-931): the
+        # bridge counts them, the native ring included
+        if not getattr(self.conf, "quiet", False):
+            for io in (IN, OUT):
+                for inst in self.devices[io]:
+                    n = getattr(inst, "native_xruns", None)
+                    if n is None:
+                        n = ((getattr(inst, "underruns", 0) or 0)
+                             + (getattr(inst, "overruns", 0) or 0))
+                    n = int(n)
+                    if n:
+                        sys.stderr.write(
+                            f"Warning: {n} xrun(s) on "
+                            f"{'input' if io == IN else 'output'} device "
+                            f'"{inst.__class__.__name__}"\n')
         for io in (IN, OUT):
             for inst in self.devices[io]:
                 inst.synch_stop()
@@ -475,7 +686,8 @@ class Engine:
         frames = N
         for di, dev in enumerate(conf.iodevs[IN]):
             want = N * self._in_framebytes[di]
-            raw = self.devices[IN][di].read(want)
+            raw = self._read_device(self.devices[IN][di], want,
+                                    self._in_framebytes[di])
             got_frames = len(raw) // self._in_framebytes[di]
             if got_frames < N:
                 frames = min(frames, got_frames)
@@ -548,24 +760,30 @@ class Engine:
         On the card x goes through one of two pinned staging buffers, each
         reused only once the copy that last read it has completed."""
         ctrl, _, uni, udl, xf, bank, _ = epoch
-        if self.device.type == "cuda":
-            if not self._staging:
-                self._staging = [
-                    (torch.empty(x.shape, dtype=torch.float32,
-                                 pin_memory=True), torch.cuda.Event())
-                    for _ in range(2)]
-            buf, done = self._staging[self._staged]
-            self._staged ^= 1
-            done.synchronize()
-            buf.numpy()[...] = x
-            xd = buf.to(self.device, non_blocking=True)
-            done.record()
-        else:
-            xd = torch.as_tensor(x)
-        self.state, y = step_impl(self.spec, self.state, ctrl, bank, xd,
-                                  uniform=uni, uniform_delay=udl,
-                                  xfade_now=xf, taps=self.taps)
+        self.state, y = step_impl(self.spec, self.state, ctrl, bank,
+                                  self._upload_host(x), uniform=uni,
+                                  uniform_delay=udl, xfade_now=xf,
+                                  taps=self.taps)
         return y
+
+    def _upload_host(self, x: np.ndarray) -> torch.Tensor:
+        """x [C_in, N] on the engine's device: on the card through one of
+        two pinned staging buffers, each reused only once the copy that
+        last read it has completed."""
+        if self.device.type != "cuda":
+            return torch.as_tensor(x)
+        if not self._staging:
+            self._staging = [
+                (torch.empty(x.shape, dtype=torch.float32,
+                             pin_memory=True), torch.cuda.Event())
+                for _ in range(2)]
+        buf, done = self._staging[self._staged]
+        self._staged ^= 1
+        done.synchronize()
+        buf.numpy()[...] = x
+        xd = buf.to(self.device, non_blocking=True)
+        done.record()
+        return xd
 
     # ----- host codec path: output ----------------------------------------------
     def write_block(self, y: np.ndarray, frames: int, out_snap=None):
@@ -649,6 +867,35 @@ class Engine:
                 encode_one(di, dev)
         self._peak_push()
 
+    def _read_device(self, inst, want: int, framebytes: int) -> bytes:
+        """One device's fragment read; in poll mode, nanosleep-paced
+        accumulation of nonblocking partial reads (engine.py:1001-1028,
+        dai.c:1198-1230, the sleep tiers verbatim)."""
+        if not (self._poll_mode and inst.bad_alignment):
+            return inst.read(want)
+        out = b""
+        first = True
+        while len(out) < want:
+            if not first:
+                usec = ((want - len(out)) // framebytes * 1_000_000
+                        // self.conf.sampling_rate)
+                if usec > 40000:
+                    time.sleep(usec / 1e6)
+                elif usec > 20000:
+                    time.sleep(0.010)
+                elif usec > 2050:
+                    time.sleep(0.002)
+                elif usec > 50:
+                    time.sleep((usec - 50) / 1e6)
+            first = False
+            chunk = inst.read_nonblock(want - len(out))
+            if chunk is None:
+                continue
+            if chunk == b"":
+                break  # EOF
+            out += chunk
+        return out
+
     # ----- device-IO host side ---------------------------------------------
     def read_block_dio(self):
         """Read raw words per input device: ([N, ...] arrays, frames),
@@ -658,7 +905,7 @@ class Engine:
         words = []
         for di, dev in enumerate(self.conf.iodevs[IN]):
             fb = self._in_framebytes[di]
-            raw = self.devices[IN][di].read(N * fb)
+            raw = self._read_device(self.devices[IN][di], N * fb, fb)
             got = len(raw) // fb
             if got < N:
                 frames = min(frames, got)
@@ -715,28 +962,61 @@ class Engine:
         self._peak_push()
 
     # ----- the writer thread and run statistics -----------------------------
-    def _start_writer(self):
+    def _start_writer(self, sink_output: bool = False):
         """The output stage on its own thread (the analog of the
         reference's output process, bfrun.c:846-964): it fetches, meters
         and writes block k while the main thread dispatches block k+1.
         An item is ("dio", frames, outs, meters, nan_ok) from the
         device-IO path or ("host", frames, y, out_snap) from the host
         path. Returns (queue, stats, thread); queue depth 2 bounds
-        latency."""
+        latency.
+
+        ``sink_output`` (engine.py:1159-1218): no sample leaves the card.
+        The writer waits for the newest result once every
+        ``BRUTEFIR_TPU_DRAIN_EVERY`` blocks (default about a second of
+        audio, at least 64; the stream is in order, so that bounds the
+        backlog) and at the end; on the host path it also runs
+        ``write_block`` on a zero staging buffer of the block's shape, so
+        the encode's cost stays real."""
         wq: "queue.Queue" = queue.Queue(maxsize=2)
         wstats = {"frames": 0, "blocks": 0, "err": None}
+        default_drain = max(64, self.conf.sampling_rate // self.N)
+        drain_every = max(1, int(os.environ.get(
+            "BRUTEFIR_TPU_DRAIN_EVERY", str(default_drain))))
+        sink = {"last": None, "n": 0}
+        sink_stage = (np.zeros((self.conf.n_channels[OUT], self.N), self.rd)
+                      if sink_output else None)
+
+        def sink_drain(result):
+            sink["last"] = result
+            sink["n"] += 1
+            if sink["n"] % drain_every == 0:
+                _wait_for(sink["last"])
+                sink["last"] = None
 
         def writer():
             while True:
                 item = wq.get()
                 if item is None:
+                    try:
+                        if sink["last"] is not None:
+                            _wait_for(sink["last"])
+                    except Exception as e:
+                        wstats["err"] = e
                     return
                 kind, fk, *rest = item
                 try:
                     wblk = wstats["blocks"]
                     self._dbg("output", "call write", wblk)
                     if kind == "dio":
-                        self._write_outputs(*rest, fk)
+                        if sink_output:
+                            sink_drain(rest[0])
+                        else:
+                            self._write_outputs(*rest, fk)
+                    elif sink_output:
+                        y, out_snap = rest
+                        sink_drain(y)
+                        self.write_block(sink_stage, fk, out_snap)
                     else:
                         y, out_snap = rest
                         # C-contiguous float32 rows, as float_to_raw
@@ -795,24 +1075,37 @@ class Engine:
             pass
 
     # ----- per-block run ---------------------------------------------------
-    def run(self, max_blocks: Optional[int] = None, setup: bool = True):
+    def run(self, max_blocks: Optional[int] = None, setup: bool = True,
+            sink_output: bool = False):
         """Process block by block until input EOF (or until the engine
         has run ``max_blocks`` blocks since its first). Returns run
         statistics. ``setup=False`` neither attaches the logic modules
         nor opens or closes the devices: the caller runs ``setup()``,
-        one or more runs, then ``teardown()``."""
+        one or more runs, then ``teardown()``. ``sink_output``: the
+        outputs are sinks (``/dev/null``) and no sample leaves the card
+        (``_start_writer``); meters reflect the staging data."""
         if setup:
+            # logic first: attach_logic may drop the device-IO path or
+            # add taps, and setup()'s _warm_programs warms what runs
             self.attach_logic()
             self.setup()
         budget = self.N / self.conf.sampling_rate    # seconds per block
         t_run0 = time.perf_counter()
         # bounded: p50/p95 over the most recent ~131k blocks
         self._periods = collections.deque(maxlen=1 << 17)
-        wq, wstats, wth = self._start_writer()
+        self._last_progress = t_run0
+        clocked = any(inst.uses_sample_clock for inst in self.devices[IN])
+        self._monitor_clock = ((t_run0, self.blockcounter)
+                               if self.conf.monitor_rate and clocked
+                               else None)
+        wq, wstats, wth = self._start_writer(sink_output)
+        wd_stop = self._start_watchdog()
         try:
             try:
-                self._run_blocks(max_blocks, wq, wstats, budget)
+                self._run_prefetched(max_blocks, wq, wstats, budget,
+                                     sink_output)
             finally:
+                wd_stop.set()
                 self._stop_writer(wq, wth)
             if wstats["err"] is not None:
                 raise wstats["err"]
@@ -828,6 +1121,99 @@ class Engine:
         if setup:
             self.teardown()
         return stats
+
+    def _start_watchdog(self) -> threading.Event:
+        """The opt-in stall watchdog (``BRUTEFIR_TPU_WATCHDOG=<seconds>``,
+        engine.py:1234-1257): once the first block has run, no block for
+        that long ends the process with exit code 1, as the reference
+        dies on a dead device. Returns the event that disarms it."""
+        wd_stop = threading.Event()
+        wd_timeout = float(os.environ.get("BRUTEFIR_TPU_WATCHDOG", "0")
+                           or 0.0)
+        if wd_timeout > 0:
+            def watchdog():
+                last = (self.blockcounter, time.monotonic())
+                while not wd_stop.wait(min(1.0, wd_timeout / 4)):
+                    bc = self.blockcounter
+                    if bc != last[0]:
+                        last = (bc, time.monotonic())
+                    elif (bc > 0
+                          and time.monotonic() - last[1] > wd_timeout):
+                        sys.stderr.write(
+                            f"no block completed for {wd_timeout:.0f} s "
+                            "(stalled device or transport); aborting.\n")
+                        sys.stderr.flush()
+                        os._exit(BF_EXIT_OTHER)
+
+            threading.Thread(target=watchdog, daemon=True,
+                             name="bf-watchdog").start()
+        return wd_stop
+
+    def _run_prefetched(self, max_blocks, wq, wstats, budget, sink_output):
+        """``_run_blocks``, with the input prefetch of sink mode on the
+        device-IO path (engine.py:1312-1388): a producer thread reads
+        block k+1.. and a pool of 2 workers uploads them while the main
+        thread dispatches block k; the queue carries the uploads' futures
+        in block order, 3 deep. The producer never reads past
+        ``max_blocks``, so a later run on this engine loses no input."""
+        if self.dio is None or not sink_output:
+            self._run_blocks(max_blocks, wq, wstats, budget)
+            return
+        from concurrent.futures import ThreadPoolExecutor
+        N = self.N
+        pq: "queue.Queue" = queue.Queue(maxsize=3)
+        pstate = {"stop": False, "err": None}
+        up_pool = ThreadPoolExecutor(max_workers=2,
+                                     thread_name_prefix="bf-upload")
+
+        def upload(ws):
+            return [torch.as_tensor(np.array(w), device=self.device)
+                    for w in ws]
+
+        def producer():
+            try:
+                left = (None if max_blocks is None
+                        else max(0, max_blocks - self.blockcounter))
+                while not pstate["stop"]:
+                    if left is not None:
+                        if left <= 0:
+                            return
+                        left -= 1
+                    xw, f = self.read_block_dio()
+                    # the silence test on the host's words (the uploaded
+                    # ones would cost a fetch)
+                    item = (up_pool.submit(upload, xw), f,
+                            self._input_silent_words(xw))
+                    while not pstate["stop"]:
+                        try:
+                            pq.put(item, timeout=0.5)
+                            break
+                        except queue.Full:
+                            continue
+                    if f < N:
+                        return
+            except Exception as e:
+                pstate["err"] = e
+                try:
+                    pq.put_nowait((None, 0, False))
+                except queue.Full:
+                    pass
+
+        pth = threading.Thread(target=producer, daemon=True)
+        pth.start()
+        try:
+            self._run_blocks(max_blocks, wq, wstats, budget, pq, pstate)
+        finally:
+            # an error in the block loop must not leak the producer, the
+            # pool or prefetched blocks
+            pstate["stop"] = True
+            try:
+                while True:
+                    pq.get_nowait()
+            except queue.Empty:
+                pass
+            pth.join(timeout=10.0)
+            up_pool.shutdown(wait=False)
 
     def _input_silent_words(self, xw) -> bool:
         """Powersave silence on raw input words: exact zero only (the
@@ -845,9 +1231,11 @@ class Engine:
                                                 self.B + 1)
         return self._procblocks > self.B
 
-    def _run_blocks(self, max_blocks, wq, wstats, budget):
+    def _run_blocks(self, max_blocks, wq, wstats, budget, pq=None,
+                    pstate=None):
         N = self.N
         show = self.conf.benchmark or self.conf.debug
+        quiet = getattr(self.conf, "quiet", False)
         eof = False
         while not self._stopped and not eof:
             if max_blocks is not None and self.blockcounter >= max_blocks:
@@ -857,9 +1245,15 @@ class Engine:
             t0 = time.perf_counter()
             self._dbg("input", "call read", self.blockcounter)
             self._block_start_hooks()
-            if self.dio is not None:
+            if pq is not None:
+                fut, frames, silent = pq.get()
+                if pstate["err"] is not None:
+                    raise pstate["err"]
+                words = fut.result() if fut is not None else []
+            elif self.dio is not None:
                 xw, frames = self.read_block_dio()
                 silent = self._input_silent_words(xw)
+                words = None
             else:
                 x, frames = self.read_block()
                 silent = self._input_silent(x if frames > 0 else None)
@@ -873,9 +1267,12 @@ class Engine:
                 epoch = self._snapshot_epoch()
                 ctrl, gains, uni, udl, xf, bank, out_snap = epoch
                 if self.dio is not None:
-                    # np.array: a writable copy of the (read-only) words
-                    words = [torch.as_tensor(np.array(w), device=self.device)
-                             for w in xw]
+                    if words is None:
+                        # np.array: a writable copy of the (read-only)
+                        # words
+                        words = [torch.as_tensor(np.array(w),
+                                                 device=self.device)
+                                 for w in xw]
                     self.state, outs, meters, nan_ok = self.dio.step(
                         self.state, ctrl, gains[0], gains[1], bank, words,
                         uniform=uni, udelay=udl, xfade=xf)
@@ -891,13 +1288,38 @@ class Engine:
             t3 = time.perf_counter()
             period = t3 - t0
             self._periods.append(period)
-            if self._update_full_proc(silent):
-                self.realtime_index = period / budget
-                self._rti_max = max(self._rti_max, self.realtime_index)
+            rti = period / budget
+            full = self._update_full_proc(silent)
+            if full:
+                self.realtime_index = rti
+                self._rti_max = max(self._rti_max, rti)
             self._stage_t += (t1 - t0, t2 - t1, t3 - t2, period)
             self._stage_blocks += 1
             if show and self._stage_blocks % 10 == 0:
                 self._print_stage_table()
+            if (self.conf.show_progress and not quiet
+                    and t3 - self._last_progress > 1.0):
+                # the rti echo (engine.py:1599-1607)
+                self._last_progress = t3
+                if full:
+                    sys.stderr.write(f"rti: {rti:.3f}\n")
+                else:
+                    sys.stderr.write(
+                        "rti: not full processing - no rti update\n")
+            if self._monitor_clock is not None:
+                # sample rate drift abort at +-2% (engine.py:1608-1620,
+                # dai.c:1336-1369)
+                w = t3 - self._monitor_clock[0]
+                if w > 4.0:
+                    measured = ((self.blockcounter - self._monitor_clock[1])
+                                * N / w)
+                    self._monitor_clock = (t3, self.blockcounter)
+                    drift = measured / self.conf.sampling_rate
+                    if not (0.98 < drift < 1.02):
+                        raise EngineError(
+                            f"sample rate drift detected: measured "
+                            f"{measured:.0f} Hz, configured "
+                            f"{self.conf.sampling_rate} Hz")
 
     def _print_stage_table(self):
         """The reference's benchmark table (bfrun.c:2035-2078), the JAX

@@ -7,9 +7,10 @@ Usage (from the repository root, one CUDA card):
 
     python3 chip_profile.py [--shape scale|massive|bench1|massive_cascade|
                                      bench5|bench1_xfade|aligned|
-                                     benchmark|eq|hostcodec|hooks]
+                                     benchmark|eq|hostcodec|hooks|
+                                     clocked|xtc_clocked]
                             [--blocks N]
-                            [--pair G]
+                            [--pair G] [--mlock]
 
 Writes the shape's seeded inputs for N blocks (default 64) as
 ``chip_smoke.py`` does: the scale shape (``write_scale_inputs``: 256 x
@@ -36,7 +37,14 @@ block 8 (``eq_config``: 2 channels, 8192 x 8, FLOAT_LE, 48 kHz, through
 ``_dispatch_host`` and the writer's ``write_block``) or the massive shape
 with ``chip_smoke.py``'s phase 24 module ``bflogic_spectap.py`` (all six
 hooks, a gain each; the host codec path through ``run()``, the taps'
-transfers and the hook calls timed as well), then runs the port's
+transfers and the hook calls timed as well) or, clocked, the massive
+shape (``clocked``, ``chip_smoke.py``'s phase 26) or the xtc example
+(``xtc_clocked``, phase 28: N blocks of 64 samples) on the paced device
+``bfio_paced.py`` (``chip_smoke.PACED_MODULE``: reads wait for each
+fragment's due time at 44.1 kHz), through ``run()`` at the fixed 2N
+latency, warmed, with SCHED_FIFO and mlockall where the host allows
+them (the read time of a block is then mostly the wait for the card;
+the deadline misses of the output are printed), then runs the port's
 engine three times on them: once to
 warm up (kernel build, cuFFT plans), once timed on the host clock (its
 stage-table lines printed), once under ``torch.profiler`` (CPU and CUDA
@@ -49,7 +57,9 @@ threads overlap), the device's busy
 time a block (the sum of the device time of every kernel and copy in the
 profiled run) and its share of the timed run's wall time, and the device
 time by name, largest first. ``--pair`` sets BRUTEFIR_TPU_PAIR (default:
-the engine's own).
+the engine's own). ``--mlock`` calls ``mlockall(MCL_CURRENT |
+MCL_FUTURE)`` after the warm-up run and prints what it returned, so the
+timed and profiled runs allocate under the lock (``mlock_probe``).
 """
 
 from __future__ import annotations
@@ -72,10 +82,11 @@ def main():
                                         "massive_cascade", "bench5",
                                         "bench1_xfade", "aligned",
                                         "benchmark", "eq", "hostcodec",
-                                        "hooks"),
+                                        "hooks", "clocked", "xtc_clocked"),
                     default="scale")
     ap.add_argument("--blocks", type=int, default=64)
     ap.add_argument("--pair", default=None)
+    ap.add_argument("--mlock", action="store_true")
     args = ap.parse_args()
     if args.pair is not None:
         os.environ["BRUTEFIR_TPU_PAIR"] = args.pair
@@ -111,6 +122,15 @@ def main():
                                        frames)
         cs.s24_bytes(x, True).tofile(os.path.join(cs.WORK, "input.s24be"))
         cfg = cs.hostcodec_config("profile.conf", "S24_BE", "s24be")
+    elif args.shape == "clocked":
+        cs.write_massive_inputs(np.random.default_rng(cs.SEED + 28), frames)
+        cfg = cs.to_paced(cs.massive_config("profile.conf", False),
+                          "input.raw", "output.raw",
+                          cs.write_module("paced", cs.PACED_MODULE, "bfio"))
+    elif args.shape == "xtc_clocked":
+        _, _, cfg = cs.xtc_config(args.blocks * cs.XTC_N, cs.SEED + 30)
+        cfg = cs.to_paced(cfg, "input.f32", "output.s24",
+                          cs.write_module("paced", cs.PACED_MODULE, "bfio"))
     elif args.shape == "hooks":
         cs.write_massive_inputs(np.random.default_rng(cs.SEED + 24), frames,
                                 cs.HOOK_LEVEL)
@@ -132,7 +152,7 @@ def main():
 
     def run(host=None):
         eng = Engine(parse_config(text))
-        per_block = eng.conf.benchmark or eng.conf.debug
+        per_block = eng.conf.benchmark or eng.conf.debug or eng._clocked()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         err = io.StringIO()
@@ -164,9 +184,11 @@ def main():
         return eng, stats, wall
 
     eng, _, _ = run()                                      # warm-up
+    if args.mlock:
+        mlock_probe()
     G = group_size(eng.spec, BATCH_BLOCKS)
     host = {}
-    _, stats, wall = run(host)
+    timed_eng, stats, wall = run(host)
     blocks = stats["blocks"]
     wall_ms = wall / blocks * 1e3
     print(f"{args.shape} shape, {blocks} blocks, BRUTEFIR_TPU_PAIR="
@@ -177,6 +199,11 @@ def main():
     print("host a block: " + ", ".join(
         f"{name} {sum(sec) / blocks * 1e3:.3f} ms"
         for name, sec in sorted(host.items()) if sec), flush=True)
+    if args.shape in ("clocked", "xtc_clocked"):
+        period = (cs.XTC_N if args.shape == "xtc_clocked" else cs.K) / 44100
+        cs.deadlines(timed_eng.devices[1][0], args.shape, period * 1e3)
+        print(f"rti_max {stats['rti_max']:.4f}; realtime "
+              f"{timed_eng.realtime_state}", flush=True)
     if args.shape == "hooks":
         tap = cs.loaded_module("spectap").SpecTap.instances[-1]
         print("hook calls, host a block: " + ", ".join(
@@ -209,6 +236,26 @@ def main():
             print(f"  {dev_us / 1e3 / pstats['blocks']:9.4f} ms a block "
                   f"{count:7d} calls  {key[:90]}", flush=True)
     shutil.rmtree(cs.WORK, ignore_errors=True)
+
+
+def mlock_probe():
+    """``mlockall(MCL_CURRENT | MCL_FUTURE)`` now, as a clocked engine's
+    ``_maybe_go_realtime`` calls it once SCHED_FIFO is granted, whether
+    or not this host grants it: prints the return code, errno,
+    RLIMIT_MEMLOCK and the locked and resident KiB, so the timed and
+    profiled runs after it allocate under the lock."""
+    import ctypes
+    import resource
+    from brutefir_tpu_torch.runtime.engine import _locked_kib
+    libc = ctypes.CDLL(None, use_errno=True)
+    t0 = time.perf_counter()
+    rc = libc.mlockall(3)
+    err = ctypes.get_errno()
+    soft, hard = resource.getrlimit(resource.RLIMIT_MEMLOCK)
+    print(f"mlockall(MCL_CURRENT | MCL_FUTURE) = {rc} (errno {err}: "
+          f"{os.strerror(err) if rc else 'none'}) in "
+          f"{time.perf_counter() - t0:.3f} s; RLIMIT_MEMLOCK soft {soft}, "
+          f"hard {hard}; {_locked_kib()}", flush=True)
 
 
 if __name__ == "__main__":

@@ -198,7 +198,35 @@ Phases, in order; any failure exits non-zero:
    after the first, ``crossfade_spectra``'s extra forward and two
    inverse glue launches on each crossfade block, the fused time-domain
    crossfade never; within 8e-6 of the peak + 4 LSB of the ramp oracle
-   scaled by the gains.
+   scaled by the gains;
+26-28. main path, clocked devices, in a child process of their own
+   (``chip_smoke.py --clocked-child``: a clocked engine asks for
+   SCHED_FIFO and mlockall, which must not reach the other phases; its
+   last line is one JSON object of results and launch counts, which the
+   parent adds to the rows' launches). Each runs ``Engine`` through its
+   parts (``attach_logic``, ``setup()`` with the warm-up, ``run(setup=
+   False)``, ``teardown()``), so the warm-up's launches and the blocks'
+   are counted apart, and prints the block wall (p50, p95; the input's
+   wait included, as the rti reads it), the processing time (the wall
+   less the input read), ``rti_max`` and what the realtime request got
+   (``Engine.realtime_state``). The paced device is the module
+   ``bfio_paced.py`` (``PACED_MODULE``, written to build/chip_smoke/mods):
+   an input hands out fragment k at t0 + (k + 1) N / fs, an output
+   records each write's lateness against the time a card starts playing
+   it, the two silent fragments of the iodelay fill counted.
+   26: examples/multichannel_massive.conf with both devices on the paced
+   device, 32 blocks (5.9 s of audio): the first 2N frames silent, the
+   rest within 16 LSB of the float64 oracle, no missed deadline, the
+   uniform fused MAC + mix and the glue once a block (the warm-up runs
+   both forms); 27: examples/xtc_lowlatency.conf with both devices on
+   ``alsa`` over tests/fake_asound.c (compiled with gcc into
+   build/chip_smoke), 400 blocks, its capture pattern read as S16_LE (the
+   byte (f + c) & 0xFF in the low byte: finite words), the example's
+   dithered S24_LE output dumped by the fake: 2N silent frames, then
+   within 16 LSB of the pattern's float64 oracle, ``mac_rows`` and the
+   glue once a block; 28: the xtc example on the paced device, 2000
+   blocks (2.9 s): the same gates as 27, the deadline misses printed and
+   not gated (the step's eager dispatch outlasts the 1.451 ms period).
 
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
@@ -2735,21 +2763,22 @@ register_logic_module("xfgain", XfGain)
 """
 
 
-def write_module(name: str, text: str) -> str:
-    """A logic module file bflogic_<name>.py in WORK/mods; returns the
-    folder (the config's modules_path)."""
+def write_module(name: str, text: str, prefix: str = "bflogic") -> str:
+    """A module file <prefix>_<name>.py in WORK/mods (a logic module, or
+    with ``prefix`` "bfio" a device module); returns the folder (the
+    config's modules_path)."""
     mods = os.path.join(WORK, "mods")
     os.makedirs(mods, exist_ok=True)
-    with open(os.path.join(mods, f"bflogic_{name}.py"), "w") as fh:
+    with open(os.path.join(mods, f"{prefix}_{name}.py"), "w") as fh:
         fh.write(text)
     return mods
 
 
-def loaded_module(name: str):
-    """The module object of the external logic module bflogic_<name>."""
-    mod = sys.modules.get(f"bflogic_{name}")
+def loaded_module(name: str, prefix: str = "bflogic"):
+    """The module object of the external module <prefix>_<name>."""
+    mod = sys.modules.get(f"{prefix}_{name}")
     if mod is None:
-        fail(f"bflogic_{name} was not loaded")
+        fail(f"{prefix}_{name} was not loaded")
     return mod
 
 
@@ -2900,6 +2929,343 @@ def main_xfade_hooks(main, mods: dict, launched: dict):
     add_glue(launched, counts)
 
 
+# ---- phases 26-28: clocked devices, in a child process --------------------
+
+CLOCKED_BLOCKS = 32       # phase 26: 5.9 s of audio at the massive shape
+ALSA_BLOCKS = 400         # phase 27: the xtc example over the fake libasound
+XTC_CLOCKED_BLOCKS = 2000  # phase 28: 2.9 s of audio in 64-sample blocks
+FAKE_ASOUND = os.path.join(REPO, "tests", "fake_asound.c")
+CHILD_ARG = "--clocked-child"
+
+PACED_MODULE = '''"""bfio_paced: a sound card on the host's clock, for brutefir_tpu_torch.
+
+device: "paced" { path: "<raw file>"; };
+
+An input hands out fragment k (N frames of the file) no earlier than
+t0 + (k + 1) N / fs, when a card would have captured it; t0 is the
+first synch_start of any paced device. An output writes the file and
+records, for each write after t0, its lateness against the time a card
+starts playing it: t0 + (frames written before it) / fs, the two silent
+fragments of the iodelay fill counted. A write with a positive lateness
+missed its deadline.
+"""
+
+import time
+
+from brutefir_tpu_torch.config.lexer import T
+from brutefir_tpu_torch.io import IoDevice, IoModuleError, register_io_module
+
+
+class PacedDevice(IoDevice):
+    uses_sample_clock = True
+    instances = []
+    t0 = None
+
+    def __init__(self, params, io, sample_format, sample_rate,
+                 open_channels):
+        super().__init__(params, io, sample_format, sample_rate,
+                         open_channels)
+        toks = [t for t in params if t.kind != T.EOF]
+        if (len(toks) != 3 or toks[0].kind != T.FIELD
+                or toks[0].value != "path" or toks[1].kind != T.STRING
+                or toks[2].kind != T.EOS):
+            raise IoModuleError('paced I/O: expected path: "<file>";')
+        self.path = toks[1].value
+        self.fh = None
+        self.frames = 0
+        self.lateness = []
+        PacedDevice.instances.append(self)
+
+    def init(self, period_size):
+        self.fb = self.sample_format.bytes * self.open_channels
+        self.fh = open(self.path, "rb" if self.io == 0 else "wb")
+        PacedDevice.t0 = None
+
+    def synch_start(self):
+        if PacedDevice.t0 is None:
+            PacedDevice.t0 = time.monotonic()
+
+    def read(self, nbytes):
+        self.frames += nbytes // self.fb
+        wait = (PacedDevice.t0 + self.frames / self.sample_rate
+                - time.monotonic())
+        if wait > 0:
+            time.sleep(wait)
+        return self.fh.read(nbytes)
+
+    def write(self, data):
+        if PacedDevice.t0 is not None:
+            self.lateness.append(time.monotonic() - PacedDevice.t0
+                                 - self.frames / self.sample_rate)
+        self.frames += len(data) // self.fb
+        self.fh.write(data)
+        return len(data)
+
+    def close(self):
+        if self.fh is not None:
+            self.fh.close()
+            self.fh = None
+
+
+register_io_module("paced", PacedDevice)
+'''
+
+
+def to_paced(cfg: str, inp: str, out: str, mods: str) -> str:
+    """The config file ``cfg`` with its file devices ``inp`` and ``out``
+    (paths in WORK) on the paced module from ``mods``."""
+    pairs = [(f'device: "file" {{ path: "{os.path.join(WORK, name)}"; }};',
+              f'device: "paced" {{ path: "{os.path.join(WORK, name)}"; }};',
+              1) for name in (inp, out)]
+    pairs.append(("sampling_rate: 44100;",
+                  f'sampling_rate: 44100;\nmodules_path: "{mods}";', 1))
+    return retarget(cfg, pairs)
+
+
+def split_run(eng, mods: dict, max_blocks=None):
+    """``Engine.run`` in its parts: attach the logic modules and
+    ``setup()`` (the warm-up), then the blocks, then ``teardown()``; the
+    launch counts of the warm-up and of the blocks apart, by (module,
+    form). ``stats["proc_ms"]``: each block's wall less its input
+    read (on a clocked input the read waits for the card), ms."""
+    for m in mods.values():
+        m.reset_launches()
+    eng.attach_logic()
+    eng.setup()
+    warm = all_counts(mods)
+    for m in mods.values():
+        m.reset_launches()
+    reads = []
+    try:
+        with timed_method(eng, "read_block_dio" if eng.dio is not None
+                          else "read_block", reads):
+            stats = eng.run(max_blocks=max_blocks, setup=False)
+    finally:
+        eng.teardown()
+    periods = np.asarray(eng._periods)
+    stats["proc_ms"] = (periods - np.asarray(reads[:periods.size])) * 1e3
+    return stats, warm, all_counts(mods)
+
+
+def deadlines(dev, label: str, period_ms: float) -> dict:
+    """Misses and lateness of a paced output's writes after t0."""
+    late = np.asarray(dev.lateness) * 1e3
+    if not late.size:
+        fail(f"{label}: no write after the start")
+    misses = int((late > 0).sum())
+    print(f"clocked ({label}): {late.size} writes after the start, "
+          f"{misses} missed their deadline ({misses / late.size:.1%}); "
+          f"lateness p50 {np.median(late):.3f} ms, max {late.max():.3f} ms "
+          f"(period {period_ms:.3f} ms)", flush=True)
+    return {"writes": int(late.size), "misses": misses,
+            "miss_share": misses / late.size,
+            "late_p50_ms": float(np.median(late)),
+            "late_max_ms": float(late.max())}
+
+
+def clocked_summary(stats: dict, eng, label: str, period_ms: float) -> dict:
+    """The run's block wall (the input's wait included, as the rti
+    reads it), its processing time and what the realtime request got."""
+    rt = dict(eng.realtime_state)
+    proc = stats["proc_ms"]
+    res = {"blocks": stats["blocks"], "p50_ms": stats["p50_block_ms"],
+           "p95_ms": stats["p95_block_ms"], "rti_max": stats["rti_max"],
+           "proc_p50_ms": float(np.median(proc)),
+           "proc_p95_ms": float(np.percentile(proc, 95)),
+           "proc_max_ms": float(proc.max()), "realtime": rt}
+    print(f"clocked ({label}): {res['blocks']} blocks; block wall p50 "
+          f"{res['p50_ms']:.3f} ms, p95 {res['p95_ms']:.3f} ms against the "
+          f"period's {period_ms:.3f} ms; rti_max {res['rti_max']:.4f}; "
+          f"processing (wall less the input read) p50 "
+          f"{res['proc_p50_ms']:.3f} ms, p95 {res['proc_p95_ms']:.3f} ms, "
+          f"max {res['proc_max_ms']:.3f} ms; realtime {rt}", flush=True)
+    return res
+
+
+def clocked_engine(cfg: str):
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.runtime.engine import Engine
+    with open(cfg) as fh:
+        return Engine(parse_config(fh.read()))
+
+
+def silent_fill(y, frames: int, n: int, label: str):
+    """The output after the iodelay fill: 2N silent frames, then one
+    frame a frame read."""
+    if y.shape[0] != frames + 2 * n or y[:2 * n].any():
+        fail(f"{label}: {y.shape[0]} frames out for {frames} in, or the "
+             f"first 2N frames are not silent")
+    return y[2 * n:]
+
+
+def clocked_massive(mods: dict) -> dict:
+    """Phase 26: the massive shape on the paced device, 32 blocks."""
+    label = "massive on the paced device"
+    frames = CLOCKED_BLOCKS * K
+    taps, x = write_massive_inputs(np.random.default_rng(SEED + 28), frames)
+    cfg = to_paced(massive_config("clocked.conf", False), "input.raw",
+                   "output.raw", write_module("paced", PACED_MODULE, "bfio"))
+    eng = clocked_engine(cfg)
+    stats, warm, blocks = split_run(eng, mods)
+    period = K / 44100 * 1e3
+    res = clocked_summary(stats, eng, label, period)
+    res.update(deadlines(loaded_module("paced", "bfio").PacedDevice.instances[-1],
+                         label, period))
+    res["warm"], res["counts"] = launch_keys(warm), launch_keys(blocks)
+    y = silent_fill(np.fromfile(os.path.join(WORK, "output.raw"),
+                                "<i4").reshape(-1, F), frames, K, label)
+    res["lsb"] = oracle_lsb(y, x, lambda c: taps[0])
+    print(f"clocked ({label}): the first 2N frames silent; max |y - oracle| "
+          f"{res['lsb']} LSB (tol {LSB_TOL}) on all {F} channels",
+          flush=True)
+    if res["lsb"] > LSB_TOL:
+        fail(f"{label}: off the float64 oracle by {res['lsb']} LSB")
+    if res["misses"]:
+        fail(f"{label}: {res['misses']} writes missed their deadline")
+    expect_only(blocks, {"uniform": CLOCKED_BLOCKS,
+                         **glue_want(CLOCKED_BLOCKS, CLOCKED_BLOCKS)}, label)
+    if not warm[("mac_mix", "uniform")] or not warm[("mac_mix", "rows")]:
+        fail(f"{label}: the warm-up did not run both forms: {warm}")
+    return res
+
+
+def launch_keys(counts: dict) -> dict:
+    """Nonzero launch counts by (module, form) as "module/form" keys, for
+    the child's JSON line."""
+    return {f"{m}/{f}": n for (m, f), n in counts.items() if n}
+
+
+def xtc_config(frames: int, seed: int):
+    """The xtc example with seeded coefficients and a FLOAT_LE input of
+    ``frames`` frames (``write_float_example``)."""
+    return write_float_example(WORK, "xtc_lowlatency.conf", frames,
+                               XTC_N * XTC_B, ("direct.txt", "cross.txt"),
+                               seed)
+
+
+def clocked_alsa(mods: dict) -> dict:
+    """Phase 27: the xtc example with its devices on ALSA, over the fake
+    libasound of tests/fake_asound.c: its capture pattern in S16_LE (the
+    byte (f + c) & 0xFF in the low byte, finite words), the example's
+    dithered S24_LE output dumped by the fake."""
+    import ctypes
+    from brutefir_tpu_torch.io.sound_backends import AlsaDevice
+    label = "xtc_lowlatency.conf over ALSA (the fake libasound)"
+    lib = os.path.join(WORK, "libfakeasound.so")
+    r = subprocess.run(["gcc", "-O2", "-shared", "-fPIC", FAKE_ASOUND, "-o",
+                        lib], capture_output=True, text=True)
+    if r.returncode != 0:
+        fail(f"gcc of {FAKE_ASOUND} failed: {r.stderr[-2000:]}")
+    dump = os.path.join(WORK, "alsa_dump.raw")
+    os.environ["FAKE_ASOUND_LOG"] = os.path.join(WORK, "alsa_calls.log")
+    os.environ["FAKE_ASOUND_DUMP"] = dump
+    ctypes.CDLL(lib).fake_asound_reset()
+    AlsaDevice._lib = AlsaDevice._typed(ctypes.CDLL(lib))
+    taps, _, cfg = xtc_config(XTC_N, SEED + 29)
+    alsa = 'device: "alsa" { device: "hw:0"; };'
+    cfg = retarget(cfg, (
+        (f'device: "file" {{ path: "{os.path.join(WORK, "input.f32")}"; }};',
+         alsa, 1),
+        (f'device: "file" {{ path: "{os.path.join(WORK, "output.s24")}"; '
+         '};', alsa, 1),
+        ('sample: "FLOAT_LE";', 'sample: "S16_LE";', 1)))
+    eng = clocked_engine(cfg)
+    stats, warm, blocks = split_run(eng, mods, ALSA_BLOCKS)
+    res = clocked_summary(stats, eng, label, XTC_N / 44100 * 1e3)
+    res["warm"], res["counts"] = launch_keys(warm), launch_keys(blocks)
+    frames = ALSA_BLOCKS * XTC_N
+    y = silent_fill(read_s24_3(dump).reshape(-1, 2), frames, XTC_N, label)
+    x = ((np.arange(frames)[:, None] + np.arange(2)[None, :])
+         & 0xFF).astype(np.int16)
+    worst = np.abs(y - config_oracle(cfg, taps, x)).max(axis=0)
+    res["lsb"] = float(worst.max())
+    print(f"clocked ({label}): the first 2N frames silent; max |y - oracle "
+          f"of the fake's pattern| per channel "
+          f"{', '.join(f'{w:.3f}' for w in worst)} LSB (tol {LSB_TOL})",
+          flush=True)
+    if worst.max() > LSB_TOL:
+        fail(f"{label}: off the float64 oracle")
+    expect_only(blocks, {"mac_rows": ALSA_BLOCKS,
+                         **glue_want(ALSA_BLOCKS, ALSA_BLOCKS)}, label)
+    return res
+
+
+def clocked_xtc(mods: dict) -> dict:
+    """Phase 28: the xtc example on the paced device, 2000 blocks."""
+    label = "xtc_lowlatency.conf on the paced device"
+    frames = XTC_CLOCKED_BLOCKS * XTC_N
+    taps, x, cfg = xtc_config(frames, SEED + 30)
+    cfg = to_paced(cfg, "input.f32", "output.s24",
+                   write_module("paced", PACED_MODULE, "bfio"))
+    eng = clocked_engine(cfg)
+    stats, warm, blocks = split_run(eng, mods)
+    period = XTC_N / 44100 * 1e3
+    res = clocked_summary(stats, eng, label, period)
+    res.update(deadlines(loaded_module("paced", "bfio").PacedDevice.instances[-1],
+                         label, period))
+    res["warm"], res["counts"] = launch_keys(warm), launch_keys(blocks)
+    y = silent_fill(read_s24_3(os.path.join(WORK, "output.s24")).reshape(
+        -1, 2), frames, XTC_N, label)
+    worst = np.abs(y - config_oracle(cfg, taps, x)).max(axis=0)
+    res["lsb"] = float(worst.max())
+    print(f"clocked ({label}): the first 2N frames silent; max |y - oracle| "
+          f"per channel {', '.join(f'{w:.3f}' for w in worst)} LSB (tol "
+          f"{LSB_TOL}); misses are not gated", flush=True)
+    if worst.max() > LSB_TOL:
+        fail(f"{label}: off the float64 oracle")
+    expect_only(blocks, {"mac_rows": XTC_CLOCKED_BLOCKS,
+                         **glue_want(XTC_CLOCKED_BLOCKS,
+                                     XTC_CLOCKED_BLOCKS)}, label)
+    return res
+
+
+def clocked_child():
+    """Phases 26-28 in a process of their own (``chip_smoke.py
+    --clocked-child``): a clocked engine asks for SCHED_FIFO and
+    mlockall, which must not reach the other phases. The last line of its
+    output is one JSON object of the results and launch counts."""
+    from brutefir_tpu_torch.ops import fft_glue as tg, mac as tm, mac_mix as mm
+    os.makedirs(WORK, exist_ok=True)
+    mods = {"mac_mix": mm, "fft_glue": tg, "mac": tm}
+    res = {}
+    phase("26, clocked: massive on the paced device")
+    res["massive"] = clocked_massive(mods)
+    phase("27, clocked: xtc_lowlatency.conf over ALSA")
+    res["alsa"] = clocked_alsa(mods)
+    phase("28, clocked: xtc_lowlatency.conf on the paced device")
+    res["xtc"] = clocked_xtc(mods)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] == "brutefir_tpu" or m.startswith("jax"))
+    if bad:
+        fail(f"modules of jax or of the JAX package were loaded: {bad[:5]}")
+    print(json.dumps({"clocked": res}), flush=True)
+
+
+def main_clocked(launched: dict) -> dict:
+    """Phases 26-28 through a child process; its launch counts (warm-up
+    and blocks) go into ``launched``."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        CHILD_ARG], capture_output=True, text=True,
+                       timeout=900, cwd=REPO)
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  | {line}", flush=True)
+    sys.stderr.write(r.stderr[-20000:])
+    if r.returncode != 0 or not lines:
+        fail(f"the clocked child exited {r.returncode}")
+    res = json.loads(lines[-1])["clocked"]
+    print(f"clocked child: rc 0 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for part in res.values():
+        for counts in (part["warm"], part["counts"]):
+            for key, n in counts.items():
+                mod, form = key.split("/")
+                launched[(mod, form)] = launched.get((mod, form), 0) + n
+    return res
+
+
+
 HOST_DITHER_TOL = 5      # phase 22, LSB: the HP-TPDF error reaches 4.5
 FLOAT_TOL = 2e-5         # phase 23, of the output's peak
 
@@ -3000,6 +3366,9 @@ def run():
     main_hooks(main, mods, launched)
     phase("main path, bench5 crossfade under a post_convolve module")
     main_xfade_hooks(main, mods, launched)
+    torch.cuda.empty_cache()
+    phase("main path, clocked devices (phases 26-28, a child process)")
+    main_clocked(launched)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules
@@ -3020,4 +3389,7 @@ def run():
 
 
 if __name__ == "__main__":
-    run()
+    if sys.argv[1:] == [CHILD_ARG]:
+        clocked_child()
+    else:
+        run()

@@ -945,3 +945,65 @@ output 0,1,2 {{ device: "file" {{ path: "{tmp_path / (tag + '.raw')}"; }}; sampl
     yc = run("cpu", torch.device("cpu"))
     assert yg.size == frames * C and np.abs(yc).max() > 2 ** 18
     assert np.abs(yg - yc).max() <= 2
+
+
+@pytest.mark.cuda
+def test_clocked_engine_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The paced device of chip_smoke.py (``bfio_paced.py``, clocked) at
+    64 x 4 partitions, two coefficient sets, dithered S24_4LE: on the card
+    the warm-up runs both step variants before the start (one
+    ``mac_rows`` and one ``mac_uniform`` launch, one glue launch each
+    way each) and every block one ``mac_rows`` and one glue launch each
+    way; the output is 2N silent frames, then within 2 LSB of the CPU
+    engine's (ROADMAP queue 3). Realtime is refused here."""
+    import importlib.util
+    import os
+    from brutefir_tpu_torch.runtime.engine import Engine
+
+    def refuse(*a, **k):
+        raise PermissionError
+    monkeypatch.setattr(os, "sched_setscheduler", refuse, raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    (tmp_path / "bfio_paced.py").write_text(cs.PACED_MODULE)
+    N, B, C = 64, 4, 2
+    rng = np.random.default_rng(29)
+    for k in range(2):
+        h = rng.standard_normal(N * B) * np.exp(-np.arange(N * B) / 60.0)
+        (0.5 * h / np.linalg.norm(h)).astype("<f4").tofile(
+            tmp_path / f"h{k}.raw")
+    frames = N * 40 + 21
+    np.round(rng.standard_normal((frames, C)) * 2 ** 20).astype(
+        "<i4").tofile(tmp_path / "in.raw")
+
+    def run(tag, device):
+        eng = Engine(parse_config(f"""
+sampling_rate: 44100;
+filter_length: {N},{B};
+modules_path: "{tmp_path}";
+coeff 0 {{ filename: "{tmp_path / 'h0.raw'}"; format: "FLOAT_LE"; }};
+coeff 1 {{ filename: "{tmp_path / 'h1.raw'}"; format: "FLOAT_LE"; }};
+input 0,1 {{ device: "paced" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: {C}; }};
+output 0,1 {{ device: "paced" {{ path: "{tmp_path / (tag + '.raw')}"; }}; sample: "S24_4LE"; channels: {C}; dither: true; }};
+filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; }};
+filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 1; }};
+"""), device=device)
+        eng.conf.quiet = True
+        stats = eng.run()
+        assert stats["frames"] == frames
+        return np.fromfile(tmp_path / (tag + ".raw"), "<i4").astype(np.int64)
+
+    for m in (tm, mm, tg):
+        m.reset_launches()
+    yg = run("gpu", cuda)
+    blocks = -(-frames // N)
+    assert tm.launches == {"mac_uniform": 1, "mac_rows": blocks + 1}
+    assert not any(mm.launches.values())
+    assert tg.launches["glue_fwd"] == tg.launches["glue_inv"] == blocks + 2
+    yc = run("cpu", torch.device("cpu"))
+    assert yg.size == (frames + 2 * N) * C and not yg[:2 * N * C].any()
+    assert np.abs(yc).max() > 2 ** 18
+    assert np.abs(yg - yc).max() <= 2

@@ -615,7 +615,8 @@ def test_external_io_module_runs_through_main(tmp_path, capfd,
     """A clockless ``bfio_<name>.py`` device on ``modules_path`` (plain
     file reads and writes, not batch safe) runs file to file through
     ``main()`` and ``run()``, word for word as the built-in file module;
-    a clocked one is refused, naming ROADMAP queue 1 item 4d."""
+    a clocked one runs through ``run()`` too (warmed, realtime refused
+    here), word for word after a clocked output's 2 silent fragments."""
     import sys
     from brutefir_tpu_torch.__main__ import main
     from brutefir_tpu_torch.runtime.engine import Engine
@@ -648,10 +649,16 @@ def test_external_io_module_runs_through_main(tmp_path, capfd,
     assert np.array_equal(ext, np.fromfile(tmp_path / "out_file.raw",
                                            "<i4"))
     capfd.readouterr()
+    monkeypatch.setattr(os, "sched_setscheduler", _refuse, raising=False)
     assert main(["-quiet", "-nodefault", str(cfgs["clk"])],
-                device=CPU) == 1
-    assert "ROADMAP queue 1 item 4d" in capfd.readouterr().err
-    assert not (tmp_path / "out_clk.raw").exists()
+                device=CPU) == 0
+    assert len(runs) == 2
+    assert np.array_equal(np.fromfile(tmp_path / "out_clk.raw", "<i4"),
+                          ext)
+
+
+def _refuse(*a, **k):
+    raise PermissionError
 
 
 def test_unknown_io_module_raises_like_jax(tmp_path):

@@ -4,6 +4,7 @@ config parser accepts exactly what the JAX one does, its CLI logic
 module is the JAX one's (same file, same answers), and it pins full FP32
 matmuls."""
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -46,6 +47,9 @@ def test_port_imports_no_jax():
         "import brutefir_tpu_torch.core.codecs\n"
         "import brutefir_tpu_torch.core.native\n"
         "import brutefir_tpu_torch.core.delayline\n"
+        "import brutefir_tpu_torch.io.sound_backends\n"
+        "import brutefir_tpu_torch.io.callback\n"
+        "import brutefir_tpu_torch.core.native.rtfifo\n"
         + _NOTHING_OF_JAX +
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -225,19 +229,161 @@ def test_parse_config_rejects_what_jax_rejects():
 
 
 def test_io_modules_other_than_file_are_not_ported_yet():
-    """The port carries the file module and loads external
-    bfio_<name>.py modules; the sound-server backends raise, naming their
-    ROADMAP item, and a name no module registers raises the JAX
-    package's IoModuleError."""
+    """The port carries the file module, the four sound-server modules
+    (io/sound_backends.py, each needing its library only when a device
+    opens) and loads external bfio_<name>.py modules; a name no module
+    registers raises the JAX package's IoModuleError."""
     import pytest
     from brutefir_tpu_torch.io import IoModuleError, get_io_module
     assert get_io_module("file").__name__ == "FileDevice"
-    for name in ("alsa", "oss", "jack", "pulse"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 4d"):
-            get_io_module(name, ".")
+    for name, cls in (("alsa", "AlsaDevice"), ("oss", "OssDevice"),
+                      ("jack", "JackDevice"), ("pulse", "PulseDevice")):
+        got = get_io_module(name, ".")
+        assert got.__name__ == cls
+        assert got.__module__ == "brutefir_tpu_torch.io.sound_backends"
+        assert got.uses_sample_clock
+    assert get_io_module("jack").is_callback
     with pytest.raises(IoModuleError, match="unknown I/O module: mymodule"):
         get_io_module("mymodule", ".")
+
+
+# the two ALSA fixes of io/sound_backends.py (ROADMAP queue 3), as text
+# replacements of the JAX file: restypes for the frame calls, checked
+# hw-params getters, the noninterleaved read's plane stride
+ALSA_FIXES = (
+    ("""            cls._lib = ctypes.CDLL(name)
+        return cls._lib
+""", """            cls._lib = cls._typed(ctypes.CDLL(name))
+        return cls._lib
+
+    @staticmethod
+    def _typed(lib):
+        \"\"\"Give the read and write calls their snd_pcm_sframes_t (long)
+        return type: ctypes' default int would cut it to 32 bits.\"\"\"
+        for fn in ("snd_pcm_readi", "snd_pcm_readn", "snd_pcm_writei",
+                   "snd_pcm_writen"):
+            getattr(lib, fn).restype = ctypes.c_long
+        return lib
+"""),
+    ("""            lib.snd_pcm_hw_params_get_periods_max(
+                hwp, ctypes.byref(un), None)
+""", """            chk(lib.snd_pcm_hw_params_get_periods_max(
+                hwp, ctypes.byref(un), None),
+                "failed to get the maximum number of periods")
+"""),
+    ("""            lib.snd_pcm_hw_params_get_periods(hwp, ctypes.byref(un), None)
+""", """            chk(lib.snd_pcm_hw_params_get_periods(
+                hwp, ctypes.byref(un), None),
+                "failed to get the number of periods")
+"""),
+    ("""                lib.snd_pcm_hw_params_get_periods(
+                    hwp, ctypes.byref(un), None)
+""", """                chk(lib.snd_pcm_hw_params_get_periods(
+                    hwp, ctypes.byref(un), None),
+                    "failed to get the number of periods")
+"""),
+    ("""            lib.snd_pcm_hw_params_get_buffer_size(hwp, ctypes.byref(bufsz))
+""", """            chk(lib.snd_pcm_hw_params_get_buffer_size(
+                hwp, ctypes.byref(bufsz)), "failed to get the buffer size")
+"""),
+    ("""        raw = buf.raw[: got * self._frame_bytes]
+        if self._interleaved or got == 0:
+            return raw
+        # planes -> interleaved wire layout (the engine's contract)
+        import numpy as np
+        sb = self.sample_format.bytes
+        planes = np.frombuffer(raw, np.uint8).reshape(
+            self.open_channels, got, sb)
+""", """        if self._interleaved or got == 0:
+            return buf.raw[: got * self._frame_bytes]
+        # planes -> interleaved wire layout (the engine's contract); the
+        # planes lie ``frames`` samples apart (_plane_ptrs), so a short
+        # read keeps the first ``got`` samples of each
+        import numpy as np
+        sb = self.sample_format.bytes
+        planes = np.frombuffer(buf.raw[: frames * self._frame_bytes],
+                               np.uint8).reshape(
+            self.open_channels, frames, sb)[:, :got]
+"""),
+)
+
+
+def _read(*parts):
+    with open(os.path.join(REPO, *parts)) as fh:
+        return fh.read()
+
+
+def test_io_copies_are_the_jax_files():
+    """io/callback.py is the JAX file apart from import lines, and
+    core/native/rtfifo.cpp its byte copy."""
+    assert (_code_lines(os.path.join(REPO, "brutefir_tpu_torch", "io",
+                                     "callback.py"))
+            == _code_lines(os.path.join(REPO, "brutefir_tpu", "io",
+                                        "callback.py")))
+    with open(os.path.join(REPO, "brutefir_tpu_torch", "core", "native",
+                           "rtfifo.cpp"), "rb") as a, \
+            open(os.path.join(REPO, "brutefir_tpu", "core", "native",
+                              "rtfifo.cpp"), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_sound_backends_is_the_jax_file_with_the_alsa_fixes():
+    """io/sound_backends.py is the JAX file with exactly the two ALSA
+    fixes applied, apart from import lines."""
+    theirs = _read("brutefir_tpu", "io", "sound_backends.py")
+    for old, new in ALSA_FIXES:
+        assert theirs.count(old) == 1, old
+        theirs = theirs.replace(old, new)
+    ours = _read("brutefir_tpu_torch", "io", "sound_backends.py")
+
+    def code(text):
+        return [ln for ln in text.splitlines()
+                if not ln.strip().startswith(("import ", "from "))]
+    assert code(ours) == code(theirs)
+
+
+def test_port_clocked_run_imports_no_jax(tmp_path):
+    """A config with a clocked input (chip_smoke's paced module, written
+    for the port) runs through the port's __main__ on the CPU, warmed and
+    with its iodelay fill, realtime refused, and pulls in no jax."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    (tmp_path / "bfio_paced.py").write_text(cs.PACED_MODULE)
+    x = np.round(np.random.default_rng(9).standard_normal((300, 1))
+                 * 2 ** 18).astype("<i4")
+    x.tofile(tmp_path / "in.raw")
+    cfg = tmp_path / "c.conf"
+    cfg.write_text(f"""
+sampling_rate: 44100;
+filter_length: 64,2;
+modules_path: "{tmp_path}";
+coeff 0 {{ filename: "dirac pulse"; }};
+input 0 {{ device: "paced" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S32_LE"; channels: 1; }};
+output 0 {{ device: "paced" {{ path: "{tmp_path / 'out.raw'}"; }}; sample: "S32_LE"; channels: 1; dither: false; }};
+filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; }};
+""")
+    code = (
+        "import os, sys, torch\n"
+        "def refuse(*a):\n"
+        "    raise PermissionError\n"
+        "os.sched_setscheduler = refuse\n"
+        "from brutefir_tpu_torch.__main__ import main\n"
+        f"rc = main(['-quiet', '-nodefault', {str(cfg)!r}],\n"
+        "          device=torch.device('cpu'))\n"
+        "assert rc == 0, rc\n"
+        "assert 'brutefir_tpu_torch.io.sound_backends' not in sys.modules\n"
+        + _NOTHING_OF_JAX +
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=REPO, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+    y = np.fromfile(tmp_path / "out.raw", "<i4")
+    assert y.size == 300 + 2 * 64 and not y[:128].any()
+    assert np.array_equal(y[128:], x[:, 0])
 
 
 def _code_lines(path):

@@ -11,7 +11,9 @@ port always keeps them flat.
 Every function takes numpy arrays (``np.asarray`` of the JAX values) and
 a target device, so both packages can start from one mid-stream state.
 The results are copies: the port writes its ring in place, and a view of
-a JAX buffer must never be written.
+a JAX buffer must never be written. Real arrays keep their dtype:
+float32 from a float32 engine, float64 from a ``float_bits: 64`` one
+(unrounded).
 """
 
 from __future__ import annotations
@@ -22,6 +24,14 @@ import torch
 from .graph.compile import StepCtrl, StepState
 
 
+def _real(a) -> np.ndarray:
+    """A contiguous copy of a real array, float64 kept, anything else
+    float32."""
+    a = np.asarray(a)
+    dt = np.float64 if a.dtype == np.float64 else np.float32
+    return np.array(a, dt, order="C", copy=True)
+
+
 def _flat(a: np.ndarray) -> np.ndarray:
     """[X, B, 2, N] or tiled [X, B, 2, R, 128] -> contiguous [X, B, 2, N]."""
     a = np.asarray(a)
@@ -30,7 +40,7 @@ def _flat(a: np.ndarray) -> np.ndarray:
     if a.ndim != 4 or a.shape[2] != 2:
         raise ValueError(f"expected [X, B, 2, N] or [X, B, 2, R, 128] "
                          f"spectra, got shape {a.shape}")
-    return np.array(a, np.float32, order="C", copy=True)
+    return _real(a)
 
 
 def bank_from_jax(np_bank, device) -> torch.Tensor:
@@ -42,8 +52,8 @@ def state_from_jax(prev_in, ring, eval_prev, t, device) -> StepState:
     """StepState fields (numpy) -> the port's StepState on ``device``.
     ``eval_prev`` holds the cascade tails, one [N] row per filter with
     filter inputs (none for a graph without cascades)."""
-    prev_in = np.array(prev_in, np.float32, copy=True)
-    eval_prev = np.array(eval_prev, np.float32, copy=True)
+    prev_in = _real(prev_in)
+    eval_prev = _real(eval_prev)
     if eval_prev.ndim != 2 or eval_prev.shape[1] != prev_in.shape[-1]:
         raise ValueError(f"eval_prev must be [n_casc, {prev_in.shape[-1]}], "
                          f"got shape {eval_prev.shape}")
@@ -59,24 +69,21 @@ def ctrl_from_jax(ctrl, device) -> StepCtrl:
     """A StepCtrl-shaped tuple of numpy-convertible arrays -> the port's
     StepCtrl on ``device``: every field the port's step reads, the
     crossfade fields (``prev_idx``, ``prev_mask``, ``xfade``) included,
-    same dtypes. The JAX ``any_xfade`` scalar is left behind: the port's
-    host passes ``xfade_now`` to the step instead."""
+    same dtypes (float64 fields of a float64 engine stay float64). The
+    JAX ``any_xfade`` scalar is left behind: the port's host passes
+    ``xfade_now`` to the step instead."""
     out = {}
     for name in StepCtrl._fields:
         a = np.asarray(getattr(ctrl, name))
-        if a.dtype == np.float64:
-            a = a.astype(np.float32)
         out[name] = torch.as_tensor(np.array(a, order="C", copy=True),
                                     device=device)
     return StepCtrl(**out)
 
 
-# DeviceIO.dstate keys and their dtypes: the dither pointers and last
-# bytes, its error feedback, the integer delay windows, the subdelay rests
-_DSTATE_DTYPES = {"ptr": torch.int32, "last": torch.int32,
-                  "sf": torch.float32, "dlw_in": torch.float32,
-                  "dlw_out": torch.float32, "sdr_in": torch.float32,
-                  "sdr_out": torch.float32}
+# DeviceIO.dstate keys: the dither pointers and last bytes (int32), its
+# error feedback, the integer delay windows, the subdelay rests (real)
+_DSTATE_INT = {"ptr", "last"}
+_DSTATE_REAL = {"sf", "dlw_in", "dlw_out", "sdr_in", "sdr_out"}
 
 
 def dstate_from_jax(dstate, device) -> dict:
@@ -84,11 +91,13 @@ def dstate_from_jax(dstate, device) -> dict:
     port's, on ``device``: a stream the JAX engine started continues in
     the port from the same dither, delay and subdelay state. Raises on a
     key the port does not know, so no state is dropped."""
-    unknown = sorted(set(dstate) - set(_DSTATE_DTYPES))
+    unknown = sorted(set(dstate) - _DSTATE_INT - _DSTATE_REAL)
     if unknown:
         raise ValueError(f"unknown device-IO state keys {unknown}")
-    return {k: torch.as_tensor(np.array(v, copy=True), device=device)
-            .to(_DSTATE_DTYPES[k]) for k, v in dstate.items()}
+    return {k: torch.as_tensor(np.array(v, np.int32, copy=True)
+                               if k in _DSTATE_INT else _real(v),
+                               device=device)
+            for k, v in dstate.items()}
 
 
 # DelayLine's machine state (core/delayline.py): scalars, then buffers

@@ -2,7 +2,9 @@
 // `t` is one row (a.re, a.im, b.re, b.im) of a combine table built in
 // float64 and rounded once (ops/fft_glue.ab_table). The expressions are
 // written in the order of the plain torch versions (ops/fft_glue.py
-// glue_fwd_reference / glue_inv_reference), left to right.
+// glue_fwd_reference / glue_inv_reference), left to right. The double
+// overloads (the glue's float64 form) take the float64 table's row as its
+// two halves, ta = (a.re, a.im) and tb = (b.re, b.im).
 
 #pragma once
 
@@ -26,4 +28,21 @@ __device__ __forceinline__ float2 bf_combine_inv(float4 t, float kr, float ki,
                                                  float rr, float ri) {
   return make_float2(t.x * kr - t.y * ki + t.z * rr - t.w * ri,
                      t.x * ki + t.y * kr + t.z * ri + t.w * rr);
+}
+
+__device__ __forceinline__ double2 bf_untangle(double2 ta, double2 tb,
+                                               double2 z, double2 zm,
+                                               bool bin0) {
+  const double mr = zm.x, mi = -zm.y;
+  const double xr = ta.x * z.x - ta.y * z.y + tb.x * mr - tb.y * mi;
+  const double xi = bin0 ? z.x - z.y
+                         : ta.x * z.y + ta.y * z.x + tb.x * mi + tb.y * mr;
+  return make_double2(xr, xi);
+}
+
+__device__ __forceinline__ double2 bf_combine_inv(double2 ta, double2 tb,
+                                                  double kr, double ki,
+                                                  double rr, double ri) {
+  return make_double2(ta.x * kr - ta.y * ki + tb.x * rr - tb.y * ri,
+                      ta.x * ki + ta.y * kr + tb.x * ri + tb.y * rr);
 }

@@ -30,6 +30,14 @@ filters' outputs (``from_filters``) get them as ``convolve_eval`` of the
 mixed upstream spectra, overlap-save framed against the cascade tails
 ``eval_prev``.
 
+A float64 graph (``float_bits: 64``) takes the JAX package's float64
+routes: there its Pallas kernels want float32, so it runs the dense MAC
+(``mac = "jnp"``), which never takes the fused MAC + mix, the grouped
+dispatch or the dual MAC. Here every block without a crossfade runs the
+stage loop through ``mac``'s float64 form, and a crossfade block runs
+``mac`` twice, for the new set and the old (the JAX ``run_mac`` twice), in
+the fused time-domain crossfade or the stage loop alike.
+
 The batched offline dispatch may instead run G blocks at a time through
 ``group_step_impl`` (compile.py:615-752), whose grouped MAC kernels read
 the ring and the bank once per group; ``group_size`` decides. It only
@@ -88,15 +96,22 @@ class StepCtrl(NamedTuple):
 
 
 def check_supported(spec: GraphSpec) -> None:
-    """Raise NotImplementedError for a graph the step does not cover,
-    naming the ROADMAP item that will port it."""
-    if spec.real_dtype != np.float32:
+    """Raise NotImplementedError for a graph the step does not cover: a
+    real type other than float32 and float64 (``float_bits`` 32 and 64,
+    the only two the config language has)."""
+    if spec.real_dtype not in (np.float32, np.float64):
         raise NotImplementedError(
-            "float_bits: 64 is not ported yet (ROADMAP queue 1 item 9)")
+            f"real type {spec.real_dtype}: the step runs float32 and "
+            f"float64 graphs")
+
+
+def real_dtype(spec: GraphSpec) -> torch.dtype:
+    """The torch dtype of the graph's real type."""
+    return torch.float64 if spec.real_dtype == np.float64 else torch.float32
 
 
 def init_state(spec: GraphSpec, device) -> StepState:
-    rd = torch.float32
+    rd = real_dtype(spec)
     N = spec.block_length
     return StepState(
         prev_in=torch.zeros((spec.n_inputs, N), dtype=rd, device=device),
@@ -164,11 +179,14 @@ def fused_mix_route(spec: GraphSpec, xfade_now: bool = False,
     runs its Pallas kernels (``pallas_available``: K a multiple of 128,
     K >= 256; elsewhere it runs the dense stage loop) and its fused
     kernel fits
-    (``mix_fusable``), unless ``BRUTEFIR_TPU_FUSED_MIX=0``. The card needs
-    none of these limits; they are kept so that a config takes the same
-    route, and so the same summation order, in both packages."""
+    (``mix_fusable``), unless ``BRUTEFIR_TPU_FUSED_MIX=0``; and a float32
+    graph (``pallas_available`` wants float32: a float64 graph runs the
+    JAX package's dense MAC in the stage loop). The card needs none of
+    these limits; they are kept so that a config takes the same route,
+    and so the same summation order, in both packages."""
     K = spec.n_bins
     return (not taps and spec.single_full_stage and K % 128 == 0
+            and spec.real_dtype == np.float32
             and K >= 256
             and not (spec.stages[0].any_crossfade and xfade_now)
             and mix_fusable(spec.n_filters, spec.n_blocks, K,
@@ -276,9 +294,7 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
                     None if full else rows)
         rows32 = _index(idx, dev, torch.int32)
         if stage.any_crossfade and xfade_now:
-            y_new, y_old = mac_dual(ring, bank, rows32, ctrl.coeff_idx,
-                                    ctrl.mask, ctrl.prev_idx, ctrl.prev_mask,
-                                    t, uniform)
+            y_new, y_old = _xfade_macs(ring, bank, rows32, ctrl, t, uniform)
             y_xf = partconv.crossfade_spectra(y_old, y_new, N)
             y = torch.where(ctrl.xfade[rows][:, None, None] > 0, y_xf, y_new)
         else:
@@ -297,21 +313,37 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     return y_all
 
 
+def _xfade_macs(ring, bank, rows32, ctrl: StepCtrl, t, uniform: bool):
+    """A crossfade block's two MACs of the filters ``rows32``: ``(y_new,
+    y_old)`` against the current and the previous controls. Float32 runs
+    the dual MAC, one pass over the ring; float64 runs ``mac`` twice,
+    the new set first, as the JAX package's float64 step runs its dense
+    ``run_mac`` twice (the core makes each set of the dual equal to the
+    single MAC, so no result depends on the choice)."""
+    if ring.dtype == torch.float64:
+        return (mac(ring, bank, rows32, ctrl.coeff_idx, ctrl.mask, t,
+                    uniform),
+                mac(ring, bank, rows32, ctrl.prev_idx, ctrl.prev_mask, t,
+                    uniform))
+    return mac_dual(ring, bank, rows32, ctrl.coeff_idx, ctrl.mask,
+                    ctrl.prev_idx, ctrl.prev_mask, t, uniform)
+
+
 def _fused_xfade(spec: GraphSpec, ctrl: StepCtrl, bank: torch.Tensor,
                  ring: torch.Tensor, t: torch.Tensor,
                  uniform: bool) -> torch.Tensor:
     """The fused time-domain crossfade of compile.py:353-416 for a single
-    full stage (the ring already holds the block): the dual MAC, then the
-    three mixed spectra -- old and new products of the crossfading
-    filters, new products of the others -- in two FP32 matmuls, one
-    batched valid-half inverse transform, and the linear ramp in time,
+    full stage (the ring already holds the block): the two MACs
+    (``_xfade_macs``), then the three mixed spectra -- old and new
+    products of the crossfading filters, new products of the others -- in
+    two matmuls of the real type, one batched valid-half inverse
+    transform, and the linear ramp in time,
     ``y = a (1 - r) + b r + c``. The output mix commutes with the
     transforms, so this equals ``crossfade_spectra`` followed by the mix
     up to the removed transform round trip's rounding."""
     N, C_out = spec.block_length, spec.n_outputs
     rows32 = _index(tuple(range(spec.n_filters)), ring.device, torch.int32)
-    y_new, y_old = mac_dual(ring, bank, rows32, ctrl.coeff_idx, ctrl.mask,
-                            ctrl.prev_idx, ctrl.prev_mask, t, uniform)
+    y_new, y_old = _xfade_macs(ring, bank, rows32, ctrl, t, uniform)
     sel = (ctrl.xfade > 0).to(y_new.dtype)                  # [F]
     w_sel = ctrl.out_mix * sel[None, :]
     w_rest = ctrl.out_mix - w_sel
@@ -433,7 +465,11 @@ def group_size(spec: GraphSpec, m: int) -> int:
     Without force only big shapes group:
     ``(C_out + 4 B) * 2 * K * 4 > 12 MiB``. G falls until it divides m
     and a form fits: the fused form at any G, the unfused form at G > 2
-    or under ``BRUTEFIR_TPU_GROUP_FORM=unfused``."""
+    or under ``BRUTEFIR_TPU_GROUP_FORM=unfused``. A float64 graph never
+    groups (``force`` included): the JAX package's grouped dispatch wants
+    its Pallas MAC, which wants float32."""
+    if spec.real_dtype != np.float32:
+        return 1
     env = os.environ.get("BRUTEFIR_TPU_PAIR", "4")
     force = env.startswith("force")
     try:

@@ -37,7 +37,7 @@ class GraphSpec:
     stages: tuple              # tuple[StageSpec]
     n_casc: int                # filters with filter inputs (eval_prev rows)
     any_crossfade: bool
-    real_dtype: np.dtype = np.dtype(np.float32)
+    real_dtype: np.dtype = np.dtype(np.float32)   # float64: float_bits: 64
     powersave: bool = False    # trace the analog-powersave input gate
 
     @property

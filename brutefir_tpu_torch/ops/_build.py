@@ -34,7 +34,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # source stem -> {C function: argtypes}; every launch returns a cudaError
 SIGNATURES = {
     "mac": {"bf_mac": [_P] * 7 + [_I] * 6 + [_P],
-            "bf_mac_plan": [_I] * 3 + [_P]},
+            "bf_mac_f64": [_P] * 7 + [_I] * 6 + [_P],
+            "bf_mac_plan": [_I] * 4 + [_P]},
     "mac_dual": {"bf_mac_dual": [_P] * 10 + [_I] * 6 + [_P]},
     "mac_mix": {"bf_mac_mix": [_P] * 7 + [_I] * 9 + [_P]},
     "mac_mix_tiled": {"bf_mac_mix_tiled": [_P] * 7 + [_I] * 5 + [_P]},
@@ -42,7 +43,9 @@ SIGNATURES = {
                   "bf_mac_mix_group": [_P] * 9 + [_I] * 6 + [_P],
                   "bf_mac_mix_group_plan": [_I] * 2 + [_P]},
     "fft_glue": {"bf_glue_fwd": [_P] * 3 + [_I] * 2 + [_P],
-                 "bf_glue_inv": [_P] * 3 + [_I] * 2 + [_P]},
+                 "bf_glue_inv": [_P] * 3 + [_I] * 2 + [_P],
+                 "bf_glue_fwd_f64": [_P] * 3 + [_I] * 2 + [_P],
+                 "bf_glue_inv_f64": [_P] * 3 + [_I] * 2 + [_P]},
     "fft_fused": {"bf_fft_fused_fwd": [_P] * 6 + [_I] * 3 + [_P],
                   "bf_fft_fused_inv": [_P] * 6 + [_I] * 4 + [_P]},
 }

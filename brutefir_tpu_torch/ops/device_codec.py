@@ -11,6 +11,12 @@ promotes its float path through the DOUBLE quantizer
 decrement negatives in the integer domain, clip to float-rounded
 [imin, imax] bounds. ``quantize_nd_exact`` reproduces those f64 semantics
 exactly with f32/int32 ops, op for op like the JAX version.
+
+Every op follows the engine's real type (``y.dtype``) as the JAX module
+does: under ``float_bits: 64`` decode, quantize and encode run in
+float64, with the same float32-derived clip thresholds cast up. That
+mirrors the JAX package where its device codec's bounds differ from its
+host codec's exact float64 bounds (core/codecs.py): S32 at full scale.
 """
 
 from __future__ import annotations
@@ -64,7 +70,8 @@ def quantize_nd_exact(y: torch.Tensor, imin: int, imax: int):
     A plain f32 ``y + 0.5`` loses the half above 2^23 and f32(imax)
     rounds UP for 32-bit formats. Instead: split y into exact integer +
     fraction, decide the half-step and the v<0 branch with exact
-    comparisons, and clip against thresholds precomputed in f64.
+    comparisons, and clip against thresholds precomputed in f64. In y's
+    dtype (float32, or float64 with the same thresholds).
 
     Returns (q int32, under bool, over bool).
     """
@@ -118,14 +125,17 @@ def encode_words(y: torch.Tensor, fmt, selection,
     """[P_used, N] float -> ([N, open_ch] raw words, [P_used, 3] meters).
 
     Integer formats quantize mid-tread with reference clip semantics;
-    float formats pass through. Meters: [n_overflows, peak, int_peak]."""
-    P = y.shape[0]
+    float formats pass through. Meters: [n_overflows, peak, int_peak], in
+    y's dtype; the counts and the int peak are taken in float32 and cast
+    up, as the JAX stack promotes them."""
+    P, rd = y.shape[0], y.dtype
+    f32 = torch.float32
     if fmt.is_float:
         mag = torch.abs(y)
         meters = torch.stack([
-            torch.sum((mag > 1.0).to(torch.float32), dim=1),
+            torch.sum((mag > 1.0).to(f32), dim=1).to(rd),
             torch.amax(mag, dim=1),
-            torch.zeros(P, dtype=torch.float32, device=y.device),
+            torch.zeros(P, dtype=rd, device=y.device),
         ], dim=1)
         out_cols = y.to(word_dtype)
     else:
@@ -135,10 +145,10 @@ def encode_words(y: torch.Tensor, fmt, selection,
         # not part of the sample bit contract
         mag = torch.abs(y + 0.5)
         meters = torch.stack([
-            torch.sum(clip.to(torch.float32), dim=1),
+            torch.sum(clip.to(f32), dim=1).to(rd),
             torch.amax(torch.where(clip, mag, torch.zeros_like(mag)), dim=1),
             torch.amax(torch.where(clip, torch.zeros_like(q), torch.abs(q)),
-                       dim=1).to(torch.float32),
+                       dim=1).to(f32).to(rd),
         ], dim=1)
         out_cols = q.to(word_dtype)
     return scatter_words(out_cols, selection, open_channels, word_dtype), \

@@ -44,6 +44,10 @@ rounding); on a clipped sample this path keeps the unclipped feedback.
 The dither sequence itself is bit-exact: the same Tausworthe table and
 randmap (core/dither.py) live on the device, with the reference's pointer
 wrap semantics (dither.h:28-38) carried as explicit state.
+
+The float ops follow ``x.dtype`` as the JAX module's do: under
+``float_bits: 64`` the same fixed-point mod-1 path runs in float64, with
+the float32-derived clip thresholds cast up.
 """
 
 from __future__ import annotations
@@ -111,10 +115,14 @@ def dither_quantize(x: torch.Tensor, d: torch.Tensor, sf: torch.Tensor,
 
     x: [C, N] f32 (scaled to integer units)   d: [C, N] f32 dither
     sf: [C, 2] f32 error-feedback state (sf[:,0]=e[-1], sf[:,1]=e[-2])
-    Returns (s [C, N] int32, new_sf [C, 2], meters [C, 3] f32:
+    (float64 all three under ``float_bits: 64``: every float op below is
+    in x's dtype, as the JAX version's ``f32 = x.dtype.type``).
+    Returns (s [C, N] int32, new_sf [C, 2], meters [C, 3] of x's dtype:
     [overflow count, clipped |peak|, unclipped int peak]).
     """
     C, N = x.shape
+    rd = x.dtype
+    real = np.float64 if rd == torch.float64 else np.float32
     xi = torch.floor(x)                                # exact in f32
     xf = x - xi                                        # [0, 1), exact
     # v[i] = x[i] + d[i] - d[i-1] + d[i-2] (+ feedback seed at i < 2);
@@ -140,7 +148,7 @@ def dither_quantize(x: torch.Tensor, d: torch.Tensor, sf: torch.Tensor,
     for r in range(6):
         P = torch.cumsum(torch.where(masks[r][None, :], V, zero), dim=1)
         G += coefs[r][None, :] * P
-    g = (G & _U32).to(torch.float32) * 2.0 ** -32     # frac(G) in [0, 1)
+    g = (G & _U32).to(rd) * 2.0 ** -32                # frac(G) in [0, 1)
     # t[i] = v[i] + g[i-1] - g[i-2]; the small part carries the floor
     tf = vf.clone()
     tf[:, 1:] += g[:, :-1]
@@ -154,17 +162,17 @@ def dither_quantize(x: torch.Tensor, d: torch.Tensor, sf: torch.Tensor,
     # counts); clipped samples take imax as the host's clip_hi rule does
     over_t, clamp_hi = _clip_thresholds(imin, imax)
     over = t_val >= over_t
-    ovf = (t_val <= float(np.float32(imin))) | over
+    ovf = (t_val <= float(real(imin))) | over
     sq = torch.where(over, torch.full_like(s, imax, dtype=torch.int32),
-                     torch.clamp(s, float(np.float32(imin)),
+                     torch.clamp(s, float(real(imin)),
                                  clamp_hi).to(torch.int32))
     # meters in encode_words' convention: [n_overflows, clip peak, int peak]
     mag = torch.abs(t_val)
     meters = torch.stack([
-        torch.sum(ovf.to(torch.float32), dim=1),
+        torch.sum(ovf.to(rd), dim=1),
         torch.amax(torch.where(ovf, mag, torch.zeros_like(mag)), dim=1),
         torch.amax(torch.where(ovf, torch.zeros_like(sq), torch.abs(sq)),
-                   dim=1).to(torch.float32),
+                   dim=1).to(rd),
     ], dim=1)
     # e[i] = g[i] - d[i]; the block boundary carries the last two
     sf0 = g[:, -1] - d[:, -1]

@@ -21,7 +21,11 @@ launch ``csrc/fft_glue.cu`` on a CUDA tensor and run their plain torch
 versions on a CPU tensor; there is no fallback from the kernel to the
 plain version on a CUDA tensor: a failed build or launch raises. The
 complex FFTs around them are ``torch.fft`` (cuFFT), as the JAX package
-leaves them to XLA.
+leaves them to XLA. Each takes one of two type pairs: complex64 with
+float32 planes, or complex128 with float64 planes (``float_bits: 64``:
+cuFFT's Z2Z transforms and the kernels' ``_f64`` entries, the table kept
+in float64), the port's route where the JAX package's float64 graphs
+take ``jnp.fft``.
 """
 
 from __future__ import annotations
@@ -35,7 +39,12 @@ from . import _build
 
 # kernel launches per direction, counted where the kernel is launched and
 # nowhere else (the smoke run reads them to prove the main path used it)
-launches = {"glue_fwd": 0, "glue_inv": 0}
+launches = {"glue_fwd": 0, "glue_inv": 0, "glue_fwd_f64": 0,
+            "glue_inv_f64": 0}
+
+# complex dtype -> the real dtype of its planes, and back
+_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+_COMPLEX = {r: c for c, r in _REAL.items()}
 
 
 def reset_launches() -> None:
@@ -44,10 +53,13 @@ def reset_launches() -> None:
 
 
 @functools.lru_cache(maxsize=32)
-def ab_table(M: int, forward: bool, device) -> torch.Tensor:
-    """[M, 4] float32 rows (a.re, a.im, b.re, b.im) of the combine, built
-    in float64 and rounded once (as ``pallas_glue._ab_consts``). Cached
-    per (M, direction, device): building it is a host -> device copy."""
+def ab_table(M: int, forward: bool, device,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[M, 4] rows (a.re, a.im, b.re, b.im) of the combine, built in
+    float64; for float32 rounded once (as ``pallas_glue._ab_consts``), for
+    float64 kept (a float32 table would put a 1e-7 error into every
+    float64 spectrum). Cached per (M, direction, device, dtype): building
+    it is a host -> device copy."""
     k = np.arange(M)
     if forward:
         w = np.exp(-1j * np.pi * k / M)
@@ -56,7 +68,8 @@ def ab_table(M: int, forward: bool, device) -> torch.Tensor:
         w = np.exp(1j * np.pi * k / M)
         a, b = (1.0 + 1j * w) * 0.5, (1.0 - 1j * w) * 0.5
     tab = np.stack([a.real, a.imag, b.real, b.imag], axis=1)
-    return torch.as_tensor(tab.astype(np.float32)).to(device)
+    real = np.float64 if dtype == torch.float64 else np.float32
+    return torch.as_tensor(tab.astype(real)).to(device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -69,7 +82,7 @@ def glue_fwd_reference(Z: torch.Tensor) -> torch.Tensor:
     """Plain torch version of the forward glue: complex ``Z [..., M]`` ->
     packed planes ``[..., 2, M]`` (pallas_glue.py ``_fwd_kernel`` :89)."""
     M = Z.shape[-1]
-    ar, ai, br, bi = ab_table(M, True, Z.device).unbind(1)
+    ar, ai, br, bi = ab_table(M, True, Z.device, _REAL[Z.dtype]).unbind(1)
     zr, zi = Z.real, Z.imag
     m = _mirror(M, Z.device)
     mr, mi = zr[..., m], -zi[..., m]                 # conj(Z[(M-k) % M])
@@ -84,7 +97,7 @@ def glue_inv_reference(p: torch.Tensor) -> torch.Tensor:
     ``[..., 2, M]`` -> complex ``V [..., M]``, the input of the M-point
     inverse FFT (pallas_glue.py ``_inv_kernel`` :106)."""
     M = p.shape[-1]
-    ar, ai, br, bi = ab_table(M, False, p.device).unbind(1)
+    ar, ai, br, bi = ab_table(M, False, p.device, p.dtype).unbind(1)
     pr, pi = p[..., 0, :], p[..., 1, :]
     m = _mirror(M, p.device)
     ki = pi.clone()
@@ -110,9 +123,12 @@ def check_tensor(fn: str, t: torch.Tensor, dtype) -> None:
 
 
 def _launch(direction: str, src: torch.Tensor, dst: torch.Tensor, C: int,
-            M: int) -> None:
-    """Launch ``bf_<direction>`` of csrc/fft_glue.cu over C channels."""
-    ab = ab_table(M, direction == "glue_fwd", src.device)
+            M: int, real: torch.dtype) -> None:
+    """Launch ``bf_<direction>`` of csrc/fft_glue.cu over C channels, its
+    ``_f64`` entry for float64 planes (``real``)."""
+    if real == torch.float64:
+        direction += "_f64"
+    ab = ab_table(M, direction.startswith("glue_fwd"), src.device, real)
     with torch.cuda.device(src.device):
         rc = getattr(_build.load("fft_glue"), f"bf_{direction}")(
             src.data_ptr(), ab.data_ptr(), dst.data_ptr(), C, M,
@@ -124,31 +140,33 @@ def _launch(direction: str, src: torch.Tensor, dst: torch.Tensor, C: int,
 
 
 def glue_fwd(Z: torch.Tensor) -> torch.Tensor:
-    """Forward glue: complex64 ``Z [..., M]`` (contiguous) -> packed
-    float32 planes ``[..., 2, M]``."""
-    check_tensor("glue_fwd", Z, torch.complex64)
+    """Forward glue: complex64 (complex128) ``Z [..., M]`` (contiguous)
+    -> packed float32 (float64) planes ``[..., 2, M]``."""
+    check_tensor("glue_fwd", Z, Z.dtype if Z.dtype in _REAL
+                 else torch.complex64)
     if Z.device.type == "cpu":
         return glue_fwd_reference(Z)
     M = Z.shape[-1]
-    out = torch.empty(Z.shape[:-1] + (2, M), dtype=torch.float32,
-                      device=Z.device)
-    _launch("glue_fwd", Z, out, Z.numel() // max(M, 1), M)
+    real = _REAL[Z.dtype]
+    out = torch.empty(Z.shape[:-1] + (2, M), dtype=real, device=Z.device)
+    _launch("glue_fwd", Z, out, Z.numel() // max(M, 1), M, real)
     return out
 
 
 def glue_inv(p: torch.Tensor) -> torch.Tensor:
-    """Inverse glue: packed float32 planes ``[..., 2, M]`` (contiguous)
-    -> complex64 ``V [..., M]``."""
-    check_tensor("glue_inv", p, torch.float32)
+    """Inverse glue: packed float32 (float64) planes ``[..., 2, M]``
+    (contiguous) -> complex64 (complex128) ``V [..., M]``."""
+    check_tensor("glue_inv", p, p.dtype if p.dtype in _COMPLEX
+                 else torch.float32)
     if p.dim() < 2 or p.shape[-2] != 2:
         raise ValueError(f"glue_inv: planes must be [..., 2, M], got "
                          f"{tuple(p.shape)}")
     if p.device.type == "cpu":
         return glue_inv_reference(p)
     M = p.shape[-1]
-    v = torch.empty(p.shape[:-2] + (M,), dtype=torch.complex64,
+    v = torch.empty(p.shape[:-2] + (M,), dtype=_COMPLEX[p.dtype],
                     device=p.device)
-    _launch("glue_inv", p, v, p.numel() // max(2 * M, 1), M)
+    _launch("glue_inv", p, v, p.numel() // max(2 * M, 1), M, p.dtype)
     return v
 
 

@@ -109,19 +109,29 @@ def mac_mix_reference(ring, bank, coeff_idx, mask, t, w, uniform: bool):
 
 def check_operands(fn: str, ring, bank, coeff_idx, mask, t, w=None,
                    xnews=None, delay=None, rows=None, prev_idx=None,
-                   prev_mask=None) -> None:
+                   prev_mask=None, dtype=torch.float32) -> None:
     """Raise on what the MAC kernels do not take: every operand on the
-    ring's device, contiguous, of its dtype and shape. ``w``, ``xnews``,
-    ``delay``, ``rows``, ``prev_idx`` and ``prev_mask`` are checked when
-    given."""
-    ops = [("ring", ring, torch.float32), ("bank", bank, torch.float32),
+    ring's device, contiguous, of its dtype and shape; the real operands
+    of ``dtype``. ``w``, ``xnews``, ``delay``, ``rows``, ``prev_idx`` and
+    ``prev_mask`` are checked when given.
+
+    Only ``mac`` has a float64 form: the float64 ring and bank of a
+    float64 graph given to a float32-only kernel (``mac_mix``,
+    ``mac_group``, ``mac_dual``) raise ValueError, as the JAX package
+    never reaches their counterparts under ``float_bits: 64``; one
+    operand of another dtype than the rest raises TypeError."""
+    if (ring.dtype == bank.dtype == torch.float64
+            and dtype != torch.float64):
+        raise ValueError(f"{fn}: float32 only (a float64 graph runs the "
+                         f"unfused mac, the JAX package's float64 route)")
+    ops = [("ring", ring, dtype), ("bank", bank, dtype),
            ("coeff_idx", coeff_idx, torch.int32),
-           ("mask", mask, torch.float32), ("t", t, torch.int32)]
+           ("mask", mask, dtype), ("t", t, torch.int32)]
     ops += [(name, x, dt) for name, x, dt in
-            (("w", w, torch.float32), ("xnews", xnews, torch.float32),
+            (("w", w, dtype), ("xnews", xnews, dtype),
              ("delay", delay, torch.int32), ("rows", rows, torch.int32),
              ("prev_idx", prev_idx, torch.int32),
-             ("prev_mask", prev_mask, torch.float32))
+             ("prev_mask", prev_mask, dtype))
             if x is not None]
     dev = ring.device
     for name, x, dt in ops:

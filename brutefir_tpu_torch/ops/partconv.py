@@ -17,7 +17,9 @@ The real transforms are the glue route of
 :mod:`brutefir_tpu_torch.ops.fft_glue` (an M-point complex cuFFT plus the
 hand-written glue kernel, the JAX package's ``BRUTEFIR_TPU_FFT_GLUE=pallas``
 route, taken here at every shape) and the channel mixes ``torch.matmul``
-in full FP32, as the JAX package left them to XLA. The plain MACs
+in full FP32, as the JAX package left them to XLA. Every function here
+works in its input's real type: float64 spectra (``float_bits: 64``)
+take the float64 glue and float64 matmuls. The plain MACs
 below are the correctness baseline for the CUDA kernels in
 :mod:`brutefir_tpu_torch.ops.mac_mix`, ``mac_group``, ``mac`` and
 ``mac_dual``.
@@ -146,9 +148,11 @@ def convolve_eval(z: torch.Tensor, eval_prev: torch.Tensor):
 def complex_mix(mix: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Real mixing matrix applied to dual-plane spectra.
 
-    [A, F] @ [F, 2, N] -> [A, 2, N]: one FP32 matmul over both planes.
-    Full FP32 needs ``torch.backends.cuda.matmul.allow_tf32 = False``,
-    which the engine sets: a TF32 mix costs thousands of LSB of S24."""
+    [A, F] @ [F, 2, N] -> [A, 2, N]: one matmul over both planes, in the
+    spectra's real type. Full FP32 needs
+    ``torch.backends.cuda.matmul.allow_tf32 = False``, which the engine
+    sets: a TF32 mix costs thousands of LSB of S24 (a float64 matmul has
+    no TF32 mode)."""
     F = x.shape[0]
     return torch.matmul(mix, x.reshape(F, -1)).reshape(
         (mix.shape[0],) + x.shape[1:])

@@ -20,9 +20,11 @@ format's width. The IO halves carry state from block to block in
 error feedback (``ptr``, ``last``, ``sf``), the integer delay windows
 (``dlw_in``, ``dlw_out``) and the subdelay rests (``sdr_in``,
 ``sdr_out``). They are plain torch, as the JAX package computes them in
-``jnp`` outside its Pallas kernels. Runtime delay and subdelay changes
-reach them through ``update_delays`` and ``update_subdelays``, which the
-engine calls with each control snapshot.
+``jnp`` outside its Pallas kernels, in the graph's real type (float64
+under ``float_bits: 64``: decode, the delay windows, the subdelay FFTs,
+the dither's error feedback and the quantizer). Runtime delay and
+subdelay changes reach them through ``update_delays`` and
+``update_subdelays``, which the engine calls with each control snapshot.
 
 ``multi_step`` runs m blocks as a Python loop (the ``lax.scan`` analog)
 with controls frozen across the batch; nothing in the loop synchronises
@@ -37,7 +39,8 @@ import numpy as np
 import torch
 
 from ..config.model import BFConfig, BF_UNDEFINED_SUBDELAY, IN, OUT
-from ..graph.compile import group_size, group_step_impl, step_impl
+from ..graph.compile import (group_size, group_step_impl, real_dtype,
+                             step_impl)
 from ..ops.device_codec import (device_format_word, decode_words,
                                 encode_words, scatter_words, torch_dtype)
 from ..ops.device_dither import dither_quantize, dither_window
@@ -134,6 +137,7 @@ class DeviceIO:
         self.conf = conf
         self.spec = engine.spec
         self.device = engine.device
+        self.rd = rd = real_dtype(self.spec)
         dev_ = self.device
 
         def on_dev(a):
@@ -179,7 +183,7 @@ class DeviceIO:
                 mix = ("perm", on_dev([v[0] for v in rows]))
             else:
                 m = np.zeros((dev.used_channels, conf.n_channels[OUT]),
-                             np.float32)
+                             engine.rd)
                 for i, virts in enumerate(rows):
                     m[i, virts] = 1.0
                 mix = ("matrix", torch.as_tensor(m, device=dev_))
@@ -203,7 +207,7 @@ class DeviceIO:
                 self._dly[io] = {"W": W, "cur": cur,
                                  "max": list(conf.maxdelay[io]),
                                  "arr": on_dev(cur)}
-                self.dstate[key] = torch.zeros((C, W), dtype=torch.float32,
+                self.dstate[key] = torch.zeros((C, W), dtype=rd,
                                                device=dev_)
 
         # subsample delays (runtime/subdelay.py's bank, on the device): on
@@ -228,8 +232,7 @@ class DeviceIO:
                 }
                 self._sd_refresh(io)
                 self.dstate[key] = torch.zeros((C, sdh.blocklen),
-                                               dtype=torch.float32,
-                                               device=dev_)
+                                               dtype=rd, device=dev_)
 
         # dither: one shared Tausworthe table (the engine's), channel j of
         # dithered_phys reading from j * spacing + 1; per output device the
@@ -253,8 +256,7 @@ class DeviceIO:
                 ptr=torch.as_tensor(ptr0, device=dev_),
                 last=torch.as_tensor(table.tab[ptr0 - 1].astype(np.int32),
                                      device=dev_),
-                sf=torch.zeros((len(dith), 2), dtype=torch.float32,
-                               device=dev_))
+                sf=torch.zeros((len(dith), 2), dtype=rd, device=dev_))
 
     # ----- runtime delay and subdelay changes --------------------------------
     def _sd_refresh(self, io):
@@ -316,7 +318,7 @@ class DeviceIO:
             w = in_words[di]
             if self.in_wire[di] != "word":
                 w = sext24(w)
-            xs.append(decode_words(w, sel, vmap, torch.float32))
+            xs.append(decode_words(w, sel, vmap, self.rd))
         x = torch.cat(xs, dim=0) * in_gain[:, None]
         ds, dly, sd = self.dstate, self._dly[IN], self._sd[IN]
         if dly is not None:

@@ -76,9 +76,15 @@ rate drift past 2% under ``monitor_rate``, arms the opt-in stall
 watchdog (``BRUTEFIR_TPU_WATCHDOG``) and, with ``sink_output``, runs the
 sink mode with its prefetch pool.
 
+``float_bits: 64`` runs in float64 end to end, as in the JAX package
+(engine.py:129-153, which refuses its TPU for want of a float64 FFT): the
+bank, the ring and state, the controls, the gains, the device codec and
+dither, the host path's staging, the taps' complex128 rows; the step
+takes the JAX package's float64 routes (``graph/compile.py``) through the
+float64 forms of the unfused MAC and the FFT glue.
+
 Not ported: the powersave dispatch skip (the JAX package makes it
-byte-identical to always dispatching, so the port always dispatches);
-float64 (a NotImplementedError naming ROADMAP queue 1 item 9).
+byte-identical to always dispatching, so the port always dispatches).
 """
 
 from __future__ import annotations
@@ -102,7 +108,8 @@ from ..core.codecs import Overflow, float_to_raw, raw_to_float
 from ..core.delayline import DelayLine
 from ..core.dither import DitherTable
 from ..errors import BFError, BF_EXIT_INVALID_INPUT, BF_EXIT_OTHER
-from ..graph.compile import check_supported, init_state, step_impl
+from ..graph.compile import (check_supported, init_state, real_dtype,
+                             step_impl)
 from ..graph.spec import build_graph_spec
 from ..io import get_io_module
 from ..ops.partconv import np_c2p, np_p2c, pack_spectrum, unpack_spectrum
@@ -411,9 +418,9 @@ class Engine:
     def _make_freqd_tap(hooks, row2conf=None, warming=None):
         """A tap of the step (engine.py:574-602): planes [C, 2, N] ->
         natural rfft rows [C, N+1] (complex64 from float32 planes,
-        writable, C-contiguous) -> ``h(row, id)`` for each row and each
-        hook in order -> planes back, of the planes' dtype on their
-        device. ``id`` is the input channel, the filter or the output
+        complex128 from float64 ones, writable, C-contiguous) -> ``h(row,
+        id)`` for each row and each hook in order -> planes back, of the
+        planes' dtype on their device. ``id`` is the input channel, the filter or the output
         channel of the row, in config numbering. A hook mutates its row
         in place; the imaginary parts of the DC and Nyquist bins are
         dropped on the way back (the packed layout has no room for them).
@@ -638,12 +645,13 @@ class Engine:
     def _mute_gains(self):
         ver = self.control.mute_version
         if ver != self._gain_version:
+            rd = real_dtype(self.spec)
             self._in_gain = torch.tensor(
                 [0.0 if m else 1.0 for m in self.control.mute[IN]],
-                dtype=torch.float32, device=self.device)
+                dtype=rd, device=self.device)
             self._out_gain = torch.tensor(
                 [0.0 if m else 1.0 for m in self.control.mute[OUT]],
-                dtype=torch.float32, device=self.device)
+                dtype=rd, device=self.device)
             self._gain_version = ver
         return self._in_gain, self._out_gain
 
@@ -738,7 +746,7 @@ class Engine:
     def _input_silent(self, x) -> bool:
         """Powersave silence of a decoded input block (test_silent,
         bfrun.c:722-772): exact zero for digital powersave, below the
-        analog threshold (in the step's float32 rounding) when one is
+        analog threshold (rounded to the step's real type) when one is
         configured; it only gates the rti meter here."""
         if not self.conf.powersave or x is None:
             return False
@@ -774,7 +782,7 @@ class Engine:
             return torch.as_tensor(x)
         if not self._staging:
             self._staging = [
-                (torch.empty(x.shape, dtype=torch.float32,
+                (torch.empty(x.shape, dtype=real_dtype(self.spec),
                              pin_memory=True), torch.cuda.Event())
                 for _ in range(2)]
         buf, done = self._staging[self._staged]
@@ -1019,8 +1027,8 @@ class Engine:
                         self.write_block(sink_stage, fk, out_snap)
                     else:
                         y, out_snap = rest
-                        # C-contiguous float32 rows, as float_to_raw
-                        # takes them: one copy off the card
+                        # C-contiguous rows of the real type, as
+                        # float_to_raw takes them: one copy off the card
                         self.write_block(y.contiguous().cpu().numpy(), fk,
                                          out_snap)
                     wstats["frames"] += fk

@@ -17,9 +17,9 @@ which run the kernels' plain versions there. Enabled by
 ``BRUTEFIR_TPU_STAGE_BREAKDOWN=1`` with ``benchmark: true;`` or
 ``debug: true;``.
 
-The ops and their shapes: ``t2f`` the forward transform of the input
-frames ``[C_in, 2N]`` (``partconv.rfft_planes``, the glue route), ``mix1``
-the input mix, ``conv`` the unfused MAC (``ops/mac.py``) over the ring of
+The ops and their shapes, in the graph's real type: ``t2f`` the forward
+transform of the input frames ``[C_in, 2N]`` (``partconv.rfft_planes``,
+the glue route), ``mix1`` the input mix, ``conv`` the unfused MAC (``ops/mac.py``) over the ring of
 ``graph/compile.init_state`` with ``idx = arange(F) % E`` and an all-ones
 mask, ``mix2`` the output mix and ``f2t`` the inverse transform
 (``partconv.irfft_planes``). Each op launches its kernels ``1 + CALLS *
@@ -32,7 +32,7 @@ import time
 
 import torch
 
-from ..graph.compile import init_state
+from ..graph.compile import init_state, real_dtype
 from ..ops import partconv
 from ..ops.mac import mac
 
@@ -71,7 +71,7 @@ def device_stage_slopes(spec, bank: torch.Tensor, device) -> dict:
     device = torch.device(device)
     C_in, C_out = spec.n_inputs, spec.n_outputs
     F, N, K = spec.n_filters, spec.block_length, spec.n_bins
-    rd = torch.float32
+    rd = real_dtype(spec)
 
     def full(shape, v=0.01):
         return torch.full(shape, v, dtype=rd, device=device)

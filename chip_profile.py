@@ -8,7 +8,7 @@ Usage (from the repository root, one CUDA card):
     python3 chip_profile.py [--shape scale|massive|bench1|massive_cascade|
                                      bench5|bench1_xfade|aligned|
                                      benchmark|eq|hostcodec|hooks|
-                                     clocked|xtc_clocked]
+                                     clocked|xtc_clocked|f64]
                             [--blocks N]
                             [--pair G] [--mlock]
 
@@ -44,7 +44,9 @@ shape (``clocked``, ``chip_smoke.py``'s phase 26) or the xtc example
 fragment's due time at 44.1 kHz), through ``run()`` at the fixed 2N
 latency, warmed, with SCHED_FIFO and mlockall where the host allows
 them (the read time of a block is then mostly the wait for the card;
-the deadline misses of the output are printed), then runs the port's
+the deadline misses of the output are printed) or the massive shape
+with ``float_bits: 64;`` (``f64``, ``chip_smoke.py``'s phase 29: the
+stage loop's float64 MAC and glue), then runs the port's
 engine three times on them: once to
 warm up (kernel build, cuFFT plans), once timed on the host clock (its
 stage-table lines printed), once under ``torch.profiler`` (CPU and CUDA
@@ -82,7 +84,8 @@ def main():
                                         "massive_cascade", "bench5",
                                         "bench1_xfade", "aligned",
                                         "benchmark", "eq", "hostcodec",
-                                        "hooks", "clocked", "xtc_clocked"),
+                                        "hooks", "clocked", "xtc_clocked",
+                                        "f64"),
                     default="scale")
     ap.add_argument("--blocks", type=int, default=64)
     ap.add_argument("--pair", default=None)
@@ -146,6 +149,9 @@ def main():
                "massive_cascade": lambda: cs.massive_cascade_config(cs.WORK),
                "benchmark": lambda: cs.mode_config("profile.conf",
                                                    "benchmark: true;"),
+               "f64": lambda: cs.as_float64(
+                   cs.massive_config("profile.conf", False),
+                   "profile64.conf"),
                }[args.shape]()
     with open(cfg) as fh:
         text = fh.read()

@@ -58,6 +58,14 @@ Phases, in order; any failure exits non-zero:
    they serve (the port's only transforms: cuFFT's M-point complex FFT
    around the glue) within 1e-5 of the library call for the same
    transform (``torch.fft.rfft``, ``torch.fft.irfft``) and timed beside it;
+6b. the float64 forms (``float_bits: 64``): the unfused MAC's
+   (``bf_mac_f64``) at phase 4's shapes and, checked not timed, its
+   scalar-path shapes; the glue's (``bf_glue_fwd_f64`` /
+   ``bf_glue_inv_f64``) at C = 26 and 256, M = 8192; each within 1e-12
+   relative of its plain float64 version on the same CUDA tensors, timed
+   as above beside its float64 bound (8-byte bytes over 3.35 TB/s, FP64
+   operations over 34 TFLOP/s), the float64 routes beside
+   ``torch.fft.rfft`` / ``irfft`` on float64;
 7. the fused real FFT's probe path (``csrc/fft_fused.cu``, TPU kernel 12;
    tools/fused_fft_probe.py's comparison): frame -> digit-permuted planes
    and permuted planes -> valid half at C = 26 and 256, M = 8192, one
@@ -226,7 +234,23 @@ Phases, in order; any failure exits non-zero:
    within 16 LSB of the pattern's float64 oracle, ``mac_rows`` and the
    glue once a block; 28: the xtc example on the paced device, 2000
    blocks (2.9 s): the same gates as 27, the deadline misses printed and
-   not gated (the step's eager dispatch outlasts the 1.451 ms period).
+   not gated (the step's eager dispatch outlasts the 1.451 ms period);
+29. main path, ``float_bits: 64``: phase 8's shared-coefficient massive
+   config and input in float64 through ``main()``: the stage loop's
+   float64 MAC (``mac_uniform_f64``) and one float64 glue each way a
+   block, no float32 kernel; every S24 word the rounding of the float64
+   oracle (within 0.5 + 1e-6 LSB of it), phase 8's float32 error printed
+   beside;
+30. main path, phase 15's crossfading bench1 cascade in float64 with
+   FLOAT64_LE files (the host codec path): ``mac_rows_f64`` twice a
+   block and once more on each swap block's first stage (its old set),
+   the float64 glue as phase 15 counts the float32 one; within 1e-10 of
+   the peak of the float64 crossfade oracle, phase 15's error beside;
+31. main path, bench5 (phase 12) in float64 through ``run()``: the
+   stage loop's float64 MAC on block 0, then on every crossfade block
+   the fused time-domain crossfade with two ``mac_uniform_f64``
+   launches, the dual MAC never; every word on channels 0, 5, ..., 25 the
+   ramp oracle's rounding, phase 12's error beside.
 
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
@@ -258,6 +282,9 @@ import numpy as np
 
 SEED = 20261016
 REL_TOL = 1e-5          # kernel vs plain, of the output's max magnitude
+REL_TOL_F64 = 1e-12     # a float64 form vs its plain float64 version
+WORD_GATE = 0.5 + 1e-6  # float64 S24 words: |word - oracle|, its rounding
+FLOAT64_TOL = 1e-10     # float64 FLOAT64_LE outputs, of the oracle's peak
 LSB_TOL = 16            # main path vs the float64 oracle, S24 LSB
 F, B, K, C_OUT, E = 26, 16, 8192, 26, 2   # multichannel_massive.conf
 SCALE_C = 256           # the scale shape: 256 x 256, one set per filter
@@ -266,9 +293,10 @@ BLOCKS = 19.5           # 2 batches of 8, a 3-block tail, a half block
 REPS = 20               # timed calls per kernel and plain version
 SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock before each call
 # one H100 SXM (NVIDIA's data sheet): device memory rate and the FP32
-# rate outside the tensor cores, for the bound of each kernel
+# and FP64 rates outside the tensor cores, for the bound of each kernel
 MEM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12
 REPO = os.path.dirname(os.path.abspath(__file__))
 EXAMPLE = os.path.join(REPO, "examples", "multichannel_massive.conf")
 WORK = os.path.join(REPO, "build", "chip_smoke")
@@ -331,11 +359,12 @@ def time_ms(fn, reps: int, flush, spin: int = SPIN_CYCLES) -> float:
     return float(np.median(times))
 
 
-def bound(n_bytes: float, n_flop: float):
+def bound(n_bytes: float, n_flop: float, flop_rate: float = FP32_FLOP_PER_S):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the FP32 operations over the FP32 rate."""
+    and the operations over their rate (``flop_rate``: FP32 by default,
+    FP64_FLOP_PER_S for a float64 form)."""
     b = n_bytes / MEM_BYTES_PER_S * 1e3
-    o = n_flop / FP32_FLOP_PER_S * 1e3
+    o = n_flop / flop_rate * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
 
 
@@ -347,18 +376,22 @@ def cblocks_mask(delay, B_):
             < (B_ - delay)[:, None]).float().contiguous()
 
 
-def check(name, got, ref, t):
+def check(name, got, ref, t, tol: float = REL_TOL):
     """Max relative error of ``got`` against ``ref`` (of ref's max
-    magnitude) and max abs error; fails past REL_TOL."""
+    magnitude) and max abs error; fails past ``tol``, and where the
+    kernel's dtype is not the plain version's."""
     import torch
     torch.cuda.synchronize()
+    if got.dtype != ref.dtype:
+        fail(f"{name}: kernel gave {got.dtype}, the plain version "
+             f"{ref.dtype}")
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite kernel output at t={t}")
     err = (got - ref).abs().max().item()
     rel = err / ref.abs().max().item()
-    if not rel <= REL_TOL:
+    if not rel <= tol:
         fail(f"{name}: kernel disagrees with the plain version at t={t} "
-             f"({rel:.3e} > {REL_TOL:g})")
+             f"({rel:.3e} > {tol:g})")
     return rel, err
 
 
@@ -368,13 +401,18 @@ FLOOR_MS = None
 
 
 def report(rows, name, source, line, worst, max_abs, k_ms, p_ms, n_bytes,
-           n_flop, launches_key, note="", pallas=PALLAS, lib_ms=None):
+           n_flop, launches_key, note="", pallas=PALLAS, lib_ms=None,
+           f64=False):
     """Print one kernel's figures beside its bound and the method's floor;
     with a ``launches_key``, add its row to the kernels summary
-    (``lib_ms``: one PyTorch call computing the same function, or None)."""
-    b_ms, by = bound(n_bytes, n_flop)
+    (``lib_ms``: one PyTorch call computing the same function, or None;
+    ``f64``: a float64 form, held to REL_TOL_F64, its operations bound by
+    the FP64 rate)."""
+    b_ms, by = bound(n_bytes, n_flop,
+                     FP64_FLOP_PER_S if f64 else FP32_FLOP_PER_S)
+    tol = REL_TOL_F64 if f64 else REL_TOL
     lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
-    print(f"{name}{note}: max rel err {worst:.3e} (tol {REL_TOL:g}), max "
+    print(f"{name}{note}: max rel err {worst:.3e} (tol {tol:g}), max "
           f"abs err {max_abs:.3e}; kernel {k_ms:.4f} ms, plain "
           f"{p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({by}: "
           f"{n_bytes / 1e6:.1f} MB, {n_flop / 1e9:.4f} GFLOP), floor "
@@ -389,17 +427,19 @@ def report(rows, name, source, line, worst, max_abs, k_ms, p_ms, n_bytes,
                      "floor_ms": FLOOR_MS})
 
 
-def mac_bytes_flops(F_, B_, K_, C, rows_used, G=1, out_rows=None):
+def mac_bytes_flops(F_, B_, K_, C, rows_used, G=1, out_rows=None,
+                    real_bytes=4):
     """Bytes a MAC kernel must move (each input once, each output once)
-    and its FP32 operations: ring, the bank rows it uses, G-1 xnews
-    blocks, the small controls, and G outputs of ``out_rows`` rows; a
-    complex multiply-add (8 operations) per filter, partition, bin and
-    block, and a real mix (4 a bin: two planes, multiply and add) per
-    output, filter and block when C > 0."""
-    plane = 2 * K_ * 4
+    and its operations: ring, the bank rows it uses, G-1 xnews blocks,
+    the small controls, and G outputs of ``out_rows`` rows; a complex
+    multiply-add (8 operations) per filter, partition, bin and block, and
+    a real mix (4 a bin: two planes, multiply and add) per output, filter
+    and block when C > 0. ``real_bytes``: 4 (float32), 8 (float64)."""
+    plane = 2 * K_ * real_bytes
     n_bytes = (F_ * B_ * plane + rows_used * B_ * plane
                + (G - 1) * F_ * plane
-               + F_ * 4 + F_ * B_ * 4 + 4 + F_ * 4 * (G > 1) + C * F_ * 4
+               + F_ * 4 + F_ * B_ * real_bytes + 4 + F_ * 4 * (G > 1)
+               + C * F_ * real_bytes
                + G * (out_rows if out_rows is not None else C) * plane)
     n_flop = G * (F_ * B_ * K_ * 8 + C * F_ * K_ * 4)
     return n_bytes, n_flop
@@ -888,11 +928,13 @@ def unpacked(p):
 
 
 def fft_bytes_flops(C: int, M: int, table_bytes: int, out_floats: int,
-                    fft: bool):
+                    fft: bool, real_bytes: int = 4):
     """Bytes a transform must move (its input once, the constant tables
     once, its output once) and its operations: 14 a bin for a Hermitian
-    combine, plus 5 M log2 M a channel for an M-point complex FFT."""
-    n_bytes = C * 2 * M * 4 + table_bytes + C * out_floats * 4
+    combine, plus 5 M log2 M a channel for an M-point complex FFT.
+    ``real_bytes``: 4 (float32), 8 (float64)."""
+    n_bytes = (C * 2 * M * real_bytes + table_bytes
+               + C * out_floats * real_bytes)
     n_flop = C * (14 * M + (5 * M * np.log2(M) if fft else 0))
     return n_bytes, n_flop
 
@@ -963,6 +1005,120 @@ def kernels_glue(tg, rows, flush):
                               for what, fn in fns)
             print(f"  routes at C={C}, M={M}, {label}: {times}; glue route "
                   f"vs library max rel err {rel:.3e}", flush=True)
+        del x, p, Z, Xfull
+        torch.cuda.empty_cache()
+
+
+def kernels_f64(tm, tg, rows, flush):
+    """The float64 forms (``float_bits: 64``): the unfused MAC
+    (``bf_mac_f64`` of csrc/mac.cu) at MAC_SHAPES, then checked at
+    MAC_EDGES, and the glue kernels (``bf_glue_fwd_f64`` /
+    ``bf_glue_inv_f64`` of csrc/fft_glue.cu) at C = 26 and 256, M = 8192,
+    each within REL_TOL_F64 of its plain float64 version and timed beside
+    the float64 bound (8-byte bytes, FP64 operations at 34 TFLOP/s); then
+    the float64 glue routes beside ``torch.fft.rfft`` / ``irfft`` on
+    float64."""
+    import torch
+    dev = torch.device("cuda")
+    f64 = torch.float64
+    g = torch.Generator(device=dev).manual_seed(SEED + 33)
+    for name, line, F_, B_, K_, E_, uniform, stage, repeated in MAC_SHAPES:
+        ring, bank, idx, mask, stage = mac_inputs(g, F_, B_, K_, E_, uniform,
+                                                  stage)
+        ring, bank, mask = ring.double(), bank.double(), mask.double()
+        worst = max_abs = 0.0
+        for r in (stage, repeated):
+            rt = torch.tensor(r, dtype=torch.int32, device=dev)
+            for tv in (0, 5, B_ - 1, B_, 2 * B_ + 5):
+                t = torch.tensor(tv, dtype=torch.int32, device=dev)
+                rel, err = check(f"{name}_f64",
+                                 tm.mac(ring, bank, rt, idx, mask, t,
+                                        uniform),
+                                 tm.mac_reference(ring, bank, rt, idx, mask,
+                                                  t, uniform), tv,
+                                 REL_TOL_F64)
+                worst, max_abs = max(worst, rel), max(max_abs, err)
+        rt = torch.tensor(stage, dtype=torch.int32, device=dev)
+        ones = torch.ones(F_, B_, dtype=f64, device=dev)
+        t7 = torch.tensor(7, dtype=torch.int32, device=dev)
+        k_ms = time_ms(lambda: tm.mac(ring, bank, rt, idx, ones, t7,
+                                      uniform), REPS, flush)
+        p_ms = time_ms(lambda: tm.mac_reference(ring, bank, rt, idx, ones,
+                                                t7, uniform), REPS, flush)
+        Fs = len(stage)
+        used = 1 if uniform else len(set(idx[rt.long()].tolist()))
+        nb, nf = mac_bytes_flops(Fs, B_, K_, 0, used, out_rows=Fs,
+                                 real_bytes=8)
+        form = ("mac_uniform" if uniform else "mac_rows") + "_f64"
+        report(rows, f"{name}_f64", "brutefir_tpu_torch/csrc/mac.cu", line,
+               worst, max_abs, k_ms, p_ms, nb + Fs * 4, nf, ("mac", form),
+               note=f" (F={F_}, Fs={Fs}, B={B_}, K={K_}; plan "
+                    f"{tm.launch_plan(1, Fs, K_, f64)})", f64=True)
+        del ring, bank
+        torch.cuda.empty_cache()
+    for label, F_, B_, K_, E_, stage, offset in MAC_EDGES:
+        for uniform in (True, False):
+            name = ("mac_uniform" if uniform else "mac_rows") + "_f64"
+            ring, bank, idx, mask, _ = mac_inputs(g, F_, B_, K_, E_, uniform,
+                                                  stage)
+            ring = at_offset(ring.double(), offset)
+            bank, mask = bank.double(), mask.double()
+            rt = torch.tensor(stage, dtype=torch.int32, device=dev)
+            worst = 0.0
+            for tv in (0, 5, B_ - 1, B_, 2 * B_ + 5):
+                t = torch.tensor(tv, dtype=torch.int32, device=dev)
+                rel, _ = check(f"{name} ({label})",
+                               tm.mac(ring, bank, rt, idx, mask, t, uniform),
+                               tm.mac_reference(ring, bank, rt, idx, mask, t,
+                                                uniform), tv, REL_TOL_F64)
+                worst = max(worst, rel)
+            print(f"{name} ({label}: F={F_}, Fs={len(stage)}, B={B_}, "
+                  f"K={K_}): max rel err {worst:.3e} (tol {REL_TOL_F64:g}); "
+                  f"checked, not timed", flush=True)
+            del ring, bank
+        torch.cuda.empty_cache()
+    M = FFT_M
+    for C in (F, SCALE_C):
+        x, p = (a.double() for a in fft_inputs(C, SEED + 34 + C))
+        Z = torch.fft.fft(torch.view_as_complex(x.reshape(C, M, 2)), dim=-1)
+        cases = (
+            ("glue_fwd_f64", 89, lambda: tg.glue_fwd(Z),
+             lambda: tg.glue_fwd_reference(Z)),
+            ("glue_inv_f64", 106, lambda: torch.view_as_real(tg.glue_inv(p)),
+             lambda: torch.view_as_real(tg.glue_inv_reference(p))))
+        for name, line, kern, plain in cases:
+            rel, err = check(name, kern(), plain(), f"C={C}", REL_TOL_F64)
+            k_ms = time_ms(kern, REPS, flush)
+            p_ms = time_ms(plain, REPS, flush)
+            nb, nf = fft_bytes_flops(C, M, M * 32, 2 * M, False, 8)
+            report(rows, name, "brutefir_tpu_torch/csrc/fft_glue.cu", line,
+                   rel, err, k_ms, p_ms, nb, nf,
+                   ("fft_glue", name) if C == F else None,
+                   note=f" (C={C}, M={M})", pallas=GLUE_SRC, f64=True)
+        Xfull = unpacked(p)
+        for label, fns, lib_ref in (
+                ("forward, frame -> packed planes",
+                 (("float64 glue route (cuFFT Z2Z fft + glue_fwd_f64)",
+                   lambda: tg.rfft_planes_glue(x)),
+                  ("library torch.fft.rfft, float64",
+                   lambda: torch.fft.rfft(x))),
+                 lambda: packed(torch.fft.rfft(x))),
+                ("inverse, packed planes -> valid half",
+                 (("float64 glue route (glue_inv_f64 + cuFFT Z2Z ifft + "
+                   "slice)", lambda: tg.irfft_planes_valid_glue(p)),
+                  ("library torch.fft.irfft (full frame), float64",
+                   lambda: torch.fft.irfft(Xfull, n=2 * M))),
+                 lambda: torch.fft.irfft(Xfull, n=2 * M)[:, :M])):
+            glue, ref = fns[0][1](), lib_ref()
+            rel = ((glue - ref).abs().max() / ref.abs().max()).item()
+            if glue.dtype != f64 or not rel <= REL_TOL_F64:
+                fail(f"float64 glue route off the library call ({label}, "
+                     f"C={C}): {glue.dtype}, {rel:.3e}")
+            times = ", ".join(f"{what} {time_ms(fn, REPS, flush):.4f} ms"
+                              for what, fn in fns)
+            print(f"  float64 routes at C={C}, M={M}, {label}: {times}; "
+                  f"glue route vs library max rel err {rel:.3e}",
+                  flush=True)
         del x, p, Z, Xfull
         torch.cuda.empty_cache()
 
@@ -1204,6 +1360,32 @@ def oracle_lsbs(ys, x, taps_of):
     return worst
 
 
+def oracle_gap(y, x, taps_of) -> float:
+    """Max |y - x (*) h| over all channels, the convolution in float64
+    and not rounded: a float64 run's words are its rounding, within
+    WORD_GATE."""
+    from scipy.signal import fftconvolve
+    frames, C = y.shape
+    worst = 0.0
+    for c0 in range(0, C, 16):
+        c1 = min(C, c0 + 16)
+        ref = fftconvolve(x[:, c0:c1].T.astype(np.float64),
+                          np.stack([taps_of(c) for c in range(c0, c1)]),
+                          axes=1)[:, :frames]
+        worst = max(worst, float(np.abs(y[:, c0:c1].T - ref).max()))
+    return worst
+
+
+def add_counts(launched: dict, counts: dict, *keys):
+    """Add a run's launches of ``keys`` (module, form) to the rows'."""
+    for key in keys:
+        launched[key] = launched.get(key, 0) + counts[key]
+
+
+# each float32 phase's error, printed beside its float64 phase (29-31)
+F32_ERR = {}
+
+
 def expect_launches(counts: dict, want: dict, label: str):
     print(f"kernel launches in this run ({label}): {counts}", flush=True)
     for key, n in want.items():
@@ -1265,6 +1447,8 @@ def main_massive(main, mods: dict, launched: dict):
               f"{LSB_TOL}) on all {F} channels", flush=True)
         if lsb > LSB_TOL:
             fail(f"output off the float64 oracle by {lsb} LSB ({label})")
+        if not two:
+            F32_ERR["massive"] = oracle_gap(y, x, lambda c: taps[0])
         if counts[("mac_mix", form)] <= 0:
             fail(f"the main path never launched the {form} kernel form")
         # one forward and one inverse glue a block
@@ -1594,6 +1778,7 @@ def main_bench5(main, mods: dict, launched: dict):
         lambda k: "a" if k == 0 else ("ab" if k % 2 else "ba"),
         range(0, C, 5))
     tol = 8e-6 * peak + 4.0
+    F32_ERR["bench5"] = worst
     print(f"main path (bench5): max |y - ramp oracle| {worst:.3f} LSB (tol "
           f"8e-6 * {peak:.0f} + 4 = {tol:.3f}) on channels 0, 5, ..., 25",
           flush=True)
@@ -1762,6 +1947,8 @@ def main_bench1_xfade(main, mods: dict, launched: dict):
         peak = np.abs(ref[:, c]).max()
         err = np.abs(y[:, c] - ref[:, c]).max()
         tol = 2e-5 * peak + 4.0
+        F32_ERR["bench1_xfade"] = max(F32_ERR.get("bench1_xfade", 0.0),
+                                      err / peak)
         print(f"main path ({label}): channel {c}: max |y - oracle| "
               f"{err:.3f} (tol 2e-5 * {peak:.0f} + 4 = {tol:.3f})",
               flush=True)
@@ -2097,7 +2284,7 @@ XTC_N, XTC_B = 64, 64
 def check_small_partitions(tm, tg):
     """The unfused MAC's launch plan and kernel, and the glue kernels, at
     the XTC example's K = M = 64 (4 filters), against their plain
-    versions."""
+    versions; then their float64 forms."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 16)
@@ -2126,6 +2313,29 @@ def check_small_partitions(tm, tg):
         worst = max(worst, rel)
     print(f"mac_rows and the glue at K = M = {XTC_N}: max rel err "
           f"{worst:.3e} (tol {REL_TOL:g}); checked, not timed", flush=True)
+    # the float64 forms at the same shapes
+    worst = 0.0
+    print(f"mac plan at Fs = 4, K = {XTC_N}, float64: "
+          f"{tm.launch_plan(1, 4, XTC_N, torch.float64)}", flush=True)
+    ring, bank, mask = ring.double(), bank.double(), mask.double()
+    for tv in (0, 5, XTC_B - 1, XTC_B, 2 * XTC_B + 5):
+        t = torch.tensor(tv, dtype=torch.int32, device=dev)
+        rel, _ = check("mac_rows_f64 (K = 64)",
+                       tm.mac(ring, bank, rt, idx, mask, t, False),
+                       tm.mac_reference(ring, bank, rt, idx, mask, t, False),
+                       tv, REL_TOL_F64)
+        worst = max(worst, rel)
+    Z, p = Z.to(torch.complex128), p.double()
+    for name, kern, plain in (
+            ("glue_fwd_f64", lambda: tg.glue_fwd(Z),
+             lambda: tg.glue_fwd_reference(Z)),
+            ("glue_inv_f64", lambda: torch.view_as_real(tg.glue_inv(p)),
+             lambda: torch.view_as_real(tg.glue_inv_reference(p)))):
+        rel, _ = check(f"{name} (M = 64)", kern(), plain(), "-", REL_TOL_F64)
+        worst = max(worst, rel)
+    print(f"mac_rows_f64 and the float64 glue at K = M = {XTC_N}: max rel "
+          f"err {worst:.3e} (tol {REL_TOL_F64:g}); checked, not timed",
+          flush=True)
 
 
 def main_xtc(main, tm, tg, mods: dict, launched: dict):
@@ -3266,6 +3476,129 @@ def main_clocked(launched: dict) -> dict:
 
 
 
+# ---- phases 29-31: float_bits: 64 ------------------------------------------
+
+def as_float64(cfg: str, name: str, pairs=()) -> str:
+    """A copy of the config file ``cfg`` as ``name`` in WORK with
+    ``float_bits: 64;`` (in place of ``float_bits: 32;`` or added), each
+    (old, new, count) of ``pairs`` replaced as :func:`retarget` does."""
+    with open(cfg) as fh:
+        text = fh.read()
+    text = (text.replace("float_bits: 32;", "float_bits: 64;")
+            if "float_bits: 32;" in text else "float_bits: 64;\n" + text)
+    path = os.path.join(WORK, name)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return retarget(path, pairs)
+
+
+def f64_want(mac: dict, n_fwd: int, n_inv: int) -> dict:
+    """The launches a float64 run must make: ``mac`` (the float64 MAC's
+    forms) and the float64 glue; expect_only holds every other form,
+    each float32 kernel's among them, to 0."""
+    return {**mac, "glue_fwd_f64": n_fwd, "glue_inv_f64": n_inv}
+
+
+F64_GLUE = (("fft_glue", "glue_fwd_f64"), ("fft_glue", "glue_inv_f64"))
+
+
+def main_massive_f64(main, mods: dict, launched: dict):
+    """Phase 29: phase 8's shared-coefficient massive config and input
+    with ``float_bits: 64;`` through ``main()``: the stage loop's float64
+    MAC (uniform) and one float64 glue each way a block, no float32
+    kernel; every word the float64 oracle's rounding."""
+    label = "massive, float_bits: 64"
+    frames = int(BLOCKS * K)
+    blocks = int(np.ceil(BLOCKS))
+    taps, x = write_massive_inputs(np.random.default_rng(SEED), frames)
+    cfg = as_float64(massive_config("run1.conf", False), "run64.conf")
+    for m in mods.values():
+        m.reset_launches()
+    y = run_main(main, cfg, frames, F, label)
+    counts = all_counts(mods)
+    expect_only(counts, f64_want({"mac_uniform_f64": blocks}, blocks,
+                                 blocks), label)
+    gap = oracle_gap(y, x, lambda c: taps[0])
+    print(f"main path ({label}): max |word - float64 oracle| {gap:.6f} LSB "
+          f"on all {F} channels (gate {WORD_GATE:g}: every word the "
+          f"oracle's rounding); phase 8's float32 run "
+          f"{F32_ERR.get('massive', float('nan')):.6f} LSB", flush=True)
+    if not gap <= WORD_GATE:
+        fail(f"{label}: a word is not the float64 oracle's rounding")
+    add_counts(launched, counts, ("mac", "mac_uniform_f64"), *F64_GLUE)
+
+
+def main_bench1_xfade_f64(main, mods: dict, launched: dict):
+    """Phase 30: phase 15's crossfading bench1 cascade with ``float_bits:
+    64;`` and FLOAT64_LE files (the host codec path): the float64 MAC on
+    every stage, twice on the first stage of each swap block (its old
+    set, as the JAX package's float64 step runs ``run_mac`` again), the
+    float64 glue as the float32 cascade counts it; within FLOAT64_TOL of
+    the peak of the float64 crossfade oracle."""
+    label = "bench1 cascade, crossfading first stage, float_bits: 64"
+    frames = int(BLOCKS * BENCH1_N)
+    taps, x, cfg = write_bench1_xfade_inputs(WORK, frames)
+    xf = x.astype(np.float64) / 2.0 ** 23
+    xf.astype("<f8").tofile(os.path.join(WORK, "input.f64"))
+    cfg = as_float64(cfg, "bench1_xfade64.conf", (
+        (os.path.join(WORK, "input.raw"), os.path.join(WORK, "input.f64"),
+         1),
+        (os.path.join(WORK, "output.raw"), os.path.join(WORK, "output.f64"),
+         1),
+        ('sample: "S24_4LE";', 'sample: "FLOAT64_LE";', 2)))
+    for m in mods.values():
+        m.reset_launches()
+    y = run_main(main, cfg, frames, 2, label, out="output.f64", dtype="<f8")
+    counts = all_counts(mods)
+    blocks = int(np.ceil(BLOCKS))
+    swaps = len(range(0, blocks, 3))
+    expect_only(counts, f64_want({"mac_rows_f64": 2 * blocks + swaps},
+                                 2 * blocks + swaps, 2 * blocks + 2 * swaps),
+                label)
+    ref = cascade_xfade_oracle(taps, xf)
+    for c in range(2):
+        peak = np.abs(ref[:, c]).max()
+        rel = np.abs(y[:, c] - ref[:, c]).max() / peak
+        print(f"main path ({label}): channel {c}: max |y - oracle| "
+              f"{rel:.3e} of the peak (tol {FLOAT64_TOL:g}); phase 15's "
+              f"float32 run {F32_ERR.get('bench1_xfade', float('nan')):.3e}",
+              flush=True)
+        if not rel <= FLOAT64_TOL:
+            fail(f"{label} off the float64 oracle on channel {c}")
+    add_counts(launched, counts, ("mac", "mac_rows_f64"), *F64_GLUE)
+
+
+def main_bench5_f64(main, mods: dict, launched: dict):
+    """Phase 31: bench5 (phase 12) with ``float_bits: 64;`` through
+    ``run()``: block 0 through the stage loop's float64 MAC, each
+    crossfade block through the fused time-domain crossfade with two
+    float64 MAC launches (the dual MAC never); every word on channels 0,
+    5, ..., 25 the rounding of the float64 ramp oracle."""
+    label = "bench5, float_bits: 64"
+    N_, C = BENCH5_N, BENCH5_C
+    frames = int(BLOCKS * N_)
+    taps, x, cfg = write_bench5_inputs(WORK, frames)
+    cfg = as_float64(cfg, "bench5_64.conf")
+    for m in mods.values():
+        m.reset_launches()
+    y = run_main(main, cfg, frames, C, label)
+    counts = all_counts(mods)
+    blocks = int(np.ceil(BLOCKS))
+    expect_only(counts, f64_want({"mac_uniform_f64": 1 + 2 * (blocks - 1)},
+                                 blocks, blocks), label)
+    worst, _ = xfade_lsb(
+        y.astype(np.float64), x, taps, N_,
+        lambda k: "a" if k == 0 else ("ab" if k % 2 else "ba"),
+        range(0, C, 5))
+    print(f"main path ({label}): max |word - ramp oracle| {worst:.6f} LSB "
+          f"(gate {WORD_GATE:g}) on channels 0, 5, ..., 25; phase 12's "
+          f"float32 run {F32_ERR.get('bench5', float('nan')):.3f} LSB",
+          flush=True)
+    if not worst <= WORD_GATE:
+        fail(f"{label}: a word is not the ramp oracle's rounding")
+    add_counts(launched, counts, ("mac", "mac_uniform_f64"), *F64_GLUE)
+
+
 HOST_DITHER_TOL = 5      # phase 22, LSB: the HP-TPDF error reaches 4.5
 FLOAT_TOL = 2e-5         # phase 23, of the output's peak
 
@@ -3319,6 +3652,8 @@ def run():
     launched = {}
     phase("kernel vs plain, the FFT glue, and the FFT routes")
     kernels_glue(tg, rows, flush)
+    phase("kernel vs plain, the float64 forms (float_bits: 64)")
+    kernels_f64(tm, tg, rows, flush)
     phase("the fused real FFT's probe path")
     probe_fused(tf, pc, rows, flush, launched)
     del flush
@@ -3369,6 +3704,13 @@ def run():
     torch.cuda.empty_cache()
     phase("main path, clocked devices (phases 26-28, a child process)")
     main_clocked(launched)
+    phase("main path, massive, float_bits: 64")
+    main_massive_f64(main, mods, launched)
+    phase("main path, bench1 cascade crossfading, float_bits: 64, "
+          "FLOAT64_LE")
+    main_bench1_xfade_f64(main, mods, launched)
+    phase("main path, bench5 crossfade every block, float_bits: 64")
+    main_bench5_f64(main, mods, launched)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules

@@ -168,14 +168,18 @@ def test_stage_loop_launches_the_unfused_mac_per_stage(rng, monkeypatch):
 
 
 def test_unsupported_graphs_still_raise():
-    """Float64 graphs name their ROADMAP item; crossfade graphs (a
-    crossfading cascade among them) are supported."""
+    """Crossfade graphs (a crossfading cascade among them) and float64
+    graphs (``float_bits: 64``) are supported; a real type the config
+    language cannot name (float16) raises."""
     spec = build_graph_spec(N, B, 1, 1, [[], [0]], [False, True])
     assert spec.any_crossfade
     tcomp.check_supported(spec)
     spec = build_graph_spec(N, B, 1, 1, [[], [0]], [False, False],
                             real_dtype=np.float64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    tcomp.check_supported(spec)
+    spec = build_graph_spec(N, B, 1, 1, [[], [0]], [False, False],
+                            real_dtype=np.float16)
+    with pytest.raises(NotImplementedError, match="float32 and float64"):
         tcomp.check_supported(spec)
 
 

@@ -208,6 +208,135 @@ def test_mac_core_plan_covers(cuda, sets, Fs, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("uniform", [True, False])
+@pytest.mark.parametrize("F,B,K,E,rows,offset", MAC_CORE_SHAPES)
+def test_unfused_mac_f64_kernel_matches_plain_version(cuda, uniform, F, B,
+                                                      K, E, rows, offset):
+    """csrc/mac.cu's float64 form (``bf_mac_f64``) at the MAC core's
+    shapes: within 1e-12 of the plain float64 version (FP64 FMAs against
+    separate products and sums), its own launch count, the float32
+    counts untouched."""
+    ring, bank, idx, mask, _ = _mac_inputs(F * K + 2, F, B, K, E, 1,
+                                           uniform, cuda)
+    ring, bank, mask = ring.double(), bank.double(), mask.double()
+    mask[:, 0] = 1.0
+    ring = _at_offset(ring, offset)
+    r = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    form = "mac_uniform_f64" if uniform else "mac_rows_f64"
+    for tv in (0, 3, B - 1, B, 2 * B + 5):
+        t = torch.tensor(tv, dtype=torch.int32, device=cuda)
+        before = dict(tm.launches)
+        got = tm.mac(ring, bank, r, idx, mask, t, uniform)
+        ref = tm.mac_reference(ring, bank, r, idx, mask, t, uniform)
+        torch.cuda.synchronize()
+        assert tm.launches == {**before, form: before[form] + 1}
+        assert got.dtype == torch.float64 and got.shape == (len(rows), 2, K)
+        assert (got - ref).abs().max().item() / ref.abs().max().item() <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Fs,K", [(4, 8192), (26, 8192), (52, 8192),
+                                  (256, 8192), (4, 65536), (4, 64)])
+def test_mac_core_plan_f64(cuda, Fs, K):
+    """The float64 form's plan: the float32 grid, and its own group of
+    partitions (fewer: each holds twice the registers)."""
+    p = tm.launch_plan(1, Fs, K, torch.float64)
+    q = tm.launch_plan(1, Fs, K)
+    assert p["grid"] == q["grid"] and p["threads"] == q["threads"]
+    tiles = p["grid"][0]
+    assert p["group"] == (4 if tiles * Fs <= 132 else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,M,C", [
+    (k, M, C) for k in ("glue_fwd", "glue_inv")
+    for M in (1, 3, 64, 255, 256, 4097, 8192) for C in (1, 3, 256)])
+def test_fft_glue_f64_kernels_match_plain_versions(cuda, kernel, M, C):
+    """csrc/fft_glue.cu's float64 form on complex128 / float64 planes
+    with the float64 table: within 1e-12 of the plain float64 version."""
+    g = torch.Generator(device="cpu").manual_seed(M * C)
+    before = dict(tg.launches)
+    if kernel == "glue_fwd":
+        z = torch.randn(C, M, dtype=torch.complex128, generator=g).to(cuda)
+        got, ref = tg.glue_fwd(z), tg.glue_fwd_reference(z)
+    else:
+        p = torch.randn(C, 2, M, dtype=torch.float64, generator=g).to(cuda)
+        got = torch.view_as_real(tg.glue_inv(p))
+        ref = torch.view_as_real(tg.glue_inv_reference(p))
+    torch.cuda.synchronize()
+    key = kernel + "_f64"
+    assert tg.launches == {**before, key: before[key] + 1}
+    assert got.dtype == torch.float64 and got.shape == ref.shape
+    assert (got - ref).abs().max().item() / ref.abs().max().item() <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["S24_4LE", "FLOAT64_LE"])
+def test_float64_engine_on_card_matches_cpu(cuda, tmp_path, fmt):
+    """A ``float_bits: 64`` config on the card and on the CPU (S24_4LE:
+    the device codec path; FLOAT64_LE: the host path), filters 0 and 2
+    crossfading under a CLI script: the float64 MAC and glue kernels
+    only (two MACs a crossfade block, no float32 kernel), S24 words
+    within 1 LSB of the CPU's, FLOAT64 within 1e-12 of the peak."""
+    from brutefir_tpu_torch.runtime.engine import Engine
+    N, B, C = 256, 4, 3
+    rng = np.random.default_rng(17)
+    for k, n in ((0, N * B), (1, N * 2 + 9)):
+        (tmp_path / f"c{k}.txt").write_text("\n".join(
+            repr(float(v)) for v in rng.standard_normal(n) * 0.1) + "\n")
+    frames = N * 11 + 77
+    x = rng.standard_normal((frames, C))
+    if fmt == "S24_4LE":
+        np.clip(np.round(x * 2 ** 19), -(2 ** 23), 2 ** 23 - 1).astype(
+            "<i4").tofile(tmp_path / "in.raw")
+    else:
+        (x * 0.3).astype("<f8").tofile(tmp_path / "in.raw")
+    script = "sleep b3\\ncfc 0 1; cfc 2 1\\nsleep b4\\ncfc 0 0\\nsleep b99"
+
+    def conf(name):
+        return parse_config(f"""
+sampling_rate: 44100;
+float_bits: 64;
+filter_length: {N},{B};
+coeff 0 {{ filename: "{tmp_path / 'c0.txt'}"; format: "TEXT"; }};
+coeff 1 {{ filename: "{tmp_path / 'c1.txt'}"; format: "TEXT"; }};
+input 0,1,2 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "{fmt}"; channels: {C}; }};
+output 0,1,2 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "{fmt}"; channels: {C}; dither: false; }};
+filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; crossfade: true; }};
+filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 1; }};
+filter 2 {{ from_inputs: 2; to_outputs: 2; coeff: 0; crossfade: true; }};
+logic: "cli" {{ script: "{script}"; echo: false; }};
+""")
+
+    for m in (tm, td, mm, mg, tg):
+        m.reset_launches()
+    eg = Engine(conf("gpu.raw"), device=cuda)
+    assert (eg.dio is None) == (fmt == "FLOAT64_LE")
+    sg = eg.run()
+    blocks = sg["blocks"]
+    assert blocks == 12
+    # one MAC a block, one more on the two crossfade blocks; uniform
+    # while every filter runs set 1
+    assert tm.launches["mac_uniform"] == tm.launches["mac_rows"] == 0
+    assert (tm.launches["mac_uniform_f64"] + tm.launches["mac_rows_f64"]
+            == blocks + 2)
+    assert tm.launches["mac_uniform_f64"] > 0
+    assert tg.launches == {"glue_fwd": 0, "glue_inv": 0,
+                           "glue_fwd_f64": blocks, "glue_inv_f64": blocks}
+    assert not any(td.launches.values()) and not any(mm.launches.values())
+    assert not any(mg.launches.values())
+    Engine(conf("cpu.raw"), device=torch.device("cpu")).run()
+    dt = "<i4" if fmt == "S24_4LE" else "<f8"
+    yg, yc = (np.fromfile(tmp_path / f"{t}.raw", dt).astype(np.float64)
+              for t in ("gpu", "cpu"))
+    assert yg.size == frames * C
+    if fmt == "S24_4LE":
+        assert np.abs(yc).max() > 2 ** 20 and np.abs(yg - yc).max() <= 1
+    else:
+        assert np.abs(yg - yc).max() <= 1e-12 * np.abs(yc).max()
+
+
+@pytest.mark.cuda
 def test_failed_dual_launch_raises(cuda, monkeypatch):
     class Refused:
         def __getattr__(self, name):
@@ -630,7 +759,8 @@ def test_glue_route_engine_on_card_matches_cpu(cuda, tmp_path):
     engine and of the float64 oracle."""
     before = dict(tg.launches)
     _card_and_cpu(cuda, tmp_path, [0, 1, 0])
-    assert tg.launches == {k: v + 12 for k, v in before.items()}
+    assert tg.launches == {k: v + 12 * (not k.endswith("_f64"))
+                           for k, v in before.items()}
 
 
 # --- delays, subsample delays and dither on the card -----------------------
@@ -770,8 +900,10 @@ def test_stage_probe_on_card(cuda):
     assert list(got) == list(sp.STAGES)
     assert all(0 < v < 0.01 for v in got.values()), got
     n = 1 + sp.CALLS * sp.REPS
-    assert tm.launches == {"mac_uniform": 0, "mac_rows": n}
-    assert tg.launches == {"glue_fwd": n, "glue_inv": n}
+    assert tm.launches == {"mac_uniform": 0, "mac_rows": n,
+                           "mac_uniform_f64": 0, "mac_rows_f64": 0}
+    assert tg.launches == {"glue_fwd": n, "glue_inv": n, "glue_fwd_f64": 0,
+                           "glue_inv_f64": 0}
 
 
 def _eq_xfade_conf(tmp_path, name):
@@ -939,7 +1071,8 @@ output 0,1,2 {{ device: "file" {{ path: "{tmp_path / (tag + '.raw')}"; }}; sampl
         m.reset_launches()
     yg = run("gpu", cuda)
     blocks = -(-frames // N)
-    assert tm.launches == {"mac_uniform": blocks, "mac_rows": 0}
+    assert tm.launches == {"mac_uniform": blocks, "mac_rows": 0,
+                           "mac_uniform_f64": 0, "mac_rows_f64": 0}
     assert not any(mm.launches.values())
     assert tg.launches["glue_fwd"] == tg.launches["glue_inv"] == blocks
     yc = run("cpu", torch.device("cpu"))
@@ -1000,7 +1133,8 @@ filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 1; }};
         m.reset_launches()
     yg = run("gpu", cuda)
     blocks = -(-frames // N)
-    assert tm.launches == {"mac_uniform": 1, "mac_rows": blocks + 1}
+    assert tm.launches == {"mac_uniform": 1, "mac_rows": blocks + 1,
+                           "mac_uniform_f64": 0, "mac_rows_f64": 0}
     assert not any(mm.launches.values())
     assert tg.launches["glue_fwd"] == tg.launches["glue_inv"] == blocks + 2
     yc = run("cpu", torch.device("cpu"))

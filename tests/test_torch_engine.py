@@ -4,8 +4,9 @@ on both sides).
 
 S24 words agree within +-1 LSB (docs/PARITY.md "Float-tolerance": the
 two packages round float32 sums in different orders); frame counts and
-overflow meters agree. Configs outside the port's slice (external logic
-modules, float64) raise NotImplementedError."""
+overflow meters agree. A logic module that no ``bflogic_<name>.py``
+registers raises at ``run()``, as in the JAX package; float64 configs run
+(tests/test_torch_float64.py)."""
 
 import os
 
@@ -253,7 +254,6 @@ _FILTER0 = 'filter 0 { from_inputs: 0; to_outputs: 0; coeff: 0; };'
 OUTSIDE = {
     # a logic module no bflogic_<name>.py on modules_path registers
     "logic_mymod": 'logic: "mymod" { a: 1; };\n' + _FILTER0,
-    "float64": 'float_bits: 64;\n' + _FILTER0,
 }
 
 
@@ -269,15 +269,11 @@ input 0 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE
 output 0 {{ device: "file" {{ path: "{tmp_path / 'out.raw'}"; }}; sample: "S24_4LE"; channels: 1; dither: false; }};
 {OUTSIDE[kind]}
 """)
-    if kind == "logic_mymod":
-        # the engine builds; attaching the module (the first thing run()
-        # does) raises, as in the JAX package
-        eng = Engine(conf, device=CPU)
-        with pytest.raises(RuntimeError, match="unknown logic module: mymod"):
-            eng.run()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        Engine(conf, device=CPU)
+    # the engine builds; attaching the module (the first thing run()
+    # does) raises, as in the JAX package
+    eng = Engine(conf, device=CPU)
+    with pytest.raises(RuntimeError, match="unknown logic module: mymod"):
+        eng.run()
 
 
 def test_main_runs_on_cpu_and_matches_engine(tmp_path):

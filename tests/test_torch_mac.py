@@ -167,7 +167,8 @@ def test_wrapper_on_cpu_runs_plain_version_and_counts_nothing(rng, uniform):
             torch.as_tensor(mask), torch.tensor(5, dtype=torch.int32))
     tm.reset_launches()
     got = tm.mac(*args, uniform)
-    assert tm.launches == {"mac_uniform": 0, "mac_rows": 0}
+    assert tm.launches == {"mac_uniform": 0, "mac_rows": 0,
+                           "mac_uniform_f64": 0, "mac_rows_f64": 0}
     torch.testing.assert_close(got, tm.mac_reference(*args, uniform),
                                rtol=0, atol=0)
 

@@ -129,7 +129,18 @@ def main(argv=None, device=None) -> int:
     signal.signal(signal.SIGINT, _stop)
     signal.signal(signal.SIGTERM, _stop)
     try:
-        stats = eng.run_offline() if batch_safe else eng.run()
+        if batch_safe:
+            # BRUTEFIR_TPU_BATCH: blocks a batched dispatch (the JAX
+            # __main__.py:144-150; default 8)
+            try:
+                batch = int(os.environ.get("BRUTEFIR_TPU_BATCH", "8"))
+            except ValueError:
+                sys.stderr.write(
+                    "BRUTEFIR_TPU_BATCH must be an integer; using 8\n")
+                batch = 8
+            stats = eng.run_offline(batch_blocks=batch)
+        else:
+            stats = eng.run()
     except BFError as e:
         # a typed abort keeps its code: BF_EXIT_BUFFER_UNDERFLOW for an
         # xrun without ignore_xrun, BF_EXIT_INVALID_INPUT for a NaN or an

@@ -32,12 +32,14 @@
 
 // Both launch on `stream` and return cudaGetLastError() (0 on success). The
 // caller allocates `out` and checks shapes; nothing here synchronises.
+// `has_bin0`: 1 where local bin 0 is the packed DC/Nyquist bin (an
+// unsharded call, the first bin shard of a mesh), else 0.
 extern "C" int bf_mac(const float* ring, const float* bank, const int* rows,
                       const int* coeff_idx, const float* mask, const int* t,
                       float* out, int F, int Fs, int B, int K, int E,
-                      int uniform, void* stream) {
+                      int uniform, int has_bin0, void* stream) {
   bf_mac_core::Args<1> a{ring, bank, rows, t, {coeff_idx}, {mask}, {out},
-                         F, Fs, B, K, E, uniform};
+                         F, Fs, B, K, E, uniform, has_bin0};
   return bf_mac_core::launch<1>(a, static_cast<cudaStream_t>(stream));
 }
 
@@ -45,9 +47,9 @@ extern "C" int bf_mac_f64(const double* ring, const double* bank,
                           const int* rows, const int* coeff_idx,
                           const double* mask, const int* t, double* out,
                           int F, int Fs, int B, int K, int E, int uniform,
-                          void* stream) {
+                          int has_bin0, void* stream) {
   bf_mac_core::Args<1, double> a{ring, bank, rows, t, {coeff_idx}, {mask},
-                                 {out}, F, Fs, B, K, E, uniform};
+                                 {out}, F, Fs, B, K, E, uniform, has_bin0};
   return bf_mac_core::launch<1, double>(a,
                                         static_cast<cudaStream_t>(stream));
 }

@@ -16,7 +16,10 @@
 // re*re, im*im, re*im, im*re; after the loop
 // Y = (re*re - im*im, re*im + im*re), and bin 0 takes (re*re, im*im) by a
 // select. So each set of the dual equals what the single MAC computes for
-// that set's controls, bit for bit.
+// that set's controls, bit for bit. `has_bin0` = 0 makes local bin 0 an
+// ordinary complex product: a bin shard other than the first of a mesh
+// (brutefir_tpu_torch/ops/mac_shard.py), whose local bin 0 is not the
+// packed DC/Nyquist bin.
 //
 // Layout: ring [F, B, 2, K], bank [E, B, 2, K], rows [Fs] int32 (read in
 // place: the stage's rows are never gathered into a copy), idx_s [F]
@@ -95,7 +98,7 @@ struct Args {
   const int* idx[NS];
   const R* mask[NS];
   R* out[NS];
-  int F, Fs, B, K, E, uniform;
+  int F, Fs, B, K, E, uniform, has_bin0;
 };
 
 // Four consecutive bins of the real type: a float4, or four doubles (two
@@ -233,15 +236,15 @@ __device__ __forceinline__ void mac4(AccOf<R>& a, quad_t<R> xr, quad_t<R> xi,
 }
 
 // Y of bins k0 .. k0+3 into out (plane 0) and out + K (plane 1); bin 0
-// keeps its two real products.
+// keeps its two real products where `has_bin0`.
 template <bool VEC, class R>
 __device__ __forceinline__ void store_y(const AccOf<R>& a, R* out, int K,
-                                        int k0) {
+                                        int k0, int has_bin0) {
   quad_t<R> re = make_quad<R>(a.rr.x - a.ii.x, a.rr.y - a.ii.y,
                               a.rr.z - a.ii.z, a.rr.w - a.ii.w);
   quad_t<R> im = make_quad<R>(a.ri.x + a.ir.x, a.ri.y + a.ir.y,
                               a.ri.z + a.ir.z, a.ri.w + a.ir.w);
-  const bool bin0 = k0 == 0;
+  const bool bin0 = has_bin0 && k0 == 0;
   re.x = bin0 ? a.rr.x : re.x;
   im.x = bin0 ? a.ii.x : im.x;
   store4<VEC, R>(out + k0, re, K - k0);
@@ -306,7 +309,8 @@ __global__ void __launch_bounds__(kQuads) mac_kernel(const Args<NS, R> a) {
   }
 #pragma unroll
   for (int s = 0; s < NS; ++s)
-    store_y<VEC, R>(acc[s], a.out[s] + size_t(i) * part, K, k0);
+    store_y<VEC, R>(acc[s], a.out[s] + size_t(i) * part, K, k0,
+                    a.has_bin0);
 }
 
 inline bool aligned16(const void* p) {

@@ -31,15 +31,17 @@
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
 // caller allocates both outputs and checks shapes; nothing here
-// synchronises.
+// synchronises. `has_bin0` as bf_mac's (csrc/mac.cu).
 extern "C" int bf_mac_dual(const float* ring, const float* bank,
                            const int* rows, const int* coeff_idx,
                            const float* mask, const int* prev_idx,
                            const float* prev_mask, const int* t,
                            float* out_new, float* out_old, int F, int Fs,
-                           int B, int K, int E, int uniform, void* stream) {
+                           int B, int K, int E, int uniform, int has_bin0,
+                           void* stream) {
   bf_mac_core::Args<2> a{ring, bank, rows, t,
                          {coeff_idx, prev_idx}, {mask, prev_mask},
-                         {out_new, out_old}, F, Fs, B, K, E, uniform};
+                         {out_new, out_old}, F, Fs, B, K, E, uniform,
+                         has_bin0};
   return bf_mac_core::launch<2>(a, static_cast<cudaStream_t>(stream));
 }

@@ -74,7 +74,8 @@ __device__ __forceinline__ void group_mac(
     const float* __restrict__ ring, const float* __restrict__ xnews,
     const float* __restrict__ bank, const int* __restrict__ coeff_idx,
     const float* __restrict__ mask, const int* __restrict__ delay, int t,
-    int f, int k, int B, int K, int E, float (&yr)[G], float (&yi)[G]) {
+    int f, int k, int B, int K, int E, bool bin0, float (&yr)[G],
+    float (&yi)[G]) {
   const size_t plane = (size_t)K;
   const size_t part = 2 * (size_t)K;
   const size_t row = (size_t)B * part;
@@ -119,7 +120,7 @@ __device__ __forceinline__ void group_mac(
     const float m = mrow[b];
     const float* hs = hb + (size_t)b * part;
     const float hr = hs[k] * m, hi = hs[plane + k] * m;
-    if (k == 0) {
+    if (bin0) {
       // packed bin 0: DC and Nyquist are independent real products
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -145,13 +146,13 @@ mac_group_kernel(const float* __restrict__ ring,
                  const float* __restrict__ mask,
                  const int* __restrict__ t_ptr,
                  const int* __restrict__ delay, float* __restrict__ out,
-                 int F, int B, int K, int E) {
+                 int F, int B, int K, int E, int has_bin0) {
   const int k = blockIdx.x * kThreads + threadIdx.x;
   const int f = blockIdx.y;
   if (k >= K) return;
   float yr[G], yi[G];
   group_mac<G>(ring, xnews, bank, coeff_idx, mask, delay, *t_ptr, f, k, B,
-               K, E, yr, yi);
+               K, E, has_bin0 && k == 0, yr, yi);
   const size_t part = 2 * (size_t)K;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -165,10 +166,11 @@ template <int G>
 int launch_group(const float* ring, const float* xnews, const float* bank,
                  const int* coeff_idx, const float* mask, const int* t,
                  const int* delay, float* out, int F, int B, int K, int E,
-                 cudaStream_t s) {
+                 int has_bin0, cudaStream_t s) {
   const dim3 grid((K + kThreads - 1) / kThreads, F);
   mac_group_kernel<G><<<grid, kThreads, 0, s>>>(
-      ring, xnews, bank, coeff_idx, mask, t, delay, out, F, B, K, E);
+      ring, xnews, bank, coeff_idx, mask, t, delay, out, F, B, K, E,
+      has_bin0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,7 +300,7 @@ mac_mix_group_kernel(const float* __restrict__ ring,
                      const int* __restrict__ t_ptr,
                      const int* __restrict__ delay,
                      const float* __restrict__ w, float* __restrict__ out,
-                     int F, int B, int K, int E, int C_out) {
+                     int F, int B, int K, int E, int C_out, int has_bin0) {
   using S = MixShape<G>;
   constexpr int kRows = S::kRows, kCols = S::kCols, kWs = S::kWs;
   extern __shared__ __align__(16) float sm[];
@@ -453,7 +455,7 @@ mac_mix_group_kernel(const float* __restrict__ ring,
       for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
   };
 
-  const bool bin0 = k0 + lane == 0;
+  const bool bin0 = has_bin0 && k0 + lane == 0;
   int g = 0;                                 // the stage the MAC reads
 #pragma unroll 1
   for (int r = 0; r < rounds; ++r) {
@@ -565,7 +567,7 @@ int launch_mix_group(const float* ring, const float* xnews,
                      const float* bank, const int* coeff_idx,
                      const float* mask, const int* t, const int* delay,
                      const float* w, float* out, int F, int B, int K, int E,
-                     int C_out, cudaStream_t s) {
+                     int C_out, int has_bin0, cudaStream_t s) {
   const size_t bytes = mix_group_smem<G>();
   if (bytes > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   // raise the kernel's shared-memory limit once per device
@@ -585,7 +587,7 @@ int launch_mix_group(const float* ring, const float* xnews,
   const dim3 grid((K + kTileBins - 1) / kTileBins, (C_out + rows - 1) / rows);
   mac_mix_group_kernel<G, kAligned><<<grid, kMixThreads, bytes, s>>>(
       ring, xnews, bank, coeff_idx, mask, t, delay, w, out, F, B, K, E,
-      C_out);
+      C_out, has_bin0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -594,15 +596,17 @@ int launch_mix_group(const float* ring, const float* xnews,
                      const float* bank, const int* coeff_idx,
                      const float* mask, const int* t, const int* delay,
                      const float* w, float* out, int F, int B, int K, int E,
-                     int C_out, cudaStream_t s) {
+                     int C_out, int has_bin0, cudaStream_t s) {
   auto a16 = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   if (K % 4 == 0 && a16(ring) && a16(xnews) && a16(bank) && a16(out))
     return launch_mix_group<G, true>(ring, xnews, bank, coeff_idx, mask, t,
-                                     delay, w, out, F, B, K, E, C_out, s);
+                                     delay, w, out, F, B, K, E, C_out,
+                                     has_bin0, s);
   return launch_mix_group<G, false>(ring, xnews, bank, coeff_idx, mask, t,
-                                    delay, w, out, F, B, K, E, C_out, s);
+                                    delay, w, out, F, B, K, E, C_out,
+                                    has_bin0, s);
 }
 
 }  // namespace
@@ -610,20 +614,23 @@ int launch_mix_group(const float* ring, const float* xnews,
 // Both launch on `stream` and return cudaGetLastError() (0 on success),
 // or cudaErrorInvalidValue for a group size outside 2 .. kMaxGroup (and,
 // for bf_mac_mix_group, B < 1); a refused shared-memory attribute comes
-// back as its own error. The caller allocates `out` and checks shapes;
-// nothing here synchronises.
+// back as its own error. `has_bin0`: 1 where local bin 0 is the packed
+// DC/Nyquist bin (an unsharded call, the first bin shard of a mesh), else
+// 0, and bin 0 is an ordinary complex product. The caller allocates `out`
+// and checks shapes; nothing here synchronises.
 extern "C" int bf_mac_group(const float* ring, const float* xnews,
                             const float* bank, const int* coeff_idx,
                             const float* mask, const int* t,
                             const int* delay, float* out, int F, int B,
-                            int K, int E, int G, void* stream) {
+                            int K, int E, int G, int has_bin0,
+                            void* stream) {
   if (K <= 0 || F <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (G) {
 #define BF_CASE(g)                                                        \
   case g:                                                                 \
     return launch_group<g>(ring, xnews, bank, coeff_idx, mask, t, delay,  \
-                           out, F, B, K, E, s);
+                           out, F, B, K, E, has_bin0, s);
     BF_CASE(2) BF_CASE(3) BF_CASE(4) BF_CASE(5) BF_CASE(6) BF_CASE(7)
     BF_CASE(8)
 #undef BF_CASE
@@ -637,7 +644,7 @@ extern "C" int bf_mac_mix_group(const float* ring, const float* xnews,
                                 const float* mask, const int* t,
                                 const int* delay, const float* w, float* out,
                                 int F, int B, int K, int E, int C_out, int G,
-                                void* stream) {
+                                int has_bin0, void* stream) {
   if (K <= 0 || C_out <= 0) return 0;
   if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -645,7 +652,8 @@ extern "C" int bf_mac_mix_group(const float* ring, const float* xnews,
 #define BF_CASE(g)                                                        \
   case g:                                                                 \
     return launch_mix_group<g>(ring, xnews, bank, coeff_idx, mask, t,     \
-                               delay, w, out, F, B, K, E, C_out, s);
+                               delay, w, out, F, B, K, E, C_out, has_bin0, \
+                               s);
     BF_CASE(2) BF_CASE(3) BF_CASE(4) BF_CASE(5) BF_CASE(6) BF_CASE(7)
     BF_CASE(8)
 #undef BF_CASE

@@ -160,7 +160,8 @@ mac_mix_kernel(const float* __restrict__ ring, const float* __restrict__ bank,
                const int* __restrict__ coeff_idx,
                const float* __restrict__ mask, const int* __restrict__ t_ptr,
                const float* __restrict__ w, float* __restrict__ out, int F,
-               int B, int K, int E, int C_out, int uniform, int FC) {
+               int B, int K, int E, int C_out, int uniform, int FC,
+               int has_bin0) {
   constexpr int kRuns = kBankSmem ? 2 : 4;
   constexpr int kItem = item_floats(kBankSmem);
   constexpr int kCq = (kAligned ? TK : kRun) / 4;   // chunks a run at most
@@ -290,7 +291,7 @@ mac_mix_kernel(const float* __restrict__ ring, const float* __restrict__ bank,
         if (lane < nk) {
           const float rr = rre[lane], ri = rim[lane];
           const float hr = hre[lane] * m, hi = him[lane] * m;
-          if (k0 + lane == 0) {
+          if (has_bin0 && k0 + lane == 0) {
             // packed bin 0: DC and Nyquist are independent real products
             yr += rr * hr;
             yi += ri * hi;
@@ -328,7 +329,7 @@ template <bool kBankSmem, bool kAligned>
 int launch(const float* ring, const float* bank, const int* coeff_idx,
            const float* mask, const int* t, const float* w, float* out,
            int F, int B, int K, int E, int C_out, int uniform, int nw, int FC,
-           cudaStream_t s) {
+           int has_bin0, cudaStream_t s) {
   const size_t bytes = smem_bytes(nw, FC, F, B, C_out, kBankSmem);
   if (bytes > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   if (bytes > 48 * 1024) {
@@ -348,7 +349,8 @@ int launch(const float* ring, const float* bank, const int* coeff_idx,
   }
   const int grid = (K + TK - 1) / TK;
   mac_mix_kernel<kBankSmem, kAligned><<<grid, 32 * nw, bytes, s>>>(
-      ring, bank, coeff_idx, mask, t, w, out, F, B, K, E, C_out, uniform, FC);
+      ring, bank, coeff_idx, mask, t, w, out, F, B, K, E, C_out, uniform, FC,
+      has_bin0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -357,13 +359,15 @@ int launch(const float* ring, const float* bank, const int* coeff_idx,
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a plan the kernel does not take: nw warps
 // (4-16), FC a positive multiple of nw, the bank tile in shared memory only
-// in the uniform form, shared memory within 227 KB. The caller allocates
-// `out` and checks shapes; nothing here synchronises.
+// in the uniform form, shared memory within 227 KB. `has_bin0`: 1 where
+// local bin 0 is the packed DC/Nyquist bin (an unsharded call, the first
+// bin shard of a mesh), else 0, and bin 0 is an ordinary complex product.
+// The caller allocates `out` and checks shapes; nothing here synchronises.
 extern "C" int bf_mac_mix(const float* ring, const float* bank,
                           const int* coeff_idx, const float* mask,
                           const int* t, const float* w, float* out, int F,
                           int B, int K, int E, int C_out, int uniform, int nw,
-                          int FC, int bank_smem, void* stream) {
+                          int FC, int bank_smem, int has_bin0, void* stream) {
   if (K <= 0 || C_out <= 0) return 0;
   if (nw < 4 || nw > kMaxWarps || FC <= 0 || FC % nw || B <= 0 || E <= 0 ||
       (bank_smem && !uniform))
@@ -374,7 +378,7 @@ extern "C" int bf_mac_mix(const float* ring, const float* bank,
                        reinterpret_cast<uintptr_t>(bank) % 16 == 0;
 #define BF_LAUNCH(BANK, ALIGNED)                                            \
   return launch<BANK, ALIGNED>(ring, bank, coeff_idx, mask, t, w, out, F, B, \
-                               K, E, C_out, uniform, nw, FC, s)
+                               K, E, C_out, uniform, nw, FC, has_bin0, s)
   if (bank_smem) {
     if (aligned) BF_LAUNCH(true, true);
     BF_LAUNCH(true, false);

@@ -59,7 +59,8 @@ mac_mix_tiled_kernel(const float* __restrict__ ring,
                      const float* __restrict__ mask,
                      const int* __restrict__ t_ptr,
                      const float* __restrict__ w, float* __restrict__ out,
-                     int F, int B, int K, int E, int C_out) {
+                     int F, int B, int K, int E, int C_out,
+                     int has_bin0) {
   constexpr int kBlockRows = kPass * kRows;
   __shared__ float ys[kFc][2][kTile];
   __shared__ float ws[kFc][kBlockRows + 1];  // +1: no bank conflict on store
@@ -96,7 +97,7 @@ mac_mix_tiled_kernel(const float* __restrict__ ring,
         const float* hs = hb + (size_t)b * part;
         const float rr = rs[k], ri = rs[plane + k];
         const float hr = hs[k] * m, hi = hs[plane + k] * m;
-        if (k == 0) {
+        if (has_bin0 && k == 0) {
           // packed bin 0: DC and Nyquist are independent real products
           yr += rr * hr;
           yi += ri * hi;
@@ -145,11 +146,12 @@ mac_mix_tiled_kernel(const float* __restrict__ ring,
 template <int kRows>
 int launch(const float* ring, const float* bank, const int* coeff_idx,
            const float* mask, const int* t, const float* w, float* out,
-           int F, int B, int K, int E, int C_out, cudaStream_t s) {
+           int F, int B, int K, int E, int C_out, int has_bin0,
+           cudaStream_t s) {
   const dim3 grid((K + kTile - 1) / kTile,
                   (C_out + kPass * kRows - 1) / (kPass * kRows));
   mac_mix_tiled_kernel<kRows><<<grid, kThreads, 0, s>>>(
-      ring, bank, coeff_idx, mask, t, w, out, F, B, K, E, C_out);
+      ring, bank, coeff_idx, mask, t, w, out, F, B, K, E, C_out, has_bin0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -157,17 +159,18 @@ int launch(const float* ring, const float* bank, const int* coeff_idx,
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
 // caller allocates `out` and checks shapes; nothing here synchronises.
+// `has_bin0` as bf_mac_mix's (csrc/mac_mix.cu).
 extern "C" int bf_mac_mix_tiled(const float* ring, const float* bank,
                                 const int* coeff_idx, const float* mask,
                                 const int* t, const float* w, float* out,
                                 int F, int B, int K, int E, int C_out,
-                                void* stream) {
+                                int has_bin0, void* stream) {
   if (K <= 0 || C_out <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 4 rows a thread (32 outputs a block) for small mixes, else 32 (256)
   if (C_out <= kPass * 4)
     return launch<4>(ring, bank, coeff_idx, mask, t, w, out, F, B, K, E,
-                     C_out, s);
+                     C_out, has_bin0, s);
   return launch<32>(ring, bank, coeff_idx, mask, t, w, out, F, B, K, E,
-                    C_out, s);
+                    C_out, has_bin0, s);
 }

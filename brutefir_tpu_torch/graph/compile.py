@@ -54,11 +54,23 @@ arguments chosen by the host (the JAX package's in-graph ``lax.cond`` on
 The ring and the cascade tails are written **in place**: the analog of
 the JAX step donating its state buffers. The returned state shares them
 with the input.
+
+Under a mesh (``mesh=``, ``parallel/mesh.py``) the ring and the bank are
+:class:`~brutefir_tpu_torch.parallel.mesh.Sharded` over the ('f', 'sp')
+shards and ``ctrl`` is a :class:`MeshCtrl` (``place_ctrl``); the step
+follows the JAX package's mesh branches (compile.py:179-235, 318-330,
+388-392, 473-478, 570-605, 708-717). The transforms, the input mix, the
+cascade input and the output mix of the stage loop run on the mesh's
+first device; the mixed spectra are split into each shard's ring, and
+the MACs run per shard through ``ops/mac_shard.py``: the fused MAC + mix
+where ``shardable`` holds (the shard sizes ``F/f`` and ``K/sp`` decide
+``mix_fusable``), the per-filter MAC of each stage's rows otherwise (the
+JAX package's dense MAC, which XLA shards), the dual MAC on a crossfade
+block, the grouped MAC with the mix outside.
 """
 
 from __future__ import annotations
 
-import functools
 import os
 from typing import NamedTuple
 
@@ -66,10 +78,14 @@ import numpy as np
 import torch
 
 from ..ops import partconv
+from ..ops.partconv import static_index as _index
 from ..ops.mac import mac
 from ..ops.mac_dual import mac_dual
 from ..ops.mac_group import mac_group, mac_mix_group
 from ..ops.mac_mix import mac_mix, tiled_route
+from ..ops.mac_shard import (mac_dual_shard, mac_group_shard, mac_mix_shard,
+                             mac_shard)
+from ..parallel.mesh import available, shardable, split, to_device
 from .spec import GraphSpec
 
 
@@ -93,6 +109,30 @@ class StepCtrl(NamedTuple):
     prev_mask: torch.Tensor  # [F, B]
     xfade: torch.Tensor      # [F] 1.0 where a crossfade happens this block
     ps_thresh: torch.Tensor  # [C_in] analog-powersave gate threshold (0 = off)
+
+
+class MeshCtrl(NamedTuple):
+    """A StepCtrl on a mesh: ``full``, every control on the mesh's first
+    device (the input mix, the filter mix, the output mix, the crossfade
+    selection, the powersave gate run there), and ``shards``, a StepCtrl
+    of :class:`~brutefir_tpu_torch.parallel.mesh.Sharded`: the per-filter
+    controls split by rows over 'f' (``delay``, ``coeff_idx``, ``mask``,
+    ``prev_idx``, ``prev_mask``, ``xfade``) and ``out_mix`` by its filter
+    columns, the rest None (the JAX package's ``step_shardings``)."""
+    full: StepCtrl
+    shards: StepCtrl
+
+
+def place_ctrl(mesh, ctrl: StepCtrl) -> MeshCtrl:
+    """``ctrl`` on ``mesh``: its tensors on the first device and each
+    shard's rows on the shard's device."""
+    full = StepCtrl(*(to_device(v, mesh.first) for v in ctrl))
+    rows = {k: split(mesh, getattr(full, k), 0)
+            for k in ("delay", "coeff_idx", "mask", "prev_idx", "prev_mask",
+                      "xfade")}
+    return MeshCtrl(full, StepCtrl(
+        in_mix=None, fmix=None, out_mix=split(mesh, full.out_mix, 1),
+        ps_thresh=None, **rows))
 
 
 def check_supported(spec: GraphSpec) -> None:
@@ -123,10 +163,11 @@ def init_state(spec: GraphSpec, device) -> StepState:
 
 def make_ctrl(spec: GraphSpec, in_mix, out_mix, delay, coeff_idx, mask,
               ps_thresh=None, device=None, fmix=None, prev_idx=None,
-              prev_mask=None, xfade=None) -> StepCtrl:
+              prev_mask=None, xfade=None, mesh=None):
     """Assemble a StepCtrl on ``device`` from host arrays (default:
     powersave gate off, no filter -> filter edges, no crossfade: the
-    previous coefficient is the current one)."""
+    previous coefficient is the current one); under ``mesh`` a
+    :class:`MeshCtrl`, each shard's rows on its device."""
     rd = spec.real_dtype
     if ps_thresh is None:
         ps_thresh = np.zeros(spec.n_inputs, rd)
@@ -145,12 +186,15 @@ def make_ctrl(spec: GraphSpec, in_mix, out_mix, delay, coeff_idx, mask,
     def idx(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
-    return StepCtrl(
+    if mesh is not None:
+        device = mesh.first
+    ctrl = StepCtrl(
         in_mix=real(in_mix), fmix=real(fmix), out_mix=real(out_mix),
         delay=idx(delay), coeff_idx=idx(coeff_idx), mask=real(mask),
         prev_idx=idx(prev_idx), prev_mask=real(prev_mask),
         xfade=real(xfade), ps_thresh=real(ps_thresh),
     )
+    return ctrl if mesh is None else place_ctrl(mesh, ctrl)
 
 
 _VMEM_BUDGET = 12 * 2**20
@@ -170,26 +214,31 @@ def mix_fusable(F: int, B: int, K: int, C_out: int) -> bool:
 
 
 def fused_mix_route(spec: GraphSpec, xfade_now: bool = False,
-                    taps=None) -> bool:
-    """Whether a block takes the fused MAC + output mix (``mac_mix``)
-    rather than the stage loop or the fused time-domain crossfade: the JAX
-    package's ``fused_mix`` predicate (compile.py:323-330) without the
-    mesh. No frequency-domain taps, a single stage of every filter in
-    order, not crossfading this block, at a shape where the JAX package
-    runs its Pallas kernels (``pallas_available``: K a multiple of 128,
-    K >= 256; elsewhere it runs the dense stage loop) and its fused
-    kernel fits
-    (``mix_fusable``), unless ``BRUTEFIR_TPU_FUSED_MIX=0``; and a float32
-    graph (``pallas_available`` wants float32: a float64 graph runs the
-    JAX package's dense MAC in the stage loop). The card needs none of
-    these limits; they are kept so that a config takes the same route,
-    and so the same summation order, in both packages."""
-    K = spec.n_bins
-    return (not taps and spec.single_full_stage and K % 128 == 0
-            and spec.real_dtype == np.float32
-            and K >= 256
+                    taps=None, mesh=None) -> bool:
+    """Whether a block takes the fused MAC + output mix (``mac_mix``, or
+    ``mac_mix_shard`` under ``mesh``) rather than the stage loop or the
+    fused time-domain crossfade: the JAX package's ``fused_mix``
+    predicate (compile.py:318-330). No frequency-domain taps, a single
+    stage of every filter in order, not crossfading this block, at a
+    shape where the JAX package runs its Pallas kernels
+    (``pallas_available``: K a multiple of 128, K >= 256; under a mesh
+    ``shardable``, the same per bin shard; elsewhere it runs the dense
+    stage loop) and its fused kernel fits the shard (``mix_fusable`` at
+    F/f filters, K/sp bins), unless ``BRUTEFIR_TPU_FUSED_MIX=0``; and a
+    float32 graph (``pallas_available`` wants float32: a float64 graph
+    runs the JAX package's dense MAC in the stage loop). The card needs
+    none of these limits; they are kept so that a config takes the same
+    route, and so the same summation order, in both packages."""
+    K, F = spec.n_bins, spec.n_filters
+    f = sp = 1
+    if mesh is not None:
+        if not shardable(mesh, F, K, spec.real_dtype):
+            return False
+        f, sp = mesh.shape["f"], mesh.shape["sp"]
+    return (not taps and spec.single_full_stage
+            and available(K, spec.real_dtype)
             and not (spec.stages[0].any_crossfade and xfade_now)
-            and mix_fusable(spec.n_filters, spec.n_blocks, K,
+            and mix_fusable(F // f, spec.n_blocks, K // sp,
                             spec.n_outputs)
             and os.environ.get("BRUTEFIR_TPU_FUSED_MIX", "1") != "0")
 
@@ -202,15 +251,6 @@ def fused_xfade_route(spec: GraphSpec, xfade_now: bool,
     filter in order holding a crossfading filter."""
     return (xfade_now and not taps and spec.single_full_stage
             and spec.stages[0].any_crossfade)
-
-
-@functools.lru_cache(maxsize=256)
-def _index(values: tuple, device: torch.device,
-           dtype: torch.dtype = torch.long) -> torch.Tensor:
-    """A static index vector (a stage's filters, slots, an inverse
-    permutation) on ``device``, built once: a tensor made from host data
-    inside the per-block loop is a synchronous host -> device copy."""
-    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _gate(spec: GraphSpec, ctrl: StepCtrl, frame: torch.Tensor):
@@ -233,12 +273,19 @@ def _tap(taps, name: str, planes: torch.Tensor, idx) -> torch.Tensor:
     return planes if fn is None else fn(planes, idx)
 
 
-def _write_ring(ring, blk, t, delay, uniform_delay: bool, rows=None) -> None:
+def _write_ring(ring, blk, t, delay, uniform_delay: bool, rows=None,
+                mesh=None) -> None:
     """Write spectra [Fs, 2, N] in place at each filter's delayed slot
     (t + delay[f]) % B (the cbuf curblock + delay of bfrun.c:1688-1690).
     ``rows``: the filters of ``blk`` (a long index), or None for every
     filter in order; then one slice at a scalar slot when every filter
-    shares one delay, else a per-filter scatter (compile.py:260-274)."""
+    shares one delay, else a per-filter scatter (compile.py:260-274).
+    Under ``mesh``: ``ring`` and ``delay`` Sharded, ``blk`` on the first
+    device, ``rows`` the stage's filters as a numpy vector; each shard
+    takes its rows and bins of ``blk``."""
+    if mesh is not None:
+        _write_ring_mesh(mesh, ring, blk, t, delay, uniform_delay, rows)
+        return
     B = ring.shape[1]
     if rows is None and uniform_delay:
         wpos0 = torch.remainder(t + delay[0], B).reshape(1).long()
@@ -250,10 +297,49 @@ def _write_ring(ring, blk, t, delay, uniform_delay: bool, rows=None) -> None:
     ring.index_put_((rows, wpos), blk)
 
 
+def _write_ring_mesh(mesh, ring, blk, t, delay, uniform_delay: bool,
+                     rows=None) -> None:
+    """``_write_ring`` on each shard: its rows of ``blk`` (those of the
+    stage ``rows`` it holds), its bins, its delays, at its device."""
+    K = ring.shape[3]
+    for i, (r0, r1) in enumerate(mesh.rows(ring.shape[0])):
+        if rows is None:
+            pos = local = None
+            if r1 <= r0:
+                continue
+        else:
+            sel = np.flatnonzero((rows >= r0) & (rows < r1))
+            if sel.size == 0:
+                continue
+            pos = _index(tuple(sel.tolist()), blk.device)
+        for j, (k0, k1) in enumerate(mesh.bins(K)):
+            if k1 <= k0:
+                continue
+            dev = mesh.devices[i, j]
+            sub = (blk[r0:r1, :, k0:k1] if pos is None
+                   else blk[pos, :, k0:k1])
+            if pos is not None:
+                local = _index(tuple((rows[sel] - r0).tolist()), dev)
+            _write_ring(ring.parts[i][j], to_device(sub, dev),
+                        to_device(t, dev), delay.parts[i][j],
+                        uniform_delay, local)
+
+
+def _mac(ring, bank, idx: np.ndarray, coeff_idx, mask, t, uniform: bool,
+         mesh=None) -> torch.Tensor:
+    """The unfused MAC of the stage filters ``idx``: ``mac`` on the ring
+    in place, or under ``mesh`` ``mac_shard`` (per-filter controls, as the
+    JAX shard wrapper and dense MAC have no uniform form)."""
+    if mesh is not None:
+        return mac_shard(mesh, ring, bank, idx, coeff_idx, mask, t)
+    rows32 = _index(tuple(idx.tolist()), ring.device, torch.int32)
+    return mac(ring, bank, rows32, coeff_idx, mask, t, uniform)
+
+
 def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
                 bank: torch.Tensor, X: torch.Tensor, uniform: bool,
                 uniform_delay: bool, xfade_now: bool,
-                taps=None) -> torch.Tensor:
+                taps=None, mesh=None) -> torch.Tensor:
     """The stage loop of compile.py:418-533: per stage, the input mix of
     its filters, the cascade input of those with filter inputs, the
     ``pre_convolve`` tap, the ring write and the unfused MAC of its
@@ -262,15 +348,20 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     block a stage holding a crossfading filter runs the dual MAC and
     ``crossfade_spectra`` instead, and keeps the ramped spectra of the
     filters whose ``xfade`` is set (compile.py:456-505 without the
-    cond). Updates the ring and ``state.eval_prev`` in place."""
+    cond). Updates the ring and ``state.eval_prev`` in place. Under
+    ``mesh`` (``ctrl`` a MeshCtrl) the mixes, the cascade input and the
+    crossfade ramp run on the first device, the ring writes and the MACs
+    per shard, and every stage's spectra come back to the first device."""
     ring, t, eval_prev = state.ring, state.t, state.eval_prev
-    dev = ring.device
+    full = ctrl.full if mesh is not None else ctrl
+    rctrl = ctrl.shards if mesh is not None else ctrl
+    dev = eval_prev.device
     F, N = spec.n_filters, spec.block_length
     ys, done = [], []
     for stage in spec.stages:
         idx = tuple(stage.idx.tolist())
         rows = _index(idx, dev)
-        mixed = partconv.complex_mix(ctrl.in_mix[rows], X)    # [Fs, 2, N]
+        mixed = partconv.complex_mix(full.in_mix[rows], X)    # [Fs, 2, N]
         if stage.casc_local.size:
             # the mixed spectra of the earlier stages' filters that feed
             # this one, contracted stage by stage in stage order
@@ -278,7 +369,7 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
             z = None
             for prows, py in zip(done, ys):
                 zc = partconv.complex_mix(
-                    ctrl.fmix[cidx[:, None], prows[None, :]], py)
+                    full.fmix[cidx[:, None], prows[None, :]], py)
                 z = zc if z is None else z + zc
             slots = _index(tuple(stage.casc_slots.tolist()), dev)
             e, tails = partconv.convolve_eval(z, eval_prev[slots])
@@ -289,17 +380,17 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
         # history, as the reference's in-place cbuf[n][curblock]
         # (bfrun.c:1688-1690)
         mixed = _tap(taps, "pre_convolve", mixed, stage.idx)
-        full = idx == tuple(range(F))
-        _write_ring(ring, mixed, t, ctrl.delay, uniform_delay,
-                    None if full else rows)
-        rows32 = _index(idx, dev, torch.int32)
+        sel = None if idx == tuple(range(F)) else (
+            rows if mesh is None else stage.idx)
+        _write_ring(ring, mixed, t, rctrl.delay, uniform_delay, sel, mesh)
         if stage.any_crossfade and xfade_now:
-            y_new, y_old = _xfade_macs(ring, bank, rows32, ctrl, t, uniform)
+            y_new, y_old = _xfade_macs(ring, bank, stage.idx, ctrl, t,
+                                       uniform, mesh)
             y_xf = partconv.crossfade_spectra(y_old, y_new, N)
-            y = torch.where(ctrl.xfade[rows][:, None, None] > 0, y_xf, y_new)
+            y = torch.where(full.xfade[rows][:, None, None] > 0, y_xf, y_new)
         else:
-            y = mac(ring, bank, rows32, ctrl.coeff_idx, ctrl.mask, t,
-                    uniform)                                # [Fs, 2, N]
+            y = _mac(ring, bank, stage.idx, rctrl.coeff_idx, rctrl.mask, t,
+                     uniform, mesh)                         # [Fs, 2, N]
         # the filter's result, as the JAX package hands it (the reference
         # hands the ring block, docs/PARITY.md); later stages mix the
         # tapped spectra
@@ -313,25 +404,32 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     return y_all
 
 
-def _xfade_macs(ring, bank, rows32, ctrl: StepCtrl, t, uniform: bool):
-    """A crossfade block's two MACs of the filters ``rows32``: ``(y_new,
+def _xfade_macs(ring, bank, idx: np.ndarray, ctrl, t, uniform: bool,
+                mesh=None):
+    """A crossfade block's two MACs of the filters ``idx``: ``(y_new,
     y_old)`` against the current and the previous controls. Float32 runs
     the dual MAC, one pass over the ring; float64 runs ``mac`` twice,
     the new set first, as the JAX package's float64 step runs its dense
     ``run_mac`` twice (the core makes each set of the dual equal to the
-    single MAC, so no result depends on the choice)."""
+    single MAC, so no result depends on the choice). Under ``mesh`` the
+    shard forms (``ctrl`` a MeshCtrl)."""
+    c = ctrl.shards if mesh is not None else ctrl
     if ring.dtype == torch.float64:
-        return (mac(ring, bank, rows32, ctrl.coeff_idx, ctrl.mask, t,
-                    uniform),
-                mac(ring, bank, rows32, ctrl.prev_idx, ctrl.prev_mask, t,
-                    uniform))
-    return mac_dual(ring, bank, rows32, ctrl.coeff_idx, ctrl.mask,
-                    ctrl.prev_idx, ctrl.prev_mask, t, uniform)
+        return (_mac(ring, bank, idx, c.coeff_idx, c.mask, t, uniform,
+                     mesh),
+                _mac(ring, bank, idx, c.prev_idx, c.prev_mask, t, uniform,
+                     mesh))
+    if mesh is not None:
+        return mac_dual_shard(mesh, ring, bank, idx, c.coeff_idx, c.mask,
+                              c.prev_idx, c.prev_mask, t, uniform)
+    rows32 = _index(tuple(idx.tolist()), ring.device, torch.int32)
+    return mac_dual(ring, bank, rows32, c.coeff_idx, c.mask, c.prev_idx,
+                    c.prev_mask, t, uniform)
 
 
-def _fused_xfade(spec: GraphSpec, ctrl: StepCtrl, bank: torch.Tensor,
+def _fused_xfade(spec: GraphSpec, ctrl, bank: torch.Tensor,
                  ring: torch.Tensor, t: torch.Tensor,
-                 uniform: bool) -> torch.Tensor:
+                 uniform: bool, mesh=None) -> torch.Tensor:
     """The fused time-domain crossfade of compile.py:353-416 for a single
     full stage (the ring already holds the block): the two MACs
     (``_xfade_macs``), then the three mixed spectra -- old and new
@@ -340,13 +438,15 @@ def _fused_xfade(spec: GraphSpec, ctrl: StepCtrl, bank: torch.Tensor,
     transform, and the linear ramp in time,
     ``y = a (1 - r) + b r + c``. The output mix commutes with the
     transforms, so this equals ``crossfade_spectra`` followed by the mix
-    up to the removed transform round trip's rounding."""
+    up to the removed transform round trip's rounding. Under ``mesh`` the
+    MACs run per shard and the rest on the first device."""
     N, C_out = spec.block_length, spec.n_outputs
-    rows32 = _index(tuple(range(spec.n_filters)), ring.device, torch.int32)
-    y_new, y_old = _xfade_macs(ring, bank, rows32, ctrl, t, uniform)
-    sel = (ctrl.xfade > 0).to(y_new.dtype)                  # [F]
-    w_sel = ctrl.out_mix * sel[None, :]
-    w_rest = ctrl.out_mix - w_sel
+    y_new, y_old = _xfade_macs(ring, bank, np.arange(spec.n_filters), ctrl,
+                               t, uniform, mesh)
+    full = ctrl.full if mesh is not None else ctrl
+    sel = (full.xfade > 0).to(y_new.dtype)                  # [F]
+    w_sel = full.out_mix * sel[None, :]
+    w_rest = full.out_mix - w_sel
     o_old = partconv.complex_mix(w_sel, y_old)              # [C_out, 2, N]
     o_new = partconv.complex_mix(torch.cat([w_sel, w_rest], dim=0), y_new)
     tv = partconv.irfft_planes_valid(torch.cat([o_old, o_new], dim=0))
@@ -358,7 +458,7 @@ def _fused_xfade(spec: GraphSpec, ctrl: StepCtrl, bank: torch.Tensor,
 def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
               bank: torch.Tensor, x: torch.Tensor, uniform: bool = False,
               uniform_delay: bool = False, xfade_now: bool = False,
-              taps=None):
+              taps=None, mesh=None):
     """One block: x [C_in, N] -> (state', y [C_out, N]).
 
     ``uniform``: the host asserts every filter shares one coefficient row
@@ -370,34 +470,44 @@ def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     general form. ``xfade_now``: the host asserts that ``ctrl.xfade``
     marks a crossfade on this block (RuntimeControl.snapshot_xfade);
     False asserts it is all zero. ``taps``: the frequency-domain hooks
-    (see the module docstring), or None.
+    (see the module docstring), or None. ``mesh``: the step over a mesh
+    (see the module docstring): ``state`` from
+    ``ShardedGraph.init_state``, ``ctrl`` a MeshCtrl, ``bank`` Sharded
+    over 'sp'; ``x`` and the returned y on the mesh's first device.
 
     The ring and the cascade tails are updated in place (see the module
     docstring); nothing here synchronises with the host but the taps."""
     check_supported(spec)
-    frame = _gate(spec, ctrl, torch.cat([state.prev_in, x], dim=-1))
+    full = ctrl.full if mesh is not None else ctrl
+    frame = _gate(spec, full, torch.cat([state.prev_in, x], dim=-1))
     X = partconv.rfft_planes(frame)                         # [C_in, 2, N]
     X = _tap(taps, "input_freqd", X, np.arange(spec.n_inputs))
     ring, t = state.ring, state.t
     new_state = StepState(prev_in=x, ring=ring, eval_prev=state.eval_prev,
                           t=t + 1)
     td_xfade = fused_xfade_route(spec, xfade_now, taps)
-    if td_xfade or fused_mix_route(spec, xfade_now, taps):
-        mixed = partconv.complex_mix(ctrl.in_mix, X)        # [F, 2, N]
+    if td_xfade or fused_mix_route(spec, xfade_now, taps, mesh):
+        mixed = partconv.complex_mix(full.in_mix, X)        # [F, 2, N]
         # the block lands at each filter's delayed slot BEFORE the MAC
         # reads the ring
-        _write_ring(ring, mixed, t, ctrl.delay, uniform_delay)
+        rc = ctrl.shards if mesh is not None else ctrl
+        _write_ring(ring, mixed, t, rc.delay, uniform_delay, mesh=mesh)
         if td_xfade:
             return new_state, _fused_xfade(spec, ctrl, bank, ring, t,
-                                           uniform)
+                                           uniform, mesh)
         # at big shapes mac_mix launches the bin-tiled kernel (tiled_route)
-        out_spec = mac_mix(ring, bank, ctrl.coeff_idx, ctrl.mask, t,
-                           ctrl.out_mix, uniform)           # [C_out, 2, N]
+        if mesh is not None:
+            out_spec = mac_mix_shard(mesh, ring, bank, rc.coeff_idx,
+                                     rc.mask, t, rc.out_mix, uniform)
+        else:
+            out_spec = mac_mix(ring, bank, ctrl.coeff_idx, ctrl.mask, t,
+                               ctrl.out_mix, uniform)       # [C_out, 2, N]
     else:
         y_all = _stage_loop(spec, state, ctrl, bank, X, uniform,
-                            uniform_delay, xfade_now, taps)  # [F, 2, N]
+                            uniform_delay, xfade_now, taps,
+                            mesh)                            # [F, 2, N]
         out_spec = _tap(taps, "output_freqd",
-                        partconv.complex_mix(ctrl.out_mix, y_all),
+                        partconv.complex_mix(full.out_mix, y_all),
                         np.arange(spec.n_outputs))
     return new_state, partconv.irfft_planes_valid(out_spec)  # [C_out, N]
 
@@ -454,11 +564,11 @@ def _group_fused(spec: GraphSpec, G: int) -> bool:
                                   spec.n_bins, spec.n_outputs))
 
 
-def group_size(spec: GraphSpec, m: int) -> int:
+def group_size(spec: GraphSpec, m: int, mesh=None) -> int:
     """Blocks per group for a batch of m blocks with frozen controls:
     the twin of ``group_size`` in brutefir_tpu/graph/compile.py:536-607
-    with the JAX package's kernel MAC, no spectral taps and no mesh.
-    Returns 1 when the batch runs block by block.
+    with the JAX package's kernel MAC and no spectral taps. Returns 1
+    when the batch runs block by block.
 
     ``BRUTEFIR_TPU_PAIR`` sets the group size (default 4; 0 or 1 turn
     grouping off; ``force[:G]`` groups at any shape, default G = 2).
@@ -467,7 +577,10 @@ def group_size(spec: GraphSpec, m: int) -> int:
     and a form fits: the fused form at any G, the unfused form at G > 2
     or under ``BRUTEFIR_TPU_GROUP_FORM=unfused``. A float64 graph never
     groups (``force`` included): the JAX package's grouped dispatch wants
-    its Pallas MAC, which wants float32."""
+    its Pallas MAC, which wants float32. Under ``mesh`` (compile.py:
+    570-605) the shape must be ``shardable``, and only the unfused form
+    groups, sized at the bin shard's K/sp: the fused form would bury the
+    sum over 'f' in the kernel."""
     if spec.real_dtype != np.float32:
         return 1
     env = os.environ.get("BRUTEFIR_TPU_PAIR", "4")
@@ -486,21 +599,27 @@ def group_size(spec: GraphSpec, m: int) -> int:
     if not (spec.tileable and spec.single_full_stage):
         return 1
     B, K = spec.n_blocks, spec.n_bins
+    sp = 1
+    if mesh is not None:
+        if not shardable(mesh, spec.n_filters, K, spec.real_dtype):
+            return 1
+        sp = mesh.shape["sp"]
     if not force and (spec.n_outputs + 4 * B) * 2 * K * 4 <= _VMEM_BUDGET:
         return 1
     unfused_only = os.environ.get("BRUTEFIR_TPU_GROUP_FORM", "") == "unfused"
     while G >= 2:
         if m % G == 0 and (
-                _group_fused(spec, G)
-                or ((G > 2 or unfused_only)
-                    and group_unfused_fusable(G, B, K))):
+                (mesh is None and _group_fused(spec, G))
+                or ((G > 2 or unfused_only or mesh is not None)
+                    and group_unfused_fusable(G, B, K // sp))):
             return G
         G -= 1
     return 1
 
 
 def group_step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
-                    bank: torch.Tensor, xs, uniform_delay: bool = False):
+                    bank: torch.Tensor, xs, uniform_delay: bool = False,
+                    mesh=None):
     """G = len(xs) consecutive blocks with one pass over the ring and the
     bank: the twin of ``_group_step_impl`` (brutefir_tpu/graph/
     compile.py:615-752). Only reachable through ``group_size``.
@@ -517,18 +636,26 @@ def group_step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
 
     The fused form mixes in the kernel; the unfused form mixes outside
     with ``partconv.complex_mix`` (an FP32 matmul, where the JAX package
-    also leaves it to XLA). Returns (state', [y_0 .. y_{G-1}])."""
+    also leaves it to XLA). Under ``mesh`` the unfused grouped MAC runs per
+    shard (``mac_group_shard``) and the mix on the first device
+    (compile.py:708-717). Returns (state', [y_0 .. y_{G-1}])."""
     check_supported(spec)
     G = len(xs)
+    full = ctrl.full if mesh is not None else ctrl
+    rc = ctrl.shards if mesh is not None else ctrl
     frames = [torch.cat([p, x], dim=-1)
               for p, x in zip([state.prev_in] + list(xs[:-1]), xs)]
-    blks = [partconv.complex_mix(ctrl.in_mix,
-                                 partconv.rfft_planes(_gate(spec, ctrl, f)))
+    blks = [partconv.complex_mix(full.in_mix,
+                                 partconv.rfft_planes(_gate(spec, full, f)))
             for f in frames]                                # G x [F, 2, N]
     ring, t = state.ring, state.t
-    _write_ring(ring, blks[0], t, ctrl.delay, uniform_delay)
+    _write_ring(ring, blks[0], t, rc.delay, uniform_delay, mesh=mesh)
     xnews = torch.stack(blks[1:], dim=1)                    # [F, G-1, 2, N]
-    if _group_fused(spec, G):
+    if mesh is not None:
+        ys = mac_group_shard(mesh, ring, split(mesh, xnews, 0, 3), bank,
+                             rc.coeff_idx, rc.mask, t, rc.delay)
+        outs = [partconv.complex_mix(full.out_mix, y) for y in ys]
+    elif _group_fused(spec, G):
         outs = mac_mix_group(ring, xnews, bank, ctrl.coeff_idx, ctrl.mask,
                              t, ctrl.out_mix, ctrl.delay)
     else:
@@ -536,7 +663,7 @@ def group_step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
                        ctrl.delay)
         outs = [partconv.complex_mix(ctrl.out_mix, y) for y in ys]
     for g in range(1, G):
-        _write_ring(ring, blks[g], t + g, ctrl.delay, uniform_delay)
+        _write_ring(ring, blks[g], t + g, rc.delay, uniform_delay, mesh=mesh)
     ys = [partconv.irfft_planes_valid(o) for o in outs]     # G x [C_out, N]
     return StepState(prev_in=xs[-1], ring=ring, eval_prev=state.eval_prev,
                      t=t + G), ys

@@ -9,6 +9,8 @@ per-filter spectra feed filter cascades and the output mix. The ring is
 read in place at ``rows``: the stage's rows are never gathered into a
 copy. ``coeff_idx`` and ``mask`` are every filter's controls, read at
 ``rows[i]``; ``uniform`` reads the first stage filter's for all of them.
+``has_bin0`` False makes bin 0 an ordinary complex product: the call of a
+mesh's bin shard other than the first (``ops/mac_shard.py``).
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/mac.cu``, the
 one-set entry of the core it shares with the crossfade dual MAC
@@ -54,16 +56,17 @@ def launch_plan(sets: int, Fs: int, K: int,
     return {"grid": (o[0], o[1]), "threads": o[2], "group": o[3]}
 
 
-def mac_reference(ring, bank, rows, coeff_idx, mask, t, uniform: bool):
+def mac_reference(ring, bank, rows, coeff_idx, mask, t, uniform: bool,
+                  has_bin0: bool = True):
     """Plain torch version: the dense MAC over the gathered stage rows."""
     r = rows.long()
     fn = spectral_mac_uniform if uniform else spectral_mac_rollh
-    return fn(ring[r], bank, coeff_idx[r], mask[r], t)
+    return fn(ring[r], bank, coeff_idx[r], mask[r], t, has_bin0)
 
 
 def mac(ring: torch.Tensor, bank: torch.Tensor, rows: torch.Tensor,
         coeff_idx: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
-        uniform: bool) -> torch.Tensor:
+        uniform: bool, has_bin0: bool = True) -> torch.Tensor:
     """Unfused MAC of the stage filters ``rows`` -> ``[Fs, 2, K]`` of the
     ring's real dtype (float32, or float64 under ``float_bits: 64``).
 
@@ -77,7 +80,8 @@ def mac(ring: torch.Tensor, bank: torch.Tensor, rows: torch.Tensor,
     check_operands("mac", ring, bank, coeff_idx, mask, t, rows=rows,
                    dtype=ring.dtype if f64 else torch.float32)
     if ring.device.type == "cpu":
-        return mac_reference(ring, bank, rows, coeff_idx, mask, t, uniform)
+        return mac_reference(ring, bank, rows, coeff_idx, mask, t, uniform,
+                             has_bin0)
     if ring.device.type != "cuda":
         raise ValueError(f"mac: unsupported device {ring.device}")
     F, B, _, K = ring.shape
@@ -88,7 +92,7 @@ def mac(ring: torch.Tensor, bank: torch.Tensor, rows: torch.Tensor,
             ring.data_ptr(), bank.data_ptr(), rows.data_ptr(),
             coeff_idx.data_ptr(), mask.data_ptr(), t.data_ptr(),
             out.data_ptr(), F, Fs, B, K, bank.shape[0], int(uniform),
-            torch.cuda.current_stream().cuda_stream)
+            int(has_bin0), torch.cuda.current_stream().cuda_stream)
     form = ("mac_uniform" if uniform else "mac_rows") + ("_f64" if f64
                                                          else "")
     if rc != 0:

@@ -7,7 +7,8 @@ and ``Y_old[i]`` the same with ``prev_idx``/``prev_mask`` -- the port of
 ``pallas_spectral_mac_dual`` (brutefir_tpu/ops/pallas_mac.py), whose two
 results a crossfade block ramps between. The ring is read in place at
 ``rows``. The controls are every filter's, read at ``rows[i]``;
-``uniform`` reads the first stage filter's for all of them.
+``uniform`` reads the first stage filter's for all of them; ``has_bin0``
+as ``mac``'s.
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/mac_dual.cu``,
 the two-set entry of the core it shares with the unfused MAC
@@ -37,7 +38,7 @@ def reset_launches() -> None:
 def mac_dual(ring: torch.Tensor, bank: torch.Tensor, rows: torch.Tensor,
              coeff_idx: torch.Tensor, mask: torch.Tensor,
              prev_idx: torch.Tensor, prev_mask: torch.Tensor,
-             t: torch.Tensor, uniform: bool):
+             t: torch.Tensor, uniform: bool, has_bin0: bool = True):
     """Dual MAC of the stage filters ``rows`` -> ``(Y_new, Y_old)``, two
     ``[Fs, 2, K]`` float32.
 
@@ -50,7 +51,7 @@ def mac_dual(ring: torch.Tensor, bank: torch.Tensor, rows: torch.Tensor,
                    prev_idx=prev_idx, prev_mask=prev_mask)
     if ring.device.type == "cpu":
         return mac_dual_reference(ring, bank, rows, coeff_idx, mask,
-                                  prev_idx, prev_mask, t, uniform)
+                                  prev_idx, prev_mask, t, uniform, has_bin0)
     if ring.device.type != "cuda":
         raise ValueError(f"mac_dual: unsupported device {ring.device}")
     F, B, _, K = ring.shape
@@ -63,7 +64,7 @@ def mac_dual(ring: torch.Tensor, bank: torch.Tensor, rows: torch.Tensor,
             coeff_idx.data_ptr(), mask.data_ptr(), prev_idx.data_ptr(),
             prev_mask.data_ptr(), t.data_ptr(), y_new.data_ptr(),
             y_old.data_ptr(), F, Fs, B, K, bank.shape[0], int(uniform),
-            torch.cuda.current_stream().cuda_stream)
+            int(has_bin0), torch.cuda.current_stream().cuda_stream)
     form = "mac_dual_uniform" if uniform else "mac_dual_rows"
     if rc != 0:
         raise RuntimeError(

@@ -16,7 +16,9 @@ caller only after the call. Block t+g reads at partition b the ring slot
   ``pallas_spectral_mac_mix_group``.
 
 On a CUDA tensor each launches its kernel of ``csrc/mac_group.cu``; on a
-CPU tensor it runs its plain torch version. There is no fallback from a
+CPU tensor it runs its plain torch version. ``has_bin0`` False makes bin 0
+an ordinary complex product: the call of a mesh's bin shard other than
+the first (``ops/mac_shard.py``). There is no fallback from a
 kernel to the plain version on a CUDA tensor: a failed build or launch
 raises.
 """
@@ -80,38 +82,43 @@ def group_rows(ring, xnews, t, delay, g: int) -> torch.Tensor:
     return rows
 
 
-def mac_group_reference(ring, xnews, bank, coeff_idx, mask, t, delay):
+def mac_group_reference(ring, xnews, bank, coeff_idx, mask, t, delay,
+                        has_bin0: bool = True):
     """Plain torch version of ``mac_group``: per block, the rows it reads
-    against the unrotated coefficient partitions, with the bin-0 rule."""
+    against the unrotated coefficient partitions, with the bin-0 rule
+    where ``has_bin0``."""
     G = xnews.shape[1] + 1
     H = bank[coeff_idx.long()] * mask[:, :, None, None]     # [F, B, 2, K]
-    return torch.stack([mac_terms(group_rows(ring, xnews, t, delay, g), H)
-                        for g in range(G)])
+    return torch.stack([mac_terms(group_rows(ring, xnews, t, delay, g), H,
+                                  has_bin0) for g in range(G)])
 
 
 def mac_mix_group_reference(ring, xnews, bank, coeff_idx, mask, t, w,
-                            delay):
+                            delay, has_bin0: bool = True):
     """Plain torch version of ``mac_mix_group``: ``mac_group``'s spectra
     through the FP32 output mix."""
-    ys = mac_group_reference(ring, xnews, bank, coeff_idx, mask, t, delay)
+    ys = mac_group_reference(ring, xnews, bank, coeff_idx, mask, t, delay,
+                             has_bin0)
     return torch.stack([complex_mix(w, y) for y in ys])
 
 
-def _launch(fn: str, kernel: str, ring, xnews, out, ptrs, dims):
+def _launch(fn: str, kernel: str, ring, xnews, out, ptrs, dims,
+            has_bin0: bool):
     G = xnews.shape[1] + 1
     if G > MAX_GROUP:
         raise ValueError(f"{fn}: the kernel takes G <= {MAX_GROUP}, got {G}")
     with torch.cuda.device(ring.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(_build.load("mac_group"), kernel)(
-            *(x.data_ptr() for x in ptrs), out.data_ptr(), *dims, G, stream)
+            *(x.data_ptr() for x in ptrs), out.data_ptr(), *dims, G,
+            int(has_bin0), stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed (cudaError {rc})")
 
 
 def mac_group(ring: torch.Tensor, xnews: torch.Tensor, bank: torch.Tensor,
               coeff_idx: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
-              delay: torch.Tensor) -> torch.Tensor:
+              delay: torch.Tensor, has_bin0: bool = True) -> torch.Tensor:
     """Grouped MAC -> ``[G, F, 2, K]`` float32.
 
     ring [F, B, 2, K] f32 (block t written, no later block), xnews
@@ -122,7 +129,7 @@ def mac_group(ring: torch.Tensor, xnews: torch.Tensor, bank: torch.Tensor,
                    xnews=xnews, delay=delay)
     if ring.device.type == "cpu":
         return mac_group_reference(ring, xnews, bank, coeff_idx, mask, t,
-                                   delay)
+                                   delay, has_bin0)
     if ring.device.type != "cuda":
         raise ValueError(f"mac_group: unsupported device {ring.device}")
     F, B, _, K = ring.shape
@@ -130,7 +137,7 @@ def mac_group(ring: torch.Tensor, xnews: torch.Tensor, bank: torch.Tensor,
     out = torch.empty((G, F, 2, K), dtype=torch.float32, device=ring.device)
     _launch("mac_group", "bf_mac_group", ring, xnews, out,
             (ring, xnews, bank, coeff_idx, mask, t, delay),
-            (F, B, K, bank.shape[0]))
+            (F, B, K, bank.shape[0]), has_bin0)
     launches["group"] += 1
     return out
 
@@ -138,14 +145,14 @@ def mac_group(ring: torch.Tensor, xnews: torch.Tensor, bank: torch.Tensor,
 def mac_mix_group(ring: torch.Tensor, xnews: torch.Tensor,
                   bank: torch.Tensor, coeff_idx: torch.Tensor,
                   mask: torch.Tensor, t: torch.Tensor, w: torch.Tensor,
-                  delay: torch.Tensor) -> torch.Tensor:
+                  delay: torch.Tensor, has_bin0: bool = True) -> torch.Tensor:
     """Grouped fused MAC + output mix -> ``[G, C_out, 2, K]`` float32.
     Operands as ``mac_group``, plus w [C_out, F] f32."""
     check_operands("mac_mix_group", ring, bank, coeff_idx, mask, t, w=w,
                    xnews=xnews, delay=delay)
     if ring.device.type == "cpu":
         return mac_mix_group_reference(ring, xnews, bank, coeff_idx, mask,
-                                       t, w, delay)
+                                       t, w, delay, has_bin0)
     if ring.device.type != "cuda":
         raise ValueError(f"mac_mix_group: unsupported device {ring.device}")
     F, B, _, K = ring.shape
@@ -155,6 +162,6 @@ def mac_mix_group(ring: torch.Tensor, xnews: torch.Tensor,
                       device=ring.device)
     _launch("mac_mix_group", "bf_mac_mix_group", ring, xnews, out,
             (ring, xnews, bank, coeff_idx, mask, t, delay, w),
-            (F, B, K, bank.shape[0], C_out))
+            (F, B, K, bank.shape[0], C_out), has_bin0)
     launches["mix_group"] += 1
     return out

@@ -9,7 +9,9 @@ On a CUDA tensor it launches a hand-written kernel: ``csrc/mac_mix.cu``
 shapes where the JAX package takes its bin-tiled kernel (``tiled_route``).
 On a CPU tensor it runs :func:`mac_mix_reference`, the plain torch
 version. There is no fallback from a kernel to the plain version on a
-CUDA tensor: a failed build or launch raises.
+CUDA tensor: a failed build or launch raises. ``has_bin0`` False makes
+bin 0 an ordinary complex product: the call of a mesh's bin shard other
+than the first (``ops/mac_shard.py``).
 """
 
 from __future__ import annotations
@@ -99,12 +101,13 @@ def plan(F: int, B: int, K: int, C_out: int, uniform: bool = False) -> dict:
                      f"memory (F={F}, B={B}, K={K}, C_out={C_out})")
 
 
-def mac_mix_reference(ring, bank, coeff_idx, mask, t, w, uniform: bool):
+def mac_mix_reference(ring, bank, coeff_idx, mask, t, w, uniform: bool,
+                      has_bin0: bool = True):
     """Plain torch version of every form: the dense MAC, then the FP32
     output mix. The tiled kernel reads per-filter rows, so its plain
     version is the ``uniform=False`` one."""
     mac = spectral_mac_uniform if uniform else spectral_mac_rollh
-    return complex_mix(w, mac(ring, bank, coeff_idx, mask, t))
+    return complex_mix(w, mac(ring, bank, coeff_idx, mask, t, has_bin0))
 
 
 def check_operands(fn: str, ring, bank, coeff_idx, mask, t, w=None,
@@ -174,7 +177,7 @@ def check_operands(fn: str, ring, bank, coeff_idx, mask, t, w=None,
 
 def mac_mix(ring: torch.Tensor, bank: torch.Tensor, coeff_idx: torch.Tensor,
             mask: torch.Tensor, t: torch.Tensor, w: torch.Tensor,
-            uniform: bool) -> torch.Tensor:
+            uniform: bool, has_bin0: bool = True) -> torch.Tensor:
     """Fused MAC + output mix -> ``[C_out, 2, K]`` float32.
 
     ring [F, B, 2, K] f32 (current block already written), bank
@@ -185,7 +188,8 @@ def mac_mix(ring: torch.Tensor, bank: torch.Tensor, coeff_idx: torch.Tensor,
     """
     check_operands("mac_mix", ring, bank, coeff_idx, mask, t, w)
     if ring.device.type == "cpu":
-        return mac_mix_reference(ring, bank, coeff_idx, mask, t, w, uniform)
+        return mac_mix_reference(ring, bank, coeff_idx, mask, t, w, uniform,
+                                 has_bin0)
     if ring.device.type != "cuda":
         raise ValueError(f"mac_mix: unsupported device {ring.device}")
     F, B, _, K = ring.shape
@@ -202,12 +206,13 @@ def mac_mix(ring: torch.Tensor, bank: torch.Tensor, coeff_idx: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         if tiled:
             form = "tiled"
-            rc = _build.load("mac_mix_tiled").bf_mac_mix_tiled(*args, stream)
+            rc = _build.load("mac_mix_tiled").bf_mac_mix_tiled(
+                *args, int(has_bin0), stream)
         else:
             form = "uniform" if uniform else "rows"
             rc = _build.load("mac_mix").bf_mac_mix(
                 *args, int(uniform), p["nw"], p["FC"], int(p["bank_smem"]),
-                stream)
+                int(has_bin0), stream)
     if rc != 0:
         raise RuntimeError(
             f"mac_mix: {form} kernel launch failed (cudaError {rc})")

@@ -113,6 +113,16 @@ irfft_planes = fft_glue.irfft_planes_glue          # [..., 2, M] -> [..., 2M]
 irfft_planes_valid = fft_glue.irfft_planes_valid_glue  # -> [..., M], lower half
 
 
+@functools.lru_cache(maxsize=512)
+def static_index(values: tuple, device: torch.device,
+                 dtype: torch.dtype = torch.long) -> torch.Tensor:
+    """A static index vector (a stage's filters, slots, an inverse
+    permutation, a shard's rows) on ``device``, built once: a tensor made
+    from host data inside the per-block loop is a synchronous host ->
+    device copy."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 @functools.lru_cache(maxsize=16)
 def xfade_ramp(n: int, dtype, device) -> torch.Tensor:
     """The crossfade's linear ramp ``arange(n) / (n - 1)``, built once per
@@ -166,13 +176,17 @@ def _hpos(t: torch.Tensor, B: int) -> torch.Tensor:
     return torch.remainder(t.to(torch.int64) - b, B)
 
 
-def mac_terms(ring, H):
-    """Sum over partitions of ring (*) H, with the bin-0 rule.
-    ring [F, B, 2, N], H [F|1, B, 2, N] -> [F, 2, N]."""
+def mac_terms(ring, H, has_bin0: bool = True):
+    """Sum over partitions of ring (*) H, with the bin-0 rule where
+    ``has_bin0`` (else bin 0 is an ordinary complex product: a bin shard
+    other than a mesh's first). ring [F, B, 2, N], H [F|1, B, 2, N] ->
+    [F, 2, N]."""
     rr, ri = ring[:, :, 0], ring[:, :, 1]          # [F, B, N]
     hr, hi = H[:, :, 0], H[:, :, 1]
     yr = torch.sum(rr * hr - ri * hi, dim=1)       # [F, N]
     yi = torch.sum(rr * hi + ri * hr, dim=1)
+    if not has_bin0:
+        return torch.stack([yr, yi], dim=1)
     # bin 0: DC and Nyquist are independent real products
     yr0 = torch.sum(rr[..., 0] * hr[..., 0], dim=-1)
     yi0 = torch.sum(ri[..., 0] * hi[..., 0], dim=-1)
@@ -183,24 +197,25 @@ def mac_terms(ring, H):
 
 def spectral_mac_rollh(ring: torch.Tensor, bank: torch.Tensor,
                        coeff_idx: torch.Tensor, mask: torch.Tensor,
-                       t: torch.Tensor) -> torch.Tensor:
+                       t: torch.Tensor, has_bin0: bool = True) -> torch.Tensor:
     """``Y = sum_b ring[:, (t-b)%B] (*) (bank[idx, b] * mask[:, b])``,
     rewritten as ``sum_j ring[:, j] (*) H[:, (t-j)%B]``: the rotation
     rides the coefficient gather and the ring is read unrotated.
 
     ring [F, B, 2, N], bank [E, B, 2, N], coeff_idx [F] int, mask [F, B]
-    (follows the coefficient partition index), t scalar int tensor.
-    Returns [F, 2, N]."""
+    (follows the coefficient partition index), t scalar int tensor;
+    ``has_bin0`` as ``mac_terms``. Returns [F, 2, N]."""
     B = ring.shape[1]
     hpos = _hpos(t, B)
     mg = mask[:, hpos].to(ring.dtype)
     H = bank[coeff_idx.long()[:, None], hpos[None, :]] * mg[:, :, None, None]
-    return mac_terms(ring, H)
+    return mac_terms(ring, H, has_bin0)
 
 
 def spectral_mac_uniform(ring: torch.Tensor, bank: torch.Tensor,
                          coeff_idx: torch.Tensor, mask: torch.Tensor,
-                         t: torch.Tensor) -> torch.Tensor:
+                         t: torch.Tensor,
+                         has_bin0: bool = True) -> torch.Tensor:
     """spectral_mac_rollh when every filter uses the SAME coefficient row
     and mask row (``coeff_idx[0]``, ``mask[0]``): one [B, 2, N] row is
     gathered and broadcast across the filter axis."""
@@ -208,18 +223,19 @@ def spectral_mac_uniform(ring: torch.Tensor, bank: torch.Tensor,
     hpos = _hpos(t, B)
     mrow = mask[0, hpos].to(ring.dtype)
     H = bank[coeff_idx.long()[0], hpos] * mrow[:, None, None]   # [B, 2, N]
-    return mac_terms(ring, H[None])
+    return mac_terms(ring, H[None], has_bin0)
 
 
 def spectral_mac_dual(ring, bank, rows, coeff_idx, mask, prev_idx,
-                      prev_mask, t, uniform: bool):
+                      prev_mask, t, uniform: bool, has_bin0: bool = True):
     """The crossfade's two MACs of the stage filters ``rows`` (int tensor)
     as two plain MACs over the gathered rows: ``(Y_new, Y_old)`` against
     (``coeff_idx``, ``mask``) and (``prev_idx``, ``prev_mask``), every
     filter's controls read at ``rows``; ``uniform`` reads the first stage
-    filter's for all of them. Returns two [Fs, 2, N]."""
+    filter's for all of them; ``has_bin0`` as ``mac_terms``. Returns two
+    [Fs, 2, N]."""
     r = rows.long()
     fn = spectral_mac_uniform if uniform else spectral_mac_rollh
     rs = ring[r]
-    return (fn(rs, bank, coeff_idx[r], mask[r], t),
-            fn(rs, bank, prev_idx[r], prev_mask[r], t))
+    return (fn(rs, bank, coeff_idx[r], mask[r], t, has_bin0),
+            fn(rs, bank, prev_idx[r], prev_mask[r], t, has_bin0))

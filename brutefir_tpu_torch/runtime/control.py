@@ -11,9 +11,14 @@ vectors. Channel delays and subdelays are kept and validated here; the
 engine copies them with each snapshot into ``DeviceIO.update_delays`` and
 ``update_subdelays``.
 
-The JAX package's manual ``process:`` placement permutation
-(``spec_rows``/``f2row``) comes with multi-device sharding (ROADMAP queue 1
-item 11): here spec rows are config order.
+Manual ``process:`` placement (the JAX package's ``spec_rows`` /
+``f2row``, engine.py:196-233): under a mesh with an 'f' axis the engine
+permutes the filter axis so that each process group holds its own
+contiguous shard rows, padded with inert rows. The mutation API speaks
+config filter indices; only ``snapshot()`` writes spec rows, through the
+row map: every control that names a filter (coefficient, filter delay,
+the input, filter and output mixes, the crossfade). Under a mesh the
+snapshot is a ``MeshCtrl``, each shard's rows on its device.
 """
 
 from __future__ import annotations
@@ -41,10 +46,18 @@ class FilterControl:
 
 
 class RuntimeControl:
-    def __init__(self, conf: BFConfig, spec: GraphSpec, device):
+    def __init__(self, conf: BFConfig, spec: GraphSpec, device,
+                 spec_rows=None, f2row=None, mesh=None):
+        """``spec_rows`` (spec row -> config filter, -1 a padding row) and
+        ``f2row`` (config filter -> spec row) carry the manual
+        ``process:`` placement; None: spec rows are config order.
+        ``mesh``: snapshots are placed on it (``make_ctrl``)."""
         self.conf = conf
         self.spec = spec
         self.device = device
+        self.spec_rows = list(spec_rows) if spec_rows is not None else None
+        self.f2row = f2row
+        self.mesh = mesh
         self.fctrl = [
             FilterControl(
                 f.coeff, f.delayblocks,
@@ -187,24 +200,43 @@ class RuntimeControl:
         prev_idx = np.zeros(F, np.int32)
         prev_mask = np.zeros((F, B), rd)
         xfade = np.zeros(F, rd)
+        rowmap = self.f2row
         for n, f in enumerate(conf.filters):
+            r = n if rowmap is None else int(rowmap[n])
             fc = self.fctrl[n]
             for j, (ch, _) in enumerate(f.in_channels):
-                in_mix[n, ch] = fc.in_scales[j] * self.virtscale[IN][ch]
+                in_mix[r, ch] = fc.in_scales[j] * self.virtscale[IN][ch]
             for j, (src, _) in enumerate(f.in_filters):
-                fmix[n, src] = fc.fscales[j]
+                rs = src if rowmap is None else int(rowmap[src])
+                fmix[r, rs] = fc.fscales[j]
             for j, (ch, _) in enumerate(f.out_channels):
-                out_mix[ch, n] = fc.out_scales[j] / self.virtscale[OUT][ch]
+                out_mix[ch, r] = fc.out_scales[j] / self.virtscale[OUT][ch]
             d = min(max(fc.delayblocks, 0), B - 1)
-            delay[n] = d
+            delay[r] = d
             c = final_coeff[n]
-            coeff_idx[n] = self._bank_index(c)
-            mask[n, : self._cblocks(c, d)] = 1.0
+            coeff_idx[r] = self._bank_index(c)
+            mask[r, : self._cblocks(c, d)] = 1.0
             pc = self.prev_coeff[n]
-            prev_idx[n] = self._bank_index(pc)
-            prev_mask[n, : self._cblocks(pc, d)] = 1.0
+            prev_idx[r] = self._bank_index(pc)
+            prev_mask[r, : self._cblocks(pc, d)] = 1.0
             if xfade_now[n]:
-                xfade[n] = 1.0
+                xfade[r] = 1.0
+
+        if self.spec_rows is not None:
+            # padding rows: nothing enters or leaves them (zero mixes, a
+            # ring of zeros); they mirror the first real row's coefficient,
+            # mask and delay so the uniform forms survive the padding
+            # (control.py:219-233)
+            r0 = next((r for r, nf in enumerate(self.spec_rows) if nf >= 0),
+                      -1)
+            if r0 >= 0:
+                for r, nf in enumerate(self.spec_rows):
+                    if nf < 0:
+                        delay[r] = delay[r0]
+                        coeff_idx[r] = coeff_idx[r0]
+                        mask[r] = mask[r0]
+                        prev_idx[r] = prev_idx[r0]
+                        prev_mask[r] = prev_mask[r0]
 
         ps_thresh = None
         if spec.powersave:
@@ -216,7 +248,8 @@ class RuntimeControl:
         self._cached = make_ctrl(spec, in_mix, out_mix, delay, coeff_idx,
                                  mask, ps_thresh, device=self.device,
                                  fmix=fmix, prev_idx=prev_idx,
-                                 prev_mask=prev_mask, xfade=xfade)
+                                 prev_mask=prev_mask, xfade=xfade,
+                                 mesh=self.mesh)
         self._cached_has_xfade = any(xfade_now)
         self.snapshot_xfade = self._cached_has_xfade
         self.snapshot_uniform = bool(

@@ -31,9 +31,25 @@ with controls frozen across the batch; nothing in the loop synchronises
 with the host. At big single-stage shapes it steps G blocks at a time
 (``graph.compile.group_size`` / ``group_step_impl``), reading the ring
 and the bank once per group.
+
+Under the engine's mesh (``parallel/mesh.py``) the IO halves run on the
+mesh's first device and the graph step over the mesh: ``step_impl`` and
+``group_step_impl`` with ``mesh=`` (the grouped dispatch through
+``mac_group_shard``, the mix outside), as the JAX package's program
+pins its IO state replicated (device_io.py:437-444).
+
+S24 in a 4-byte container crosses the wire as its 3 significant bytes
+unless ``BRUTEFIR_TPU_WIRE_PACK24=0`` (read when a DeviceIO is made, as
+the JAX package reads it, device_io.py:80-92): exact for in-spec words,
+while a word whose padding byte is not the sign extension of bit 23
+decodes as its 24-bit value; with the switch off the whole int32 word
+travels and decodes as the reference reads it (raw2real.h:143-153,
+docs/PARITY.md).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -53,11 +69,12 @@ def _wire3(fmt) -> bool:
             and fmt.little_endian and np.little_endian)
 
 
-def _p24(fmt) -> bool:
+def _p24(fmt, pack24: bool = True) -> bool:
     """S24 in a 4-byte container: only the 3 significant bytes travel
-    (25% less host->device traffic), sign-extended on device."""
-    return (not fmt.is_float and fmt.bytes == 4 and fmt.sbytes == 3
-            and fmt.little_endian and np.little_endian)
+    (25% less host->device traffic), sign-extended on device; never with
+    ``pack24`` False (``BRUTEFIR_TPU_WIRE_PACK24=0``)."""
+    return (pack24 and not fmt.is_float and fmt.bytes == 4
+            and fmt.sbytes == 3 and fmt.little_endian and np.little_endian)
 
 
 def eligible(conf: BFConfig) -> bool:
@@ -137,8 +154,11 @@ class DeviceIO:
         self.conf = conf
         self.spec = engine.spec
         self.device = engine.device
+        self.mesh = engine.mesh
         self.rd = rd = real_dtype(self.spec)
         dev_ = self.device
+        # the wire compaction's kill switch (device_io.py:80-92)
+        pack24 = os.environ.get("BRUTEFIR_TPU_WIRE_PACK24", "1") != "0"
 
         def on_dev(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=dev_)
@@ -151,7 +171,7 @@ class DeviceIO:
         self._in_devs = []
         for dev in conf.iodevs[IN]:
             fmt = dev.sample_format
-            if _wire3(fmt) or _p24(fmt):
+            if _wire3(fmt) or _p24(fmt, pack24):
                 self.in_wire.append("raw3" if _wire3(fmt) else "p24")
                 self.in_wire_dtype.append(np.dtype(np.uint8))
                 self.in_wire_shape.append((dev.open_channels, 3))
@@ -174,7 +194,8 @@ class DeviceIO:
                 self.out_wire.append("raw3")
                 self.out_words.append(torch.int32)
             else:
-                self.out_wire.append("p24" if _p24(fmt) else "word")
+                self.out_wire.append("p24" if _p24(fmt, pack24)
+                                     else "word")
                 self.out_words.append(torch_dtype(device_format_word(fmt)))
             rows = [np.asarray(conf.phys2virt[OUT][dev.phys_base + i],
                                np.int64)
@@ -381,7 +402,7 @@ class DeviceIO:
         x = self.input_half(in_words, in_gain)
         state, y = step_impl(self.spec, state, ctrl, bank, x,
                              uniform=uniform, uniform_delay=udelay,
-                             xfade_now=xfade)
+                             xfade_now=xfade, mesh=self.mesh)
         outs, meters, nan_ok = self.output_half(y, out_gain)
         return state, outs, meters, nan_ok
 
@@ -395,7 +416,7 @@ class DeviceIO:
         chains block by block in order, as m calls of ``step`` chain it."""
         m = in_words[0].shape[0]
         outs_b, meters_b, nans = [], [], []
-        G = group_size(self.spec, m)
+        G = group_size(self.spec, m, self.mesh)
         for b0 in range(0, m, G):
             if G >= 2:
                 # grouped dispatch (device_io.py:587-613, 727-782): the
@@ -404,7 +425,8 @@ class DeviceIO:
                 xs = [self.input_half([w[b] for w in in_words], in_gain)
                       for b in range(b0, b0 + G)]
                 state, ys = group_step_impl(self.spec, state, ctrl, bank,
-                                            xs, uniform_delay=udelay)
+                                            xs, uniform_delay=udelay,
+                                            mesh=self.mesh)
                 blocks = [self.output_half(y, out_gain) for y in ys]
             else:
                 state, *one = self.step(

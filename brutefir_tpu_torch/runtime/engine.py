@@ -83,6 +83,17 @@ dither, the host path's staging, the taps' complex128 rows; the step
 takes the JAX package's float64 routes (``graph/compile.py``) through the
 float64 forms of the unfused MAC and the FFT glue.
 
+Several devices (engine.py:105-111, 163-240, 385-399): ``Engine(conf,
+mesh=...)`` runs the block step over an ('f', 'sp') mesh of devices
+(``parallel/mesh.py``), one process driving every shard; without
+``mesh=`` an automatic one is picked from ``BRUTEFIR_TPU_MESH`` (``auto``
+over every visible card by default, ``off``, or ``FxS``) as the JAX
+package picks it. Manual ``filter { process: N; }`` pins place each
+process group on its own rows of the 'f' axis (padded with inert rows);
+without an 'f' axis to place onto they have no effect, and the engine
+says so. Frequency-domain hooks need one device: an automatic mesh steps
+down to its first device, an explicit one refuses them.
+
 Not ported: the powersave dispatch skip (the JAX package makes it
 byte-identical to always dispatching, so the port always dispatches).
 """
@@ -113,6 +124,7 @@ from ..graph.compile import (check_supported, init_state, real_dtype,
 from ..graph.spec import build_graph_spec
 from ..io import get_io_module
 from ..ops.partconv import np_c2p, np_p2c, pack_spectrum, unpack_spectrum
+from ..parallel import mesh as mesh_mod
 from .control import RuntimeControl
 from .device_io import DeviceIO, dithered_phys, eligible
 from .subdelay import SubsampleDelay
@@ -188,29 +200,105 @@ def pin_fp32_matmul() -> None:
 
 class Engine:
     """Runs a parsed config on ``device`` (None means ``cuda``; the CPU
-    only when passed explicitly)."""
+    only when passed explicitly). ``mesh``: a ``parallel.mesh.Mesh`` to
+    shard the block step over (its first device is then the engine's);
+    None picks one from ``BRUTEFIR_TPU_MESH`` over the visible cards."""
 
-    def __init__(self, conf: BFConfig, device=None):
+    def __init__(self, conf: BFConfig, device=None, mesh=None):
         self.device = resolve_device(device)
         pin_fp32_matmul()
         self.conf = conf
         self.N = conf.filter_length
         self.B = conf.n_blocks
         self.rd = np.dtype(np.float32 if conf.realsize == 4 else np.float64)
+        quiet = getattr(conf, "quiet", False)
 
         filter_inputs = [[src for src, _ in f.in_filters]
                          for f in conf.filters]
+        crossfades = [f.crossfade for f in conf.filters]
+        # manual filter -> process placement (bfconf.c:1024-1036; the
+        # parser enforces all-or-none and the cross-process rules)
+        manual_proc = [f.process for f in conf.filters]
+        manual = bool(conf.filters) and all(p >= 0 for p in manual_proc)
+        n_proc = (max(manual_proc) + 1) if manual else 0
+
+        # an explicit mesh wins; else BRUTEFIR_TPU_MESH over the visible
+        # cards, the analog of the reference's one filter process a CPU
+        # (engine.py:170-194); a malformed value is a typed config error
+        self._mesh_auto = False
+        if mesh is None:
+            self._mesh_auto = (os.environ.get("BRUTEFIR_TPU_MESH", "auto")
+                               .strip().lower() in ("", "auto"))
+            mesh = mesh_mod.auto_mesh(
+                max(len(conf.filters), 1), self.N, self.rd,
+                devices=mesh_mod.default_devices(self.device),
+                f_pref=n_proc if manual else 0)
+            if mesh is not None and not quiet:
+                sys.stderr.write(
+                    f"Multi-device mesh: f={mesh.shape['f']} x "
+                    f"sp={mesh.shape['sp']} over "
+                    f"{mesh.devices.size} devices\n")
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = mesh.first
+
+        # process groups on the 'f' axis: the filter axis permuted so each
+        # group holds its own contiguous shard rows, padded to equal size
+        # with inert rows (zero mixes), process id -> shard round-robin as
+        # the reference folds processes onto CPUs (bfconf.c:2304-2316).
+        # f2spec: config filter -> spec row; spec_rows: spec row -> config
+        # filter (-1 a padding row); None: config order (engine.py:196-240)
+        self.f2spec = None
+        self.spec_rows = None
+        if manual and mesh is not None and mesh.shape["f"] > 1:
+            f_n = mesh.shape["f"]
+            groups = [[] for _ in range(f_n)]
+            for nf, p in enumerate(manual_proc):
+                groups[p % f_n].append(nf)
+            gsize = max(len(g) for g in groups)
+            rows = []
+            for g in groups:
+                rows.extend(g + [-1] * (gsize - len(g)))
+            f2spec = np.full(len(conf.filters), -1, np.int32)
+            for row, nf in enumerate(rows):
+                if nf >= 0:
+                    f2spec[nf] = row
+            self.f2spec = f2spec
+            self.spec_rows = rows
+            filter_inputs = [
+                ([int(f2spec[s]) for s in filter_inputs[nf]] if nf >= 0
+                 else []) for nf in rows]
+            crossfades = [(crossfades[nf] if nf >= 0 else False)
+                          for nf in rows]
+            if not quiet:
+                sys.stderr.write(
+                    f"Manual process placement: {n_proc} process group(s) "
+                    f"onto the {f_n}-way 'f' mesh axis "
+                    f"({len(rows)} filter rows incl. padding)\n")
+        elif manual and not quiet:
+            # the reference pins work onto CPUs regardless; one device (or
+            # an f = 1 mesh) has nowhere to place it
+            sys.stderr.write(
+                "Warning: filter process: settings have no effect "
+                "(single device or no 'f' mesh axis to place onto)\n")
+
         self.spec = build_graph_spec(
             self.N, self.B, conf.n_channels[IN], conf.n_channels[OUT],
-            filter_inputs, [f.crossfade for f in conf.filters], self.rd,
+            filter_inputs, crossfades, self.rd,
             powersave=conf.powersave and conf.analog_powersave < 1.0)
         check_supported(self.spec)
 
-        # [E, B, N] complex -> the kernel's [E, B, 2, N] re/im planes
-        self.bank = torch.as_tensor(
-            np_c2p(build_bank(conf.coeffs, self.N, self.B, self.rd.type)),
-            device=self.device)
-        self.control = RuntimeControl(conf, self.spec, self.device)
+        # [E, B, N] complex -> the kernel's [E, B, 2, N] re/im planes; under
+        # a mesh each device takes its bin shards from the host copy
+        bank = torch.as_tensor(
+            np_c2p(build_bank(conf.coeffs, self.N, self.B, self.rd.type)))
+        self._sharded = (mesh_mod.ShardedGraph(self.spec, mesh)
+                         if mesh is not None else None)
+        self.bank = (mesh_mod.split(mesh, bank, None, 3) if mesh is not None
+                     else bank.to(self.device))
+        self.control = RuntimeControl(conf, self.spec, self.device,
+                                      spec_rows=self.spec_rows,
+                                      f2row=self.f2spec, mesh=mesh)
 
         self.devices: List[list] = [[], []]
         reset_done = set()
@@ -277,7 +365,8 @@ class Engine:
         for ch in range(conf.n_channels[OUT]):
             self.overflow.append(self._phys_overflow[conf.virt2phys[OUT][ch]])
 
-        self.state = init_state(self.spec, self.device)
+        self.state = (self._sharded.init_state() if mesh is not None
+                      else init_state(self.spec, self.device))
         self.control_mutex = threading.RLock()
         self.blockcounter = 0
         self.realtime_index = 0.0    # the CLI's rti reads it
@@ -354,11 +443,22 @@ class Engine:
         render), out of place like the JAX package's functional update: a
         new bank tensor is rebound under the control mutex, so a block
         dispatched with the old one (its snapshot's) is unaffected, even
-        when the EQ runs on a CLI socket thread."""
+        when the EQ runs on a CLI socket thread. Under a mesh every bin
+        shard of the bank is written."""
         H = torch.as_tensor(np.asarray(H).reshape(self.bank.shape[1:]),
-                            dtype=self.bank.dtype, device=self.device)
-        idx = torch.tensor([coeff_index], device=self.device)
-        bank = self.bank.index_copy(0, idx, H[None])
+                            dtype=self.bank.dtype)
+        if self.mesh is not None:
+            def write(part, i, j):
+                k0, k1 = self.mesh.bins(H.shape[-1])[j]
+                dev = part.device
+                return part.index_copy(
+                    0, torch.tensor([coeff_index], device=dev),
+                    H[None, ..., k0:k1].to(dev))
+            bank = self.bank.map(write)
+        else:
+            H = H.to(self.device)
+            idx = torch.tensor([coeff_index], device=self.device)
+            bank = self.bank.index_copy(0, idx, H[None])
         with self.control_mutex:
             self.bank = bank
 
@@ -374,13 +474,15 @@ class Engine:
         """Load the config's logic modules (``cli``, ``eq`` or an external
         ``bflogic_<name>.py`` from ``modules_path``) and wire their hooks,
         those of modules appended to ``self.logic`` beforehand included
-        (engine.py:488-572 without the mesh branch and the relay probe,
-        ROADMAP queue 1 item 13): the timed hooks, the frequency-domain
-        taps, the coeff_final hooks, the peak push, and each module's
-        ``initialised``. Timed hooks or any tap put every block on the
-        host codec path (``self.dio`` None, engine.py:497-499, :556);
-        ``run()`` attaches before ``setup()``, which makes that path's
-        encode pool."""
+        (engine.py:488-572 without the relay probe, ROADMAP queue 1 item
+        13): the timed hooks, the frequency-domain taps, the coeff_final
+        hooks, the peak push, and each module's ``initialised``. Timed
+        hooks or any tap put every block on the host codec path
+        (``self.dio`` None, engine.py:497-499, :556); ``run()`` attaches
+        before ``setup()``, which makes that path's encode pool. Taps need
+        one device: under an automatic mesh the engine steps down to its
+        first device with the JAX package's warning; an explicit mesh
+        (``mesh=`` or ``BRUTEFIR_TPU_MESH=FxS``) raises EngineError."""
         for name, params in self.conf.logic_modules:
             self.logic.append(load_logic_module(name, params, self,
                                                 self.conf.modules_path))
@@ -396,8 +498,26 @@ class Engine:
             hooks = [getattr(m, kind) for m in self.logic
                      if getattr(m, kind, None) is not None]
             if hooks:
+                # pre/post_convolve name filters: under process placement
+                # the step's ids are spec rows, the module ABI speaks
+                # config filters (padding rows are skipped)
+                row2conf = (self.spec_rows
+                            if kind in ("pre_convolve", "post_convolve")
+                            else None)
                 taps[kind] = self._make_freqd_tap(
-                    hooks, warming=lambda: self._warming)
+                    hooks, row2conf, warming=lambda: self._warming)
+        if taps and self.mesh is not None:
+            if not self._mesh_auto:
+                raise EngineError(
+                    "frequency-domain module hooks require a single "
+                    "device (BRUTEFIR_TPU_MESH=off, or drop the explicit "
+                    "mesh)")
+            if not getattr(self.conf, "quiet", False):
+                sys.stderr.write(
+                    "Multi-device mesh disabled: a logic module "
+                    "registered frequency-domain hooks (single-device "
+                    "only)\n")
+            self._drop_mesh()
         self.taps = taps
         if self._has_timed_hooks or taps:
             self.dio = None
@@ -413,6 +533,20 @@ class Engine:
             hook = getattr(m, "initialised", None)
             if hook is not None:
                 hook()
+
+    def _drop_mesh(self):
+        """Step down from the mesh to its first device (engine.py:538-558):
+        the bank gathered there, a fresh state, the controls' next
+        snapshot a plain StepCtrl."""
+        self.bank = mesh_mod.gather(self.bank)
+        self.mesh = None
+        self._sharded = None
+        self.state = init_state(self.spec, self.device)
+        with self.control_mutex:
+            self.control.mesh = None
+            self.control.mark_dirty()
+        if self.dio is not None:
+            self.dio.mesh = None
 
     @staticmethod
     def _make_freqd_tap(hooks, row2conf=None, warming=None):
@@ -431,8 +565,8 @@ class Engine:
         hands its modules host buffers), not a fallback.
 
         ``row2conf`` maps spec rows to config filters (padding rows -1
-        skip the hooks); the port's spec rows are config order until
-        multi-device placement (ROADMAP queue 1 item 11), so it is None.
+        skip the hooks): the engine's ``spec_rows`` under ``process:``
+        placement, else None (spec rows are config order).
         ``warming`` (the engine's ``_warming`` gate, engine.py:586-589):
         while it returns True the tap hands the planes back untouched and
         calls no hook, so a module never sees ``_warm_programs``' blocks."""
@@ -517,9 +651,10 @@ class Engine:
         cloned before and restored after; the host path steps the graph
         only, never ``read_block`` / ``write_block``, so delay lines and
         host dither states stay put; ``_warming`` silences the taps.
-        Clockless (file) runs skip it, as in the JAX package. A failure
-        is reported and left to the audio path, as there."""
-        if not self._clocked():
+        Clockless (file) runs skip it, and so do runs on a mesh, as in the
+        JAX package (engine.py:806). A failure is reported and left to the
+        audio path, as there."""
+        if not self._clocked() or self.mesh is not None:
             return
         # run() attaches the logic modules before setup(), so the
         # variants warmed here are the ones that run (taps, host path)
@@ -771,7 +906,7 @@ class Engine:
         self.state, y = step_impl(self.spec, self.state, ctrl, bank,
                                   self._upload_host(x), uniform=uni,
                                   uniform_delay=udl, xfade_now=xf,
-                                  taps=self.taps)
+                                  taps=self.taps, mesh=self.mesh)
         return y
 
     def _upload_host(self, x: np.ndarray) -> torch.Tensor:
@@ -1341,7 +1476,8 @@ class Engine:
             from .stageprobe import STAGES, device_stage_slopes
             if not hasattr(self, "_stage_slopes"):
                 self._stage_slopes = device_stage_slopes(
-                    self.spec, self.bank, self.device)
+                    self.spec, self.bank if self.mesh is None
+                    else mesh_mod.gather(self.bank), self.device)
                 tot = sum(self._stage_slopes.values())
                 sys.stderr.write(
                     "device stage calibration (ms/block): "

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Times the unfused MAC (``csrc/mac.cu``), the crossfade dual MAC
-(``csrc/mac_dual.cu``) and the grouped MACs (``csrc/mac_group.cu``) of
-this tree beside the same sources of another tree of the repository, on
-one CUDA card: the first two at the shapes of ``chip_smoke.py``'s phases
-4 and 5 (``MAC_SHAPES``, ``DUAL_SHAPES``), the grouped ones at the
+(``csrc/mac_dual.cu``), the grouped MACs (``csrc/mac_group.cu``) and the
+fused MAC + mix (``csrc/mac_mix.cu``, ``csrc/mac_mix_tiled.cu``) of this
+tree beside the same sources of another tree of the repository, on one
+CUDA card: the first two at the shapes of ``chip_smoke.py``'s phases 4
+and 5 (``MAC_SHAPES``, ``DUAL_SHAPES``), the grouped ones at the
 256-channel scale shape (``bf_mac_mix_group`` at G = 2, ``bf_mac_group``
-at G = 4 and 3):
+at G = 4 and 3), the fused MAC + mix at the massive shape (both forms)
+and the tiled one at the scale shape:
 
     python3 chip_mac_ab.py OTHER_TREE
 
@@ -14,8 +16,11 @@ unpacked with ``git archive`` into a git-ignored directory. Its sources
 are built here with the port's nvcc flags into ``build/chip_mac_ab/``
 and called through the same C entries (``bf_mac``, ``bf_mac_dual``,
 ``bf_mac_group``, ``bf_mac_mix_group``) on the same tensors as this
-tree's wrappers. Both outputs are held against the plain version first
-(1e-5 of its peak). Each time is the median of 20 calls with the L2
+tree's wrappers, each with the other tree's own argument list (its
+``_build.SIGNATURES``: a tree whose entries take ``has_bin0`` gets 1,
+the unsharded value). Both outputs are held against the plain version
+first (1e-5 of its peak), and against each other: bit-equal, or the
+run fails. Each time is the median of 20 calls with the L2
 cache flushed by a read before each (``chip_smoke.time_ms``,
 ``read_flush``), taken in turns: other, this, this, other. The floor of
 the method (a kernel that writes 4 bytes) and each shape's bound are
@@ -34,12 +39,27 @@ import chip_smoke as cs
 OUT = os.path.join(cs.REPO, "build", "chip_mac_ab")
 # source stem -> the C entries compared
 ENTRIES = {"mac": ("bf_mac",), "mac_dual": ("bf_mac_dual",),
-           "mac_group": ("bf_mac_group", "bf_mac_mix_group")}
+           "mac_group": ("bf_mac_group", "bf_mac_mix_group"),
+           "mac_mix": ("bf_mac_mix",), "mac_mix_tiled": ("bf_mac_mix_tiled",)}
+# C entry -> the trailing arguments before the stream the other tree's
+# entry takes beyond the earlier interface: (1,) for has_bin0, or ()
+BIN0 = {}
+
+
+def other_signatures(tree: str) -> dict:
+    """The other tree's ``_build.SIGNATURES``, read from its file."""
+    import importlib.util
+    path = os.path.join(tree, "brutefir_tpu_torch", "ops", "_build.py")
+    spec = importlib.util.spec_from_file_location("other_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.SIGNATURES
 
 
 def build_other(tree: str) -> dict:
     """The other tree's sources, built and loaded: C entry -> function."""
     from brutefir_tpu_torch.ops import _build
+    sigs = other_signatures(tree)
     os.makedirs(OUT, exist_ok=True)
     jobs = {}
     for stem in ENTRIES:
@@ -56,10 +76,23 @@ def build_other(tree: str) -> dict:
         lib = ctypes.CDLL(so)
         for name in ENTRIES[stem]:
             fn = getattr(lib, name)
-            fn.argtypes = _build.SIGNATURES[stem][name]
+            fn.argtypes = sigs[stem][name]
             fn.restype = ctypes.c_int
             libs[name] = fn
+            BIN0[name] = ((1,) if len(sigs[stem][name])
+                          == len(_build.SIGNATURES[stem][name]) else ())
     return libs
+
+
+def same(label: str, other, this) -> None:
+    """Fail unless the two trees' outputs are bit-equal."""
+    import torch
+    for a, b in zip(other if isinstance(other, tuple) else (other,),
+                    this if isinstance(this, tuple) else (this,)):
+        if not torch.equal(a, b):
+            cs.fail(f"{label}: this tree's output is not bit-equal to the "
+                    f"other tree's")
+    print(f"{label}: bit-equal to the other tree", flush=True)
 
 
 def stream() -> int:
@@ -73,7 +106,8 @@ def other_mac(fn, ring, bank, rows, idx, mask, t, uniform):
     out = torch.empty((rows.numel(), 2, K), device=ring.device)
     rc = fn(ring.data_ptr(), bank.data_ptr(), rows.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), t.data_ptr(), out.data_ptr(),
-            F, rows.numel(), B, K, bank.shape[0], int(uniform), stream())
+            F, rows.numel(), B, K, bank.shape[0], int(uniform),
+            *BIN0["bf_mac"], stream())
     if rc != 0:
         cs.fail(f"the other tree's bf_mac failed (cudaError {rc})")
     return out
@@ -88,7 +122,7 @@ def other_dual(fn, ring, bank, rows, idx, mask, pidx, pmask, t, uniform):
             idx.data_ptr(), mask.data_ptr(), pidx.data_ptr(),
             pmask.data_ptr(), t.data_ptr(), y_new.data_ptr(),
             y_old.data_ptr(), F, rows.numel(), B, K, bank.shape[0],
-            int(uniform), stream())
+            int(uniform), *BIN0["bf_mac_dual"], stream())
     if rc != 0:
         cs.fail(f"the other tree's bf_mac_dual failed (cudaError {rc})")
     return y_new, y_old
@@ -104,11 +138,75 @@ def other_group(fn, ring, xnews, bank, idx, mask, t, delay, w=None):
     ptrs = [ring, xnews, bank, idx, mask, t, delay] + (
         [] if w is None else [w])
     dims = (F, B, K, bank.shape[0]) + (() if w is None else (rows,))
+    name = "bf_mac_group" if w is None else "bf_mac_mix_group"
     rc = fn(*(x.data_ptr() for x in ptrs), out.data_ptr(), *dims, G,
-            stream())
+            *BIN0[name], stream())
     if rc != 0:
         cs.fail(f"the other tree's group kernel failed (cudaError {rc})")
     return out
+
+
+def other_mix(libs, ring, bank, idx, mask, t, w, uniform):
+    """The other tree's bf_mac_mix (or bf_mac_mix_tiled where this tree's
+    wrapper takes it) with this tree's launch plan."""
+    import torch
+    from brutefir_tpu_torch.ops import mac_mix as mm
+    F, B, _, K = ring.shape
+    C = w.shape[0]
+    out = torch.empty((C, 2, K), device=ring.device)
+    args = (ring.data_ptr(), bank.data_ptr(), idx.data_ptr(),
+            mask.data_ptr(), t.data_ptr(), w.data_ptr(), out.data_ptr(),
+            F, B, K, bank.shape[0], C)
+    if mm.tiled_route(C, B, K):
+        rc = libs["bf_mac_mix_tiled"](*args, *BIN0["bf_mac_mix_tiled"],
+                                      stream())
+    else:
+        p = mm.plan(F, B, K, C, uniform)
+        rc = libs["bf_mac_mix"](*args, int(uniform), p["nw"], p["FC"],
+                                int(p["bank_smem"]), *BIN0["bf_mac_mix"],
+                                stream())
+    if rc != 0:
+        cs.fail(f"the other tree's fused MAC + mix failed (cudaError {rc})")
+    return out
+
+
+def compare_mix(libs, flush) -> None:
+    """The fused MAC + mix of both trees: both forms of mac_mix.cu at the
+    massive shape, the tiled kernel at the scale shape (256 outputs)."""
+    import torch
+    from brutefir_tpu_torch.ops import mac_mix as mm
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 52)
+    t7 = torch.tensor(7, dtype=torch.int32, device=dev)
+    for label, F_, C, E_, uniform in (
+            ("mac_mix_uniform (massive)", cs.F, cs.C_OUT, cs.E, True),
+            ("mac_mix_rows (massive)", cs.F, cs.C_OUT, cs.E, False),
+            ("mac_mix tiled (scale)", cs.SCALE_C, cs.SCALE_C, cs.SCALE_C,
+             False)):
+        ring = torch.randn(F_, cs.B, 2, cs.K, generator=g, device=dev)
+        bank = torch.randn(E_, cs.B, 2, cs.K, generator=g, device=dev)
+        w = torch.randn(C, F_, generator=g, device=dev) / 16.0
+        idx = (torch.full((F_,), E_ - 1, dtype=torch.int32, device=dev)
+               if uniform else
+               torch.randperm(F_, generator=g, device=dev).to(torch.int32)
+               % E_)
+        mask = torch.ones(F_, cs.B, device=dev)
+        mask[:, -2:] = 0.0
+        ref = mm.mac_mix_reference(ring, bank, idx, mask, t7, w, uniform)
+        got_o = other_mix(libs, ring, bank, idx, mask, t7, w, uniform)
+        got_t = mm.mac_mix(ring, bank, idx, mask, t7, w, uniform)
+        cs.check(f"{label} (other tree)", got_o, ref, 7)
+        cs.check(label, got_t, ref, 7)
+        same(label, got_o, got_t)
+        ones = torch.ones(F_, cs.B, device=dev)
+        nb, nf = cs.mac_bytes_flops(F_, cs.B, cs.K, C, 1 if uniform else E_)
+        in_turns(label,
+                 lambda: other_mix(libs, ring, bank, idx, ones, t7, w,
+                                   uniform),
+                 lambda: mm.mac_mix(ring, bank, idx, ones, t7, w, uniform),
+                 flush, cs.bound(nb, nf)[0])
+        del ring, bank, ref, got_o, got_t
+        torch.cuda.empty_cache()
 
 
 def compare_group(libs, flush) -> None:
@@ -160,6 +258,7 @@ def compare_group(libs, flush) -> None:
         name = "bf_mac_mix_group" if fused else "bf_mac_group"
         cs.check(f"{name} G={G} (other tree)", got_o, ref, 7)
         cs.check(f"{name} G={G}", got_t, ref, 7)
+        same(f"{name} G={G}", got_o, got_t)
         del got_o, got_t, ref
         in_turns(f"{name} (scale shape, G={G})", other, this, flush,
                  cs.bound(nb, nf)[0])
@@ -196,6 +295,7 @@ def main() -> int:
     cs.FLOOR_MS = cs.time_ms(lambda: tiny.zero_(), cs.REPS, flush)
     print(f"floor (a kernel writing 4 bytes): {cs.FLOOR_MS:.4f} ms",
           flush=True)
+    compare_mix(libs, flush)
     compare_group(libs, flush)
     t7 = torch.tensor(7, dtype=torch.int32, device=dev)
 
@@ -205,10 +305,12 @@ def main() -> int:
                                                      uniform, stage)
         rt = torch.tensor(stage, dtype=torch.int32, device=dev)
         ref = tm.mac_reference(ring, bank, rt, idx, mask, t7, uniform)
-        cs.check(f"{name} (other tree)", other_mac(
-            libs["bf_mac"], ring, bank, rt, idx, mask, t7, uniform), ref, 7)
-        cs.check(name, tm.mac(ring, bank, rt, idx, mask, t7, uniform), ref,
-                 7)
+        got_o = other_mac(libs["bf_mac"], ring, bank, rt, idx, mask, t7,
+                          uniform)
+        got_t = tm.mac(ring, bank, rt, idx, mask, t7, uniform)
+        cs.check(f"{name} (other tree)", got_o, ref, 7)
+        cs.check(name, got_t, ref, 7)
+        same(name, got_o, got_t)
         ones = torch.ones(F_, B_, device=dev)
         used = 1 if uniform else len(set(idx[rt.long()].tolist()))
         nb, nf = cs.mac_bytes_flops(len(stage), B_, K_, 0, used,
@@ -228,6 +330,7 @@ def main() -> int:
         rt = torch.tensor(stage, dtype=torch.int32, device=dev)
         refs = td.mac_dual_reference(ring, bank, rt, idx, mask, pidx, pmask,
                                      t7, uniform)
+        outs = {}
         for who, got in (
                 ("other tree", other_dual(libs["bf_mac_dual"], ring, bank, rt,
                                           idx, mask, pidx, pmask, t7,
@@ -236,6 +339,8 @@ def main() -> int:
                                           pmask, t7, uniform))):
             for a, b in zip(got, refs):
                 cs.check(f"mac_dual {label} ({who})", a, b, 7)
+            outs[who] = got
+        same(f"mac_dual {label}", outs["other tree"], outs["this tree"])
         ones = torch.ones(F_, B_, device=dev)
         sel = rt.long()[:1] if uniform else rt.long()
         used = len(set(idx[sel].tolist()) | set(pidx[sel].tolist()))

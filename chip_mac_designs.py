@@ -144,7 +144,7 @@ staged_kernel(const Args<NS> a, int fg) {
     }
 #pragma unroll
     for (int s = 0; s < NS; ++s)
-      store_y<true>(acc[s], a.out[s] + size_t(i) * part, K, k0);
+      store_y<true>(acc[s], a.out[s] + size_t(i) * part, K, k0, 1);
   }
 }
 
@@ -192,11 +192,12 @@ extern "C" int bf_staged(int sets, int rows, int per_sm, const float* ring,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sets == 1) {
     bf_mac_core::Args<1> a{ring, bank, stage, t, {idx0}, {mask0}, {out0},
-                           F, Fs, B, K, E, 1};
+                           F, Fs, B, K, E, 1, 1};
     return bf_mac_core::by_rows<1>(a, rows, per_sm, s);
   }
   bf_mac_core::Args<2> a{ring, bank, stage, t, {idx0, idx1},
-                         {mask0, mask1}, {out0, out1}, F, Fs, B, K, E, 1};
+                         {mask0, mask1}, {out0, out1}, F, Fs, B, K, E, 1,
+                         1};
   return bf_mac_core::by_rows<2>(a, rows, per_sm, s);
 }
 """

@@ -108,7 +108,8 @@ def main():
             rc = fns[G](ring.data_ptr(), bank.data_ptr(), rt.data_ptr(),
                         idx.data_ptr(), ones.data_ptr(), t.data_ptr(),
                         outs[G].data_ptr(), F_, Fs, B_, K_, E_,
-                        int(uniform), torch.cuda.current_stream().cuda_stream)
+                        int(uniform), 1,
+                        torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 cs.fail(f"bf_mac_f64 at G = {G} refused (cudaError {rc})")
 

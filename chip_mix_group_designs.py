@@ -210,7 +210,7 @@ def mma(products: int):
     if (i % kCols >= G * 2 * kTileBins) ys[i] = 0.f;""", """  for (int i = tid; i < kFc * S::kYs2; i += kMixThreads)
     if (i % S::kYs2 >= G * 2 * kTileBins) ys[i] = make_float2(0.f, 0.f);""")
         a = src.index("  const int cg = (warp % S::kGP) * 8 + (lane & 7);")
-        b = src.index("  const bool bin0 = k0 + lane == 0;")
+        b = src.index("  const bool bin0 = has_bin0 && k0 + lane == 0;")
         src = src[:a] + MMA_MIX.replace("LO_PRODUCTS", lo) + src[b:]
         src = sub(src, STAGGER, """      if (r > 0 && mixes && s == warp % nst) {
         for (int kk = 0; kk < 2; ++kk) mix_step(kk);
@@ -349,7 +349,8 @@ mac_mix_group_kernel(const float* __restrict__ ring,
                      const int* __restrict__ t_ptr,
                      const int* __restrict__ delay,
                      const float* __restrict__ w, float* __restrict__ out,
-                     int F, int B, int K, int E, int C_out) {
+                     int F, int B, int K, int E, int C_out,
+                     int has_bin0) {
   using S = MixShape<G>;
   constexpr int kRows = S::kRows, kCols = S::kCols, kWs = S::kWs;
   extern __shared__ __align__(16) float sm[];
@@ -505,7 +506,7 @@ mac_mix_group_kernel(const float* __restrict__ ring,
   };
   load_w(0);
 
-  const bool bin0 = k0 + lane == 0;
+  const bool bin0 = has_bin0 && k0 + lane == 0;
   int gs = 0;                                // the stage the MAC reads
 #pragma unroll 1
   for (int r = 0; r < rounds; ++r) {
@@ -697,7 +698,8 @@ mac_mix_group_kernel(const float* __restrict__ ring,
                      const int* __restrict__ t_ptr,
                      const int* __restrict__ delay,
                      const float* __restrict__ w, float* __restrict__ out,
-                     int F, int B, int K, int E, int C_out) {
+                     int F, int B, int K, int E, int C_out,
+                     int has_bin0) {
   using S = MixShape<G>;
   constexpr int kRows = S::kRows, kCols = S::kCols, kWs = S::kWs;
   extern __shared__ __align__(16) float sm[];
@@ -890,7 +892,7 @@ mac_mix_group_kernel(const float* __restrict__ ring,
     cp_async_commit();
   }
 
-  const bool bin0 = k0 + lane == 0;
+  const bool bin0 = has_bin0 && k0 + lane == 0;
   int g = 0;                                 // the stage the MAC reads
 #pragma unroll 1
   for (int r = 0; r < rounds; ++r) {
@@ -1063,7 +1065,7 @@ def main() -> int:
         rc = fn(ring.data_ptr(), xnews.data_ptr(), bank.data_ptr(),
                 idx.data_ptr(), mask.data_ptr(), t7.data_ptr(),
                 delay.data_ptr(), w.data_ptr(), out.data_ptr(), Fs, cs.B,
-                cs.K, Es, Cs, G, stream)
+                cs.K, Es, Cs, G, 1, stream)
         if rc != 0:
             cs.fail(f"a form failed to launch (cudaError {rc})")
     nb, nf = cs.mac_bytes_flops(Fs, cs.B, cs.K, Cs, Es, G)

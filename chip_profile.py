@@ -10,7 +10,7 @@ Usage (from the repository root, one CUDA card):
                                      benchmark|eq|hostcodec|hooks|
                                      clocked|xtc_clocked|f64]
                             [--blocks N]
-                            [--pair G] [--mlock]
+                            [--pair G] [--mlock] [--mesh FxS]
 
 Writes the shape's seeded inputs for N blocks (default 64) as
 ``chip_smoke.py`` does: the scale shape (``write_scale_inputs``: 256 x
@@ -62,6 +62,10 @@ time by name, largest first. ``--pair`` sets BRUTEFIR_TPU_PAIR (default:
 the engine's own). ``--mlock`` calls ``mlockall(MCL_CURRENT |
 MCL_FUTURE)`` after the warm-up run and prints what it returned, so the
 timed and profiled runs allocate under the lock (``mlock_probe``).
+``--mesh FxS`` runs each engine sharded over an F x S mesh of shards all
+on the one visible card (``make_mesh([cuda:0] * F * S, F, S)`` passed as
+``Engine(conf, mesh=...)``): every MAC launch becomes F x S launches at
+the shard shape, beside the same shape unsharded in another call.
 """
 
 from __future__ import annotations
@@ -90,6 +94,8 @@ def main():
     ap.add_argument("--blocks", type=int, default=64)
     ap.add_argument("--pair", default=None)
     ap.add_argument("--mlock", action="store_true")
+    ap.add_argument("--mesh", default=None,
+                    help="FxS: shard over F x S shards on the one card")
     args = ap.parse_args()
     if args.pair is not None:
         os.environ["BRUTEFIR_TPU_PAIR"] = args.pair
@@ -100,6 +106,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
     from brutefir_tpu_torch.config import parse_config
     from brutefir_tpu_torch.graph.compile import group_size
+    from brutefir_tpu_torch.parallel import make_mesh
     from brutefir_tpu_torch.runtime import engine as eng_mod
     from brutefir_tpu_torch.runtime.engine import BATCH_BLOCKS, Engine
 
@@ -155,9 +162,14 @@ def main():
                }[args.shape]()
     with open(cfg) as fh:
         text = fh.read()
+    mesh = None
+    if args.mesh is not None:
+        f, _, sp = args.mesh.lower().partition("x")
+        mesh = make_mesh([torch.device("cuda:0")] * (int(f) * int(sp)),
+                         int(f), int(sp))
 
     def run(host=None):
-        eng = Engine(parse_config(text))
+        eng = Engine(parse_config(text), mesh=mesh)
         per_block = eng.conf.benchmark or eng.conf.debug or eng._clocked()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -192,12 +204,13 @@ def main():
     eng, _, _ = run()                                      # warm-up
     if args.mlock:
         mlock_probe()
-    G = group_size(eng.spec, BATCH_BLOCKS)
+    G = group_size(eng.spec, BATCH_BLOCKS, eng.mesh)
     host = {}
     timed_eng, stats, wall = run(host)
     blocks = stats["blocks"]
     wall_ms = wall / blocks * 1e3
-    print(f"{args.shape} shape, {blocks} blocks, BRUTEFIR_TPU_PAIR="
+    print(f"{args.shape} shape, mesh {args.mesh or 'none'}, {blocks} "
+          f"blocks, BRUTEFIR_TPU_PAIR="
           f"{os.environ.get('BRUTEFIR_TPU_PAIR', 'default')} (groups of "
           f"{G}): wall {wall_ms:.3f} ms a block, engine xrt "
           f"{stats['xrt']:.2f}, p50 batch period {stats['p50_block_ms']:.3f}"

@@ -7,7 +7,9 @@ Usage (from the repository root, one CUDA card, no arguments):
 
 Phases, in order; any failure exits non-zero:
 
-1. card: prints the card's name and power limit, and requires CUDA;
+1. card: prints the host's card count and names (``torch.cuda.
+   device_count()`` in a child process, before this process pins the
+   first card), the card's name and power limit, and requires CUDA;
 2. build: compiles every CUDA source with nvcc, one process per source,
    all at once;
 3. kernel vs plain: each kernel at the shape its main path gives it
@@ -73,6 +75,22 @@ Phases, in order; any failure exits non-zero:
    (the same four-step stages in torch) and of the port's transforms after
    ``bin_order``, timed beside them and the library call; each kernel's
    cluster size, registers and shared memory a block printed;
+7b. kernel vs plain with ``has_bin0`` = 0 and 1 (the packed DC/Nyquist
+   rule on local bin 0, off on a mesh's bin shards other than the first):
+   rows 1, 2 (massive's 2 x 2 shard, 13 filters x 4096 bins), 3 (256
+   outputs at 8192 bins), 4 (G = 4) and 8 (both forms) at the 2 x 2
+   shard, 6 (bench1's stage at 1 x 2) and 9 (256 distinct rows at 2048
+   bins), each within 1e-5 relative of its plain version with the same
+   flag; with 0 every bin but bin 0 bit-equal to the kernel's output
+   with 1, bin 0 not;
+7c. the four shard forms (``ops/mac_shard.py``: ``mac_mix_shard``
+   uniform and per-filter, ``mac_shard``, ``mac_dual_shard``,
+   ``mac_group_shard`` at G = 4) at the massive shape on 2 x 2 and 1 x 4
+   meshes whose shards all sit on cuda:0, against the unsharded kernel
+   call: bit-equal where the form sums no filters across shards (all but
+   the fused MAC + mix at f = 2, held to 1e-5 relative); timed at 2 x 2:
+   one shard's kernel at its shard shape beside its bound, the whole
+   form and the unsharded call;
 8. main path, massive: ``python -m brutefir_tpu_torch``'s ``main()`` on
    the exact examples/multichannel_massive.conf shape (26 x 26, 131072
    taps in 8192 x 16 partitions, S24_4LE), seeded random coefficients and
@@ -251,6 +269,27 @@ Phases, in order; any failure exits non-zero:
    the fused time-domain crossfade with two ``mac_uniform_f64``
    launches, the dual MAC never; every word on channels 0, 5, ..., 25 the
    ramp oracle's rounding, phase 12's error beside.
+
+32-36. main path, sharded, every shard on cuda:0
+   (``make_mesh([cuda:0] * n, f, sp)`` passed as ``Engine(conf,
+   mesh=...)``), each run beside the same config unsharded (within 1
+   LSB; bench1 bit-equal), the counts set to 0 just before the sharded
+   run: 32 the massive shape at 2 x 2 through ``run_offline`` (the
+   uniform fused MAC + mix, 4 launches a block; 16 LSB of the oracle);
+   33 the scale shape at 1 x 4 (the groups of 4 through
+   ``mac_group_shard``, 4 launches a group, the tail through the
+   per-filter fused MAC + mix at 2048-bin shards); 34 bench5 at 2 x 1
+   through ``run()`` (the dual MAC per shard on every crossfade block);
+   35 bench1's cascade at 1 x 2 (``mac_shard`` on each stage's rows);
+   36 the massive shape with ``process:`` pins on two groups of 14 and
+   12 filters at 2 x 1 (28 spec rows with the padding; the placement's
+   stderr line; unsharded on one card, the warning that the pins have
+   no effect);
+37. across cards: when the host has two or more (the card phase's
+   count), a child process (``chip_smoke.py --mesh-child``,
+   ``CUDA_VISIBLE_DEVICES=0,1``) runs the massive shape at 2 x 1 and
+   1 x 2 across cuda:0 and cuda:1 to its oracle; its failure fails the
+   smoke. With one card it prints that it did not run, and why.
 
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
@@ -3599,12 +3638,514 @@ def main_bench5_f64(main, mods: dict, launched: dict):
     add_counts(launched, counts, ("mac", "mac_uniform_f64"), *F64_GLUE)
 
 
+# ---- phases 32-37: several shards (parallel/mesh.py, ops/mac_shard.py) ----
+
+MESH_CHILD_ARG = "--mesh-child"
+# the card count of the host before the pin (the "card" phase)
+HOST_CARDS = {"count": 0, "names": []}
+
+
+def host_cards() -> dict:
+    """torch.cuda.device_count() and every card's name with the
+    environment as given, in a child process: this process pins one card
+    before CUDA starts, and a count taken here would be the pinned one."""
+    code = ("import json, torch\n"
+            "n = torch.cuda.device_count()\n"
+            "print(json.dumps({'count': n, 'names': "
+            "[torch.cuda.get_device_name(k) for k in range(n)]}))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=REPO)
+    if r.returncode != 0 or not r.stdout.strip():
+        fail(f"counting the host's cards failed: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def card_mesh(f: int, sp: int, devices=None):
+    """An f x sp mesh whose shards all sit on cuda:0 (or on ``devices``,
+    f * sp of them)."""
+    import torch
+    from brutefir_tpu_torch.parallel import make_mesh
+    devs = devices or [torch.device("cuda:0")] * (f * sp)
+    return make_mesh(devs, f, sp)
+
+
+def shard_inputs(g, F_, B_, K_, E_, C, G):
+    """The shard forms' inputs on the card: ring, bank, per-filter and
+    uniform controls, previous controls, w, xnews and zero delays."""
+    import torch
+    dev = torch.device("cuda")
+    ring = torch.randn(F_, B_, 2, K_, generator=g, device=dev)
+    bank = torch.randn(E_, B_, 2, K_, generator=g, device=dev)
+    idx = (torch.arange(F_, device=dev) % E_).to(torch.int32)
+    pidx = ((torch.arange(F_, device=dev) + 1) % E_).to(torch.int32)
+    mask = (torch.rand(F_, B_, generator=g, device=dev) > 0.2).float()
+    mask[:, -2:] = 0.0
+    w = torch.randn(C, F_, generator=g, device=dev)
+    xnews = torch.randn(F_, G - 1, 2, K_, generator=g, device=dev)
+    delay = torch.zeros(F_, dtype=torch.int32, device=dev)
+    return ring, bank, idx, pidx, mask.contiguous(), w, xnews, delay
+
+
+def kernels_bin0(mm, mg, tm, td):
+    """Rows 1-4, 6, 8 and 9 with has_bin0 = 0 and = 1 against their plain
+    versions with the same flag (1e-5 relative), at the shard shapes of
+    this slice's mesh phases; with 0, bin 0 must change and every other
+    bin stay bit for bit."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    t = torch.tensor(21, dtype=torch.int32, device=dev)
+
+    def case(name, fn, ref):
+        outs = {}
+        worst = 0.0
+        for flag in (False, True):
+            got = fn(flag)
+            rel, _ = check(f"{name}, has_bin0={int(flag)}", got, ref(flag),
+                           21)
+            worst = max(worst, rel)
+            outs[flag] = got
+        a, b = outs[False], outs[True]
+        if not torch.equal(a[..., 1:], b[..., 1:]):
+            fail(f"{name}: has_bin0 = 0 changed bins other than 0")
+        if torch.equal(a[..., 0], b[..., 0]):
+            fail(f"{name}: has_bin0 = 0 left bin 0 as it was")
+        print(f"{name}: has_bin0 0 and 1 within {worst:.3e} of the plain "
+              f"version (tol {REL_TOL:g}); bins 1.. bit-equal between the "
+              f"flags, bin 0 not", flush=True)
+
+    Fh, Kh = F // 2, K // 2                      # massive at 2 x 2
+    ring, bank, idx, pidx, mask, w, xnews, delay = shard_inputs(
+        g, Fh, B, Kh, E, C_OUT, 4)
+    uidx = torch.full_like(idx, 1)
+    for uni, name, ix in ((True, "mac_mix_uniform (row 1)", uidx),
+                          (False, "mac_mix_rows (row 2)", idx)):
+        case(name,
+             lambda fl: mm.mac_mix(ring, bank, ix, mask, t, w, uni, fl),
+             lambda fl: mm.mac_mix_reference(ring, bank, ix, mask, t, w,
+                                             uni, fl))
+    case("mac_group at G = 4 (row 4)",
+         lambda fl: mg.mac_group(ring, xnews, bank, idx, mask, t, delay, fl),
+         lambda fl: mg.mac_group_reference(ring, xnews, bank, idx, mask, t,
+                                           delay, fl))
+    rows = torch.arange(Fh, dtype=torch.int32, device=dev)
+    for uni in (True, False):
+        ix = uidx if uni else idx
+        case(f"mac_dual, {'uniform' if uni else 'per-filter'} (row 8)",
+             lambda fl: torch.cat(td.mac_dual(ring, bank, rows, ix, mask,
+                                              pidx, mask, t, uni, fl)),
+             lambda fl: torch.cat(td.mac_dual_reference(
+                 ring, bank, rows, ix, mask, pidx, mask, t, uni, fl)))
+    del ring, bank, xnews
+    # row 6: bench1's first stage at 1 x 2 (rows 2-5 of 6, 8192 x 8)
+    ring, bank, idx, *_ = shard_inputs(g, 6, BENCH1_B, BENCH1_N // 2, 6, 2,
+                                       2)
+    st = torch.arange(2, 6, dtype=torch.int32, device=dev)
+    mask = torch.ones(6, BENCH1_B, device=dev)
+    case("mac rows, bench1's stage at 1 x 2 (row 6)",
+         lambda fl: tm.mac(ring, bank, st, idx, mask, t, False, fl),
+         lambda fl: tm.mac_reference(ring, bank, st, idx, mask, t, False, fl))
+    # row 9: 256 distinct rows, the scale shape's 1 x 4 shard
+    ring, bank, idx, _, mask, *_ = shard_inputs(g, SCALE_C, B, K // 4,
+                                                SCALE_C, 2, 2)
+    st = torch.arange(SCALE_C, dtype=torch.int32, device=dev)
+    case("mac rows, 256 distinct rows at 2048 bins (row 9)",
+         lambda fl: tm.mac(ring, bank, st, idx, mask, t, False, fl),
+         lambda fl: tm.mac_reference(ring, bank, st, idx, mask, t, False, fl))
+    # row 3: the bin-tiled fused MAC + mix (256 outputs, 8192 bins)
+    del ring, bank
+    ring, bank, idx, _, mask, w, *_ = shard_inputs(g, 16, B, K, 2, SCALE_C,
+                                                   2)
+    if not mm.tiled_route(SCALE_C, B, K):
+        fail("row 3's check shape does not take the tiled kernel")
+    case("mac_mix tiled (row 3)",
+         lambda fl: mm.mac_mix(ring, bank, idx, mask, t, w, False, fl),
+         lambda fl: mm.mac_mix_reference(ring, bank, idx, mask, t, w, False,
+                                         fl))
+    torch.cuda.empty_cache()
+
+
+def kernels_shard(ms, mm, mg, tm, td, flush):
+    """The four shard forms on the card, every shard on cuda:0, at the
+    massive shape (26 filters, 8192 x 16, 26 outputs): against the
+    unsharded kernel call on 2 x 2 and 1 x 4 meshes (bit-equal where the
+    form sums no filters across shards: the MAC, the dual MAC and the
+    grouped MAC everywhere, the fused MAC + mix at f = 1; else 1e-5
+    relative); then timed at 2 x 2: one kernel at its shard shape (13
+    filters x 4096 bins) beside its bound, the whole form (4 launches
+    and the assembly) and the unsharded call."""
+    import torch
+    from brutefir_tpu_torch.parallel.mesh import split
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)
+    ring, bank, idx, pidx, mask, w, xnews, delay = shard_inputs(
+        g, F, B, K, E, C_OUT, 4)
+    # the uniform forms read the first row's controls for every filter:
+    # every row holds them
+    uidx = torch.full_like(idx, 1)
+    upidx = torch.zeros_like(idx)
+    umask = mask[:1].expand_as(mask).contiguous()
+    t = torch.tensor(37, dtype=torch.int32, device=dev)
+    rows = np.arange(F)
+    rows32 = torch.arange(F, dtype=torch.int32, device=dev)
+    forms = {
+        "mac_mix_shard, uniform": (
+            lambda m, S: ms.mac_mix_shard(m, *S["rb"], S["u"], S["um"], t,
+                                          S["w"], True),
+            lambda: mm.mac_mix(ring, bank, uidx, umask, t, w, True)),
+        "mac_mix_shard, per-filter": (
+            lambda m, S: ms.mac_mix_shard(m, *S["rb"], S["i"], S["m"], t,
+                                          S["w"], False),
+            lambda: mm.mac_mix(ring, bank, idx, mask, t, w, False)),
+        "mac_shard": (
+            lambda m, S: ms.mac_shard(m, *S["rb"], rows, S["i"], S["m"], t),
+            lambda: tm.mac(ring, bank, rows32, idx, mask, t, False)),
+        "mac_dual_shard": (
+            lambda m, S: torch.cat(ms.mac_dual_shard(
+                m, *S["rb"], rows, S["u"], S["um"], S["pu"], S["um"], t,
+                True)),
+            lambda: torch.cat(td.mac_dual(ring, bank, rows32, uidx, umask,
+                                          upidx, umask, t, True))),
+        "mac_group_shard, G = 4": (
+            lambda m, S: ms.mac_group_shard(m, *S["rb"][:1], S["x"],
+                                            S["rb"][1], S["i"], S["m"], t,
+                                            S["d"]),
+            lambda: mg.mac_group(ring, xnews, bank, idx, mask, t, delay)),
+    }
+    splits = {}
+    for shape in ((2, 2), (1, 4)):
+        m = card_mesh(*shape)
+        splits[shape] = (m, {
+            "rb": (split(m, ring, 0, 3), split(m, bank, None, 3)),
+            "i": split(m, idx, 0), "u": split(m, uidx, 0),
+            "p": split(m, pidx, 0), "m": split(m, mask, 0),
+            "pu": split(m, upidx, 0), "um": split(m, umask, 0),
+            "w": split(m, w, 1), "x": split(m, xnews, 0, 3),
+            "d": split(m, delay, 0)})
+    for name, (form, one) in forms.items():
+        ref = one()
+        for shape, (m, S) in splits.items():
+            got = form(m, S)
+            torch.cuda.synchronize()
+            if name.startswith("mac_mix") and shape[0] > 1:
+                rel, _ = check(f"{name} at {shape[0]} x {shape[1]}", got,
+                               ref, 37)
+                how = f"within {rel:.3e} relative"
+            else:
+                if not torch.equal(got, ref):
+                    fail(f"{name} at {shape[0]} x {shape[1]} is not "
+                         f"bit-equal to the unsharded call")
+                how = "bit-equal"
+            print(f"{name} at {shape[0]} x {shape[1]} on the card: {how} "
+                  f"to the unsharded kernel call", flush=True)
+    # timed at 2 x 2
+    m, S = splits[(2, 2)]
+    Fh, Kh = F // 2, K // 2
+    R00, B00 = S["rb"][0].parts[0][0], S["rb"][1].parts[0][0]
+    i00, u00 = S["i"].parts[0][0], S["u"].parts[0][0]
+    m00, um00 = S["m"].parts[0][0], S["um"].parts[0][0]
+    pu00 = S["pu"].parts[0][0]
+    w00, x00, d00 = S["w"].parts[0][0], S["x"].parts[0][0], S["d"].parts[0][0]
+    r00 = torch.arange(Fh, dtype=torch.int32, device=dev)
+    one_shard = {
+        "mac_mix_shard, uniform": (
+            lambda: mm.mac_mix(R00, B00, u00, um00, t, w00, True),
+            mac_bytes_flops(Fh, B, Kh, C_OUT, 1)),
+        "mac_mix_shard, per-filter": (
+            lambda: mm.mac_mix(R00, B00, i00, m00, t, w00, False),
+            mac_bytes_flops(Fh, B, Kh, C_OUT, E)),
+        "mac_shard": (
+            lambda: tm.mac(R00, B00, r00, i00, m00, t, False),
+            mac_bytes_flops(Fh, B, Kh, 0, E, out_rows=Fh)),
+        "mac_dual_shard": (
+            lambda: td.mac_dual(R00, B00, r00, u00, um00, pu00, um00, t,
+                                True),
+            dual_bytes_flops(Fh, B, Kh, 2)),
+        "mac_group_shard, G = 4": (
+            lambda: mg.mac_group(R00, x00, B00, i00, m00, t, d00),
+            mac_bytes_flops(Fh, B, Kh, 0, E, G=4, out_rows=Fh)),
+    }
+    for name, (form, one) in forms.items():
+        kern, (nb, nf) = one_shard[name]
+        k_ms = time_ms(kern, REPS, flush)
+        f_ms = time_ms(lambda: form(m, S), REPS, flush)
+        u_ms = time_ms(one, REPS, flush)
+        b_ms, by = bound(nb, nf)
+        print(f"{name}, shard shape {Fh} x {B} x {Kh}: kernel {k_ms:.4f} ms "
+              f"at one shard, bound {b_ms:.4f} ms ({by}: {nb / 1e6:.1f} MB), "
+              f"floor {FLOOR_MS:.4f} ms; the 2 x 2 form on one card "
+              f"{f_ms:.4f} ms (4 launches and the assembly); the unsharded "
+              f"call {u_ms:.4f} ms; median of {REPS}, L2 flushed by a read "
+              f"before each", flush=True)
+    del splits, ring, bank, xnews
+    torch.cuda.empty_cache()
+
+
+def run_engine(cfg: str, frames: int, channels: int, label: str, mesh=None,
+               how: str = "run_offline"):
+    """One file-to-file run of ``Engine`` on the config file ``cfg``
+    (``mesh=``: sharded); returns (y [frames, channels], stderr)."""
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.runtime.engine import Engine
+    out = os.path.join(WORK, "output.raw")
+    if os.path.exists(out):
+        os.remove(out)
+    with open(cfg) as fh:
+        text = fh.read()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        eng = Engine(parse_config(text), mesh=mesh)
+        stats = getattr(eng, how)()
+    wall = time.perf_counter() - t0
+    sys.stderr.write(err.getvalue())
+    y = np.fromfile(out, dtype="<i4")
+    if y.size != frames * channels:
+        fail(f"output has {y.size // channels} frames, input {frames} "
+             f"({label})")
+    shape = ("unsharded" if eng.mesh is None else
+             f"mesh {eng.mesh.shape['f']} x {eng.mesh.shape['sp']}")
+    print(f"main path ({label}, {shape}, {how}): {stats['blocks']} blocks, "
+          f"{frames} frames in and out; run {stats['elapsed_s']:.3f} s "
+          f"({stats['elapsed_s'] / stats['blocks'] * 1e3:.3f} ms a block, "
+          f"xrt {stats['xrt']:.2f}), with the engine's build "
+          f"{wall:.3f} s", flush=True)
+    return y.reshape(frames, channels), err.getvalue()
+
+
+def sharded_pair(mods, cfg, frames, channels, label, mesh, want,
+                 launched, how="run_offline"):
+    """The config unsharded and on ``mesh``, the counts set to 0 just
+    before the sharded run and read just after it (``want`` by form,
+    added to the rows' launches); returns (y sharded, y unsharded,
+    sharded stderr)."""
+    y1, _ = run_engine(cfg, frames, channels, label, None, how)
+    for m in mods.values():
+        m.reset_launches()
+    ys, err = run_engine(cfg, frames, channels, label, mesh, how)
+    counts = all_counts(mods)
+    expect_only(counts, want, f"{label}, sharded")
+    add_counts(launched, counts, *[k for k in counts if counts[k]])
+    gap = int(np.abs(ys.astype(np.int64) - y1).max())
+    same = float(np.mean(ys == y1))
+    print(f"main path ({label}): sharded against unsharded max {gap} LSB "
+          f"(tol 1), {same * 100:.2f}% of words equal", flush=True)
+    if gap > 1:
+        fail(f"{label}: the sharded run is {gap} LSB from the unsharded")
+    return ys, y1, err
+
+
+def main_sharded_massive(mods: dict, launched: dict):
+    """Phase 32: the massive shape at 2 x 2 through ``run_offline``: the
+    uniform fused MAC + mix per shard, 4 launches a block."""
+    frames = int(BLOCKS * K)
+    blocks = int(np.ceil(BLOCKS))
+    taps, x = write_massive_inputs(np.random.default_rng(SEED), frames)
+    cfg = massive_config("mesh1.conf", False)
+    ys, y1, _ = sharded_pair(mods, cfg, frames, F, "massive at 2 x 2",
+                             card_mesh(2, 2),
+                             {"uniform": 4 * blocks,
+                              **glue_want(blocks, blocks)}, launched)
+    lsb = oracle_lsbs([ys, y1], x, lambda c: taps[0])
+    print(f"main path (massive at 2 x 2): max |y - oracle| {lsb[0]} LSB "
+          f"(tol {LSB_TOL}); unsharded {lsb[1]}", flush=True)
+    if lsb[0] > LSB_TOL:
+        fail("massive at 2 x 2 off the float64 oracle")
+    return ys
+
+
+def main_sharded_scale(mods: dict, launched: dict):
+    """Phase 33: the scale shape at 1 x 4: the batches in groups of 4
+    through ``mac_group_shard`` (4 launches a group, the mix outside),
+    the 4-block tail through the per-filter fused MAC + mix per shard
+    (its 2048-bin shards take the untiled kernel)."""
+    frames = int(BLOCKS * K)
+    blocks = int(np.ceil(BLOCKS))
+    taps, x, cfg = write_scale_inputs(WORK, frames)
+    ys, y1, _ = sharded_pair(mods, cfg, frames, SCALE_C, "scale at 1 x 4",
+                             card_mesh(1, 4),
+                             {"group": 4 * 4, "rows": 4 * 4,
+                              **glue_want(blocks, blocks)}, launched)
+    lsb = oracle_lsbs([ys, y1], x, lambda c: taps[c].astype(np.float64))
+    print(f"main path (scale at 1 x 4): max |y - oracle| {lsb[0]} LSB (tol "
+          f"{LSB_TOL}); unsharded {lsb[1]}", flush=True)
+    if lsb[0] > LSB_TOL:
+        fail("scale at 1 x 4 off the float64 oracle")
+
+
+def main_sharded_bench5(mods: dict, launched: dict):
+    """Phase 34: bench5, a crossfade every block, at 2 x 1 through
+    ``run()``: the dual MAC per shard (2 launches a crossfade block),
+    the fused MAC + mix on block 0."""
+    N_, C = BENCH5_N, BENCH5_C
+    frames = int(BLOCKS * N_)
+    blocks = int(np.ceil(BLOCKS))
+    taps, x, cfg = write_bench5_inputs(WORK, frames)
+    ys, _, _ = sharded_pair(mods, cfg, frames, C, "bench5 at 2 x 1",
+                            card_mesh(2, 1),
+                            {"mac_dual_uniform": 2 * (blocks - 1),
+                             "uniform": 2, **glue_want(blocks, blocks)},
+                            launched, how="run")
+    worst, peak = xfade_lsb(
+        ys.astype(np.float64), x, taps, N_,
+        lambda k: "a" if k == 0 else ("ab" if k % 2 else "ba"),
+        range(0, C, 5))
+    tol = 8e-6 * peak + 4.0
+    print(f"main path (bench5 at 2 x 1): max |y - ramp oracle| {worst:.3f} "
+          f"LSB (tol {tol:.3f}) on channels 0, 5, ..., 25", flush=True)
+    if not worst <= tol:
+        fail("bench5 at 2 x 1 off the float64 linear-ramp oracle")
+
+
+def main_sharded_bench1(mods: dict, launched: dict):
+    """Phase 35: bench1's cascade at 1 x 2: each stage's rows through
+    ``mac_shard`` (2 launches a stage), bit-equal to the unsharded run."""
+    frames = int(BLOCKS * BENCH1_N)
+    n = 2 * int(np.ceil(BLOCKS))
+    taps, x, cfg = write_bench1_inputs(WORK, frames)
+    ys, y1, _ = sharded_pair(mods, cfg, frames, 2, "bench1 at 1 x 2",
+                             card_mesh(1, 2),
+                             {"mac_rows": 2 * n, **glue_want(n, n)},
+                             launched)
+    if not np.array_equal(ys, y1):
+        fail("bench1 at 1 x 2 is not bit-equal to the unsharded run")
+    ref = bench1_oracle(taps, x)
+    for c in range(2):
+        peak = np.abs(ref[:, c]).max()
+        err = np.abs(ys[:, c] - ref[:, c]).max()
+        tol = 2e-5 * peak + 4.0
+        print(f"main path (bench1 at 1 x 2): channel {c}: max |y - oracle| "
+              f"{err:.3f} (tol {tol:.3f})", flush=True)
+        if not err <= tol:
+            fail(f"bench1 at 1 x 2 off the float64 oracle on channel {c}")
+
+
+def pinned_config(name: str) -> str:
+    """examples/multichannel_massive.conf with ``process:`` pins: filters
+    0-13 on process 0, 14-25 on process 1 (groups of 14 and 12)."""
+    import re
+    path = massive_config(name, False)
+    with open(path) as fh:
+        text = fh.read()
+
+    def pin(m):
+        return f"{m.group(1)} process: {0 if int(m.group(2)) < 14 else 1}; }};"
+
+    text, n = re.subn(r'(filter (\d+)\s*\{[^}]*coeff: "correction";)\s*\};',
+                      pin, text)
+    if n != F:
+        fail(f"pinned {n} filters of the example config, not {F}")
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def main_sharded_pinned(mods: dict, launched: dict, y_massive):
+    """Phase 36: the massive shape with two process groups (14 + 12
+    filters) at 2 x 1: the placement pads the second group to 14 rows
+    (28 spec rows), one 14-row shard a group; the JAX engine's stderr
+    lines; on one card unsharded, its warning that the pins have no
+    effect."""
+    frames = int(BLOCKS * K)
+    blocks = int(np.ceil(BLOCKS))
+    taps, x = write_massive_inputs(np.random.default_rng(SEED), frames)
+    cfg = pinned_config("pinned.conf")
+    ys, y1, err = sharded_pair(mods, cfg, frames, F, "massive pinned at "
+                               "2 x 1", card_mesh(2, 1),
+                               {"uniform": 2 * blocks,
+                                **glue_want(blocks, blocks)}, launched)
+    line = ("Manual process placement: 2 process group(s) onto the 2-way "
+            "'f' mesh axis (28 filter rows incl. padding)")
+    if line not in err:
+        fail(f"the pinned run did not print {line!r}")
+    print(f"main path (massive pinned at 2 x 1): stderr: {line}", flush=True)
+    gap = int(np.abs(ys.astype(np.int64) - y_massive).max())
+    lsb = oracle_lsb(ys, x, lambda c: taps[0])
+    print(f"main path (massive pinned at 2 x 1): max |y - oracle| {lsb} LSB "
+          f"(tol {LSB_TOL}); {gap} LSB from the 2 x 2 run", flush=True)
+    if lsb > LSB_TOL or gap > 1:
+        fail("massive pinned at 2 x 1 off its oracle or the 2 x 2 run")
+    _, err1 = run_engine(cfg, frames, F, "massive pinned, one card")
+    warn = ("Warning: filter process: settings have no effect (single "
+            "device or no 'f' mesh axis to place onto)")
+    if warn not in err1:
+        fail("the unsharded pinned run did not warn that the pins have no "
+             "effect")
+    print(f"main path (massive pinned, one card): stderr: {warn}",
+          flush=True)
+
+
+def mesh_child():
+    """Phase 37 in a child process that sees two cards
+    (CUDA_VISIBLE_DEVICES=0,1): the massive shape at 2 x 1 and 1 x 2
+    across cuda:0 and cuda:1, each to its float64 oracle; the last line
+    one JSON object of launch counts."""
+    import torch
+    from brutefir_tpu_torch.ops import (fft_glue as tg, mac_mix as mm)
+    if torch.cuda.device_count() < 2:
+        fail("the mesh child sees fewer than two cards")
+    os.makedirs(WORK, exist_ok=True)
+    mods = {"mac_mix": mm, "fft_glue": tg}
+    frames = int(BLOCKS * K)
+    blocks = int(np.ceil(BLOCKS))
+    taps, x = write_massive_inputs(np.random.default_rng(SEED), frames)
+    cfg = massive_config("cards.conf", False)
+    devs = [torch.device("cuda:0"), torch.device("cuda:1")]
+    total = {}
+    ys = []
+    for f, sp in ((2, 1), (1, 2)):
+        for m in mods.values():
+            m.reset_launches()
+        y, _ = run_engine(cfg, frames, F, f"massive across two cards",
+                          card_mesh(f, sp, devs))
+        counts = all_counts(mods)
+        expect_only(counts, {"uniform": 2 * blocks,
+                             **glue_want(blocks, blocks)},
+                    f"massive across two cards at {f} x {sp}")
+        for k, v in counts.items():
+            total[f"{k[0]}/{k[1]}"] = total.get(f"{k[0]}/{k[1]}", 0) + v
+        ys.append(y)
+    lsb = oracle_lsbs(ys, x, lambda c: taps[0])
+    print(f"across two cards: max |y - oracle| {lsb[0]} LSB at 2 x 1, "
+          f"{lsb[1]} at 1 x 2 (tol {LSB_TOL})", flush=True)
+    if max(lsb) > LSB_TOL:
+        fail("the massive shape across two cards is off the oracle")
+    shutil.rmtree(WORK, ignore_errors=True)
+    print(json.dumps({"cards": total}))
+
+
+def main_cards(launched: dict):
+    """Phase 37: across cards, when the host has two or more."""
+    if HOST_CARDS["count"] < 2:
+        print(f"across cards: not run: the host has "
+              f"{HOST_CARDS['count']} card(s) (torch.cuda.device_count() "
+              f"before the pin), and this phase needs two", flush=True)
+        return
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0,1")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        MESH_CHILD_ARG], capture_output=True, text=True,
+                       timeout=600, cwd=REPO, env=env)
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  | {line}", flush=True)
+    sys.stderr.write(r.stderr[-20000:])
+    if r.returncode != 0 or not lines:
+        fail(f"the across-cards child exited {r.returncode}")
+    for key, n in json.loads(lines[-1])["cards"].items():
+        mod, form = key.split("/")
+        launched[(mod, form)] = launched.get((mod, form), 0) + n
+
+
 HOST_DITHER_TOL = 5      # phase 22, LSB: the HP-TPDF error reaches 4.5
 FLOAT_TOL = 2e-5         # phase 23, of the output's peak
 
 
 def run():
     phase("card")
+    # the host's cards, counted before the pin (in a child process)
+    HOST_CARDS.update(host_cards())
+    print(f"host cards before the pin: {HOST_CARDS['count']}: "
+          f"{', '.join(HOST_CARDS['names']) or '-'}", flush=True)
     # one card: the first visible one, so device_count() below is 1
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     if visible is None or "," in visible:
@@ -3656,6 +4197,12 @@ def run():
     kernels_f64(tm, tg, rows, flush)
     phase("the fused real FFT's probe path")
     probe_fused(tf, pc, rows, flush, launched)
+    from brutefir_tpu_torch.ops import mac_shard as ms
+    phase("kernel vs plain, has_bin0 = 0 and 1 (rows 1-4, 6, 8, 9)")
+    kernels_bin0(mm, mg, tm, td)
+    phase("the shard forms on the card (2 x 2 and 1 x 4, every shard on "
+          "cuda:0)")
+    kernels_shard(ms, mm, mg, tm, td, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -3711,6 +4258,21 @@ def run():
     main_bench1_xfade_f64(main, mods, launched)
     phase("main path, bench5 crossfade every block, float_bits: 64")
     main_bench5_f64(main, mods, launched)
+    torch.cuda.empty_cache()
+    phase("main path, massive at 2 x 2 (every shard on cuda:0)")
+    y_massive = main_sharded_massive(mods, launched)
+    phase("main path, scale at 1 x 4, grouped")
+    main_sharded_scale(mods, launched)
+    torch.cuda.empty_cache()
+    phase("main path, bench5 crossfade every block at 2 x 1")
+    main_sharded_bench5(mods, launched)
+    phase("main path, bench1 cascade at 1 x 2")
+    main_sharded_bench1(mods, launched)
+    phase("main path, massive with process: pins at 2 x 1")
+    main_sharded_pinned(mods, launched, y_massive)
+    del y_massive
+    phase("main path, across cards (a child process, two cards)")
+    main_cards(launched)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules
@@ -3733,5 +4295,7 @@ def run():
 if __name__ == "__main__":
     if sys.argv[1:] == [CHILD_ARG]:
         clocked_child()
+    elif sys.argv[1:] == [MESH_CHILD_ARG]:
+        mesh_child()
     else:
         run()

@@ -1141,3 +1141,133 @@ filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 1; }};
     assert yg.size == (frames + 2 * N) * C and not yg[:2 * N * C].any()
     assert np.abs(yc).max() > 2 ** 18
     assert np.abs(yg - yc).max() <= 2
+
+
+# --- has_bin0 and the shard forms (multi-device sharding) -------------------
+
+BIN0_KERNELS = ("mac_mix_uniform", "mac_mix_rows", "mac_mix_tiled", "mac",
+                "mac_scalar_path", "mac_dual", "mac_group", "mac_mix_group")
+
+
+def _bin0_call(name, flag, dev):
+    """(kernel output, plain output) of ``name`` with ``has_bin0 = flag``
+    on the same CUDA tensors."""
+    K = 1001 if name == "mac_scalar_path" else 512
+    C = 4096 if name == "mac_mix_tiled" else 5
+    ring, bank, idx, mask, w = _mac_inputs(40, 6, 4, K, 3, C,
+                                           name == "mac_mix_uniform", dev)
+    t = torch.tensor(9, dtype=torch.int32, device=dev)
+    rows = torch.tensor([4, 1, 2], dtype=torch.int32, device=dev)
+    xnews = torch.randn(6, 2, 2, K, generator=torch.Generator(
+        device=dev).manual_seed(41), device=dev)
+    delay = torch.tensor([0, 1, 0, 2, 0, 1], dtype=torch.int32, device=dev)
+    if name.startswith("mac_mix") and name != "mac_mix_group":
+        if name == "mac_mix_tiled":
+            assert mm.tiled_route(C, 4, K)
+        uni = name == "mac_mix_uniform"
+        return (mm.mac_mix(ring, bank, idx, mask, t, w, uni, flag),
+                mm.mac_mix_reference(ring, bank, idx, mask, t, w, uni, flag))
+    if name in ("mac", "mac_scalar_path"):
+        return (tm.mac(ring, bank, rows, idx, mask, t, False, flag),
+                tm.mac_reference(ring, bank, rows, idx, mask, t, False,
+                                 flag))
+    if name == "mac_dual":
+        pidx = idx.flip(0).contiguous()
+        return (torch.cat(td.mac_dual(ring, bank, rows, idx, mask, pidx,
+                                      mask, t, False, flag)),
+                torch.cat(td.mac_dual_reference(ring, bank, rows, idx, mask,
+                                                pidx, mask, t, False, flag)))
+    if name == "mac_group":
+        return (mg.mac_group(ring, xnews, bank, idx, mask, t, delay, flag),
+                mg.mac_group_reference(ring, xnews, bank, idx, mask, t,
+                                       delay, flag))
+    return (mg.mac_mix_group(ring, xnews, bank, idx, mask, t, w, delay,
+                             flag),
+            mg.mac_mix_group_reference(ring, xnews, bank, idx, mask, t, w,
+                                       delay, flag))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BIN0_KERNELS)
+def test_kernels_has_bin0_match_plain_versions(cuda, name):
+    """Every MAC kernel with has_bin0 = 0 and = 1 against its plain
+    version with the same flag; 0 changes bin 0 and no other bin."""
+    outs = {}
+    for flag in (False, True):
+        got, ref = _bin0_call(name, flag, cuda)
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+        outs[flag] = got
+    assert torch.equal(outs[False][..., 1:], outs[True][..., 1:])
+    assert not torch.equal(outs[False][..., 0], outs[True][..., 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1), (3, 2)])
+def test_shard_forms_on_card_match_unsharded(cuda, shape):
+    """The four shard forms with every shard on the card against the
+    unsharded kernel call: bit-equal where no filters are summed across
+    shards, else 1e-5 relative; (3, 2) splits 8 filters unevenly and
+    takes 2 of 3 row shards' stage rows."""
+    from brutefir_tpu_torch.ops import mac_shard as ms
+    from brutefir_tpu_torch.parallel.mesh import make_mesh, split
+    F, B, K, E, C = 8, 4, 1024, 3, 5
+    ring, bank, idx, mask, w = _mac_inputs(42, F, B, K, E, C, False, cuda)
+    pidx = idx.flip(0).contiguous()
+    t = torch.tensor(6, dtype=torch.int32, device=cuda)
+    xnews = torch.randn(F, 3, 2, K, device=cuda)
+    delay = (torch.arange(F, device=cuda) % 3).to(torch.int32)
+    m = make_mesh([cuda] * (shape[0] * shape[1]), *shape)
+    R, Bk = split(m, ring, 0, 3), split(m, bank, None, 3)
+    I, M, P = split(m, idx, 0), split(m, mask, 0), split(m, pidx, 0)
+    rows = np.array([6, 1, 7, 3])
+    r32 = torch.as_tensor(rows, dtype=torch.int32, device=cuda)
+    assert torch.equal(ms.mac_shard(m, R, Bk, rows, I, M, t),
+                       tm.mac(ring, bank, r32, idx, mask, t, False))
+    for a, b in zip(ms.mac_dual_shard(m, R, Bk, rows, I, M, P, M, t),
+                    td.mac_dual(ring, bank, r32, idx, mask, pidx, mask, t,
+                                False)):
+        assert torch.equal(a, b)
+    assert torch.equal(
+        ms.mac_group_shard(m, R, split(m, xnews, 0, 3), Bk, I, M, t,
+                           split(m, delay, 0)),
+        mg.mac_group(ring, xnews, bank, idx, mask, t, delay))
+    got = ms.mac_mix_shard(m, R, Bk, I, M, t, split(m, w, 1))
+    ref = mm.mac_mix(ring, bank, idx, mask, t, w, False)
+    if shape[0] == 1:
+        assert torch.equal(got, ref)
+    else:
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_card_matches_unsharded(cuda, tmp_path):
+    """A 4-filter config at 2 x 2 on one card (the fused MAC + mix per
+    shard) against the unsharded engine on the card: within 1 LSB."""
+    from brutefir_tpu_torch.parallel import make_mesh
+    from brutefir_tpu_torch.runtime.engine import Engine
+    N, B, C = 512, 2, 4
+    rng = np.random.default_rng(43)
+    for k in range(2):
+        (rng.standard_normal(N * B) * 0.05).astype("<f4").tofile(
+            tmp_path / f"h{k}.raw")
+    frames = N * 11 + 7
+    np.round(rng.standard_normal((frames, C)) * 2 ** 19).astype(
+        "<i4").tofile(tmp_path / "in.raw")
+    ys = []
+    for tag, mesh in (("one", None), ("mesh", make_mesh([cuda] * 4, 2, 2))):
+        conf = parse_config(f"""
+sampling_rate: 44100;
+filter_length: {N},{B};
+coeff 0 {{ filename: "{tmp_path / 'h0.raw'}"; format: "FLOAT_LE"; }};
+coeff 1 {{ filename: "{tmp_path / 'h1.raw'}"; format: "FLOAT_LE"; }};
+input 0,1,2,3 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: {C}; }};
+output 0,1,2,3 {{ device: "file" {{ path: "{tmp_path / (tag + '.raw')}"; }}; sample: "S24_4LE"; channels: {C}; dither: false; }};
+""" + "\n".join(f"filter {i} {{ from_inputs: {i}; to_outputs: {i}; "
+                f"coeff: {i % 2}; }};" for i in range(C)))
+        conf.quiet = True
+        eng = Engine(conf, device=cuda, mesh=mesh)
+        assert eng.run_offline()["frames"] == frames
+        ys.append(np.fromfile(tmp_path / (tag + ".raw"), "<i4").astype(
+            np.int64))
+    assert np.abs(ys[0]).max() > 2 ** 18
+    assert np.abs(ys[1] - ys[0]).max() <= 1

@@ -603,11 +603,12 @@ filter 2 {{ from_inputs: 2; to_outputs: 2; coeff: 0; }};
     assert taken_t == [4] * 2
     _dithered_parity(yj, yt)
 
-    def block_by_block(spec, state, ctrl, bank, xs, uniform_delay=False):
+    def block_by_block(spec, state, ctrl, bank, xs, uniform_delay=False,
+                       mesh=None):
         ys = []
         for x in xs:
             state, y = tdio.step_impl(spec, state, ctrl, bank, x,
-                                      uniform_delay=uniform_delay)
+                                      uniform_delay=uniform_delay, mesh=mesh)
             ys.append(y)
         return state, ys
 

@@ -50,6 +50,9 @@ def test_port_imports_no_jax():
         "import brutefir_tpu_torch.io.sound_backends\n"
         "import brutefir_tpu_torch.io.callback\n"
         "import brutefir_tpu_torch.core.native.rtfifo\n"
+        "import brutefir_tpu_torch.parallel\n"
+        "import brutefir_tpu_torch.parallel.mesh\n"
+        "import brutefir_tpu_torch.ops.mac_shard\n"
         + _NOTHING_OF_JAX +
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -57,6 +60,23 @@ def test_port_imports_no_jax():
                        text=True, env=env, cwd=REPO, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_port_has_every_package_of_the_jax_package():
+    """Every subpackage of brutefir_tpu has its twin in the port, since
+    ``brutefir_tpu_torch.parallel`` (multi-device sharding) joined."""
+    import brutefir_tpu_torch.parallel as par
+
+    def packages(name):
+        root = os.path.join(REPO, name)
+        return sorted(d for d in os.listdir(root)
+                      if os.path.isfile(os.path.join(root, d,
+                                                     "__init__.py")))
+
+    assert "parallel" in packages("brutefir_tpu_torch")
+    assert packages("brutefir_tpu_torch") == packages("brutefir_tpu")
+    for name in ("make_mesh", "auto_mesh", "ShardedGraph"):
+        assert callable(getattr(par, name))
 
 
 def test_port_main_path_imports_no_jax(tmp_path):

@@ -27,20 +27,34 @@
 // `mac = "jnp"`, brutefir_tpu/ops/partconv.py:480, :528), which its
 // float64 graphs run in place of the float32-only kernels above. Every
 // byte doubles, so its bound does: 9.0 MB at bench1's first stage, 2.7 us.
+//
+// The bf16 operand forms of bf_mac (its ring_bf16 / bank_bf16 flags;
+// BRUTEFIR_TPU_RING_DTYPE / BRUTEFIR_TPU_BANK_DTYPE = bf16 on a float32
+// graph): the ring and/or the bank stored as bfloat16 and widened to
+// float32 on load, as the JAX kernels' `.astype` on load
+// (pallas_mac.py:86-89); the sums and the output float32. Its bytes are
+// the bf16 operands' 2 a value: with both in bf16, 285 MB at the
+// 256-filter stage of 8192 x 16 (0.085 ms).
+// Alignment: the vector path as in float32, a bf16 operand 8-byte
+// aligned; else the scalar path (any K).
 
 #include "mac_core.cuh"
 
 // Both launch on `stream` and return cudaGetLastError() (0 on success). The
 // caller allocates `out` and checks shapes; nothing here synchronises.
 // `has_bin0`: 1 where local bin 0 is the packed DC/Nyquist bin (an
-// unsharded call, the first bin shard of a mesh), else 0.
-extern "C" int bf_mac(const float* ring, const float* bank, const int* rows,
+// unsharded call, the first bin shard of a mesh), else 0. bf_mac's
+// ring_bf16 / bank_bf16: 1 where that operand is bfloat16, else float32
+// (both 0: the float32 form).
+extern "C" int bf_mac(const void* ring, const void* bank, const int* rows,
                       const int* coeff_idx, const float* mask, const int* t,
                       float* out, int F, int Fs, int B, int K, int E,
-                      int uniform, int has_bin0, void* stream) {
-  bf_mac_core::Args<1> a{ring, bank, rows, t, {coeff_idx}, {mask}, {out},
-                         F, Fs, B, K, E, uniform, has_bin0};
-  return bf_mac_core::launch<1>(a, static_cast<cudaStream_t>(stream));
+                      int uniform, int has_bin0, int ring_bf16,
+                      int bank_bf16, void* stream) {
+  bf_mac_core::Args<1> f{nullptr, nullptr, rows, t, {coeff_idx}, {mask},
+                         {out}, F, Fs, B, K, E, uniform, has_bin0};
+  return bf_mac_core::launch_typed<1>(f, ring, bank, ring_bf16, bank_bf16,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bf_mac_f64(const double* ring, const double* bank,
@@ -54,10 +68,11 @@ extern "C" int bf_mac_f64(const double* ring, const double* bank,
                                         static_cast<cudaStream_t>(stream));
 }
 
-// The launch that bf_mac (sets = 1, real_bytes = 4), bf_mac_f64 (1, 8) or
-// bf_mac_dual (2, 4) makes for a stage of Fs filters and K bins: out[0..1]
-// the grid, out[2] threads a block, out[3] partitions a thread loads
-// before their FMAs. For reports and tests; launches nothing.
+// The launch that bf_mac (sets = 1, real_bytes = 4), bf_mac_f64 (1, 8)
+// or bf_mac_dual (2, 4) make for a stage of Fs filters and K bins:
+// out[0..1] the grid, out[2] threads a block, out[3] partitions a thread
+// loads before their FMAs (the same in every operand form). For reports
+// and tests; launches nothing.
 extern "C" int bf_mac_plan(int sets, int Fs, int K, int real_bytes,
                            int* out) {
   const auto p = bf_mac_core::plan(sets, Fs, K, real_bytes);

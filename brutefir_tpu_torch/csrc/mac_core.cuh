@@ -68,12 +68,25 @@
 // block shape tried on an H100 (chip_mac_designs.py keeps that form as a
 // probe): the copy and its barrier cost a block more than the L2 re-reads,
 // and fewer, longer blocks keep fewer loads in flight.
+//
+// The bf16 operand forms (BRUTEFIR_TPU_RING_DTYPE / BRUTEFIR_TPU_BANK_DTYPE
+// = bf16, float32 graphs): the ring (X) and/or the bank (H) are stored as
+// bfloat16, every other operand, the FMAs and the outputs stay float32,
+// as the JAX kernels upconvert on load (pallas_mac.py `_odt`, :73-76).
+// A thread still owns 4 bins: a bf16 run of 4 bins is one 8-byte load
+// (a uint2), widened to a float4 by shifting each 16-bit word into the
+// top of a float (bf16 -> float32 is exact), so the FMAs, their order
+// and the group sizes are the float32 form's. The vector path needs
+// K % 4 == 0 and a bf16 operand 8-byte aligned (a float32 one 16); else
+// the scalar path runs, as in float32. The float32 and float64 forms are
+// the instantiations with X = H = R, the same code as before.
 
 #pragma once
 
 #include <cstdint>
 #include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace bf_mac_core {
@@ -89,10 +102,12 @@ constexpr int kSms = 132;            // SMs of an H100 SXM
 constexpr int kF64GroupFew = 4;
 constexpr int kF64Group = 2;
 
-template <int NS, class R = float>
+// R: the real type of the sums, the mask and the outputs; X, H: the
+// storage types of the ring and the bank (R, or bf16 beside float).
+template <int NS, class R = float, class X = R, class H = R>
 struct Args {
-  const R* ring;
-  const R* bank;
+  const X* ring;
+  const H* bank;
   const int* rows;
   const int* t;
   const int* idx[NS];
@@ -157,6 +172,31 @@ __device__ __forceinline__ dquad vload(const double* p) {
   return dquad{lo.x, lo.y, hi.x, hi.y};
 }
 
+// bf16 -> float32, exact: the 16 bits are the top half of the float.
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// 4 bf16 bins: one 8-byte load, widened to a float4.
+template <bool STREAM>
+__device__ __forceinline__ float4 vload(const __nv_bfloat16* p) {
+  const uint2 u = ld<STREAM>(reinterpret_cast<const uint2*>(p));
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y),
+                     bf16_hi(u.y));
+}
+
+// One value of storage type T as the real type R.
+template <bool STREAM, class R, class T>
+__device__ __forceinline__ R ld1(const T* p) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return bf16_lo(ld<STREAM>(reinterpret_cast<const unsigned short*>(p)));
+  else
+    return ld<STREAM>(p);
+}
+
 __device__ __forceinline__ void vstore(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
@@ -167,18 +207,18 @@ __device__ __forceinline__ void vstore(double* p, dquad v) {
   q[1] = make_double2(v.z, v.w);
 }
 
-// The 4 values at p; with VEC vector loads, else scalar loads of the
-// n (>= 1) that lie before K, zeros after.
-template <bool VEC, bool STREAM, class R>
-__device__ __forceinline__ quad_t<R> load4(const R* p, int n) {
+// The 4 values at p (storage type T) as R; with VEC vector loads, else
+// scalar loads of the n (>= 1) that lie before K, zeros after.
+template <bool VEC, bool STREAM, class R, class T>
+__device__ __forceinline__ quad_t<R> load4(const T* p, int n) {
   if constexpr (VEC) {
     return vload<STREAM>(p);
   } else {
     quad_t<R> v = make_quad<R>(0, 0, 0, 0);
-    v.x = ld<STREAM>(p);
-    if (n > 1) v.y = ld<STREAM>(p + 1);
-    if (n > 2) v.z = ld<STREAM>(p + 2);
-    if (n > 3) v.w = ld<STREAM>(p + 3);
+    v.x = ld1<STREAM, R>(p);
+    if (n > 1) v.y = ld1<STREAM, R>(p + 1);
+    if (n > 2) v.z = ld1<STREAM, R>(p + 2);
+    if (n > 3) v.w = ld1<STREAM, R>(p + 3);
     return v;
   }
 }
@@ -253,8 +293,9 @@ __device__ __forceinline__ void store_y(const AccOf<R>& a, R* out, int K,
 
 // SHARED: the uniform controls (every filter reads rows[0]'s bank row,
 // which stays in the caches); else each filter's own controls.
-template <class R, int NS, bool VEC, int G, bool SHARED>
-__global__ void __launch_bounds__(kQuads) mac_kernel(const Args<NS, R> a) {
+template <class R, class X, class H, int NS, bool VEC, int G, bool SHARED>
+__global__ void __launch_bounds__(kQuads)
+    mac_kernel(const Args<NS, R, X, H> a) {
   const int B = a.B, K = a.K;
   const int k0 = kTK * blockIdx.x + 4 * threadIdx.x;
   if (k0 >= K) return;
@@ -264,8 +305,8 @@ __global__ void __launch_bounds__(kQuads) mac_kernel(const Args<NS, R> a) {
   const int i = blockIdx.y;
   const int r = clamp_index(a.rows[i], a.F);
   const int sel = SHARED ? clamp_index(a.rows[0], a.F) : r;
-  const R* x = a.ring + size_t(r) * row + k0;
-  const R* h[NS];
+  const X* x = a.ring + size_t(r) * row + k0;
+  const H* h[NS];
   const R* m[NS];
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
@@ -284,12 +325,12 @@ __global__ void __launch_bounds__(kQuads) mac_kernel(const Args<NS, R> a) {
 #pragma unroll
     for (int j = 0; j < G; ++j) {
       if (j < ng) {
-        xr[j] = load4<VEC, true>(x + xoff, n);
-        xi[j] = load4<VEC, true>(x + xoff + K, n);
+        xr[j] = load4<VEC, true, R>(x + xoff, n);
+        xi[j] = load4<VEC, true, R>(x + xoff + K, n);
 #pragma unroll
         for (int s = 0; s < NS; ++s) {
-          hr[s][j] = load4<VEC, !SHARED>(h[s] + hoff, n);
-          hi[s][j] = load4<VEC, !SHARED>(h[s] + hoff + K, n);
+          hr[s][j] = load4<VEC, !SHARED, R>(h[s] + hoff, n);
+          hi[s][j] = load4<VEC, !SHARED, R>(h[s] + hoff + K, n);
           mg[s][j] = __ldg(m[s] + g + j);
         }
         xoff -= part;
@@ -317,50 +358,97 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <int NS, class R>
-bool aligned(const Args<NS, R>& a) {
-  bool ok = a.K % 4 == 0 && aligned16(a.ring) && aligned16(a.bank);
+// What a vector load of 4 bins of T needs: 16 bytes (float, double), 8
+// (bf16).
+template <class T>
+inline bool vec_aligned(const T* p) {
+  return sizeof(T) >= 4 ? aligned16(p)
+                        : reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) ==
+                              0;
+}
+
+template <int NS, class R, class X, class H>
+bool aligned(const Args<NS, R, X, H>& a) {
+  bool ok = a.K % 4 == 0 && vec_aligned(a.ring) && vec_aligned(a.bank);
   for (int s = 0; s < NS; ++s) ok = ok && aligned16(a.out[s]);
   return ok;
 }
 
-template <class R, int NS, int G, bool SHARED>
-void launch_form(const Args<NS, R>& a, dim3 grid, cudaStream_t stream) {
+template <class R, class X, class H, int NS, int G, bool SHARED>
+void launch_form(const Args<NS, R, X, H>& a, dim3 grid,
+                 cudaStream_t stream) {
   if (aligned(a))
-    mac_kernel<R, NS, true, G, SHARED><<<grid, kQuads, 0, stream>>>(a);
+    mac_kernel<R, X, H, NS, true, G, SHARED><<<grid, kQuads, 0, stream>>>(a);
   else
-    mac_kernel<R, NS, false, G, SHARED><<<grid, kQuads, 0, stream>>>(a);
+    mac_kernel<R, X, H, NS, false, G, SHARED><<<grid, kQuads, 0, stream>>>(
+        a);
 }
 
-template <class R, int NS, int G>
-void launch_group(const Args<NS, R>& a, dim3 grid, cudaStream_t stream) {
+template <class R, class X, class H, int NS, int G>
+void launch_group(const Args<NS, R, X, H>& a, dim3 grid,
+                  cudaStream_t stream) {
   if (a.uniform)
-    launch_form<R, NS, G, true>(a, grid, stream);
+    launch_form<R, X, H, NS, G, true>(a, grid, stream);
   else
-    launch_form<R, NS, G, false>(a, grid, stream);
+    launch_form<R, X, H, NS, G, false>(a, grid, stream);
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // Nothing here synchronises.
-template <int NS, class R = float>
-int launch(const Args<NS, R>& a, cudaStream_t stream) {
+template <int NS, class R = float, class X = R, class H = R>
+int launch(const Args<NS, R, X, H>& a, cudaStream_t stream) {
   if (a.K <= 0 || a.Fs <= 0) return 0;
   const Plan p = plan(NS, a.Fs, a.K, sizeof(R));
   if constexpr (std::is_same_v<R, double>) {
     if (p.group == kF64GroupFew)
-      launch_group<R, NS, kF64GroupFew>(a, p.grid, stream);
+      launch_group<R, X, H, NS, kF64GroupFew>(a, p.grid, stream);
     else
-      launch_group<R, NS, kF64Group>(a, p.grid, stream);
+      launch_group<R, X, H, NS, kF64Group>(a, p.grid, stream);
   } else {
     if constexpr (NS == 1) {
       if (p.group == 8) {
-        launch_group<R, NS, 8>(a, p.grid, stream);
+        launch_group<R, X, H, NS, 8>(a, p.grid, stream);
         return static_cast<int>(cudaGetLastError());
       }
     }
-    launch_group<R, NS, 4>(a, p.grid, stream);
+    launch_group<R, X, H, NS, 4>(a, p.grid, stream);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NS, class X, class H>
+int launch_as(const Args<NS>& f, const void* ring, const void* bank,
+              cudaStream_t stream) {
+  Args<NS, float, X, H> a{static_cast<const X*>(ring),
+                          static_cast<const H*>(bank), f.rows, f.t};
+  for (int s = 0; s < NS; ++s) {
+    a.idx[s] = f.idx[s];
+    a.mask[s] = f.mask[s];
+    a.out[s] = f.out[s];
+  }
+  a.F = f.F;
+  a.Fs = f.Fs;
+  a.B = f.B;
+  a.K = f.K;
+  a.E = f.E;
+  a.uniform = f.uniform;
+  a.has_bin0 = f.has_bin0;
+  return launch<NS, float, X, H>(a, stream);
+}
+
+// The launch of one of the four operand forms: `f` holds every operand
+// but the ring and the bank (its own ring and bank pointers are not read);
+// ring_bf16 and bank_bf16 say which of the two is bfloat16, the other
+// float32. Neither: the float32 form.
+template <int NS>
+int launch_typed(const Args<NS>& f, const void* ring, const void* bank,
+                 int ring_bf16, int bank_bf16, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  if (ring_bf16 && bank_bf16) return launch_as<NS, bf, bf>(f, ring, bank,
+                                                           stream);
+  if (ring_bf16) return launch_as<NS, bf, float>(f, ring, bank, stream);
+  if (bank_bf16) return launch_as<NS, float, bf>(f, ring, bank, stream);
+  return launch_as<NS, float, float>(f, ring, bank, stream);
 }
 
 }  // namespace

@@ -57,22 +57,49 @@
 // The form it replaces (PR 2) kept kRows x G x 2 accumulators a thread
 // with 16-bin tiles, one dependent round trip of loads a partition and a
 // mix of 2 FMAs a shared load, and ran at 31% of the byte bound.
+//
+// The bf16 operand forms (the entries' ring_bf16 / bank_bf16 flags;
+// BRUTEFIR_TPU_RING_DTYPE / BRUTEFIR_TPU_BANK_DTYPE = bf16 on a float32
+// graph): the ring and xnews (X, always one type: the caller casts the
+// group's spectra to the ring's) and/or the bank (H) are bfloat16, every
+// value widened to float32 where it is loaded, as the JAX kernels'
+// `.astype` on load; the mask, w, the sums and the outputs float32.
+// bf_mac_group loads each value straight from device memory, any K and
+// alignment. bf_mac_mix_group stages a bf16 run as it is through the same
+// 16-byte cp.async copies: its 64 bytes are chunks 0-3 of the run's slot,
+// so lanes 4-7 of a bf16 run copy nothing, and the layout, the launch
+// plan and the shared memory a block stay the float32 form's; the lanes
+// widen their bins on the shared-to-register read. It takes the aligned
+// path only (K % 8 == 0, ring, xnews, bank and out 16-byte aligned; the
+// wrapper raises ValueError elsewhere). The float32 forms are the
+// instantiations with X = H = float, the same code as before.
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+// A value as float32 (bf16 -> float32 is exact: the 16 bits are the top
+// half of the float).
+__device__ __forceinline__ float ldv(const float* p) { return *p; }
+__device__ __forceinline__ float ldv(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(p))
+      << 16);
+}
+
 constexpr int kMaxGroup = 8;
 constexpr int kThreads = 256;
 
-// Y_{g,f}[k] for g = 0 .. G-1 (the MAC of both kernels).
-template <int G>
+// Y_{g,f}[k] for g = 0 .. G-1 (the MAC of bf_mac_group).
+template <int G, class X, class H>
 __device__ __forceinline__ void group_mac(
-    const float* __restrict__ ring, const float* __restrict__ xnews,
-    const float* __restrict__ bank, const int* __restrict__ coeff_idx,
+    const X* __restrict__ ring, const X* __restrict__ xnews,
+    const H* __restrict__ bank, const int* __restrict__ coeff_idx,
     const float* __restrict__ mask, const int* __restrict__ delay, int t,
     int f, int k, int B, int K, int E, bool bin0, float (&yr)[G],
     float (&yi)[G]) {
@@ -81,9 +108,9 @@ __device__ __forceinline__ void group_mac(
   const size_t row = (size_t)B * part;
   const int dly = delay[f];
   const int e = min(max(coeff_idx[f], 0), E - 1);
-  const float* rf = ring + (size_t)f * row;
-  const float* xf = xnews + (size_t)f * (G - 1) * part;
-  const float* hb = bank + (size_t)e * row;
+  const X* rf = ring + (size_t)f * row;
+  const X* xf = xnews + (size_t)f * (G - 1) * part;
+  const H* hb = bank + (size_t)e * row;
   const float* mrow = mask + (size_t)f * B;
 
   // the window at b = 0: vr[g], vi[g] = V(g)
@@ -91,15 +118,15 @@ __device__ __forceinline__ void group_mac(
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const int j = g - 1 - dly;
-    const float* src;
+    const X* src;
     if (j >= 0) {
       src = xf + (size_t)j * part;
     } else {
       const int s = (t + g) % B;
       src = rf + (size_t)s * part;
     }
-    vr[g] = src[k];
-    vi[g] = src[plane + k];
+    vr[g] = ldv(src + k);
+    vi[g] = ldv(src + plane + k);
     yr[g] = 0.f;
     yi[g] = 0.f;
   }
@@ -113,13 +140,13 @@ __device__ __forceinline__ void group_mac(
       }
       int s = (t - b) % B;
       s += (s < 0) ? B : 0;
-      const float* rs = rf + (size_t)s * part;
-      vr[0] = rs[k];
-      vi[0] = rs[plane + k];
+      const X* rs = rf + (size_t)s * part;
+      vr[0] = ldv(rs + k);
+      vi[0] = ldv(rs + plane + k);
     }
     const float m = mrow[b];
-    const float* hs = hb + (size_t)b * part;
-    const float hr = hs[k] * m, hi = hs[plane + k] * m;
+    const H* hs = hb + (size_t)b * part;
+    const float hr = ldv(hs + k) * m, hi = ldv(hs + plane + k) * m;
     if (bin0) {
       // packed bin 0: DC and Nyquist are independent real products
 #pragma unroll
@@ -137,11 +164,11 @@ __device__ __forceinline__ void group_mac(
   }
 }
 
-template <int G>
+template <int G, class X, class H>
 __global__ void __launch_bounds__(kThreads)
-mac_group_kernel(const float* __restrict__ ring,
-                 const float* __restrict__ xnews,
-                 const float* __restrict__ bank,
+mac_group_kernel(const X* __restrict__ ring,
+                 const X* __restrict__ xnews,
+                 const H* __restrict__ bank,
                  const int* __restrict__ coeff_idx,
                  const float* __restrict__ mask,
                  const int* __restrict__ t_ptr,
@@ -151,8 +178,8 @@ mac_group_kernel(const float* __restrict__ ring,
   const int f = blockIdx.y;
   if (k >= K) return;
   float yr[G], yi[G];
-  group_mac<G>(ring, xnews, bank, coeff_idx, mask, delay, *t_ptr, f, k, B,
-               K, E, has_bin0 && k == 0, yr, yi);
+  group_mac<G, X, H>(ring, xnews, bank, coeff_idx, mask, delay, *t_ptr, f,
+                     k, B, K, E, has_bin0 && k == 0, yr, yi);
   const size_t part = 2 * (size_t)K;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -162,13 +189,13 @@ mac_group_kernel(const float* __restrict__ ring,
   }
 }
 
-template <int G>
-int launch_group(const float* ring, const float* xnews, const float* bank,
+template <int G, class X, class H>
+int launch_group(const X* ring, const X* xnews, const H* bank,
                  const int* coeff_idx, const float* mask, const int* t,
                  const int* delay, float* out, int F, int B, int K, int E,
                  int has_bin0, cudaStream_t s) {
   const dim3 grid((K + kThreads - 1) / kThreads, F);
-  mac_group_kernel<G><<<grid, kThreads, 0, s>>>(
+  mac_group_kernel<G, X, H><<<grid, kThreads, 0, s>>>(
       ring, xnews, bank, coeff_idx, mask, t, delay, out, F, B, K, E,
       has_bin0);
   return static_cast<int>(cudaGetLastError());
@@ -250,7 +277,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // 16 bytes, or nothing where `on` is false.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
                                            bool on) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
@@ -289,12 +316,13 @@ __device__ __forceinline__ void cp_async4_if(float* dst, const float* src,
       : "memory");
 }
 
-// kAligned: K % 4 == 0 and ring, xnews, bank and out 16-byte aligned.
-template <int G, bool kAligned>
+// kAligned: K % 4 == 0 (8 in bf16) and ring, xnews, bank and out 16-byte
+// aligned. X, H: the storage types of ring and xnews, and of the bank.
+template <int G, bool kAligned, class X, class H>
 __global__ void __launch_bounds__(kMixThreads, 1)
-mac_mix_group_kernel(const float* __restrict__ ring,
-                     const float* __restrict__ xnews,
-                     const float* __restrict__ bank,
+mac_mix_group_kernel(const X* __restrict__ ring,
+                     const X* __restrict__ xnews,
+                     const H* __restrict__ bank,
                      const int* __restrict__ coeff_idx,
                      const float* __restrict__ mask,
                      const int* __restrict__ t_ptr,
@@ -347,23 +375,35 @@ mac_mix_group_kernel(const float* __restrict__ ring,
   // slot si of its filter (stepping back a slot a position), a bank lane's
   // next partition (stepping forward once the bank rows begin), and the
   // next mask value; only the first G - 1 positions of a round, which may
-  // read xnews, take the general path.
-  const int run = lane >> 3, off = 4 * (lane & 7);
+  // read xnews, take the general path. A lane's pointers are in bytes and
+  // its run's values esz bytes each (the ring's type for V, the bank's
+  // for H: one constant when the two agree); its chunk of a run lands at
+  // byte 16 (lane & 7) of the run's slot.
+  const int run = lane >> 3;
   const bool is_v = run < 2;
+  const int esz = is_v ? (int)sizeof(X) : (int)sizeof(H);
+  const int off = (16 / esz) * (lane & 7);   // its chunk's first bin
+  const int doff = 4 * (lane & 7);           // ... in the slot, in floats
   const int nfl = max(0, nk - off);          // this lane's bins in range
   const int top = (t + G - 1) % B;           // slot of V(G-1)
-  const ptrdiff_t step = (ptrdiff_t)part, wrap = (ptrdiff_t)(B - 1) * part;
+  const ptrdiff_t step = (ptrdiff_t)part * esz,
+                  wrap = (ptrdiff_t)(B - 1) * part * esz;
   int gi = 0, gb = 0, ii = 0, si = top, fi = warp, di, ne, nd;
-  const float *cur, *xb, *mcur;
+  const char *cur, *xb;
+  const float* mcur;
   auto next_ctrl = [&](int f) {
     ne = f < F ? min(max(coeff_idx[f], 0), E - 1) : 0;
     nd = f < F ? delay[f] : 0;
   };
   auto start_round = [&]() {               // filter fi, from ne and nd
-    const size_t lane_off = (size_t)(run & 1) * K + k0 + off;
-    cur = (is_v ? ring + ((size_t)fi * B + top) * part
-                : bank + (size_t)ne * B * part) + lane_off;
-    xb = xnews + (size_t)fi * (G - 1) * part + lane_off;
+    const size_t lane_off = ((size_t)(run & 1) * K + k0 + off) * esz;
+    cur = (is_v ? reinterpret_cast<const char*>(
+                      ring + ((size_t)fi * B + top) * part)
+                : reinterpret_cast<const char*>(
+                      bank + (size_t)ne * B * part)) +
+          lane_off;
+    xb = reinterpret_cast<const char*>(xnews + (size_t)fi * (G - 1) * part) +
+         lane_off;
     mcur = mask + (size_t)fi * B;
     si = top;
     di = nd;
@@ -371,11 +411,15 @@ mac_mix_group_kernel(const float* __restrict__ ring,
   };
   next_ctrl(fi);
   start_round();
-  auto copy_run = [&](float* d, const float* src, bool on) {
-    if (kAligned) {
-      cp_async16(d, src, on && nfl >= 4);
-    } else if (on) {
-      for (int i = 0; i < nfl && i < 4; ++i) cp_async4(d + i, src + i);
+  auto copy_run = [&](float* d, const char* src, bool on) {
+    if constexpr (kAligned) {
+      cp_async16(d, src, on && nfl >= 16 / esz);
+    } else {
+      static_assert(std::is_same_v<X, float> && std::is_same_v<H, float>,
+                    "unaligned runs: float32 only");
+      const float* p = reinterpret_cast<const float*>(src);
+      if (on)
+        for (int i = 0; i < nfl && i < 4; ++i) cp_async4(d + i, p + i);
     }
   };
   auto issue = [&]() {
@@ -390,8 +434,8 @@ mac_mix_group_kernel(const float* __restrict__ ring,
         const int j = min(G - 2 - pos - di, G - 2);      // xnews index
         const bool use_x = is_v && j >= 0;
         const bool in = live && pos < NP;
-        copy_run(dst + q * kItem + run * kTileBins + off,
-                 use_x ? xb + (size_t)max(j, 0) * part : cur,
+        copy_run(dst + q * kItem + run * kTileBins + doff,
+                 use_x ? xb + max(j, 0) * step : cur,
                  in && (is_v || b >= 0));
         cp_async4_if(dst + q * kItem + 4 * kTileBins, mcur,
                      lane == q && in && b >= 0);
@@ -403,7 +447,7 @@ mac_mix_group_kernel(const float* __restrict__ ring,
 #pragma unroll
       for (int q = 0; q < kPos; ++q) {
         const bool in = live && ii * kPos + q < NP;
-        copy_run(dst + q * kItem + run * kTileBins + off, cur, in);
+        copy_run(dst + q * kItem + run * kTileBins + doff, cur, in);
         cp_async4_if(dst + q * kItem + 4 * kTileBins, mcur,
                      lane == q && in);
         cur += is_v ? (si ? -step : wrap) : step;
@@ -484,14 +528,18 @@ mac_mix_group_kernel(const float* __restrict__ ring,
           vr[p] = vr[p - 1];
           vi[p] = vi[p - 1];
         }
-        vr[0] = item[lane];
-        vi[0] = item[kTileBins + lane];
+        vr[0] = ldv(reinterpret_cast<const X*>(item) + lane);
+        vi[0] = ldv(reinterpret_cast<const X*>(item + kTileBins) + lane);
         if (pos >= G - 1) {
           // V(g - b) against bank row b; at bin 0 DC and Nyquist are
           // two real products (hx = 0, hy = the Nyquist coefficient)
           const float m = item[4 * kTileBins];
-          const float hr = item[2 * kTileBins + lane] * m;
-          const float hi = item[3 * kTileBins + lane] * m;
+          const float hr =
+              ldv(reinterpret_cast<const H*>(item + 2 * kTileBins) + lane) *
+              m;
+          const float hi =
+              ldv(reinterpret_cast<const H*>(item + 3 * kTileBins) + lane) *
+              m;
           const float hx = bin0 ? 0.f : hi, hy = bin0 ? hi : hr;
 #pragma unroll
           for (int p = 0; p < G; ++p) {
@@ -562,9 +610,9 @@ size_t mix_group_smem() {
   return MixShape<G>::kSmemFloats * sizeof(float);
 }
 
-template <int G, bool kAligned>
-int launch_mix_group(const float* ring, const float* xnews,
-                     const float* bank, const int* coeff_idx,
+template <int G, bool kAligned, class X, class H>
+int launch_mix_group(const X* ring, const X* xnews,
+                     const H* bank, const int* coeff_idx,
                      const float* mask, const int* t, const int* delay,
                      const float* w, float* out, int F, int B, int K, int E,
                      int C_out, int has_bin0, cudaStream_t s) {
@@ -577,7 +625,7 @@ int launch_mix_group(const float* ring, const float* xnews,
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!granted[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mac_mix_group_kernel<G, kAligned>,
+        mac_mix_group_kernel<G, kAligned, X, H>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -585,10 +633,18 @@ int launch_mix_group(const float* ring, const float* xnews,
   }
   constexpr int rows = MixShape<G>::kRows;
   const dim3 grid((K + kTileBins - 1) / kTileBins, (C_out + rows - 1) / rows);
-  mac_mix_group_kernel<G, kAligned><<<grid, kMixThreads, bytes, s>>>(
+  mac_mix_group_kernel<G, kAligned, X, H><<<grid, kMixThreads, bytes, s>>>(
       ring, xnews, bank, coeff_idx, mask, t, delay, w, out, F, B, K, E,
       C_out, has_bin0);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool mix_group_aligned(const void* ring, const void* xnews,
+                       const void* bank, const void* out, int K, int per) {
+  auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return K % per == 0 && a16(ring) && a16(xnews) && a16(bank) && a16(out);
 }
 
 template <int G>
@@ -597,16 +653,61 @@ int launch_mix_group(const float* ring, const float* xnews,
                      const float* mask, const int* t, const int* delay,
                      const float* w, float* out, int F, int B, int K, int E,
                      int C_out, int has_bin0, cudaStream_t s) {
-  auto a16 = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  if (K % 4 == 0 && a16(ring) && a16(xnews) && a16(bank) && a16(out))
+  if (mix_group_aligned(ring, xnews, bank, out, K, 4))
     return launch_mix_group<G, true>(ring, xnews, bank, coeff_idx, mask, t,
                                      delay, w, out, F, B, K, E, C_out,
                                      has_bin0, s);
   return launch_mix_group<G, false>(ring, xnews, bank, coeff_idx, mask, t,
                                     delay, w, out, F, B, K, E, C_out,
                                     has_bin0, s);
+}
+
+// The launches of the bf16 operand forms at group size G (2 .. kMaxGroup;
+// else cudaErrorInvalidValue): `mix` the fused MAC + mix (the aligned
+// path, which the caller checked), else the grouped MAC.
+template <class X, class H>
+int launch_bf16(bool mix, int G, const void* ring, const void* xnews,
+                const void* bank, const int* coeff_idx, const float* mask,
+                const int* t, const int* delay, const float* w, float* out,
+                int F, int B, int K, int E, int C_out, int has_bin0,
+                cudaStream_t s) {
+  const X* r = static_cast<const X*>(ring);
+  const X* x = static_cast<const X*>(xnews);
+  const H* h = static_cast<const H*>(bank);
+  switch (G) {
+#define BF_CASE(g)                                                         \
+  case g:                                                                  \
+    return mix ? launch_mix_group<g, true>(r, x, h, coeff_idx, mask, t,    \
+                                           delay, w, out, F, B, K, E, C_out, \
+                                           has_bin0, s)                    \
+               : launch_group<g>(r, x, h, coeff_idx, mask, t, delay, out, F, \
+                                 B, K, E, has_bin0, s);
+    BF_CASE(2) BF_CASE(3) BF_CASE(4) BF_CASE(5) BF_CASE(6) BF_CASE(7)
+    BF_CASE(8)
+#undef BF_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int launch_bf16(bool mix, int G, const void* ring, const void* xnews,
+                const void* bank, const int* coeff_idx, const float* mask,
+                const int* t, const int* delay, const float* w, float* out,
+                int F, int B, int K, int E, int C_out, int has_bin0,
+                int ring_bf16, int bank_bf16, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  if (ring_bf16 && bank_bf16)
+    return launch_bf16<bf, bf>(mix, G, ring, xnews, bank, coeff_idx, mask, t,
+                               delay, w, out, F, B, K, E, C_out, has_bin0, s);
+  if (ring_bf16)
+    return launch_bf16<bf, float>(mix, G, ring, xnews, bank, coeff_idx, mask,
+                                  t, delay, w, out, F, B, K, E, C_out,
+                                  has_bin0, s);
+  if (bank_bf16)
+    return launch_bf16<float, bf>(mix, G, ring, xnews, bank, coeff_idx, mask,
+                                  t, delay, w, out, F, B, K, E, C_out,
+                                  has_bin0, s);
+  return static_cast<int>(cudaErrorInvalidValue);   // float32: not here
 }
 
 }  // namespace
@@ -616,16 +717,28 @@ int launch_mix_group(const float* ring, const float* xnews,
 // for bf_mac_mix_group, B < 1); a refused shared-memory attribute comes
 // back as its own error. `has_bin0`: 1 where local bin 0 is the packed
 // DC/Nyquist bin (an unsharded call, the first bin shard of a mesh), else
-// 0, and bin 0 is an ordinary complex product. The caller allocates `out`
-// and checks shapes; nothing here synchronises.
-extern "C" int bf_mac_group(const float* ring, const float* xnews,
-                            const float* bank, const int* coeff_idx,
+// 0, and bin 0 is an ordinary complex product. ring_bf16 / bank_bf16: 1
+// where that operand is bfloat16 (xnews is of the ring's type), else
+// float32; both 0 is the float32 form. A bf16 form of bf_mac_mix_group
+// takes the aligned path only: cudaErrorInvalidValue unless K % 8 == 0
+// and ring, xnews, bank and out are 16-byte aligned; its launch plan is
+// the float32 form's. The caller allocates `out` and checks shapes;
+// nothing here synchronises.
+extern "C" int bf_mac_group(const void* ring_, const void* xnews_,
+                            const void* bank_, const int* coeff_idx,
                             const float* mask, const int* t,
                             const int* delay, float* out, int F, int B,
-                            int K, int E, int G, int has_bin0,
-                            void* stream) {
+                            int K, int E, int G, int has_bin0, int ring_bf16,
+                            int bank_bf16, void* stream) {
   if (K <= 0 || F <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ring_bf16 || bank_bf16)
+    return launch_bf16(false, G, ring_, xnews_, bank_, coeff_idx, mask, t,
+                       delay, nullptr, out, F, B, K, E, 0, has_bin0,
+                       ring_bf16, bank_bf16, s);
+  const float* ring = static_cast<const float*>(ring_);
+  const float* xnews = static_cast<const float*>(xnews_);
+  const float* bank = static_cast<const float*>(bank_);
   switch (G) {
 #define BF_CASE(g)                                                        \
   case g:                                                                 \
@@ -639,15 +752,26 @@ extern "C" int bf_mac_group(const float* ring, const float* xnews,
   }
 }
 
-extern "C" int bf_mac_mix_group(const float* ring, const float* xnews,
-                                const float* bank, const int* coeff_idx,
+extern "C" int bf_mac_mix_group(const void* ring_, const void* xnews_,
+                                const void* bank_, const int* coeff_idx,
                                 const float* mask, const int* t,
                                 const int* delay, const float* w, float* out,
                                 int F, int B, int K, int E, int C_out, int G,
-                                int has_bin0, void* stream) {
+                                int has_bin0, int ring_bf16, int bank_bf16,
+                                void* stream) {
   if (K <= 0 || C_out <= 0) return 0;
   if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ring_bf16 || bank_bf16) {
+    if (!mix_group_aligned(ring_, xnews_, bank_, out, K, 8))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bf16(true, G, ring_, xnews_, bank_, coeff_idx, mask, t,
+                       delay, w, out, F, B, K, E, C_out, has_bin0, ring_bf16,
+                       bank_bf16, s);
+  }
+  const float* ring = static_cast<const float*>(ring_);
+  const float* xnews = static_cast<const float*>(xnews_);
+  const float* bank = static_cast<const float*>(bank_);
   switch (G) {
 #define BF_CASE(g)                                                        \
   case g:                                                                 \

@@ -41,20 +41,39 @@
 // device memory above 32 outputs: 256 x 256 read-modify-writes a bin.
 // Here the output is written once. The copy of w is re-read from L2 by
 // each of the K / 32 tiles (64 MB of L2 traffic at the scale shape).
+//
+// The bf16 operand forms (the entry's ring_bf16 / bank_bf16 flags;
+// BRUTEFIR_TPU_RING_DTYPE / BRUTEFIR_TPU_BANK_DTYPE = bf16 on a float32
+// graph): the ring and/or the bank (X, H) bfloat16, each value widened
+// to float32 as it is loaded (lane = bin: 64-byte rows), the sums, the
+// mix and the output float32.
+// With both in bf16 a scale-shape call moves 285 MB (85 us). Any K and
+// alignment, as the float32 form. The float32 form is the instantiation
+// with X = H = float, the same code as before.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// A value as float32 (bf16 -> float32 is exact: the 16 bits are the top
+// half of the float).
+__device__ __forceinline__ float ldv(const float* p) { return *p; }
+__device__ __forceinline__ float ldv(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(p))
+      << 16);
+}
 
 constexpr int kThreads = 256;
 constexpr int kTile = 32;                    // bins per block (one warp row)
 constexpr int kFc = kThreads / kTile;        // filters per chunk: one a warp
 constexpr int kPass = kThreads / kTile;      // output rows per pass
 
-template <int kRows>
+template <class X, class H, int kRows>
 __global__ void __launch_bounds__(kThreads)
-mac_mix_tiled_kernel(const float* __restrict__ ring,
-                     const float* __restrict__ bank,
+mac_mix_tiled_kernel(const X* __restrict__ ring,
+                     const H* __restrict__ bank,
                      const int* __restrict__ coeff_idx,
                      const float* __restrict__ mask,
                      const int* __restrict__ t_ptr,
@@ -86,17 +105,17 @@ mac_mix_tiled_kernel(const float* __restrict__ ring,
     float yr = 0.f, yi = 0.f;
     if (f < F && k < K) {
       const int e = min(max(coeff_idx[f], 0), E - 1);
-      const float* rf = ring + (size_t)f * row;
-      const float* hb = bank + (size_t)e * row;
+      const X* rf = ring + (size_t)f * row;
+      const H* hb = bank + (size_t)e * row;
       const float* mrow = mask + (size_t)f * B;
       for (int b = 0; b < B; ++b) {
         int s = (t - b) % B;
         s += (s < 0) ? B : 0;
         const float m = mrow[b];
-        const float* rs = rf + (size_t)s * part;
-        const float* hs = hb + (size_t)b * part;
-        const float rr = rs[k], ri = rs[plane + k];
-        const float hr = hs[k] * m, hi = hs[plane + k] * m;
+        const X* rs = rf + (size_t)s * part;
+        const H* hs = hb + (size_t)b * part;
+        const float rr = ldv(rs + k), ri = ldv(rs + plane + k);
+        const float hr = ldv(hs + k) * m, hi = ldv(hs + plane + k) * m;
         if (has_bin0 && k == 0) {
           // packed bin 0: DC and Nyquist are independent real products
           yr += rr * hr;
@@ -143,34 +162,53 @@ mac_mix_tiled_kernel(const float* __restrict__ ring,
   }
 }
 
-template <int kRows>
-int launch(const float* ring, const float* bank, const int* coeff_idx,
+template <class X, class H, int kRows>
+int launch(const X* ring, const H* bank, const int* coeff_idx,
            const float* mask, const int* t, const float* w, float* out,
            int F, int B, int K, int E, int C_out, int has_bin0,
            cudaStream_t s) {
   const dim3 grid((K + kTile - 1) / kTile,
                   (C_out + kPass * kRows - 1) / (kPass * kRows));
-  mac_mix_tiled_kernel<kRows><<<grid, kThreads, 0, s>>>(
+  mac_mix_tiled_kernel<X, H, kRows><<<grid, kThreads, 0, s>>>(
       ring, bank, coeff_idx, mask, t, w, out, F, B, K, E, C_out, has_bin0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 4 rows a thread (32 outputs a block) for small mixes, else 32 (256)
+template <class X, class H>
+int launch_rows(const X* ring, const H* bank, const int* coeff_idx,
+                const float* mask, const int* t, const float* w, float* out,
+                int F, int B, int K, int E, int C_out, int has_bin0,
+                cudaStream_t s) {
+  if (C_out <= kPass * 4)
+    return launch<X, H, 4>(ring, bank, coeff_idx, mask, t, w, out, F, B, K,
+                           E, C_out, has_bin0, s);
+  return launch<X, H, 32>(ring, bank, coeff_idx, mask, t, w, out, F, B, K,
+                          E, C_out, has_bin0, s);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
 // caller allocates `out` and checks shapes; nothing here synchronises.
-// `has_bin0` as bf_mac_mix's (csrc/mac_mix.cu).
-extern "C" int bf_mac_mix_tiled(const float* ring, const float* bank,
+// `has_bin0` as bf_mac_mix's (csrc/mac_mix.cu). ring_bf16 / bank_bf16: 1
+// where that operand is bfloat16, else float32 (both 0: the float32 form).
+extern "C" int bf_mac_mix_tiled(const void* ring, const void* bank,
                                 const int* coeff_idx, const float* mask,
                                 const int* t, const float* w, float* out,
                                 int F, int B, int K, int E, int C_out,
-                                int has_bin0, void* stream) {
+                                int has_bin0, int ring_bf16, int bank_bf16,
+                                void* stream) {
   if (K <= 0 || C_out <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 4 rows a thread (32 outputs a block) for small mixes, else 32 (256)
-  if (C_out <= kPass * 4)
-    return launch<4>(ring, bank, coeff_idx, mask, t, w, out, F, B, K, E,
-                     C_out, has_bin0, s);
-  return launch<32>(ring, bank, coeff_idx, mask, t, w, out, F, B, K, E,
-                    C_out, has_bin0, s);
+  using bf = __nv_bfloat16;
+#define BF_LAUNCH(X, H)                                                    \
+  return launch_rows(static_cast<const X*>(ring),                          \
+                     static_cast<const H*>(bank), coeff_idx, mask, t, w,   \
+                     out, F, B, K, E, C_out, has_bin0, s)
+  if (ring_bf16 && bank_bf16) BF_LAUNCH(bf, bf);
+  if (ring_bf16) BF_LAUNCH(bf, float);
+  if (bank_bf16) BF_LAUNCH(float, bf);
+  BF_LAUNCH(float, float);
+#undef BF_LAUNCH
 }

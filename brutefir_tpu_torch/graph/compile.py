@@ -55,6 +55,14 @@ The ring and the cascade tails are written **in place**: the analog of
 the JAX step donating its state buffers. The returned state shares them
 with the input.
 
+Under ``BRUTEFIR_TPU_RING_DTYPE=bf16`` (a float32 graph; read once, by
+:func:`read_ring_dtype`, when the engine is built) the ring is stored as
+bfloat16 (``init_state(..., ring_dtype)``): every ring write casts its
+spectra to the ring's dtype (round to nearest even, as the JAX package's
+``astype``), the grouped dispatch casts its ``xnews`` so, and the MAC
+kernels widen the ring back to float32 on load. Everything else stays in
+the graph's real type.
+
 Under a mesh (``mesh=``, ``parallel/mesh.py``) the ring and the bank are
 :class:`~brutefir_tpu_torch.parallel.mesh.Sharded` over the ('f', 'sp')
 shards and ``ctrl`` is a :class:`MeshCtrl` (``place_ctrl``); the step
@@ -150,12 +158,27 @@ def real_dtype(spec: GraphSpec) -> torch.dtype:
     return torch.float64 if spec.real_dtype == np.float64 else torch.float32
 
 
-def init_state(spec: GraphSpec, device) -> StepState:
+def read_ring_dtype(spec: GraphSpec) -> torch.dtype:
+    """The ring's dtype: ``torch.bfloat16`` under
+    ``BRUTEFIR_TPU_RING_DTYPE=bf16`` (or ``bfloat16``) on a float32 graph,
+    as the JAX package's ``CompiledGraph`` reads it (compile.py:84-95);
+    else the graph's real type (a float64 graph ignores the knob)."""
+    env = os.environ.get("BRUTEFIR_TPU_RING_DTYPE", "")
+    if env in ("bf16", "bfloat16") and spec.real_dtype == np.float32:
+        return torch.bfloat16
+    return real_dtype(spec)
+
+
+def init_state(spec: GraphSpec, device,
+               ring_dtype: torch.dtype = None) -> StepState:
+    """Zero state; the ring of ``ring_dtype`` (default: the graph's real
+    type; the engine passes its :func:`read_ring_dtype`)."""
     rd = real_dtype(spec)
     N = spec.block_length
     return StepState(
         prev_in=torch.zeros((spec.n_inputs, N), dtype=rd, device=device),
-        ring=torch.zeros(spec.ring_shape(), dtype=rd, device=device),
+        ring=torch.zeros(spec.ring_shape(), dtype=ring_dtype or rd,
+                         device=device),
         eval_prev=torch.zeros((spec.n_casc, N), dtype=rd, device=device),
         t=torch.zeros((), dtype=torch.int32, device=device),
     )
@@ -282,10 +305,12 @@ def _write_ring(ring, blk, t, delay, uniform_delay: bool, rows=None,
     shares one delay, else a per-filter scatter (compile.py:260-274).
     Under ``mesh``: ``ring`` and ``delay`` Sharded, ``blk`` on the first
     device, ``rows`` the stage's filters as a numpy vector; each shard
-    takes its rows and bins of ``blk``."""
+    takes its rows and bins of ``blk``. ``blk`` is cast to the ring's
+    dtype (a bfloat16 ring, compile.py:267)."""
     if mesh is not None:
         _write_ring_mesh(mesh, ring, blk, t, delay, uniform_delay, rows)
         return
+    blk = blk.to(ring.dtype)
     B = ring.shape[1]
     if rows is None and uniform_delay:
         wpos0 = torch.remainder(t + delay[0], B).reshape(1).long()
@@ -650,7 +675,9 @@ def group_step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
             for f in frames]                                # G x [F, 2, N]
     ring, t = state.ring, state.t
     _write_ring(ring, blks[0], t, rc.delay, uniform_delay, mesh=mesh)
-    xnews = torch.stack(blks[1:], dim=1)                    # [F, G-1, 2, N]
+    # the later blocks read the spectra the ring will hold: cast as the
+    # ring writes cast (compile.py:700-702)
+    xnews = torch.stack(blks[1:], dim=1).to(ring.dtype)     # [F, G-1, 2, N]
     if mesh is not None:
         ys = mac_group_shard(mesh, ring, split(mesh, xnews, 0, 3), bank,
                              rc.coeff_idx, rc.mask, t, rc.delay)

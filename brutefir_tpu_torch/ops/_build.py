@@ -32,17 +32,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source stem -> {C function: argtypes}; every launch returns a cudaError.
-# Each MAC entry's last int is ``has_bin0`` (the packed DC/Nyquist rule on
-# local bin 0: 1 unsharded and on a mesh's first bin shard, else 0)
+# Each MAC entry's last ints are ``has_bin0`` (the packed DC/Nyquist rule
+# on local bin 0: 1 unsharded and on a mesh's first bin shard, else 0)
+# and, but for ``bf_mac_f64``, ``ring_bf16`` and ``bank_bf16`` (1 where
+# that operand is bfloat16: the bf16 operand forms)
 SIGNATURES = {
-    "mac": {"bf_mac": [_P] * 7 + [_I] * 7 + [_P],
+    "mac": {"bf_mac": [_P] * 7 + [_I] * 9 + [_P],
             "bf_mac_f64": [_P] * 7 + [_I] * 7 + [_P],
             "bf_mac_plan": [_I] * 4 + [_P]},
-    "mac_dual": {"bf_mac_dual": [_P] * 10 + [_I] * 7 + [_P]},
-    "mac_mix": {"bf_mac_mix": [_P] * 7 + [_I] * 10 + [_P]},
-    "mac_mix_tiled": {"bf_mac_mix_tiled": [_P] * 7 + [_I] * 6 + [_P]},
-    "mac_group": {"bf_mac_group": [_P] * 8 + [_I] * 6 + [_P],
-                  "bf_mac_mix_group": [_P] * 9 + [_I] * 7 + [_P],
+    "mac_dual": {"bf_mac_dual": [_P] * 10 + [_I] * 9 + [_P]},
+    "mac_mix": {"bf_mac_mix": [_P] * 7 + [_I] * 12 + [_P]},
+    "mac_mix_tiled": {"bf_mac_mix_tiled": [_P] * 7 + [_I] * 8 + [_P]},
+    "mac_group": {"bf_mac_group": [_P] * 8 + [_I] * 8 + [_P],
+                  "bf_mac_mix_group": [_P] * 9 + [_I] * 9 + [_P],
                   "bf_mac_mix_group_plan": [_I] * 2 + [_P]},
     "fft_glue": {"bf_glue_fwd": [_P] * 3 + [_I] * 2 + [_P],
                  "bf_glue_inv": [_P] * 3 + [_I] * 2 + [_P],

@@ -16,8 +16,9 @@ On a CUDA tensor it launches the hand-written kernel ``csrc/mac.cu``, the
 one-set entry of the core it shares with the crossfade dual MAC
 (``csrc/mac_core.cuh``): ``bf_mac`` on float32 operands, ``bf_mac_f64``
 on float64 ones (``float_bits: 64``, whose step runs this MAC where the
-JAX package runs its dense float64 MAC); on a CPU tensor it runs
-:func:`mac_reference`, the plain torch version.
+JAX package runs its dense float64 MAC), ``bf_mac_bf16`` on a bfloat16
+ring and/or bank (the bf16 operand forms, ``ops/mac_mix.py``); on a CPU
+tensor it runs :func:`mac_reference`, the plain torch version.
 There is no fallback from the kernel to the plain version on a CUDA
 tensor: a failed build or launch raises.
 """
@@ -29,12 +30,12 @@ import ctypes
 import torch
 
 from . import _build
-from .mac_mix import check_operands
+from .mac_mix import bf16_flags, bf16_suffix, check_operands, with_bf16
 from .partconv import spectral_mac_rollh, spectral_mac_uniform
 
 # kernel launches per form, counted where the kernel is launched and
 # nowhere else (the smoke run reads them to prove the main path used it)
-launches = {"mac_uniform": 0, "mac_rows": 0, "mac_uniform_f64": 0,
+launches = {**with_bf16("mac_uniform", "mac_rows"), "mac_uniform_f64": 0,
             "mac_rows_f64": 0}
 
 
@@ -68,13 +69,14 @@ def mac(ring: torch.Tensor, bank: torch.Tensor, rows: torch.Tensor,
         coeff_idx: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
         uniform: bool, has_bin0: bool = True) -> torch.Tensor:
     """Unfused MAC of the stage filters ``rows`` -> ``[Fs, 2, K]`` of the
-    ring's real dtype (float32, or float64 under ``float_bits: 64``).
+    graph's real dtype (float32, or float64 under ``float_bits: 64``).
 
     ring [F, B, 2, K] (current block already written), bank [E, B, 2, K],
     rows [Fs] int32 (indices into the ring's filters), coeff_idx [F]
     int32, mask [F, B], t scalar int32 tensor; the real operands of one
-    dtype, all on one device, contiguous. ``uniform``: every stage filter
-    uses coeff_idx[rows[0]] and mask[rows[0]].
+    dtype, but the ring and the bank each float32 or bfloat16 beside a
+    float32 mask; all on one device, contiguous. ``uniform``: every stage
+    filter uses coeff_idx[rows[0]] and mask[rows[0]].
     """
     f64 = ring.dtype == torch.float64
     check_operands("mac", ring, bank, coeff_idx, mask, t, rows=rows,
@@ -86,15 +88,20 @@ def mac(ring: torch.Tensor, bank: torch.Tensor, rows: torch.Tensor,
         raise ValueError(f"mac: unsupported device {ring.device}")
     F, B, _, K = ring.shape
     Fs = rows.shape[0]
-    out = torch.empty((Fs, 2, K), dtype=ring.dtype, device=ring.device)
-    with torch.cuda.device(ring.device):
-        rc = getattr(_build.load("mac"), "bf_mac_f64" if f64 else "bf_mac")(
-            ring.data_ptr(), bank.data_ptr(), rows.data_ptr(),
+    out = torch.empty((Fs, 2, K), dtype=mask.dtype, device=ring.device)
+    lib = _build.load("mac")
+    args = (ring.data_ptr(), bank.data_ptr(), rows.data_ptr(),
             coeff_idx.data_ptr(), mask.data_ptr(), t.data_ptr(),
             out.data_ptr(), F, Fs, B, K, bank.shape[0], int(uniform),
-            int(has_bin0), torch.cuda.current_stream().cuda_stream)
-    form = ("mac_uniform" if uniform else "mac_rows") + ("_f64" if f64
-                                                         else "")
+            int(has_bin0))
+    with torch.cuda.device(ring.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if f64:
+            rc = lib.bf_mac_f64(*args, stream)
+        else:
+            rc = lib.bf_mac(*args, *bf16_flags(ring, bank), stream)
+    form = ("mac_uniform" if uniform else "mac_rows") + (
+        "_f64" if f64 else bf16_suffix(ring, bank))
     if rc != 0:
         raise RuntimeError(f"mac: {form} kernel launch failed (cudaError {rc})")
     launches[form] += 1

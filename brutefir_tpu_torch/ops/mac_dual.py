@@ -12,8 +12,10 @@ as ``mac``'s.
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/mac_dual.cu``,
 the two-set entry of the core it shares with the unfused MAC
-(``csrc/mac_core.cuh``); on a CPU tensor it runs :func:`mac_dual_reference`, the plain torch
-version (two plain MACs). There is no fallback from the kernel to the
+(``csrc/mac_core.cuh``), its ``bf_mac_dual_bf16`` entry on a bfloat16
+ring and/or bank (the bf16 operand forms, ``ops/mac_mix.py``); on a CPU
+tensor it runs :func:`mac_dual_reference`, the plain torch version (two
+plain MACs). There is no fallback from the kernel to the
 plain version on a CUDA tensor: a failed build or launch raises.
 """
 
@@ -22,12 +24,12 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .mac_mix import check_operands
+from .mac_mix import bf16_flags, bf16_suffix, check_operands, with_bf16
 from .partconv import spectral_mac_dual as mac_dual_reference
 
 # kernel launches per form, counted where the kernel is launched and
 # nowhere else (the smoke run reads them to prove the main path used it)
-launches = {"mac_dual_uniform": 0, "mac_dual_rows": 0}
+launches = with_bf16("mac_dual_uniform", "mac_dual_rows")
 
 
 def reset_launches() -> None:
@@ -42,8 +44,8 @@ def mac_dual(ring: torch.Tensor, bank: torch.Tensor, rows: torch.Tensor,
     """Dual MAC of the stage filters ``rows`` -> ``(Y_new, Y_old)``, two
     ``[Fs, 2, K]`` float32.
 
-    ring [F, B, 2, K] f32 (current block already written), bank
-    [E, B, 2, K] f32, rows [Fs] int32, coeff_idx / prev_idx [F] int32,
+    ring [F, B, 2, K] f32 or bf16 (current block already written), bank
+    [E, B, 2, K] f32 or bf16, rows [Fs] int32, coeff_idx / prev_idx [F] int32,
     mask / prev_mask [F, B] f32, t scalar int32 tensor; all on one
     device, contiguous.
     """
@@ -64,8 +66,10 @@ def mac_dual(ring: torch.Tensor, bank: torch.Tensor, rows: torch.Tensor,
             coeff_idx.data_ptr(), mask.data_ptr(), prev_idx.data_ptr(),
             prev_mask.data_ptr(), t.data_ptr(), y_new.data_ptr(),
             y_old.data_ptr(), F, Fs, B, K, bank.shape[0], int(uniform),
-            int(has_bin0), torch.cuda.current_stream().cuda_stream)
-    form = "mac_dual_uniform" if uniform else "mac_dual_rows"
+            int(has_bin0), *bf16_flags(ring, bank),
+            torch.cuda.current_stream().cuda_stream)
+    form = (("mac_dual_uniform" if uniform else "mac_dual_rows")
+            + bf16_suffix(ring, bank))
     if rc != 0:
         raise RuntimeError(
             f"mac_dual: {form} kernel launch failed (cudaError {rc})")

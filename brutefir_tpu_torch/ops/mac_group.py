@@ -15,8 +15,10 @@ caller only after the call. Block t+g reads at partition b the ring slot
 - ``mac_mix_group`` -> ``[G, C_out, 2, K]`` mixed spectra, the port of
   ``pallas_spectral_mac_mix_group``.
 
-On a CUDA tensor each launches its kernel of ``csrc/mac_group.cu``; on a
-CPU tensor it runs its plain torch version. ``has_bin0`` False makes bin 0
+On a CUDA tensor each launches its kernel of ``csrc/mac_group.cu`` (its
+``*_bf16`` entry on a bfloat16 ring and/or bank, the bf16 operand forms
+of ``ops/mac_mix.py``; ``xnews`` then of the ring's dtype); on a CPU
+tensor it runs its plain torch version. ``has_bin0`` False makes bin 0
 an ordinary complex product: the call of a mesh's bin shard other than
 the first (``ops/mac_shard.py``). There is no fallback from a
 kernel to the plain version on a CUDA tensor: a failed build or launch
@@ -30,14 +32,16 @@ import ctypes
 import torch
 
 from . import _build
-from .mac_mix import check_operands
-from .partconv import complex_mix, mac_terms
+from .mac_mix import (bf16_flags, bf16_suffix, check_operands, check_staged,
+                      with_bf16)
+from .partconv import complex_mix, mac_terms, widen
 
 # the kernels are instantiated for G = 2 .. MAX_GROUP
 MAX_GROUP = 8
 
-# kernel launches per kernel, counted where it is launched and nowhere else
-launches = {"group": 0, "mix_group": 0}
+# kernel launches per kernel, counted where it is launched and nowhere
+# else
+launches = with_bf16("group", "mix_group")
 
 
 def reset_launches() -> None:
@@ -88,7 +92,8 @@ def mac_group_reference(ring, xnews, bank, coeff_idx, mask, t, delay,
     against the unrotated coefficient partitions, with the bin-0 rule
     where ``has_bin0``."""
     G = xnews.shape[1] + 1
-    H = bank[coeff_idx.long()] * mask[:, :, None, None]     # [F, B, 2, K]
+    ring, xnews = widen(ring), widen(xnews)
+    H = widen(bank[coeff_idx.long()]) * mask[:, :, None, None]  # [F, B, 2, K]
     return torch.stack([mac_terms(group_rows(ring, xnews, t, delay, g), H,
                                   has_bin0) for g in range(G)])
 
@@ -102,8 +107,10 @@ def mac_mix_group_reference(ring, xnews, bank, coeff_idx, mask, t, w,
     return torch.stack([complex_mix(w, y) for y in ys])
 
 
-def _launch(fn: str, kernel: str, ring, xnews, out, ptrs, dims,
-            has_bin0: bool):
+def _launch(fn: str, kernel: str, ring, xnews, bank, out, ptrs, dims,
+            has_bin0: bool) -> str:
+    """Launch ``kernel`` with the operands' bf16 flags and return the
+    form's launch-count suffix."""
     G = xnews.shape[1] + 1
     if G > MAX_GROUP:
         raise ValueError(f"{fn}: the kernel takes G <= {MAX_GROUP}, got {G}")
@@ -111,9 +118,10 @@ def _launch(fn: str, kernel: str, ring, xnews, out, ptrs, dims,
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(_build.load("mac_group"), kernel)(
             *(x.data_ptr() for x in ptrs), out.data_ptr(), *dims, G,
-            int(has_bin0), stream)
+            int(has_bin0), *bf16_flags(ring, bank), stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed (cudaError {rc})")
+    return bf16_suffix(ring, bank)
 
 
 def mac_group(ring: torch.Tensor, xnews: torch.Tensor, bank: torch.Tensor,
@@ -121,10 +129,10 @@ def mac_group(ring: torch.Tensor, xnews: torch.Tensor, bank: torch.Tensor,
               delay: torch.Tensor, has_bin0: bool = True) -> torch.Tensor:
     """Grouped MAC -> ``[G, F, 2, K]`` float32.
 
-    ring [F, B, 2, K] f32 (block t written, no later block), xnews
-    [F, G-1, 2, K] f32, bank [E, B, 2, K] f32, coeff_idx [F] int32, mask
-    [F, B] f32, t scalar int32 tensor, delay [F] int32; all on one
-    device, contiguous."""
+    ring [F, B, 2, K] f32 or bf16 (block t written, no later block),
+    xnews [F, G-1, 2, K] of the ring's dtype, bank [E, B, 2, K] f32 or
+    bf16, coeff_idx [F] int32, mask [F, B] f32, t scalar int32 tensor,
+    delay [F] int32; all on one device, contiguous."""
     check_operands("mac_group", ring, bank, coeff_idx, mask, t,
                    xnews=xnews, delay=delay)
     if ring.device.type == "cpu":
@@ -135,10 +143,10 @@ def mac_group(ring: torch.Tensor, xnews: torch.Tensor, bank: torch.Tensor,
     F, B, _, K = ring.shape
     G = xnews.shape[1] + 1
     out = torch.empty((G, F, 2, K), dtype=torch.float32, device=ring.device)
-    _launch("mac_group", "bf_mac_group", ring, xnews, out,
-            (ring, xnews, bank, coeff_idx, mask, t, delay),
-            (F, B, K, bank.shape[0]), has_bin0)
-    launches["group"] += 1
+    sfx = _launch("mac_group", "bf_mac_group", ring, xnews, bank, out,
+                  (ring, xnews, bank, coeff_idx, mask, t, delay),
+                  (F, B, K, bank.shape[0]), has_bin0)
+    launches["group" + sfx] += 1
     return out
 
 
@@ -147,9 +155,11 @@ def mac_mix_group(ring: torch.Tensor, xnews: torch.Tensor,
                   mask: torch.Tensor, t: torch.Tensor, w: torch.Tensor,
                   delay: torch.Tensor, has_bin0: bool = True) -> torch.Tensor:
     """Grouped fused MAC + output mix -> ``[G, C_out, 2, K]`` float32.
-    Operands as ``mac_group``, plus w [C_out, F] f32."""
+    Operands as ``mac_group``, plus w [C_out, F] f32; the bf16 forms need
+    ``check_staged``'s alignment."""
     check_operands("mac_mix_group", ring, bank, coeff_idx, mask, t, w=w,
                    xnews=xnews, delay=delay)
+    check_staged("mac_mix_group", ring, bank, xnews)
     if ring.device.type == "cpu":
         return mac_mix_group_reference(ring, xnews, bank, coeff_idx, mask,
                                        t, w, delay, has_bin0)
@@ -160,8 +170,8 @@ def mac_mix_group(ring: torch.Tensor, xnews: torch.Tensor,
     C_out = w.shape[0]
     out = torch.empty((G, C_out, 2, K), dtype=torch.float32,
                       device=ring.device)
-    _launch("mac_mix_group", "bf_mac_mix_group", ring, xnews, out,
-            (ring, xnews, bank, coeff_idx, mask, t, delay, w),
-            (F, B, K, bank.shape[0], C_out), has_bin0)
-    launches["mix_group"] += 1
+    sfx = _launch("mac_mix_group", "bf_mac_mix_group", ring, xnews, bank,
+                  out, (ring, xnews, bank, coeff_idx, mask, t, delay, w),
+                  (F, B, K, bank.shape[0], C_out), has_bin0)
+    launches["mix_group" + sfx] += 1
     return out

@@ -77,13 +77,14 @@ def _assemble(out: torch.Tensor, sel, k0: int, k1: int,
 def mac_shard(mesh, ring, bank, rows, coeff_idx, mask,
               t: torch.Tensor) -> torch.Tensor:
     """The unfused MAC of the stage filters ``rows`` (global indices, a
-    numpy vector) over the mesh -> ``[Fs, 2, K]`` of the ring's dtype on
-    the first device, in the order of ``rows``. ``ring`` [F, B, 2, K]
+    numpy vector) over the mesh -> ``[Fs, 2, K]`` of the mask's dtype
+    (the graph's: float32 beside a bfloat16 ring or bank) on the first
+    device, in the order of ``rows``. ``ring`` [F, B, 2, K]
     Sharded (0, 3), ``bank`` [E, B, 2, K] Sharded (None, 3),
     ``coeff_idx`` [F] and ``mask`` [F, B] Sharded (0, None)."""
     rows = np.asarray(rows)
     K = ring.shape[3]
-    out = torch.empty((rows.size, 2, K), dtype=ring.dtype,
+    out = torch.empty((rows.size, 2, K), dtype=mask.dtype,
                       device=mesh.first)
     for i, sel, local in _stage_cells(mesh, ring, rows):
         for j, (k0, k1) in enumerate(mesh.bins(K)):

@@ -22,7 +22,10 @@ works in its input's real type: float64 spectra (``float_bits: 64``)
 take the float64 glue and float64 matmuls. The plain MACs
 below are the correctness baseline for the CUDA kernels in
 :mod:`brutefir_tpu_torch.ops.mac_mix`, ``mac_group``, ``mac`` and
-``mac_dual``.
+``mac_dual``. A bfloat16 ring or bank (``BRUTEFIR_TPU_RING_DTYPE`` /
+``BRUTEFIR_TPU_BANK_DTYPE`` = bf16) is widened to float32 on entry
+(:func:`widen`, exact), so they compute in float32 what they compute for
+float32 operands, as the JAX kernels upconvert on load.
 """
 
 from __future__ import annotations
@@ -168,6 +171,12 @@ def complex_mix(mix: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         (mix.shape[0],) + x.shape[1:])
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 operand (the opt-in ring or bank) as float32, exactly;
+    any other tensor as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 # --- plain MACs (the kernel's reference) ------------------------------------
 
 def _hpos(t: torch.Tensor, B: int) -> torch.Tensor:
@@ -180,7 +189,8 @@ def mac_terms(ring, H, has_bin0: bool = True):
     """Sum over partitions of ring (*) H, with the bin-0 rule where
     ``has_bin0`` (else bin 0 is an ordinary complex product: a bin shard
     other than a mesh's first). ring [F, B, 2, N], H [F|1, B, 2, N] ->
-    [F, 2, N]."""
+    [F, 2, N]; bfloat16 operands widened to float32."""
+    ring, H = widen(ring), widen(H)
     rr, ri = ring[:, :, 0], ring[:, :, 1]          # [F, B, N]
     hr, hi = H[:, :, 0], H[:, :, 1]
     yr = torch.sum(rr * hr - ri * hi, dim=1)       # [F, N]
@@ -204,11 +214,14 @@ def spectral_mac_rollh(ring: torch.Tensor, bank: torch.Tensor,
 
     ring [F, B, 2, N], bank [E, B, 2, N], coeff_idx [F] int, mask [F, B]
     (follows the coefficient partition index), t scalar int tensor;
-    ``has_bin0`` as ``mac_terms``. Returns [F, 2, N]."""
+    ``has_bin0`` as ``mac_terms``; a bfloat16 ring or bank is widened to
+    float32 (the gathered rows of the bank). Returns [F, 2, N]."""
     B = ring.shape[1]
+    ring = widen(ring)
     hpos = _hpos(t, B)
     mg = mask[:, hpos].to(ring.dtype)
-    H = bank[coeff_idx.long()[:, None], hpos[None, :]] * mg[:, :, None, None]
+    H = (widen(bank[coeff_idx.long()[:, None], hpos[None, :]])
+         * mg[:, :, None, None])
     return mac_terms(ring, H, has_bin0)
 
 
@@ -220,9 +233,10 @@ def spectral_mac_uniform(ring: torch.Tensor, bank: torch.Tensor,
     and mask row (``coeff_idx[0]``, ``mask[0]``): one [B, 2, N] row is
     gathered and broadcast across the filter axis."""
     B = ring.shape[1]
+    ring = widen(ring)
     hpos = _hpos(t, B)
     mrow = mask[0, hpos].to(ring.dtype)
-    H = bank[coeff_idx.long()[0], hpos] * mrow[:, None, None]   # [B, 2, N]
+    H = widen(bank[coeff_idx.long()[0], hpos]) * mrow[:, None, None]
     return mac_terms(ring, H[None], has_bin0)
 
 

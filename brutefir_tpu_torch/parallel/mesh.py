@@ -386,17 +386,18 @@ class ShardedGraph:
         self.kernel = shardable(mesh, spec.n_filters, spec.n_bins,
                                 spec.real_dtype)
 
-    def init_state(self):
+    def init_state(self, ring_dtype=None):
         """The step state: the ring split over the mesh ('f' rows, 'sp'
-        bins), the overlap-save and cascade tails and the block counter
-        on the first device."""
+        bins), of ``ring_dtype`` (default: the graph's real type), the
+        overlap-save and cascade tails and the block counter on the first
+        device."""
         from ..graph.compile import StepState, real_dtype
         s, dev = self.spec, self.mesh.first
         rd = real_dtype(s)
         N = s.block_length
         return StepState(
             prev_in=torch.zeros((s.n_inputs, N), dtype=rd, device=dev),
-            ring=zeros(self.mesh, s.ring_shape(), rd, 0, 3),
+            ring=zeros(self.mesh, s.ring_shape(), ring_dtype or rd, 0, 3),
             eval_prev=torch.zeros((s.n_casc, N), dtype=rd, device=dev),
             t=torch.zeros((), dtype=torch.int32, device=dev))
 

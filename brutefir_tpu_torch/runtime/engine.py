@@ -94,6 +94,21 @@ without an 'f' axis to place onto they have no effect, and the engine
 says so. Frequency-domain hooks need one device: an automatic mesh steps
 down to its first device, an explicit one refuses them.
 
+Reduced-precision state (engine.py:286-298, compile.py:84-95): under
+``BRUTEFIR_TPU_BANK_DTYPE=bf16`` the coefficient bank, and under
+``BRUTEFIR_TPU_RING_DTYPE=bf16`` the spectra ring, are stored as
+bfloat16 on a float32 graph (both read once, here; a float64 graph
+ignores them). The bank is cast on the host before a mesh splits it, so
+every shard is bfloat16, and ``update_bank_entry`` casts an EQ render or
+coefficient swap to it; the MAC kernels' bf16 forms widen both on load.
+Not the bit-parity contract: defaults stay the graph's type.
+
+``BRUTEFIR_TPU_PROFILE=<dir>`` wraps ``run()`` (not ``run_offline``, as
+in the JAX package, engine.py:1137-1139, 1269-1287) in a
+``torch.profiler`` trace of the host and the card, written to the
+directory as one Chrome trace when the run ends, normally or by an
+error.
+
 Not ported: the powersave dispatch skip (the JAX package makes it
 byte-identical to always dispatching, so the port always dispatches).
 """
@@ -119,8 +134,8 @@ from ..core.codecs import Overflow, float_to_raw, raw_to_float
 from ..core.delayline import DelayLine
 from ..core.dither import DitherTable
 from ..errors import BFError, BF_EXIT_INVALID_INPUT, BF_EXIT_OTHER
-from ..graph.compile import (check_supported, init_state, real_dtype,
-                             step_impl)
+from ..graph.compile import (check_supported, init_state, read_ring_dtype,
+                             real_dtype, step_impl)
 from ..graph.spec import build_graph_spec
 from ..io import get_io_module
 from ..ops.partconv import np_c2p, np_p2c, pack_spectrum, unpack_spectrum
@@ -188,6 +203,17 @@ def _expand_p24(raw: np.ndarray) -> np.ndarray:
          | (raw[..., 1].astype(np.int32) << 8)
          | (raw[..., 2].astype(np.int32) << 16))
     return w - ((w & 0x800000) << 1)
+
+
+def read_bank_dtype(real: torch.dtype) -> torch.dtype:
+    """The bank's dtype: ``torch.bfloat16`` under
+    ``BRUTEFIR_TPU_BANK_DTYPE=bf16`` (or ``bfloat16``) on a float32 graph
+    (``real``, the graph's real type), as the JAX engine reads it
+    (engine.py:295-298); else ``real``."""
+    env = os.environ.get("BRUTEFIR_TPU_BANK_DTYPE", "")
+    if env in ("bf16", "bfloat16") and real == torch.float32:
+        return torch.bfloat16
+    return real
 
 
 def pin_fp32_matmul() -> None:
@@ -289,9 +315,12 @@ class Engine:
         check_supported(self.spec)
 
         # [E, B, N] complex -> the kernel's [E, B, 2, N] re/im planes; under
-        # a mesh each device takes its bin shards from the host copy
+        # a mesh each device takes its bin shards from the host copy. The
+        # opt-in bf16 bank is cast here, on the host, before the split
         bank = torch.as_tensor(
             np_c2p(build_bank(conf.coeffs, self.N, self.B, self.rd.type)))
+        bank = bank.to(read_bank_dtype(bank.dtype))
+        self.ring_dtype = read_ring_dtype(self.spec)
         self._sharded = (mesh_mod.ShardedGraph(self.spec, mesh)
                          if mesh is not None else None)
         self.bank = (mesh_mod.split(mesh, bank, None, 3) if mesh is not None
@@ -365,8 +394,10 @@ class Engine:
         for ch in range(conf.n_channels[OUT]):
             self.overflow.append(self._phys_overflow[conf.virt2phys[OUT][ch]])
 
-        self.state = (self._sharded.init_state() if mesh is not None
-                      else init_state(self.spec, self.device))
+        self.state = (self._sharded.init_state(self.ring_dtype)
+                      if mesh is not None
+                      else init_state(self.spec, self.device,
+                                      self.ring_dtype))
         self.control_mutex = threading.RLock()
         self.blockcounter = 0
         self.realtime_index = 0.0    # the CLI's rti reads it
@@ -444,9 +475,11 @@ class Engine:
         new bank tensor is rebound under the control mutex, so a block
         dispatched with the old one (its snapshot's) is unaffected, even
         when the EQ runs on a CLI socket thread. Under a mesh every bin
-        shard of the bank is written."""
-        H = torch.as_tensor(np.asarray(H).reshape(self.bank.shape[1:]),
-                            dtype=self.bank.dtype)
+        shard of the bank is written. ``H`` is cast to the bank's dtype
+        (a bfloat16 bank: rounded to nearest even, as the JAX package's
+        ``jnp.asarray(H, bank.dtype)``)."""
+        H = torch.as_tensor(np.asarray(H).reshape(self.bank.shape[1:]))
+        H = H.to(self.bank.dtype)
         if self.mesh is not None:
             def write(part, i, j):
                 k0, k1 = self.mesh.bins(H.shape[-1])[j]
@@ -541,7 +574,7 @@ class Engine:
         self.bank = mesh_mod.gather(self.bank)
         self.mesh = None
         self._sharded = None
-        self.state = init_state(self.spec, self.device)
+        self.state = init_state(self.spec, self.device, self.ring_dtype)
         with self.control_mutex:
             self.control.mesh = None
             self.control.mark_dirty()
@@ -676,7 +709,8 @@ class Engine:
                 try:
                     for uni in (False, True):
                         for xf in xfs:
-                            self.dio.step(init_state(self.spec, self.device),
+                            self.dio.step(init_state(self.spec, self.device,
+                                                     self.ring_dtype),
                                           ctrl, g0, g1, self.bank,
                                           list(words), uniform=uni,
                                           udelay=udl, xfade=xf)
@@ -687,7 +721,8 @@ class Engine:
                 for uni in (False, True):
                     for xf in xfs:
                         step_impl(self.spec, init_state(self.spec,
-                                                        self.device),
+                                                        self.device,
+                                                        self.ring_dtype),
                                   ctrl, self.bank, self._upload_host(x),
                                   uniform=uni, uniform_delay=udl,
                                   xfade_now=xf, taps=self.taps)
@@ -1232,6 +1267,7 @@ class Engine:
             # add taps, and setup()'s _warm_programs warms what runs
             self.attach_logic()
             self.setup()
+        prof = self._start_profile()
         budget = self.N / self.conf.sampling_rate    # seconds per block
         t_run0 = time.perf_counter()
         # bounded: p50/p95 over the most recent ~131k blocks
@@ -1253,17 +1289,53 @@ class Engine:
             if wstats["err"] is not None:
                 raise wstats["err"]
         except BaseException:
-            # release the devices: a caller that catches the error and
-            # builds a new Engine must not inherit still-open devices
+            # finish the trace and release the devices: a caller that
+            # catches the error and builds a new Engine must not inherit
+            # a running profiler or still-open devices
+            if prof is not None:
+                try:
+                    self._stop_profile(prof)
+                except Exception:
+                    pass
             if setup:
                 self._teardown_quietly()
             raise
+        if prof is not None:
+            self._stop_profile(prof)
         stats = self._stats(wstats["frames"], time.perf_counter() - t_run0)
         if self._debug_ring is not None:
             self._dump_debug_timeline()
         if setup:
             self.teardown()
         return stats
+
+    def _start_profile(self):
+        """The opt-in trace of ``run()`` (``BRUTEFIR_TPU_PROFILE=<dir>``,
+        engine.py:1137-1139): a started ``torch.profiler.profile`` of the
+        host and, on a card, of CUDA, with its directory (made as
+        ``jax.profiler.start_trace`` makes it); None without the knob."""
+        out = os.environ.get("BRUTEFIR_TPU_PROFILE")
+        if not out:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(out, exist_ok=True)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof, out
+
+    @staticmethod
+    def _stop_profile(prof) -> str:
+        """Stop the trace of ``_start_profile`` and write it into its
+        directory as one Chrome trace, ``run_<pid>_<ns>.json``; returns
+        its path."""
+        p, out = prof
+        p.stop()
+        path = os.path.join(out, f"run_{os.getpid()}_{time.time_ns()}.json")
+        p.export_chrome_trace(path)
+        return path
 
     def _start_watchdog(self) -> threading.Event:
         """The opt-in stall watchdog (``BRUTEFIR_TPU_WATCHDOG=<seconds>``,
@@ -1477,7 +1549,8 @@ class Engine:
             if not hasattr(self, "_stage_slopes"):
                 self._stage_slopes = device_stage_slopes(
                     self.spec, self.bank if self.mesh is None
-                    else mesh_mod.gather(self.bank), self.device)
+                    else mesh_mod.gather(self.bank), self.device,
+                    self.ring_dtype)
                 tot = sum(self._stage_slopes.values())
                 sys.stderr.write(
                     "device stage calibration (ms/block): "

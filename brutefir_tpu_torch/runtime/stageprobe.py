@@ -65,9 +65,11 @@ def _time_op(fn, device) -> float:
     return max(1e-9, sorted(ts)[len(ts) // 2])
 
 
-def device_stage_slopes(spec, bank: torch.Tensor, device) -> dict:
+def device_stage_slopes(spec, bank: torch.Tensor, device,
+                        ring_dtype=None) -> dict:
     """Per-stage seconds a block at this graph's shapes (``bank``: the
-    engine's ``[E, B, 2, K]`` bank on ``device``)."""
+    engine's ``[E, B, 2, K]`` bank on ``device``; ``ring_dtype``: its
+    ring's, default the graph's real type)."""
     device = torch.device(device)
     C_in, C_out = spec.n_inputs, spec.n_outputs
     F, N, K = spec.n_filters, spec.block_length, spec.n_bins
@@ -79,7 +81,7 @@ def device_stage_slopes(spec, bank: torch.Tensor, device) -> dict:
     frame = full((C_in, 2 * N))
     X = full((C_in, 2, K))
     in_mix = full((F, C_in), 1.0 / max(C_in, 1))
-    ring = init_state(spec, device).ring.fill_(0.01)
+    ring = init_state(spec, device, ring_dtype).ring.fill_(0.01)
     rows = torch.arange(F, dtype=torch.int32, device=device)
     idx = rows % bank.shape[0]
     mask = torch.ones((F, spec.n_blocks), dtype=rd, device=device)

@@ -22,9 +22,13 @@ the unsharded value). Both outputs are held against the plain version
 first (1e-5 of its peak), and against each other: bit-equal, or the
 run fails. Each time is the median of 20 calls with the L2
 cache flushed by a read before each (``chip_smoke.time_ms``,
-``read_flush``), taken in turns: other, this, this, other. The floor of
-the method (a kernel that writes 4 bytes) and each shape's bound are
-printed beside them.
+``read_flush``), taken in turns: other, this, this, other; each pair of
+means is marked within 2% of each other or not, and the last line lists
+those that are not (printed, not failed: a timing). The floor of the
+method (a kernel that writes 4 bytes) and each shape's bound are printed
+beside them. The forms compared are the float32 ones (this tree's
+wrappers pass its entries ``ring_bf16`` = ``bank_bf16`` = 0): the bf16
+operand forms have no counterpart in an older tree.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ ENTRIES = {"mac": ("bf_mac",), "mac_dual": ("bf_mac_dual",),
            "mac_group": ("bf_mac_group", "bf_mac_mix_group"),
            "mac_mix": ("bf_mac_mix",), "mac_mix_tiled": ("bf_mac_mix_tiled",)}
 # C entry -> the trailing arguments before the stream the other tree's
-# entry takes beyond the earlier interface: (1,) for has_bin0, or ()
+# entry takes beyond the earliest interface: (1,) for has_bin0 alone,
+# (1, 0, 0) for has_bin0 and the float32 flags, or ()
 BIN0 = {}
 
 
@@ -79,8 +84,9 @@ def build_other(tree: str) -> dict:
             fn.argtypes = sigs[stem][name]
             fn.restype = ctypes.c_int
             libs[name] = fn
-            BIN0[name] = ((1,) if len(sigs[stem][name])
-                          == len(_build.SIGNATURES[stem][name]) else ())
+            # this tree's entries end in has_bin0, ring_bf16, bank_bf16
+            extra = len(sigs[stem][name]) - len(_build.SIGNATURES[stem][name])
+            BIN0[name] = (1, 0, 0)[:3 + extra]
     return libs
 
 
@@ -266,16 +272,26 @@ def compare_group(libs, flush) -> None:
         torch.cuda.empty_cache()
 
 
+# labels whose mean time in this tree is more than 2% off the other's
+OFF_2PCT = []
+
+
 def in_turns(label: str, other, this, flush, b_ms: float) -> None:
-    """Time other, this, this, other; print the pairs' means."""
+    """Time other, this, this, other; print the pairs' means and whether
+    this tree's is within 2% of the other's."""
     o1 = cs.time_ms(other, cs.REPS, flush)
     t1 = cs.time_ms(this, cs.REPS, flush)
     t2 = cs.time_ms(this, cs.REPS, flush)
     o2 = cs.time_ms(other, cs.REPS, flush)
     o, t = (o1 + o2) / 2, (t1 + t2) / 2
+    within = abs(t / o - 1.0) <= 0.02
+    if not within:
+        OFF_2PCT.append(label)
     print(f"{label}: other tree {o1:.4f} / {o2:.4f} ms, this tree "
-          f"{t1:.4f} / {t2:.4f} ms; means {o:.4f} -> {t:.4f} ({o / t:.2f}x); "
-          f"bound {b_ms:.4f} ms, floor {cs.FLOOR_MS:.4f} ms", flush=True)
+          f"{t1:.4f} / {t2:.4f} ms; means {o:.4f} -> {t:.4f} ({o / t:.2f}x, "
+          f"{100.0 * (t / o - 1.0):+.2f}%: "
+          f"{'within' if within else 'NOT within'} 2%); bound {b_ms:.4f} "
+          f"ms, floor {cs.FLOOR_MS:.4f} ms", flush=True)
 
 
 def main() -> int:
@@ -355,6 +371,9 @@ def main() -> int:
                  flush, cs.bound(nb, nf)[0])
         del ring, bank, refs
         torch.cuda.empty_cache()
+    print(f"every form bit-equal to the other tree's; means within 2%: "
+          f"{'all' if not OFF_2PCT else 'all but ' + ', '.join(OFF_2PCT)}",
+          flush=True)
     return 0
 
 

@@ -67,7 +67,7 @@ SPREAD = """      if (r > 0 && mixes) {
 DRAIN = """    for (int fl = 0; fl < fc; ++fl) mix_step((rounds - 1) & 1, fl);"""
 MAC_IF = """        if (pos >= G - 1) {
           // V(g - b)"""
-COPY_RUN = """  auto copy_run = [&](float* d, const float* src, bool on) {"""
+COPY_RUN = """  auto copy_run = [&](float* d, const char* src, bool on) {"""
 
 
 def spread(src):
@@ -339,7 +339,7 @@ __device__ __forceinline__ void compute_sync() {
 }
 
 // kAligned: K % 4 == 0 and ring, xnews, bank and out 16-byte aligned.
-template <int G, bool kAligned>
+template <int G, bool kAligned, class X = float, class H = float>
 __global__ void __launch_bounds__(kThreadsAll, 1)
 mac_mix_group_kernel(const float* __restrict__ ring,
                      const float* __restrict__ xnews,
@@ -688,7 +688,7 @@ __device__ __forceinline__ void bar_arrive(int id) {
 }
 
 // kAligned: K % 4 == 0 and ring, xnews, bank and out 16-byte aligned.
-template <int G, bool kAligned>
+template <int G, bool kAligned, class X = float, class H = float>
 __global__ void __launch_bounds__(kMixThreads, 1)
 mac_mix_group_kernel(const float* __restrict__ ring,
                      const float* __restrict__ xnews,
@@ -976,8 +976,9 @@ def copy_warp(src):
     a = src.index("// bf_mac_mix_group. What limits")
     b = src.index("template <int G>\nsize_t mix_group_smem()")
     src = src[:a] + COPY_WARP_SRC + src[b:]
-    src = sub(src, "mac_mix_group_kernel<G, kAligned><<<grid, kMixThreads,",
-              "mac_mix_group_kernel<G, kAligned><<<grid, kThreadsAll,")
+    src = sub(src,
+              "mac_mix_group_kernel<G, kAligned, X, H><<<grid, kMixThreads,",
+              "mac_mix_group_kernel<G, kAligned, X, H><<<grid, kThreadsAll,")
     return src
 
 
@@ -997,6 +998,20 @@ VARIANTS = (
 )
 
 
+BF16_DISPATCH = """                int ring_bf16, int bank_bf16, cudaStream_t s) {
+  using bf = __nv_bfloat16;"""
+
+
+def float32_only(src):
+    """The entries' bf16 operand forms refused (cudaErrorInvalidValue) and
+    never instantiated: the variants are float32 kernels, and the forms
+    compared here are the float32 ones."""
+    a = src.index(BF16_DISPATCH)
+    b = src.index("\n}\n", a)
+    return (src[:a] + BF16_DISPATCH.split("\n")[0]
+            + "\n  return static_cast<int>(cudaErrorInvalidValue);" + src[b:])
+
+
 def build() -> dict:
     """Every variant built at once; name -> (C entry, ptxas line)."""
     from brutefir_tpu_torch.ops import _build
@@ -1004,7 +1019,7 @@ def build() -> dict:
     kept = open(SRC).read()
     jobs = []
     for name, patches in VARIANTS:
-        src = kept
+        src = float32_only(kept)
         for patch in patches:
             src = patch(src)
         cu = os.path.join(OUT, f"{name}.cu")
@@ -1065,7 +1080,7 @@ def main() -> int:
         rc = fn(ring.data_ptr(), xnews.data_ptr(), bank.data_ptr(),
                 idx.data_ptr(), mask.data_ptr(), t7.data_ptr(),
                 delay.data_ptr(), w.data_ptr(), out.data_ptr(), Fs, cs.B,
-                cs.K, Es, Cs, G, 1, stream)
+                cs.K, Es, Cs, G, 1, 0, 0, stream)
         if rc != 0:
             cs.fail(f"a form failed to launch (cudaError {rc})")
     nb, nf = cs.mac_bytes_flops(Fs, cs.B, cs.K, Cs, Es, G)

@@ -47,7 +47,9 @@ them (the read time of a block is then mostly the wait for the card;
 the deadline misses of the output are printed) or the massive shape
 with ``float_bits: 64;`` (``f64``, ``chip_smoke.py``'s phase 29: the
 stage loop's float64 MAC and glue), then runs the port's
-engine three times on them: once to
+engine three times on them (under the environment's knobs:
+``BRUTEFIR_TPU_BANK_DTYPE`` / ``_RING_DTYPE`` = bf16, printed with the
+wall): once to
 warm up (kernel build, cuFFT plans), once timed on the host clock (its
 stage-table lines printed), once under ``torch.profiler`` (CPU and CUDA
 activities).
@@ -212,7 +214,9 @@ def main():
     print(f"{args.shape} shape, mesh {args.mesh or 'none'}, {blocks} "
           f"blocks, BRUTEFIR_TPU_PAIR="
           f"{os.environ.get('BRUTEFIR_TPU_PAIR', 'default')} (groups of "
-          f"{G}): wall {wall_ms:.3f} ms a block, engine xrt "
+          f"{G}), bank {str(eng.bank.dtype)[6:]}, ring "
+          f"{str(eng.state.ring.dtype)[6:]}: "
+          f"wall {wall_ms:.3f} ms a block, engine xrt "
           f"{stats['xrt']:.2f}, p50 batch period {stats['p50_block_ms']:.3f}"
           f" ms a block", flush=True)
     print("host a block: " + ", ".join(

@@ -291,6 +291,31 @@ Phases, in order; any failure exits non-zero:
    1 x 2 across cuda:0 and cuda:1 to its oracle; its failure fails the
    smoke. With one card it prints that it did not run, and why.
 
+7d (after 7c). kernel vs plain, the bf16 operand forms
+   (``BRUTEFIR_TPU_RING_DTYPE`` / ``BRUTEFIR_TPU_BANK_DTYPE`` = bf16):
+   rows 1-10 at their path shapes (``bf16_cases``), each under a bf16
+   ring, a bf16 bank and both: the form against its plain version on the
+   same bfloat16 operands (REL_TOL), its launch counted in its module's
+   ``launches`` under the form's bf16 name, timed beside the plain version, the bound counting
+   bf16 bytes at 2 a value; each combination a main path below launches
+   enters the kernels summary (rows 1-2 all three).
+38-42. main paths of the opt-in knobs, the counts set to 0 just before
+   each run: 38 the massive shape (shared, then two coefficients), each
+   in turns float32, under ``BRUTEFIR_TPU_BANK_DTYPE=bf16``, under
+   ``BRUTEFIR_TPU_RING_DTYPE=bf16`` and under both: the bank knob within
+   QUANT_TOL LSB of the float64 response of the quantized bank
+   (``partconv_q``: the bf16 bank widened, the partitioned overlap-save
+   in float64), the ring knob and both within ``RING_BOUND`` of the peak
+   + 2 LSB of the float32 run, each run launching its form of the fused
+   MAC + mix once a block; 39 the scale shape under both knobs (groups
+   of 4 with the tiled tail, then ``BRUTEFIR_TPU_PAIR=2``) within
+   ``RING_BOUND`` of the peak + 2 LSB of phase 9's float32 runs; 40 bench5
+   under both knobs within that bound of phase 12's run; 41 bench1's and
+   the massive cascade under the bank knob within their float32 bounds
+   of the cascaded quantized-bank oracle; 42 the massive shape
+   through ``Engine.run`` under ``BRUTEFIR_TPU_PROFILE=<dir>``: one
+   Chrome trace naming the fused MAC + mix and both glue kernels.
+
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
 launch its kernels the expected number of times (launch counts are set
@@ -467,16 +492,20 @@ def report(rows, name, source, line, worst, max_abs, k_ms, p_ms, n_bytes,
 
 
 def mac_bytes_flops(F_, B_, K_, C, rows_used, G=1, out_rows=None,
-                    real_bytes=4):
+                    real_bytes=4, ring_bytes=None, bank_bytes=None):
     """Bytes a MAC kernel must move (each input once, each output once)
     and its operations: ring, the bank rows it uses, G-1 xnews blocks,
     the small controls, and G outputs of ``out_rows`` rows; a complex
     multiply-add (8 operations) per filter, partition, bin and block, and
     a real mix (4 a bin: two planes, multiply and add) per output, filter
-    and block when C > 0. ``real_bytes``: 4 (float32), 8 (float64)."""
+    and block when C > 0. ``real_bytes``: 4 (float32), 8 (float64);
+    ``ring_bytes`` (the ring and xnews) and ``bank_bytes``: 2 for a
+    bfloat16 operand (default ``real_bytes``)."""
     plane = 2 * K_ * real_bytes
-    n_bytes = (F_ * B_ * plane + rows_used * B_ * plane
-               + (G - 1) * F_ * plane
+    rplane = 2 * K_ * (ring_bytes or real_bytes)
+    hplane = 2 * K_ * (bank_bytes or real_bytes)
+    n_bytes = (F_ * B_ * rplane + rows_used * B_ * hplane
+               + (G - 1) * F_ * rplane
                + F_ * 4 + F_ * B_ * real_bytes + 4 + F_ * 4 * (G > 1)
                + C * F_ * real_bytes
                + G * (out_rows if out_rows is not None else C) * plane)
@@ -809,13 +838,15 @@ def kernels_mac(tm, rows, flush):
         torch.cuda.empty_cache()
 
 
-def dual_bytes_flops(Fs, B_, K_, rows_used):
+def dual_bytes_flops(Fs, B_, K_, rows_used, ring_bytes=4, bank_bytes=4):
     """Bytes the dual MAC must move (each input once, each output once:
     Fs ring rows, the bank rows both sets use, both sets' controls, two
     outputs) and its FP32 operations (two complex multiply-adds, 16
-    operations, per filter, partition and bin)."""
+    operations, per filter, partition and bin); ``ring_bytes`` and
+    ``bank_bytes`` 2 for a bfloat16 operand."""
     plane = 2 * K_ * 4
-    n_bytes = (Fs * B_ * plane + rows_used * B_ * plane + 2 * Fs * plane
+    n_bytes = (Fs * B_ * 2 * K_ * ring_bytes
+               + rows_used * B_ * 2 * K_ * bank_bytes + 2 * Fs * plane
                + Fs * 4 + 2 * (Fs * 4 + Fs * B_ * 4) + 4)
     return n_bytes, Fs * B_ * K_ * 16
 
@@ -1421,8 +1452,10 @@ def add_counts(launched: dict, counts: dict, *keys):
         launched[key] = launched.get(key, 0) + counts[key]
 
 
-# each float32 phase's error, printed beside its float64 phase (29-31)
+# each float32 phase's error, printed beside its float64 phase (29-31);
+# and outputs, beside the bf16 and mix-precision phases (38-42)
 F32_ERR = {}
+F32_OUT = {}
 
 
 def expect_launches(counts: dict, want: dict, label: str):
@@ -1546,6 +1579,7 @@ def main_scale(main, mods: dict, launched: dict):
         for key in keys:
             launched[key] = counts[key]
         add_glue(launched, counts)
+    F32_OUT["scale"] = ys
     for lsb, (label, *_) in zip(
             oracle_lsbs(ys, x, lambda c: taps[c].astype(np.float64)), runs):
         print(f"main path ({label}): max |y - oracle| {lsb} LSB (tol "
@@ -1818,6 +1852,7 @@ def main_bench5(main, mods: dict, launched: dict):
         range(0, C, 5))
     tol = 8e-6 * peak + 4.0
     F32_ERR["bench5"] = worst
+    F32_OUT["bench5"] = y
     print(f"main path (bench5): max |y - ramp oracle| {worst:.3f} LSB (tol "
           f"8e-6 * {peak:.0f} + 4 = {tol:.3f}) on channels 0, 5, ..., 25",
           flush=True)
@@ -4136,6 +4171,491 @@ def main_cards(launched: dict):
         launched[(mod, form)] = launched.get((mod, form), 0) + n
 
 
+# --- the bf16 operand forms and the opt-in knobs (phases 7d, 38-42) ------
+
+BF16_COMBOS = ((1, 0), (0, 1), (1, 1))     # (ring, bank) in bfloat16
+BF16_NAMES = {(1, 0): "ring", (0, 1): "bank", (1, 1): "ring and bank"}
+RING_BOUND = 0.005       # of the float32 run's peak, + 2 LSB: the ring knob
+QUANT_TOL = LSB_TOL      # the bank knob against the quantized-bank oracle
+
+
+def bf16_suffix(combo) -> str:
+    """The launch-count suffix of a bf16 form (ops/mac_mix.bf16_suffix)."""
+    from brutefir_tpu_torch.ops.mac_mix import BF16_SUFFIXES
+    return BF16_SUFFIXES[combo[0] + 2 * combo[1] - 1]
+
+
+def bf16_operands(combo, ring, bank, xnews=None):
+    """The ring (and xnews, of the ring's dtype) and the bank of a
+    combination: bfloat16 where it says so, else the float32 tensors."""
+    import torch
+    r16, b16 = combo
+    ring = ring.to(torch.bfloat16) if r16 else ring
+    bank = bank.to(torch.bfloat16) if b16 else bank
+    return ring, bank, None if xnews is None else xnews.to(ring.dtype)
+
+
+def bf16_cases(mods):
+    """Rows 1-10 at the shapes of their paths: (row, name, shape, source,
+    TPU line, module, form, the combinations a main path launches, a setup
+    returning (ring, bank, xnews, mask, call, plain, bytes_of)), where
+    call(ring, bank, xnews, mask, t) launches the kernel, plain(...) runs
+    its plain version and bytes_of(ring_bytes, bank_bytes) gives (bytes,
+    operations)."""
+    import torch
+    mm, mg, tm, td = (mods[k] for k in ("mac_mix", "mac_group", "mac",
+                                        "mac_dual"))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def i32(x):
+        return x.to(torch.int32)
+
+    def mix_case(uniform, Fc, Cc, Ec):
+        def setup():
+            ring, bank = rnd(Fc, B, 2, K), rnd(Ec, B, 2, K)
+            w = rnd(Cc, Fc) / 16.0
+            idx = (torch.full((Fc,), Ec - 1, dtype=torch.int32, device=dev)
+                   if uniform else i32(torch.randperm(Fc, generator=g,
+                                                      device=dev) % Ec))
+            delay = i32(torch.arange(Fc, device=dev) % (1 if uniform else 4))
+            return (ring, bank, None, cblocks_mask(delay, B),
+                    lambda r, h, x, m, t: mm.mac_mix(r, h, idx, m, t, w,
+                                                     uniform),
+                    lambda r, h, x, m, t: mm.mac_mix_reference(
+                        r, h, idx, m, t, w, uniform),
+                    lambda rb, hb: mac_bytes_flops(
+                        Fc, B, K, Cc, 1 if uniform else Ec, ring_bytes=rb,
+                        bank_bytes=hb))
+        return setup
+
+    def group_case(G, fused):
+        Fs = SCALE_C
+
+        def setup():
+            ring, bank = rnd(Fs, B, 2, K), rnd(Fs, B, 2, K)
+            xnews = rnd(Fs, G - 1, 2, K)
+            w = rnd(Fs, Fs) / 16.0
+            idx = i32(torch.randperm(Fs, generator=g, device=dev))
+            delay = i32(torch.arange(Fs, device=dev) % (G + 2))
+            if fused:
+                call = lambda r, h, x, m, t: mg.mac_mix_group(
+                    r, x, h, idx, m, t, w, delay)
+                plain = lambda r, h, x, m, t: mg.mac_mix_group_reference(
+                    r, x, h, idx, m, t, w, delay)
+            else:
+                call = lambda r, h, x, m, t: mg.mac_group(
+                    r, x, h, idx, m, t, delay)
+                plain = lambda r, h, x, m, t: mg.mac_group_reference(
+                    r, x, h, idx, m, t, delay)
+            return (ring, bank, xnews, cblocks_mask(delay, B), call, plain,
+                    lambda rb, hb: mac_bytes_flops(
+                        Fs, B, K, Fs if fused else 0, Fs, G,
+                        out_rows=None if fused else Fs, ring_bytes=rb,
+                        bank_bytes=hb))
+        return setup
+
+    def mac_case(F_, B_, K_, E_, uniform, stage):
+        def setup():
+            ring, bank, idx, mask, st = mac_inputs(g, F_, B_, K_, E_,
+                                                   uniform, stage)
+            rt = torch.tensor(st, dtype=torch.int32, device=dev)
+            used = 1 if uniform else len(set(idx[rt.long()].tolist()))
+            return (ring, bank, None, mask,
+                    lambda r, h, x, m, t: tm.mac(r, h, rt, idx, m, t,
+                                                 uniform),
+                    lambda r, h, x, m, t: tm.mac_reference(r, h, rt, idx, m,
+                                                           t, uniform),
+                    lambda rb, hb: (lambda nb, nf: (nb + len(st) * 4, nf))(
+                        *mac_bytes_flops(len(st), B_, K_, 0, used,
+                                         out_rows=len(st), ring_bytes=rb,
+                                         bank_bytes=hb)))
+        return setup
+
+    def dual_case():
+        def setup():
+            ring, bank, idx, mask, pidx, pmask, st = dual_inputs(
+                g, BENCH5_C, BENCH5_B, BENCH5_N, 2, True, None)
+            rt = torch.tensor(st, dtype=torch.int32, device=dev)
+            return (ring, bank, None, mask,
+                    lambda r, h, x, m, t: td.mac_dual(r, h, rt, idx, m, pidx,
+                                                      pmask, t, True),
+                    lambda r, h, x, m, t: td.mac_dual_reference(
+                        r, h, rt, idx, m, pidx, pmask, t, True),
+                    lambda rb, hb: dual_bytes_flops(
+                        len(st), BENCH5_B, BENCH5_N, 2, rb, hb))
+        return setup
+
+    src = "brutefir_tpu_torch/csrc/"
+    bank1, both = ((0, 1),), ((1, 1),)
+    massive = f"{F} x {C_OUT}, {K} x {B}"
+    scale = f"{SCALE_C} x {SCALE_C}, {K} x {B}"
+    return (
+        (1, "mac_mix_uniform", massive, src + "mac_mix.cu", 615, "mac_mix",
+         "uniform", BF16_COMBOS, mix_case(True, F, C_OUT, E)),
+        (2, "mac_mix_rows", massive, src + "mac_mix.cu", 582, "mac_mix",
+         "rows", BF16_COMBOS, mix_case(False, F, C_OUT, E)),
+        (3, "mac_mix_tiled", scale, src + "mac_mix_tiled.cu", 665,
+         "mac_mix", "tiled", both, mix_case(False, SCALE_C, SCALE_C,
+                                            SCALE_C)),
+        (4, "mac_group", "G=4, " + scale, src + "mac_group.cu", 956,
+         "mac_group", "group", both, group_case(4, False)),
+        (5, "mac_mix_group", "G=2, " + scale, src + "mac_group.cu", 768,
+         "mac_group", "mix_group", both, group_case(2, True)),
+        (6, "mac_rows", f"Fs=4 of 6, {K} x 8", src + "mac.cu", 102, "mac",
+         "mac_rows", bank1, mac_case(6, 8, K, 7, False, [2, 3, 4, 5])),
+        (7, "mac_uniform", f"{2 * F} rows, {K} x {B}", src + "mac.cu", 149,
+         "mac", "mac_uniform", bank1,
+         mac_case(2 * F, B, K, 1, True, list(range(2 * F)))),
+        (8, "mac_dual_uniform", f"{BENCH5_C} rows, {BENCH5_N} x {BENCH5_B}",
+         src + "mac_dual.cu", 404, "mac_dual", "mac_dual_uniform", both,
+         dual_case()),
+        (9, "mac_rows_chunked_shape", f"{SCALE_C} distinct rows, {K} x {B}",
+         src + "mac.cu", 318, "mac", "mac_rows", bank1,
+         mac_case(SCALE_C, B, K, SCALE_C, False, None)),
+        (10, "mac_rows_tile_shape", "4 rows, 65536 x 8", src + "mac.cu", 79,
+         "mac", "mac_rows", bank1,
+         mac_case(4, 8, 65536, 4, False, [0, 1, 2, 3])),
+    )
+
+
+def kernels_bf16(mods, rows, flush):
+    """Phase 7d: each of rows 1-10 at its path's shape under the three
+    bf16 combinations (ring, bank, both): the kernel's bf16 form against
+    its plain version on the same bfloat16 operands (which it widens:
+    REL_TOL), its launch counted in ``launches``, timed beside the
+    plain version with bf16 bytes counted at 2 a value in the bound. The
+    combinations a main path launches enter the kernels summary."""
+    import torch
+    dev = torch.device("cuda")
+    for (row, name, shape, src, line, mod, form, on_path,
+         setup) in bf16_cases(mods):
+        ring, bank, xnews, mask, call, plain, bytes_of = setup()
+        ones = torch.ones_like(mask)
+        t7 = torch.tensor(7, dtype=torch.int32, device=dev)
+        B_ = ring.shape[1]
+        for combo in BF16_COMBOS:
+            r, h, x = bf16_operands(combo, ring, bank, xnews)
+            key = form + bf16_suffix(combo)
+            worst = max_abs = 0.0
+            for tv in (0, 5, B_ - 1, 37):
+                t = torch.tensor(tv, dtype=torch.int32, device=dev)
+                before = mods[mod].launches[key]
+                got, ref = call(r, h, x, mask, t), plain(r, h, x, mask, t)
+                if mods[mod].launches[key] != before + 1:
+                    fail(f"{name}: the {key} form was not launched")
+                for a, b in zip(*((got, ref) if isinstance(got, tuple)
+                                  else ((got,), (ref,)))):
+                    rel, err = check(f"{name} {BF16_NAMES[combo]} bf16",
+                                     a, b, tv)
+                    worst, max_abs = max(worst, rel), max(max_abs, err)
+                del got, ref
+            k_ms = time_ms(lambda: call(r, h, x, ones, t7), REPS, flush)
+            p_ms = time_ms(lambda: plain(r, h, x, ones, t7), REPS, flush)
+            nb, nf = bytes_of(2 if combo[0] else 4, 2 if combo[1] else 4)
+            report(rows, f"{name}{bf16_suffix(combo)}", src, line, worst,
+                   max_abs, k_ms, p_ms, nb, nf,
+                   (mod, key) if combo in on_path else None,
+                   note=f" (row {row}, {shape}, bf16 {BF16_NAMES[combo]})")
+            del r, h, x
+        del ring, bank, xnews
+        torch.cuda.empty_cache()
+
+
+def quantized_spectra(bank_row) -> np.ndarray:
+    """A bank row [P, 2, N] (bfloat16 or float32, on any device) as its
+    widened, unpacked float64 spectra [P, N + 1]."""
+    from brutefir_tpu_torch.ops.partconv import unpack_spectrum
+    p = bank_row.double().cpu().numpy()
+    return unpack_spectrum(p[:, 0] + 1j * p[:, 1])
+
+
+def partconv_q(x, H, N_: int, whole: bool = False) -> np.ndarray:
+    """The float64 response of the partitioned overlap-save convolution
+    with the spectra ``H`` [P, N + 1] (a quantized bank row, widened and
+    unpacked): x [n, C] -> y [n, C], frame t = [x_{t-1}, x_t] (zeros past
+    n), Y_t = sum_p rfft(frame_{t-p}) H_p, y_t the lower half of
+    irfft(Y_t); with ``whole``, every block's N samples (the stream a
+    cascade's next stage reads: the effective taps of a quantized
+    spectrum reach forward within a block, so the last block's samples
+    past n matter). Exact for any spectra, where a linear convolution
+    with the effective taps would not be."""
+    x = np.asarray(x, np.float64)
+    n, C = x.shape
+    nb = -(-n // N_)
+    xp = np.zeros(((nb + 1) * N_, C))
+    xp[N_:N_ + n] = x
+    X = np.fft.rfft(np.stack([xp[t * N_:(t + 2) * N_] for t in range(nb)]),
+                    axis=1)                          # [nb, N + 1, C]
+    y = np.empty((nb * N_, C))
+    for t in range(nb):
+        Y = sum(X[t - p] * H[p][:, None] for p in range(min(len(H), t + 1)))
+        y[t * N_:(t + 1) * N_] = np.fft.irfft(Y, 2 * N_, axis=0)[:N_]
+    return y if whole else y[:n]
+
+
+def engine_bank(cfg: str, N_: int, B_: int, bf16: bool):
+    """The bank the engine builds from ``cfg`` ([E, B, 2, N] on the host):
+    the port's own config parser and bank build, then the bf16 cast of
+    ``BRUTEFIR_TPU_BANK_DTYPE=bf16``."""
+    import torch
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.config.coeffs import build_bank
+    from brutefir_tpu_torch.ops.partconv import np_c2p
+    with open(cfg) as fh:
+        conf = parse_config(fh.read())
+    bank = torch.as_tensor(np_c2p(build_bank(conf.coeffs, N_, B_,
+                                             np.float32)))
+    return bank.to(torch.bfloat16) if bf16 else bank
+
+
+def quant_gap(y, ref) -> float:
+    """Max |y - ref| in LSB (ref float64, not rounded)."""
+    return float(np.abs(y.astype(np.float64) - ref).max())
+
+
+def run_counted(main, mods, cfg, frames, channels, label, want, knobs=()):
+    """One run of ``main()`` under ``knobs`` ((name, value) pairs), every
+    count set to 0 just before it: the forms in ``want`` launched as
+    often as it says, every other form never. Returns (y, counts)."""
+    with contextlib.ExitStack() as stack:
+        for name, value in knobs:
+            stack.enter_context(knob(name, value))
+        for m in mods.values():
+            m.reset_launches()
+        y = run_main(main, cfg, frames, channels, label)
+        counts = all_counts(mods)
+    expect_only(counts, want, label)
+    return y, counts
+
+
+BANK16 = (("BRUTEFIR_TPU_BANK_DTYPE", "bf16"),)
+RING16 = (("BRUTEFIR_TPU_RING_DTYPE", "bf16"),)
+BOTH16 = BANK16 + RING16
+F32 = (("BRUTEFIR_TPU_BANK_DTYPE", None), ("BRUTEFIR_TPU_RING_DTYPE", None))
+
+
+def main_massive_bf16(main, mods: dict, launched: dict):
+    """Phase 38: the massive shape, shared and with two coefficients,
+    each in turns float32, under BRUTEFIR_TPU_BANK_DTYPE=bf16, under
+    BRUTEFIR_TPU_RING_DTYPE=bf16 and under both: the bank knob within
+    QUANT_TOL LSB of the float64 response of the quantized bank (both
+    runs' gaps to both oracles printed); the ring knob and both knobs
+    within the ring bound of the float32 run (``ring_check``); each run
+    launching its form of the fused MAC + mix once a block."""
+    frames = int(BLOCKS * K)
+    blocks = int(np.ceil(BLOCKS))
+    taps, x = write_massive_inputs(np.random.default_rng(SEED), frames)
+    glue = glue_want(blocks, blocks)
+    for two in (False, True):
+        cfg = massive_config("run2.conf" if two else "run1.conf", two)
+        form = "rows" if two else "uniform"
+        sets = [0, 1] if two else [0]
+        q = {s: quantized_spectra(b) for s, b in
+             enumerate(engine_bank(cfg, K, B, True)[sets])}
+        ref_q = np.empty((frames, F))
+        for s in sets:
+            cols = [c for c in range(F) if (two and c >= 13) == bool(s)]
+            ref_q[:, cols] = partconv_q(x[:, cols], q[s], K)
+        tag = "two coefficients" if two else "shared coefficient"
+        y32, _ = run_counted(main, mods, cfg, frames, F,
+                             f"massive, {tag}, float32",
+                             {form: blocks, **glue}, F32)
+        label = f"massive, {tag}, bf16 bank"
+        y16, counts = run_counted(main, mods, cfg, frames, F, label, {
+            form + "_bf16b": blocks, **glue}, BANK16)
+        lsb = oracle_lsb(y16, x, lambda c: taps[1] if (two and c >= 13)
+                         else taps[0])
+        g16, g32 = quant_gap(y16, ref_q), quant_gap(y32, ref_q)
+        print(f"main path ({label}): max |y - quantized-bank oracle| "
+              f"{g16:.3f} LSB (tol {QUANT_TOL}); the float32 bank's run "
+              f"{g32:.3f} LSB from it; from the float32 oracle: bf16 bank "
+              f"{lsb} LSB, float32 bank "
+              f"{oracle_lsb(y32, x, lambda c: taps[1] if (two and c >= 13) else taps[0])}"
+              f" LSB", flush=True)
+        if not g16 <= QUANT_TOL:
+            fail(f"{label}: off the quantized-bank oracle by {g16:.3f} LSB")
+        add_counts(launched, counts, ("mac_mix", form + "_bf16b"))
+        for sfx, knobs, what in (("_bf16r", RING16, "bf16 ring"),
+                                 ("_bf16rb", BOTH16, "bf16 bank and ring")):
+            label = f"massive, {tag}, {what}"
+            y, counts = run_counted(main, mods, cfg, frames, F, label, {
+                form + sfx: blocks, **glue}, F32 + knobs)
+            ring_check(label, y, y32)
+            add_counts(launched, counts, ("mac_mix", form + sfx))
+
+
+def main_scale_bf16(main, mods: dict, launched: dict):
+    """Phase 39: the scale shape under both knobs, groups of 4 (the tail
+    through the tiled kernel) and BRUTEFIR_TPU_PAIR=2, each against phase
+    9's float32 run of the same input: within RING_BOUND of its peak + 2
+    LSB."""
+    frames = int(BLOCKS * K)
+    blocks = int(np.ceil(BLOCKS))
+    write_scale_inputs(WORK, frames)
+    cfg = os.path.join(WORK, "scale.conf")
+    runs = (("scale, groups of 4, bf16 bank and ring", None,
+             {"group_bf16rb": 4, "tiled_bf16rb": 4},
+             (("mac_group", "group_bf16rb"), ("mac_mix", "tiled_bf16rb"))),
+            ("scale, BRUTEFIR_TPU_PAIR=2, bf16 bank and ring", "2",
+             {"mix_group_bf16rb": 8, "tiled_bf16rb": 4},
+             (("mac_group", "mix_group_bf16rb"),)))
+    for (label, pair, want, keys), y32 in zip(runs, F32_OUT.pop("scale")):
+        y16, counts = run_counted(
+            main, mods, cfg, frames, SCALE_C, label,
+            {**want, **glue_want(blocks, blocks)},
+            BOTH16 + (("BRUTEFIR_TPU_PAIR", pair),))
+        ring_check(label, y16, y32)
+        add_counts(launched, counts, *keys)
+
+
+def ring_check(label: str, y16, y32) -> None:
+    """The ring knob's bound against the float32 run of the same input
+    (tests/test_pallas_mac.py:544-577): max |y - y32| <= RING_BOUND *
+    max|y32| + 2 LSB."""
+    peak = float(np.abs(y32).max())
+    gap = float(np.abs(y16.astype(np.int64) - y32).max())
+    tol = RING_BOUND * peak + 2
+    print(f"main path ({label}): max |y - float32 run| {gap:.0f} LSB (tol "
+          f"{RING_BOUND} * {peak:.0f} + 2 = {tol:.0f}; "
+          f"{gap / peak:.2e} of the peak)", flush=True)
+    if not gap <= tol:
+        fail(f"{label}: {gap:.0f} LSB off the float32 run")
+
+
+def main_bench5_bf16(main, mods: dict, launched: dict):
+    """Phase 40: bench5's crossfade every block under both knobs (the
+    dual MAC's bf16 form on every block after the first), beside phase
+    12's float32 run: within the ring bound of it; the ramp oracle's
+    gap printed beside."""
+    N_, C = BENCH5_N, BENCH5_C
+    frames = int(BLOCKS * N_)
+    blocks = int(np.ceil(BLOCKS))
+    taps, x, cfg = write_bench5_inputs(WORK, frames)
+    label = "bench5, bf16 ring and bank"
+    y16, counts = run_counted(main, mods, cfg, frames, C, label, {
+        "mac_dual_uniform_bf16rb": blocks - 1, "uniform_bf16rb": 1,
+        **glue_want(blocks, blocks)}, BOTH16)
+    ring_check(label, y16, F32_OUT.pop("bench5"))
+    worst, _ = xfade_lsb(
+        y16.astype(np.float64), x, taps, N_,
+        lambda k: "a" if k == 0 else ("ab" if k % 2 else "ba"),
+        range(0, C, 5))
+    print(f"main path ({label}): max |y - ramp oracle| {worst:.3f} LSB "
+          f"(the float32 run's {F32_ERR['bench5']:.3f})", flush=True)
+    add_counts(launched, counts, ("mac_dual", "mac_dual_uniform_bf16rb"))
+
+
+def main_cascades_bf16(main, mods: dict, launched: dict):
+    """Phase 41: bench1's cascade and the massive cascade under
+    BRUTEFIR_TPU_BANK_DTYPE=bf16, each beside its float32 run: within
+    their float32 bounds of the cascaded quantized-bank oracle (bench1:
+    2e-5 of the peak + 4 LSB; massive: QUANT_TOL)."""
+    n2 = 2 * int(np.ceil(BLOCKS))
+    frames = int(BLOCKS * BENCH1_N)
+    _, x, cfg = write_bench1_inputs(WORK, frames)
+    q = [quantized_spectra(b) for b in
+         engine_bank(cfg, BENCH1_N, BENCH1_B, True)[:6]]
+
+    def pq(sig, s):
+        return partconv_q(sig[:, None], q[s], BENCH1_N, whole=True)[:, 0]
+    x0, x1 = x[:, 0].astype(np.float64), x[:, 1].astype(np.float64)
+    ref = np.stack([pq(pq(x0, 2) + pq(x1, 5), 0),
+                    pq(pq(x0, 3) + pq(x1, 4), 1)], axis=1)[:frames]
+    want = glue_want(n2, n2)
+    y32, _ = run_counted(main, mods, cfg, frames, 2, "bench1, float32",
+                         {"mac_rows": n2, **want}, F32)
+    label = "bench1 cascade, bf16 bank"
+    y16, counts = run_counted(main, mods, cfg, frames, 2, label,
+                              {"mac_rows_bf16b": n2, **want}, BANK16)
+    for c in range(2):
+        peak = np.abs(ref[:, c]).max()
+        tol = 2e-5 * peak + 4.0
+        g16 = quant_gap(y16[:, c], ref[:, c])
+        print(f"main path ({label}): channel {c}: max |y - quantized-bank "
+              f"oracle| {g16:.3f} (tol 2e-5 * {peak:.0f} + 4 = {tol:.3f}); "
+              f"the float32 bank's run {quant_gap(y32[:, c], ref[:, c]):.3f}",
+              flush=True)
+        if not g16 <= tol:
+            fail(f"{label} off the quantized-bank oracle on channel {c}")
+    add_counts(launched, counts, ("mac", "mac_rows_bf16b"))
+
+    frames = int(BLOCKS * K)
+    _, x = write_massive_inputs(np.random.default_rng(SEED + 5), frames)
+    cfg = massive_cascade_config(WORK)
+    h = quantized_spectra(engine_bank(cfg, K, B, True)[0])
+    ref = partconv_q(partconv_q(x, h, K, whole=True), h, K)[:frames]
+    y32, _ = run_counted(main, mods, cfg, frames, F,
+                         "massive cascade, float32",
+                         {"mac_uniform": n2, **want}, F32)
+    label = "massive cascade, bf16 bank"
+    y16, counts = run_counted(main, mods, cfg, frames, F, label,
+                              {"mac_uniform_bf16b": n2, **want}, BANK16)
+    g16 = quant_gap(y16, ref)
+    print(f"main path ({label}): max |y - quantized-bank oracle| "
+          f"{g16:.3f} LSB (tol {QUANT_TOL}); the float32 bank's run "
+          f"{quant_gap(y32, ref):.3f}", flush=True)
+    if not g16 <= QUANT_TOL:
+        fail(f"{label}: off the quantized-bank oracle by {g16:.3f} LSB")
+    add_counts(launched, counts, ("mac", "mac_uniform_bf16b"))
+
+
+PROFILE_KERNELS = ("mac_mix_kernel", "glue_fwd_kernel", "glue_inv_kernel")
+
+
+def main_profile(mods: dict, launched: dict):
+    """Phase 42: the massive shape through ``Engine.run`` under
+    BRUTEFIR_TPU_PROFILE=<dir>: one Chrome trace in the directory that
+    names the fused MAC + mix and both glue kernels; the output within
+    LSB_TOL of the oracle."""
+    import glob
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.runtime.engine import Engine
+    frames = int(BLOCKS * K)
+    blocks = int(np.ceil(BLOCKS))
+    taps, x = write_massive_inputs(np.random.default_rng(SEED), frames)
+    cfg = massive_config("run1.conf", False)
+    out = os.path.join(WORK, "profile")
+    shutil.rmtree(out, ignore_errors=True)
+    with open(cfg) as fh:
+        conf = parse_config(fh.read())
+    conf.quiet = True
+    for m in mods.values():
+        m.reset_launches()
+    t0 = time.perf_counter()
+    with knob("BRUTEFIR_TPU_PROFILE", out):
+        Engine(conf).run()
+    wall = time.perf_counter() - t0
+    counts = all_counts(mods)
+    label = "massive under BRUTEFIR_TPU_PROFILE"
+    expect_only(counts, {"uniform": blocks, **glue_want(blocks, blocks)},
+                label)
+    traces = glob.glob(os.path.join(out, "*.json"))
+    if len(traces) != 1:
+        fail(f"{label}: {len(traces)} trace files in {out}, expected one")
+    with open(traces[0]) as fh:
+        text = fh.read()
+    missing = [k for k in PROFILE_KERNELS if k not in text]
+    if missing:
+        fail(f"{label}: the trace does not name {missing}")
+    events = json.loads(text).get("traceEvents", [])
+    kern = sum(1 for e in events if e.get("cat") == "kernel")
+    y = np.fromfile(os.path.join(WORK, "output.raw"), "<i4").reshape(
+        frames, F)
+    lsb = oracle_lsb(y, x, lambda c: taps[0])
+    print(f"main path ({label}): run() {wall:.3f} s with the profiler; "
+          f"trace {os.path.getsize(traces[0])} bytes, {len(events)} events, "
+          f"{kern} kernel events, naming {', '.join(PROFILE_KERNELS)}; max "
+          f"|y - oracle| {lsb} LSB (tol {LSB_TOL})", flush=True)
+    if lsb > LSB_TOL:
+        fail(f"{label}: {lsb} LSB off the float64 oracle")
+    add_counts(launched, counts, ("mac_mix", "uniform"))
+    add_glue(launched, counts)
+
+
 HOST_DITHER_TOL = 5      # phase 22, LSB: the HP-TPDF error reaches 4.5
 FLOAT_TOL = 2e-5         # phase 23, of the output's peak
 
@@ -4203,6 +4723,10 @@ def run():
     phase("the shard forms on the card (2 x 2 and 1 x 4, every shard on "
           "cuda:0)")
     kernels_shard(ms, mm, mg, tm, td, flush)
+    torch.cuda.empty_cache()
+    phase("kernel vs plain, the bf16 operand forms (rows 1-10)")
+    kernels_bf16({"mac_mix": mm, "mac_group": mg, "mac": tm, "mac_dual": td},
+                 rows, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -4273,6 +4797,19 @@ def run():
     del y_massive
     phase("main path, across cards (a child process, two cards)")
     main_cards(launched)
+    torch.cuda.empty_cache()
+    phase("main path, massive, bf16 bank, ring and both (beside float32, "
+          "in turns)")
+    main_massive_bf16(main, mods, launched)
+    phase("main path, scale, bf16 bank and ring")
+    main_scale_bf16(main, mods, launched)
+    torch.cuda.empty_cache()
+    phase("main path, bench5 crossfade every block, bf16 ring and bank")
+    main_bench5_bf16(main, mods, launched)
+    phase("main path, bench1 and massive cascades, bf16 bank")
+    main_cascades_bf16(main, mods, launched)
+    phase("main path, massive through run() under BRUTEFIR_TPU_PROFILE")
+    main_profile(mods, launched)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules

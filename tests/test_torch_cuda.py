@@ -22,6 +22,7 @@ from brutefir_tpu_torch.config import parse_config
 from brutefir_tpu_torch.ops import (fft_fused as tf, fft_glue as tg,
                                     mac as tm, mac_dual as td,
                                     mac_group as mg, mac_mix as mm)
+from brutefir_tpu_torch.ops.mac_mix import with_bf16
 
 
 @pytest.fixture
@@ -389,7 +390,7 @@ def test_group_kernels_match_plain_versions(cuda, G, F, B, K, E, C):
         refm = mg.mac_mix_group_reference(ring, xnews, bank, idx, mask, t,
                                           w, delay)
         torch.cuda.synchronize()
-        assert mg.launches == {"group": before["group"] + 1,
+        assert mg.launches == {**before, "group": before["group"] + 1,
                                "mix_group": before["mix_group"] + 1}
         assert got.shape == (G, F, 2, K) and gotm.shape == (G, C, 2, K)
         for a, b in ((got, ref), (gotm, refm)):
@@ -900,8 +901,9 @@ def test_stage_probe_on_card(cuda):
     assert list(got) == list(sp.STAGES)
     assert all(0 < v < 0.01 for v in got.values()), got
     n = 1 + sp.CALLS * sp.REPS
-    assert tm.launches == {"mac_uniform": 0, "mac_rows": n,
-                           "mac_uniform_f64": 0, "mac_rows_f64": 0}
+    assert tm.launches == {**with_bf16("mac_uniform", "mac_rows"),
+                           "mac_rows": n, "mac_uniform_f64": 0,
+                           "mac_rows_f64": 0}
     assert tg.launches == {"glue_fwd": n, "glue_inv": n, "glue_fwd_f64": 0,
                            "glue_inv_f64": 0}
 
@@ -1071,8 +1073,9 @@ output 0,1,2 {{ device: "file" {{ path: "{tmp_path / (tag + '.raw')}"; }}; sampl
         m.reset_launches()
     yg = run("gpu", cuda)
     blocks = -(-frames // N)
-    assert tm.launches == {"mac_uniform": blocks, "mac_rows": 0,
-                           "mac_uniform_f64": 0, "mac_rows_f64": 0}
+    assert tm.launches == {**with_bf16("mac_uniform", "mac_rows"),
+                           "mac_uniform": blocks, "mac_uniform_f64": 0,
+                           "mac_rows_f64": 0}
     assert not any(mm.launches.values())
     assert tg.launches["glue_fwd"] == tg.launches["glue_inv"] == blocks
     yc = run("cpu", torch.device("cpu"))
@@ -1133,7 +1136,8 @@ filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 1; }};
         m.reset_launches()
     yg = run("gpu", cuda)
     blocks = -(-frames // N)
-    assert tm.launches == {"mac_uniform": 1, "mac_rows": blocks + 1,
+    assert tm.launches == {**with_bf16("mac_uniform", "mac_rows"),
+                           "mac_uniform": 1, "mac_rows": blocks + 1,
                            "mac_uniform_f64": 0, "mac_rows_f64": 0}
     assert not any(mm.launches.values())
     assert tg.launches["glue_fwd"] == tg.launches["glue_inv"] == blocks + 2
@@ -1271,3 +1275,331 @@ output 0,1,2,3 {{ device: "file" {{ path: "{tmp_path / (tag + '.raw')}"; }}; sam
             np.int64))
     assert np.abs(ys[0]).max() > 2 ** 18
     assert np.abs(ys[1] - ys[0]).max() <= 1
+
+
+# --- the bf16 operand forms (BRUTEFIR_TPU_RING_DTYPE / _BANK_DTYPE) ---------
+#
+# Each form against its plain version on the same bfloat16 operands (the
+# plain version widens them, so the products are the same: float32's
+# tolerance), its launch counted in ``launches``, and against the
+# float32 form run on the widened operands: bit-equal where the kernel
+# writes its FMAs out (csrc/mac_core.cuh, the fused grouped MAC + mix),
+# within 1e-5 where it leaves `a*b - c*d + y` to the compiler, whose FMA
+# contraction may differ between two instantiations of one code
+# (csrc/mac_mix.cu, csrc/mac_mix_tiled.cu, bf_mac_group). chip_mac_ab.py
+# holds the float32 forms bit-equal to the parent tree's.
+
+BF16_COMBOS = [(1, 0), (0, 1), (1, 1)]     # (ring, bank) in bfloat16
+
+
+def _bf16(combo, ring, bank, xnews=None):
+    r16, b16 = combo
+    ring = ring.to(torch.bfloat16) if r16 else ring
+    out = [ring, bank.to(torch.bfloat16) if b16 else bank]
+    if xnews is not None:
+        out.append(xnews.to(ring.dtype))
+    return out
+
+
+def _rel(a, b):
+    return (a - b).abs().max().item() / b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", BF16_COMBOS)
+@pytest.mark.parametrize("uniform", [True, False])
+@pytest.mark.parametrize("F,B,K,E,rows,offset", MAC_CORE_SHAPES)
+def test_unfused_mac_bf16_forms_match_plain_version(cuda, combo, uniform, F,
+                                                    B, K, E, rows, offset):
+    """The bf16 forms of bf_mac (csrc/mac.cu) on the core's paths: an offset ring view
+    takes the scalar path, as K % 4 != 0 does."""
+    ring, bank, idx, mask, _ = _mac_inputs(F * K + 3, F, B, K, E, 1,
+                                           uniform, cuda)
+    mask[:, 0] = 1.0
+    ring, bank = _bf16(combo, ring, bank)
+    ring = _at_offset(ring, offset)
+    r = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    form = ("mac_uniform" if uniform else "mac_rows") + mm.bf16_suffix(
+        ring, bank)
+    for tv in (0, 3, B - 1, 2 * B + 5):
+        t = torch.tensor(tv, dtype=torch.int32, device=cuda)
+        before = tm.launches[form]
+        got = tm.mac(ring, bank, r, idx, mask, t, uniform)
+        ref = tm.mac_reference(ring, bank, r, idx, mask, t, uniform)
+        torch.cuda.synchronize()
+        assert tm.launches[form] == before + 1
+        assert got.dtype == torch.float32 and got.shape == (len(rows), 2, K)
+        assert _rel(got, ref) <= 1e-5
+    assert torch.equal(got, tm.mac(ring.float(), bank.float(), r, idx, mask,
+                                   t, uniform))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", BF16_COMBOS)
+@pytest.mark.parametrize("uniform", [True, False])
+@pytest.mark.parametrize("F,B,K,E,rows,offset", [
+    (26, 8, 8192, 2, list(range(26)), 0),   # bench5's shape
+    (6, 8, 8192, 7, [2, 3, 4, 5], 1),
+    (5, 6, 1001, 3, [4, 1, 1], 0),
+    (40, 4, 8192, 2, list(range(40)) + [3, 3], 0),
+])
+def test_dual_mac_bf16_forms_match_plain_version(cuda, combo, uniform, F, B,
+                                                 K, E, rows, offset):
+    """The bf16 forms of bf_mac_dual (csrc/mac_dual.cu): both products,
+    prev_mask != mask; the new set equal to bf_mac's bf16 form's, bit for
+    bit."""
+    ring, bank, idx, mask, _ = _mac_inputs(F * K + 5, F, B, K, E, 1,
+                                           uniform, cuda)
+    mask[:, 0] = 1.0
+    ring, bank = _bf16(combo, ring, bank)
+    ring = _at_offset(ring, offset)
+    pidx = (idx + 1) % E
+    pmask = mask.clone()
+    pmask[:, max(1, B // 2):] = 0.0
+    r = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    form = ("mac_dual_uniform" if uniform else "mac_dual_rows") + \
+        mm.bf16_suffix(ring, bank)
+    for tv in (0, 5, B - 1, 2 * B + 5):
+        t = torch.tensor(tv, dtype=torch.int32, device=cuda)
+        before = td.launches[form]
+        got = td.mac_dual(ring, bank, r, idx, mask, pidx, pmask, t, uniform)
+        ref = td.mac_dual_reference(ring, bank, r, idx, mask, pidx, pmask,
+                                    t, uniform)
+        torch.cuda.synchronize()
+        assert td.launches[form] == before + 1
+        for a, b in zip(got, ref):
+            assert a.dtype == torch.float32 and _rel(a, b) <= 1e-5
+        assert torch.equal(got[0], tm.mac(ring, bank, r, idx, mask, t,
+                                          uniform))
+    wide = td.mac_dual(ring.float(), bank.float(), r, idx, mask, pidx,
+                       pmask, t, uniform)
+    assert all(torch.equal(a, b) for a, b in zip(got, wide))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", BF16_COMBOS)
+@pytest.mark.parametrize("uniform", [True, False])
+@pytest.mark.parametrize("F,B,K,E,C", [
+    (5, 6, 512, 3, 7),
+    (26, 16, 8192, 2, 26),     # the massive shape
+    (13, 6, 200, 3, 128),      # a ragged last 32-bin tile (K % 32 = 8)
+    (255, 4, 96, 3, 256),      # F past one chunk: the shared out tile
+    (3, 2, 65536, 2, 1),
+    (2, 3000, 128, 2, 1),      # a bank tile too big to stage: streamed
+    (7, 5, 256, 3, 9),         # odd B: a round's last stage one partition
+    (4, 1, 64, 2, 3),          # B = 1
+])
+def test_mix_bf16_forms_match_plain_version(cuda, combo, uniform, F, B, K,
+                                            E, C):
+    """The bf16 forms of bf_mac_mix (csrc/mac_mix.cu): bf16 runs staged
+    densely, two partitions a stage where they fit (odd B: the last stage
+    of a round holds one), the uniform bank tile staged or streamed."""
+    assert not mm.tiled_route(C, B, K)
+    ring, bank, idx, mask, w = _mac_inputs(K + C + F + 1, F, B, K, E, C,
+                                           uniform, cuda)
+    mask[:, 0] = 1.0                 # no all-zero mask row at small B
+    ring, bank = _bf16(combo, ring, bank)
+    form = ("uniform" if uniform else "rows") + mm.bf16_suffix(ring, bank)
+    for tv in (0, 4, B - 1, 2 * B + 5):
+        t = torch.tensor(tv, dtype=torch.int32, device=cuda)
+        before = mm.launches[form]
+        got = mm.mac_mix(ring, bank, idx, mask, t, w, uniform)
+        ref = mm.mac_mix_reference(ring, bank, idx, mask, t, w, uniform)
+        torch.cuda.synchronize()
+        assert mm.launches[form] == before + 1
+        assert got.dtype == torch.float32 and _rel(got, ref) <= 1e-5
+    assert _rel(got, mm.mac_mix(ring.float(), bank.float(), idx, mask, t, w,
+                                uniform)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", BF16_COMBOS)
+@pytest.mark.parametrize("F,B,K,E,C", [
+    (5, 3, 1000, 3, 37),
+    (13, 4, 8200, 5, 300),
+    (9, 2, 24, 4, 3),
+    (256, 16, 1024, 256, 256),
+])
+def test_tiled_bf16_forms_match_plain_version(cuda, monkeypatch, combo, F, B,
+                                              K, E, C):
+    """The bf16 forms of bf_mac_mix_tiled (csrc/mac_mix_tiled.cu), forced
+    by the route."""
+    monkeypatch.setattr(mm, "tiled_route", lambda *a: True)
+    ring, bank, idx, mask, w = _mac_inputs(F * K + C + 2, F, B, K, E, C,
+                                           False, cuda)
+    ring, bank = _bf16(combo, ring, bank)
+    form = "tiled" + mm.bf16_suffix(ring, bank)
+    for tv in (0, B - 1, 3 * B + 2):
+        t = torch.tensor(tv, dtype=torch.int32, device=cuda)
+        before = mm.launches[form]
+        got = mm.mac_mix(ring, bank, idx, mask, t, w, False)
+        ref = mm.mac_mix_reference(ring, bank, idx, mask, t, w, False)
+        torch.cuda.synchronize()
+        assert mm.launches[form] == before + 1
+        assert got.dtype == torch.float32 and _rel(got, ref) <= 1e-5
+    assert _rel(got, mm.mac_mix(ring.float(), bank.float(), idx, mask, t, w,
+                                False)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", BF16_COMBOS)
+@pytest.mark.parametrize("G", [2, 3, 4, 8])
+@pytest.mark.parametrize("F,B,K,E,C", [
+    (7, 6, 1000, 3, 9),
+    (19, 9, 296, 5, 70),
+    (256, 16, 1024, 256, 256),
+    (40, 3, 96, 3, 33),
+])
+def test_group_bf16_forms_match_plain_versions(cuda, combo, G, F, B, K, E,
+                                               C):
+    """The bf16 forms of bf_mac_group and bf_mac_mix_group
+    (csrc/mac_group.cu):
+    xnews of the ring's dtype, delays 0 .. G+1, start times that wrap the
+    ring inside the group."""
+    ring, xnews, bank, idx, mask, delay, w = _group_inputs(
+        G * 100 + K + 1, F, B, K, E, G, C, cuda)
+    ring, bank, xnews = _bf16(combo, ring, bank, xnews)
+    sfx = mm.bf16_suffix(ring, bank)
+    for tv in (0, B - 1, 2 * B + 1):
+        t = torch.tensor(tv, dtype=torch.int32, device=cuda)
+        before = dict(mg.launches)
+        got = mg.mac_group(ring, xnews, bank, idx, mask, t, delay)
+        ref = mg.mac_group_reference(ring, xnews, bank, idx, mask, t, delay)
+        gotm = mg.mac_mix_group(ring, xnews, bank, idx, mask, t, w, delay)
+        refm = mg.mac_mix_group_reference(ring, xnews, bank, idx, mask, t,
+                                          w, delay)
+        torch.cuda.synchronize()
+        assert mg.launches["group" + sfx] == before["group" + sfx] + 1
+        assert (mg.launches["mix_group" + sfx]
+                == before["mix_group" + sfx] + 1)
+        for a, b in ((got, ref), (gotm, refm)):
+            assert a.dtype == torch.float32 and _rel(a, b) <= 1e-5
+    wide = [x.float() for x in (ring, xnews, bank)]
+    assert _rel(got, mg.mac_group(wide[0], wide[1], wide[2], idx, mask, t,
+                                  delay)) <= 1e-5
+    assert torch.equal(gotm, mg.mac_mix_group(wide[0], wide[1], wide[2], idx,
+                                              mask, t, w, delay))
+
+
+@pytest.mark.cuda
+def test_staged_bf16_forms_refuse_unaligned_operands(cuda):
+    """The bf16 forms that stage 16-byte runs (csrc/mac_mix.cu, the fused
+    grouped MAC + mix) raise ValueError at K % 8 != 0 or on an unaligned
+    ring, never read out of bounds; the unfused MAC takes such operands
+    (its scalar path)."""
+    ring, bank, idx, mask, w = _mac_inputs(3, 4, 3, 1004, 2, 5, False, cuda)
+    t = torch.tensor(2, dtype=torch.int32, device=cuda)
+    r16 = ring.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        mm.mac_mix(r16, bank, idx, mask, t, w, False)
+    ring, bank, idx, mask, w = _mac_inputs(4, 4, 3, 1024, 2, 5, False, cuda)
+    r16 = _at_offset(ring.to(torch.bfloat16), 1)
+    with pytest.raises(ValueError):
+        mm.mac_mix(r16, bank, idx, mask, t, w, False)
+    rows = torch.arange(4, dtype=torch.int32, device=cuda)
+    got = tm.mac(r16, bank, rows, idx, mask, t, False)
+    assert _rel(got, tm.mac_reference(r16, bank, rows, idx, mask, t,
+                                      False)) <= 1e-5
+    ring, xnews, bank, idx, mask, delay, w = _group_inputs(
+        5, 6, 5, 1004, 3, 2, 7, cuda)
+    with pytest.raises(ValueError):
+        mg.mac_mix_group(ring.to(torch.bfloat16), xnews.to(torch.bfloat16),
+                         bank, idx, mask, t, w, delay)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fail", [False, True])
+def test_profile_traces_run_on_card(cuda, tmp_path, monkeypatch, fail):
+    """BRUTEFIR_TPU_PROFILE=<dir>: run() writes one Chrome trace that
+    names the MAC kernel and both glue kernels; also when run() raises,
+    and the profiler is stopped then (a new one starts)."""
+    from brutefir_tpu_torch.runtime.engine import Engine
+    N, B, C = 512, 2, 2
+    rng = np.random.default_rng(3)
+    (rng.standard_normal(N * B) * 0.1).astype("<f4").tofile(tmp_path / "h.raw")
+    np.round(rng.standard_normal((N * 4, C)) * 2 ** 19).astype(
+        "<i4").tofile(tmp_path / "in.raw")
+    conf = parse_config(f"""
+sampling_rate: 44100;
+filter_length: {N},{B};
+coeff 0 {{ filename: "{tmp_path / 'h.raw'}"; format: "FLOAT_LE"; }};
+input 0,1 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: {C}; }};
+output 0,1 {{ device: "file" {{ path: "{tmp_path / 'out.raw'}"; }}; sample: "S24_4LE"; channels: {C}; dither: false; }};
+filter 0 {{ from_inputs: 0; to_outputs: 0; coeff: 0; }};
+filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 0; }};
+""")
+    conf.quiet = True
+    out = tmp_path / "trace"
+    monkeypatch.setenv("BRUTEFIR_TPU_PROFILE", str(out))
+    eng = Engine(conf, device=cuda)
+    if fail:
+        def boom(*a, **k):
+            raise RuntimeError("stop")
+        monkeypatch.setattr(eng, "_run_blocks", boom)
+        with pytest.raises(RuntimeError):
+            eng.run()
+    else:
+        eng.run()
+    files = list(out.glob("*.json"))
+    assert len(files) == 1
+    if not fail:
+        text = files[0].read_text()
+        for name in ("mac_mix_kernel", "glue_fwd_kernel", "glue_inv_kernel"):
+            assert name in text, name
+    with torch.profiler.profile():
+        pass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [("bf16", ""), ("", "bf16"),
+                                   ("bf16", "bf16")])
+def test_bf16_engine_on_card_matches_cpu(cuda, tmp_path, monkeypatch, knobs,
+                                        capsys):
+    """The engine under the bank and ring knobs on the card against the
+    same engine on the CPU: the bank's bits equal; the outputs within 4
+    LSB (2 measured on an H100 under each combination: both sides round
+    the same spectra to bf16 to nearest even, and the card's and the
+    CPU's float32 FFTs differ by an ulp now and then, which may send a
+    value to the other bf16 neighbour; a cast that truncated, or a biased
+    widening, would be thousands of LSB off)."""
+    from brutefir_tpu_torch.runtime.engine import Engine
+    bank_dt, ring_dt = knobs
+    monkeypatch.setenv("BRUTEFIR_TPU_BANK_DTYPE", bank_dt)
+    monkeypatch.setenv("BRUTEFIR_TPU_RING_DTYPE", ring_dt)
+    N, B, C = 256, 4, 3
+    rng = np.random.default_rng(11)
+    for k in range(2):
+        (rng.standard_normal(N * B) * 0.1).astype("<f4").tofile(
+            tmp_path / f"h{k}.raw")
+    frames = N * 9 + 5
+    np.round(rng.standard_normal((frames, C)) * 2 ** 19).astype(
+        "<i4").tofile(tmp_path / "in.raw")
+    ys, banks = [], []
+    for tag, dev in (("gpu", cuda), ("cpu", torch.device("cpu"))):
+        conf = parse_config(f"""
+sampling_rate: 44100;
+filter_length: {N},{B};
+coeff 0 {{ filename: "{tmp_path / 'h0.raw'}"; format: "FLOAT_LE"; }};
+coeff 1 {{ filename: "{tmp_path / 'h1.raw'}"; format: "FLOAT_LE"; }};
+input 0,1,2 {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: {C}; }};
+output 0,1,2 {{ device: "file" {{ path: "{tmp_path / (tag + '.raw')}"; }}; sample: "S24_4LE"; channels: {C}; dither: false; }};
+""" + "\n".join(f"filter {i} {{ from_inputs: {i}; to_outputs: {i}; "
+                f"coeff: {i % 2}; }};" for i in range(C)))
+        conf.quiet = True
+        eng = Engine(conf, device=dev)
+        assert eng.bank.dtype == (torch.bfloat16 if bank_dt
+                                  else torch.float32)
+        assert eng.state.ring.dtype == (torch.bfloat16 if ring_dt
+                                        else torch.float32)
+        banks.append(eng.bank.cpu())
+        assert eng.run_offline()["frames"] == frames
+        ys.append(np.fromfile(tmp_path / (tag + ".raw"), "<i4").astype(
+            np.int64))
+    assert torch.equal(banks[0], banks[1])
+    peak = np.abs(ys[1]).max()
+    gap = np.abs(ys[0] - ys[1]).max()
+    with capsys.disabled():
+        print(f"\nbf16 engine, bank {bank_dt or 'f32'}, ring "
+              f"{ring_dt or 'f32'}: card vs CPU {gap} LSB (peak {peak})")
+    assert peak > 2 ** 18
+    assert gap <= 4

@@ -106,7 +106,7 @@ def test_mac_mix_on_cpu_at_a_tiled_shape_runs_plain_version():
     w = torch.randn(C, F, generator=g)
     mm.reset_launches()
     got = mm.mac_mix(ring, bank, idx, mask, t, w, False)
-    assert mm.launches == {"uniform": 0, "rows": 0, "tiled": 0}
+    assert mm.launches == mm.with_bf16("uniform", "rows", "tiled")
     torch.testing.assert_close(
         got, mm.mac_mix_reference(ring, bank, idx, mask, t, w, False),
         rtol=0, atol=0)

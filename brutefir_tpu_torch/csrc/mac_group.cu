@@ -64,15 +64,19 @@
 // group's spectra to the ring's) and/or the bank (H) are bfloat16, every
 // value widened to float32 where it is loaded, as the JAX kernels'
 // `.astype` on load; the mask, w, the sums and the outputs float32.
-// bf_mac_group loads each value straight from device memory, any K and
-// alignment. bf_mac_mix_group stages a bf16 run as it is through the same
+// bf_mac_group's bf16 forms take their own kernel, mac_group_bf16_kernel
+// (the note above it): kGVec bins a thread from one 8-byte bf16 load (a
+// 16-byte float4 for a float32 operand), kGDepth partitions' loads in
+// flight. bf_mac_mix_group stages a bf16 run as it is through the same
 // 16-byte cp.async copies: its 64 bytes are chunks 0-3 of the run's slot,
 // so lanes 4-7 of a bf16 run copy nothing, and the layout, the launch
 // plan and the shared memory a block stay the float32 form's; the lanes
-// widen their bins on the shared-to-register read. It takes the aligned
-// path only (K % 8 == 0, ring, xnews, bank and out 16-byte aligned; the
-// wrapper raises ValueError elsewhere). The float32 forms are the
-// instantiations with X = H = float, the same code as before.
+// widen their bins on the shared-to-register read. Both bf16 forms take
+// the aligned path only (K % 8 == 0, ring, xnews, bank and out 16-byte
+// aligned; the wrapper raises ValueError elsewhere). bf_mac_group's
+// float32 form is group_mac and mac_group_kernel, the first port's
+// code; bf_mac_mix_group's is the instantiation of its kernel with X = H
+// = float.
 
 #include <cstddef>
 #include <cstdint>
@@ -80,6 +84,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -96,10 +102,10 @@ constexpr int kMaxGroup = 8;
 constexpr int kThreads = 256;
 
 // Y_{g,f}[k] for g = 0 .. G-1 (the MAC of bf_mac_group).
-template <int G, class X, class H>
+template <int G>
 __device__ __forceinline__ void group_mac(
-    const X* __restrict__ ring, const X* __restrict__ xnews,
-    const H* __restrict__ bank, const int* __restrict__ coeff_idx,
+    const float* __restrict__ ring, const float* __restrict__ xnews,
+    const float* __restrict__ bank, const int* __restrict__ coeff_idx,
     const float* __restrict__ mask, const int* __restrict__ delay, int t,
     int f, int k, int B, int K, int E, bool bin0, float (&yr)[G],
     float (&yi)[G]) {
@@ -108,9 +114,9 @@ __device__ __forceinline__ void group_mac(
   const size_t row = (size_t)B * part;
   const int dly = delay[f];
   const int e = min(max(coeff_idx[f], 0), E - 1);
-  const X* rf = ring + (size_t)f * row;
-  const X* xf = xnews + (size_t)f * (G - 1) * part;
-  const H* hb = bank + (size_t)e * row;
+  const float* rf = ring + (size_t)f * row;
+  const float* xf = xnews + (size_t)f * (G - 1) * part;
+  const float* hb = bank + (size_t)e * row;
   const float* mrow = mask + (size_t)f * B;
 
   // the window at b = 0: vr[g], vi[g] = V(g)
@@ -118,15 +124,15 @@ __device__ __forceinline__ void group_mac(
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const int j = g - 1 - dly;
-    const X* src;
+    const float* src;
     if (j >= 0) {
       src = xf + (size_t)j * part;
     } else {
       const int s = (t + g) % B;
       src = rf + (size_t)s * part;
     }
-    vr[g] = ldv(src + k);
-    vi[g] = ldv(src + plane + k);
+    vr[g] = src[k];
+    vi[g] = src[plane + k];
     yr[g] = 0.f;
     yi[g] = 0.f;
   }
@@ -140,13 +146,13 @@ __device__ __forceinline__ void group_mac(
       }
       int s = (t - b) % B;
       s += (s < 0) ? B : 0;
-      const X* rs = rf + (size_t)s * part;
-      vr[0] = ldv(rs + k);
-      vi[0] = ldv(rs + plane + k);
+      const float* rs = rf + (size_t)s * part;
+      vr[0] = rs[k];
+      vi[0] = rs[plane + k];
     }
     const float m = mrow[b];
-    const H* hs = hb + (size_t)b * part;
-    const float hr = ldv(hs + k) * m, hi = ldv(hs + plane + k) * m;
+    const float* hs = hb + (size_t)b * part;
+    const float hr = hs[k] * m, hi = hs[plane + k] * m;
     if (bin0) {
       // packed bin 0: DC and Nyquist are independent real products
 #pragma unroll
@@ -164,11 +170,11 @@ __device__ __forceinline__ void group_mac(
   }
 }
 
-template <int G, class X, class H>
+template <int G>
 __global__ void __launch_bounds__(kThreads)
-mac_group_kernel(const X* __restrict__ ring,
-                 const X* __restrict__ xnews,
-                 const H* __restrict__ bank,
+mac_group_kernel(const float* __restrict__ ring,
+                 const float* __restrict__ xnews,
+                 const float* __restrict__ bank,
                  const int* __restrict__ coeff_idx,
                  const float* __restrict__ mask,
                  const int* __restrict__ t_ptr,
@@ -178,8 +184,8 @@ mac_group_kernel(const X* __restrict__ ring,
   const int f = blockIdx.y;
   if (k >= K) return;
   float yr[G], yi[G];
-  group_mac<G, X, H>(ring, xnews, bank, coeff_idx, mask, delay, *t_ptr, f,
-                     k, B, K, E, has_bin0 && k == 0, yr, yi);
+  group_mac<G>(ring, xnews, bank, coeff_idx, mask, delay, *t_ptr, f, k, B,
+               K, E, has_bin0 && k == 0, yr, yi);
   const size_t part = 2 * (size_t)K;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -189,13 +195,236 @@ mac_group_kernel(const X* __restrict__ ring,
   }
 }
 
-template <int G, class X, class H>
-int launch_group(const X* ring, const X* xnews, const H* bank,
+template <int G>
+int launch_group(const float* ring, const float* xnews, const float* bank,
                  const int* coeff_idx, const float* mask, const int* t,
                  const int* delay, float* out, int F, int B, int K, int E,
                  int has_bin0, cudaStream_t s) {
   const dim3 grid((K + kThreads - 1) / kThreads, F);
-  mac_group_kernel<G, X, H><<<grid, kThreads, 0, s>>>(
+  mac_group_kernel<G><<<grid, kThreads, 0, s>>>(
+      ring, xnews, bank, coeff_idx, mask, t, delay, out, F, B, K, E,
+      has_bin0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf_mac_group's bf16 forms. What limited the form this replaces
+// (group_mac above with bf16 loads) on an H100: one thread a bin loads 2
+// bytes a value, so a warp's load is 64 bytes where float32 moves 128,
+// and each thread had one partition's loads in flight. The bytes in
+// flight halved with the operand size, and the time stayed near
+// float32's (0.2271 against 0.2469 ms at G = 4 at the scale shape, 47%
+// of its 0.1077 ms bound).
+// This kernel keeps group_mac's register window (each ring and xnews
+// value read once for G blocks, the bank value and mask once a
+// partition) and its sums (b ascending, the same expressions, bin 0 two
+// real products where has_bin0), and changes what a thread moves:
+//   - kGVec = 4 consecutive bins a thread: each run is one 8-byte load of
+//     4 bf16 values (a 16-byte float4 for a float32 operand), widened in
+//     registers; a warp's load is 256 bytes;
+//   - the operands of partition b + kGDepth (ring slot, bank partition,
+//     mask) are loaded while partition b is summed: kGDepth partitions'
+//     loads in flight a thread;
+//   - outputs as float4 stores; blocks of kGThreads threads, grid (K /
+//     (kGVec kGThreads), F): 4096 blocks at F = 256, K = 8192.
+// Registers: 4 G kGVec for the window and sums (64 at G = 4; ptxas: 158
+// a thread at G = 4, 254 at G = 8, no spills). On an H100 with both in
+// bf16 at the scale shape: 0.144 ms at G = 4, 74% of the bound (the
+// replaced form 0.231). chip_mac_bf16_designs.py keeps the forms
+// measured beside it: 2 or 8 bins a thread, 1, 3 or 4 partitions in
+// flight, 256 threads a block; 8 bins a thread is 6% faster at G = 3-4
+// but spills at G = 8 (0.96 ms against 0.22), so one form serves every
+// G.
+
+constexpr int kGThreads = 128;
+constexpr int kGVec = 4;                     // bins a thread
+constexpr int kGDepth = 2;                   // partitions' loads in flight
+
+// kGVec values of T as they lie in memory, in 32-bit words.
+template <class T>
+struct Raw {
+  static constexpr int kWords = kGVec * (int)sizeof(T) / 4;
+  unsigned w[kWords];
+};
+
+template <class T>
+__device__ __forceinline__ Raw<T> ld_raw(const T* p) {
+  Raw<T> r;
+  constexpr int n = Raw<T>::kWords;
+  if constexpr (n % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < n / 4; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      r.w[4 * i] = v.x;
+      r.w[4 * i + 1] = v.y;
+      r.w[4 * i + 2] = v.z;
+      r.w[4 * i + 3] = v.w;
+    }
+  } else if constexpr (n == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    r.w[0] = v.x;
+    r.w[1] = v.y;
+  } else {
+    r.w[0] = *reinterpret_cast<const unsigned*>(p);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void widen(const Raw<float>& r,
+                                      float (&v)[kGVec]) {
+#pragma unroll
+  for (int i = 0; i < kGVec; ++i) v[i] = __uint_as_float(r.w[i]);
+}
+__device__ __forceinline__ void widen(const Raw<__nv_bfloat16>& r,
+                                      float (&v)[kGVec]) {
+#pragma unroll
+  for (int i = 0; i < kGVec / 2; ++i) {
+    v[2 * i] = __uint_as_float(r.w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(r.w[i] & 0xffff0000u);
+  }
+}
+
+// kGVec floats to 16-byte (or, at kGVec = 2, 8-byte) aligned `o`.
+__device__ __forceinline__ void st_vec(float* o, const float (&v)[kGVec]) {
+  if constexpr (kGVec % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kGVec; i += 4)
+      *reinterpret_cast<float4*>(o + i) =
+          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kGVec; i += 2)
+      *reinterpret_cast<float2*>(o + i) = make_float2(v[i], v[i + 1]);
+  }
+}
+
+template <int G, class X, class H>
+__global__ void __launch_bounds__(kGThreads)
+mac_group_bf16_kernel(const X* __restrict__ ring,
+                      const X* __restrict__ xnews,
+                      const H* __restrict__ bank,
+                      const int* __restrict__ coeff_idx,
+                      const float* __restrict__ mask,
+                      const int* __restrict__ t_ptr,
+                      const int* __restrict__ delay, float* __restrict__ out,
+                      int F, int B, int K, int E, int has_bin0) {
+  const int k = (blockIdx.x * kGThreads + threadIdx.x) * kGVec;
+  const int f = blockIdx.y;
+  if (k >= K) return;
+  const size_t plane = (size_t)K;
+  const size_t part = 2 * (size_t)K;
+  const size_t row = (size_t)B * part;
+  const int t = *t_ptr;
+  const int dly = delay[f];
+  const int e = min(max(coeff_idx[f], 0), E - 1);
+  const X* rf = ring + (size_t)f * row + k;
+  const X* xf = xnews + (size_t)f * (G - 1) * part + k;
+  const H* hb = bank + (size_t)e * row + k;
+  const float* mrow = mask + (size_t)f * B;
+  const bool bin0 = has_bin0 && k == 0;
+
+  // the window at b = 0: vr[g], vi[g] = V(g)
+  float vr[G][kGVec], vi[G][kGVec], yr[G][kGVec], yi[G][kGVec];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int j = g - 1 - dly;
+    const X* src = j >= 0 ? xf + (size_t)j * part
+                          : rf + (size_t)((t + g) % B) * part;
+    widen(ld_raw(src), vr[g]);
+    widen(ld_raw(src + plane), vi[g]);
+#pragma unroll
+    for (int v = 0; v < kGVec; ++v) yr[g][v] = yi[g][v] = 0.f;
+  }
+  // partition b's operands, kGDepth partitions ahead: V(-b) =
+  // ring[f, (t-b) % B] (b >= 1), the bank partition b, the mask value
+  Raw<X> pr[kGDepth], pi[kGDepth];
+  Raw<H> qr[kGDepth], qi[kGDepth];
+  float pm[kGDepth];
+  auto fetch = [&](int b, int d) {
+    if (b > 0) {
+      int s = (t - b) % B;
+      s += (s < 0) ? B : 0;
+      const X* rs = rf + (size_t)s * part;
+      pr[d] = ld_raw(rs);
+      pi[d] = ld_raw(rs + plane);
+    }
+    const H* hs = hb + (size_t)b * part;
+    qr[d] = ld_raw(hs);
+    qi[d] = ld_raw(hs + plane);
+    pm[d] = mrow[b];
+  };
+#pragma unroll
+  for (int d = 0; d < kGDepth; ++d)
+    if (d < B) fetch(d, d);
+#pragma unroll 1
+  for (int b0 = 0; b0 < B; b0 += kGDepth) {
+#pragma unroll
+    for (int d = 0; d < kGDepth; ++d) {
+      const int b = b0 + d;
+      if (b >= B) break;
+      float hr[kGVec], hi[kGVec], nr[kGVec], ni[kGVec];
+      widen(qr[d], hr);
+      widen(qi[d], hi);
+      const float m = pm[d];
+      if (b > 0) {
+        widen(pr[d], nr);
+        widen(pi[d], ni);
+      }
+      if (b + kGDepth < B) fetch(b + kGDepth, d);
+      if (b > 0) {
+        // shift: V(g - b) was V((g-1) - (b-1)); V(-b) enters at g = 0
+#pragma unroll
+        for (int g = G - 1; g > 0; --g)
+#pragma unroll
+          for (int v = 0; v < kGVec; ++v) {
+            vr[g][v] = vr[g - 1][v];
+            vi[g][v] = vi[g - 1][v];
+          }
+#pragma unroll
+        for (int v = 0; v < kGVec; ++v) {
+          vr[0][v] = nr[v];
+          vi[0][v] = ni[v];
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < kGVec; ++v) {
+        hr[v] *= m;
+        hi[v] *= m;
+      }
+#pragma unroll
+      for (int v = 0; v < kGVec; ++v) {
+        if (v == 0 && bin0) {
+          // packed bin 0: DC and Nyquist are independent real products
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            yr[g][0] += vr[g][0] * hr[0];
+            yi[g][0] += vi[g][0] * hi[0];
+          }
+        } else {
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            yr[g][v] += vr[g][v] * hr[v] - vi[g][v] * hi[v];
+            yi[g][v] += vr[g][v] * hi[v] + vi[g][v] * hr[v];
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float* o = out + ((size_t)g * F + f) * part + k;
+    st_vec(o, yr[g]);
+    st_vec(o + K, yi[g]);
+  }
+}
+
+template <int G, class X, class H>
+int launch_group_bf16(const X* ring, const X* xnews, const H* bank,
+                      const int* coeff_idx, const float* mask, const int* t,
+                      const int* delay, float* out, int F, int B, int K,
+                      int E, int has_bin0, cudaStream_t s) {
+  const int per = kGVec * kGThreads;
+  const dim3 grid((K + per - 1) / per, F);
+  mac_group_bf16_kernel<G, X, H><<<grid, kGThreads, 0, s>>>(
       ring, xnews, bank, coeff_idx, mask, t, delay, out, F, B, K, E,
       has_bin0);
   return static_cast<int>(cudaGetLastError());
@@ -258,7 +487,6 @@ constexpr int kFc = kMixWarps;               // filters a round: one a warp
 constexpr int kPos = 4;                      // window positions a stage
 constexpr int kStages = 3;                   // a warp's stage ring
 constexpr int kItem = 4 * kTileBins + 4;     // V re, V im, H re, H im, mask
-constexpr size_t kSmemMax = 232448;          // dynamic shared memory a block
 
 template <int G>
 struct MixShape {
@@ -271,50 +499,6 @@ struct MixShape {
       (size_t)kMixWarps * kStages * kPos * kItem + 2 * kFc * kCols +
       2 * kFc * kWs + 2 * kRows * kFc;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes, or nothing where `on` is false.
-__device__ __forceinline__ void cp_async16(float* dst, const void* src,
-                                           bool on) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
-      " @p cp.async.cg.shared.global [%0], [%1], 16;\n}\n" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"((int)on)
-      : "memory");
-}
-
-// 4 bytes; zeros where `on` is false (src is not read then).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool on = true) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(on ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 4 bytes where `on`, else nothing.
-__device__ __forceinline__ void cp_async4_if(float* dst, const float* src,
-                                             bool on) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
-      " @p cp.async.ca.shared.global [%0], [%1], 4;\n}\n" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"((int)on)
-      : "memory");
-}
 
 // kAligned: K % 4 == 0 (8 in bf16) and ring, xnews, bank and out 16-byte
 // aligned. X, H: the storage types of ring and xnews, and of the bank.
@@ -663,8 +847,8 @@ int launch_mix_group(const float* ring, const float* xnews,
 }
 
 // The launches of the bf16 operand forms at group size G (2 .. kMaxGroup;
-// else cudaErrorInvalidValue): `mix` the fused MAC + mix (the aligned
-// path, which the caller checked), else the grouped MAC.
+// else cudaErrorInvalidValue): `mix` the fused MAC + mix, else the
+// grouped MAC (both on the aligned path, which the caller checked).
 template <class X, class H>
 int launch_bf16(bool mix, int G, const void* ring, const void* xnews,
                 const void* bank, const int* coeff_idx, const float* mask,
@@ -680,8 +864,8 @@ int launch_bf16(bool mix, int G, const void* ring, const void* xnews,
     return mix ? launch_mix_group<g, true>(r, x, h, coeff_idx, mask, t,    \
                                            delay, w, out, F, B, K, E, C_out, \
                                            has_bin0, s)                    \
-               : launch_group<g>(r, x, h, coeff_idx, mask, t, delay, out, F, \
-                                 B, K, E, has_bin0, s);
+               : launch_group_bf16<g>(r, x, h, coeff_idx, mask, t, delay,  \
+                                      out, F, B, K, E, has_bin0, s);
     BF_CASE(2) BF_CASE(3) BF_CASE(4) BF_CASE(5) BF_CASE(6) BF_CASE(7)
     BF_CASE(8)
 #undef BF_CASE
@@ -719,11 +903,11 @@ int launch_bf16(bool mix, int G, const void* ring, const void* xnews,
 // DC/Nyquist bin (an unsharded call, the first bin shard of a mesh), else
 // 0, and bin 0 is an ordinary complex product. ring_bf16 / bank_bf16: 1
 // where that operand is bfloat16 (xnews is of the ring's type), else
-// float32; both 0 is the float32 form. A bf16 form of bf_mac_mix_group
-// takes the aligned path only: cudaErrorInvalidValue unless K % 8 == 0
-// and ring, xnews, bank and out are 16-byte aligned; its launch plan is
-// the float32 form's. The caller allocates `out` and checks shapes;
-// nothing here synchronises.
+// float32; both 0 is the float32 form. A bf16 form of either takes the
+// aligned path only: cudaErrorInvalidValue unless K % 8 == 0 and ring,
+// xnews, bank and out are 16-byte aligned (and, for bf_mac_group, B >=
+// 1); bf_mac_mix_group's launch plan is the float32 form's. The caller
+// allocates `out` and checks shapes; nothing here synchronises.
 extern "C" int bf_mac_group(const void* ring_, const void* xnews_,
                             const void* bank_, const int* coeff_idx,
                             const float* mask, const int* t,
@@ -732,10 +916,13 @@ extern "C" int bf_mac_group(const void* ring_, const void* xnews_,
                             int bank_bf16, void* stream) {
   if (K <= 0 || F <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ring_bf16 || bank_bf16)
+  if (ring_bf16 || bank_bf16) {
+    if (B <= 0 || !mix_group_aligned(ring_, xnews_, bank_, out, K, 8))
+      return static_cast<int>(cudaErrorInvalidValue);
     return launch_bf16(false, G, ring_, xnews_, bank_, coeff_idx, mask, t,
                        delay, nullptr, out, F, B, K, E, 0, has_bin0,
                        ring_bf16, bank_bf16, s);
+  }
   const float* ring = static_cast<const float*>(ring_);
   const float* xnews = static_cast<const float*>(xnews_);
   const float* bank = static_cast<const float*>(bank_);

@@ -6,8 +6,9 @@ compilers run side by side, one process per source, all started
 together. The libraries land in ``build/brutefir_tpu_torch/`` at the
 repository root, named by a hash of the source, the shared headers
 (``csrc/*.cuh``: ``fft_common.cuh`` of the FFT sources, ``mac_core.cuh``
-of ``mac.cu`` and ``mac_dual.cu``) and the flags, so an edited source or
-header rebuilds and an unchanged one is reused.
+of ``mac.cu`` and ``mac_dual.cu``, ``cp_async.cuh`` of ``mac_group.cu``
+and ``mac_mix_tiled.cu``) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 ``torch.utils.cpp_extension.load`` is not used: a source that includes
 PyTorch's headers takes minutes to compile, a plain C interface seconds.
 

@@ -16,8 +16,8 @@ caller only after the call. Block t+g reads at partition b the ring slot
   ``pallas_spectral_mac_mix_group``.
 
 On a CUDA tensor each launches its kernel of ``csrc/mac_group.cu`` (its
-``*_bf16`` entry on a bfloat16 ring and/or bank, the bf16 operand forms
-of ``ops/mac_mix.py``; ``xnews`` then of the ring's dtype); on a CPU
+bf16 operand form on a bfloat16 ring and/or bank, ``ops/mac_mix.py``'s
+flags; ``xnews`` then of the ring's dtype); on a CPU
 tensor it runs its plain torch version. ``has_bin0`` False makes bin 0
 an ordinary complex product: the call of a mesh's bin shard other than
 the first (``ops/mac_shard.py``). There is no fallback from a
@@ -132,9 +132,11 @@ def mac_group(ring: torch.Tensor, xnews: torch.Tensor, bank: torch.Tensor,
     ring [F, B, 2, K] f32 or bf16 (block t written, no later block),
     xnews [F, G-1, 2, K] of the ring's dtype, bank [E, B, 2, K] f32 or
     bf16, coeff_idx [F] int32, mask [F, B] f32, t scalar int32 tensor,
-    delay [F] int32; all on one device, contiguous."""
+    delay [F] int32; all on one device, contiguous; the bf16 forms need
+    ``check_staged``'s alignment."""
     check_operands("mac_group", ring, bank, coeff_idx, mask, t,
                    xnews=xnews, delay=delay)
+    check_staged("mac_group", ring, bank, xnews)
     if ring.device.type == "cpu":
         return mac_group_reference(ring, xnews, bank, coeff_idx, mask, t,
                                    delay, has_bin0)

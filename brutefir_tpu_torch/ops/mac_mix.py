@@ -170,12 +170,13 @@ def bf16_suffix(ring, bank) -> str:
 
 
 def check_staged(fn: str, ring, bank, xnews=None) -> None:
-    """The alignment the bf16 forms of the kernels that stage runs
-    through 16-byte copies take (``csrc/mac_mix.cu``, the fused MAC + mix
-    of ``csrc/mac_group.cu``): with a bfloat16 ring or bank, K % 8 == 0
-    and ring, bank and ``xnews`` 16-byte aligned; ValueError elsewhere,
-    never a read out of bounds. Every engine path meets it: its fused
-    routes need K % 128 == 0."""
+    """The alignment the bf16 forms of the fused MAC + mix and the
+    grouped MACs take (``csrc/mac_mix.cu``, ``csrc/mac_mix_tiled.cu``,
+    ``csrc/mac_group.cu``: 16-byte copies or 8- and 16-byte loads of
+    whole runs): with a bfloat16 ring or bank, K % 8 == 0 and ring, bank
+    and ``xnews`` 16-byte aligned; ValueError elsewhere, never a read out
+    of bounds. Every engine path meets it: its fused and grouped routes
+    need K % 128 == 0 (on a mesh, at each bin shard)."""
     if ring.dtype != torch.bfloat16 and bank.dtype != torch.bfloat16:
         return
     K = ring.shape[-1]
@@ -269,11 +270,10 @@ def mac_mix(ring: torch.Tensor, bank: torch.Tensor, coeff_idx: torch.Tensor,
     kernel reads per-filter rows, which then hold the same values).
     """
     check_operands("mac_mix", ring, bank, coeff_idx, mask, t, w)
+    check_staged("mac_mix", ring, bank)
     F, B, _, K = ring.shape
     C_out = w.shape[0]
     tiled = tiled_route(C_out, B, K)
-    if not tiled:
-        check_staged("mac_mix", ring, bank)
     if ring.device.type == "cpu":
         return mac_mix_reference(ring, bank, coeff_idx, mask, t, w, uniform,
                                  has_bin0)

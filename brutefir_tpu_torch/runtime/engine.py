@@ -1302,9 +1302,13 @@ class Engine:
             raise
         if prof is not None:
             self._stop_profile(prof)
-        stats = self._stats(wstats["frames"], time.perf_counter() - t_run0)
+        elapsed = time.perf_counter() - t_run0
         if self._debug_ring is not None:
             self._dump_debug_timeline()
+        if self.conf.overflow_warnings and not getattr(self.conf, "quiet",
+                                                       False):
+            self._print_overflow_warnings()
+        stats = self._stats(wstats["frames"], elapsed)
         if setup:
             self.teardown()
         return stats
@@ -1600,6 +1604,15 @@ class Engine:
                 sys.stderr.write(
                     f"    {int((ts - t0) * 1e6)}\t{ev}\n")
             sys.stderr.write("\n")
+
+    def _print_overflow_warnings(self):
+        """Per-channel clip summary at the end of ``run()``
+        (print_overflows, bfrun.c:555-587): ``channel/count/peak dB`` for
+        each output channel that clipped."""
+        lines = [f"{n}/{o.n_overflows}/{o.peak_db():+.2f}"
+                 for n, o in enumerate(self.overflow) if o.n_overflows > 0]
+        if lines:
+            sys.stderr.write("Overflow warnings: " + " ".join(lines) + "\n")
 
     # ----- offline run -----------------------------------------------------
     def run_offline(self, max_blocks: Optional[int] = None,

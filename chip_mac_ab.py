@@ -27,8 +27,15 @@ means is marked within 2% of each other or not, and the last line lists
 those that are not (printed, not failed: a timing). The floor of the
 method (a kernel that writes 4 bytes) and each shape's bound are printed
 beside them. The forms compared are the float32 ones (this tree's
-wrappers pass its entries ``ring_bf16`` = ``bank_bf16`` = 0): the bf16
-operand forms have no counterpart in an older tree.
+wrappers pass its entries ``ring_bf16`` = ``bank_bf16`` = 0) and, where
+the other tree's entries take those flags (its ``SIGNATURES`` end in
+``ring_bf16, bank_bf16``), the
+bf16 operand forms of ``bf_mac_mix_tiled`` and ``bf_mac_group`` at G = 4
+at the scale shape under a bf16 ring, bank and both: each tree's output
+held against the plain version (1e-5 of its peak), their max difference
+printed (a redesigned bf16 form need not round as the other tree's
+does), then timed in turns, the last line listing the bf16 forms slower
+than the other tree's.
 """
 
 from __future__ import annotations
@@ -45,10 +52,15 @@ OUT = os.path.join(cs.REPO, "build", "chip_mac_ab")
 ENTRIES = {"mac": ("bf_mac",), "mac_dual": ("bf_mac_dual",),
            "mac_group": ("bf_mac_group", "bf_mac_mix_group"),
            "mac_mix": ("bf_mac_mix",), "mac_mix_tiled": ("bf_mac_mix_tiled",)}
-# C entry -> the trailing arguments before the stream the other tree's
-# entry takes beyond the earliest interface: (1,) for has_bin0 alone,
-# (1, 0, 0) for has_bin0 and the float32 flags, or ()
-BIN0 = {}
+# C entry -> how many of the trailing ints has_bin0, ring_bf16, bank_bf16
+# the other tree's entry takes (0, 1 or all 3)
+TRAILING = {}
+
+
+def trailing(name: str, flags=(0, 0)) -> tuple:
+    """The other tree's trailing arguments before the stream: has_bin0 =
+    1 (unsharded) and the bf16 flags, as many as it takes."""
+    return (1, *flags)[:TRAILING[name]]
 
 
 def other_signatures(tree: str) -> dict:
@@ -86,7 +98,7 @@ def build_other(tree: str) -> dict:
             libs[name] = fn
             # this tree's entries end in has_bin0, ring_bf16, bank_bf16
             extra = len(sigs[stem][name]) - len(_build.SIGNATURES[stem][name])
-            BIN0[name] = (1, 0, 0)[:3 + extra]
+            TRAILING[name] = 3 + extra
     return libs
 
 
@@ -113,7 +125,7 @@ def other_mac(fn, ring, bank, rows, idx, mask, t, uniform):
     rc = fn(ring.data_ptr(), bank.data_ptr(), rows.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), t.data_ptr(), out.data_ptr(),
             F, rows.numel(), B, K, bank.shape[0], int(uniform),
-            *BIN0["bf_mac"], stream())
+            *trailing("bf_mac"), stream())
     if rc != 0:
         cs.fail(f"the other tree's bf_mac failed (cudaError {rc})")
     return out
@@ -128,14 +140,16 @@ def other_dual(fn, ring, bank, rows, idx, mask, pidx, pmask, t, uniform):
             idx.data_ptr(), mask.data_ptr(), pidx.data_ptr(),
             pmask.data_ptr(), t.data_ptr(), y_new.data_ptr(),
             y_old.data_ptr(), F, rows.numel(), B, K, bank.shape[0],
-            int(uniform), *BIN0["bf_mac_dual"], stream())
+            int(uniform), *trailing("bf_mac_dual"), stream())
     if rc != 0:
         cs.fail(f"the other tree's bf_mac_dual failed (cudaError {rc})")
     return y_new, y_old
 
 
-def other_group(fn, ring, xnews, bank, idx, mask, t, delay, w=None):
-    """The other tree's bf_mac_group, or bf_mac_mix_group with ``w``."""
+def other_group(fn, ring, xnews, bank, idx, mask, t, delay, w=None,
+                flags=(0, 0)):
+    """The other tree's bf_mac_group, or bf_mac_mix_group with ``w``;
+    ``flags``: its operands' (ring_bf16, bank_bf16)."""
     import torch
     F, B, _, K = ring.shape
     G = xnews.shape[1] + 1
@@ -146,15 +160,16 @@ def other_group(fn, ring, xnews, bank, idx, mask, t, delay, w=None):
     dims = (F, B, K, bank.shape[0]) + (() if w is None else (rows,))
     name = "bf_mac_group" if w is None else "bf_mac_mix_group"
     rc = fn(*(x.data_ptr() for x in ptrs), out.data_ptr(), *dims, G,
-            *BIN0[name], stream())
+            *trailing(name, flags), stream())
     if rc != 0:
         cs.fail(f"the other tree's group kernel failed (cudaError {rc})")
     return out
 
 
-def other_mix(libs, ring, bank, idx, mask, t, w, uniform):
+def other_mix(libs, ring, bank, idx, mask, t, w, uniform, flags=(0, 0)):
     """The other tree's bf_mac_mix (or bf_mac_mix_tiled where this tree's
-    wrapper takes it) with this tree's launch plan."""
+    wrapper takes it) with this tree's launch plan; ``flags``: the
+    operands' (ring_bf16, bank_bf16), the tiled entry only."""
     import torch
     from brutefir_tpu_torch.ops import mac_mix as mm
     F, B, _, K = ring.shape
@@ -164,13 +179,13 @@ def other_mix(libs, ring, bank, idx, mask, t, w, uniform):
             mask.data_ptr(), t.data_ptr(), w.data_ptr(), out.data_ptr(),
             F, B, K, bank.shape[0], C)
     if mm.tiled_route(C, B, K):
-        rc = libs["bf_mac_mix_tiled"](*args, *BIN0["bf_mac_mix_tiled"],
-                                      stream())
+        rc = libs["bf_mac_mix_tiled"](
+            *args, *trailing("bf_mac_mix_tiled", flags), stream())
     else:
         p = mm.plan(F, B, K, C, uniform)
         rc = libs["bf_mac_mix"](*args, int(uniform), p["nw"], p["FC"],
-                                int(p["bank_smem"]), *BIN0["bf_mac_mix"],
-                                stream())
+                                int(p["bank_smem"]),
+                                *trailing("bf_mac_mix"), stream())
     if rc != 0:
         cs.fail(f"the other tree's fused MAC + mix failed (cudaError {rc})")
     return out
@@ -272,20 +287,96 @@ def compare_group(libs, flush) -> None:
         torch.cuda.empty_cache()
 
 
-# labels whose mean time in this tree is more than 2% off the other's
+def compare_bf16(libs, flush) -> None:
+    """The bf16 operand forms of bf_mac_mix_tiled (row 3) and
+    bf_mac_group at G = 4 (row 4) at the scale shape under a bf16 ring,
+    bank and both, where the other tree's entries take the flags: each
+    tree's output against the plain version, their max difference, the
+    times in turns."""
+    import torch
+    from brutefir_tpu_torch.ops import mac_group as mg, mac_mix as mm
+    if (TRAILING["bf_mac_mix_tiled"] < 3
+            or TRAILING["bf_mac_group"] < 3):
+        print("bf16 forms: the other tree's entries take no bf16 flags; "
+              "not compared", flush=True)
+        return
+    dev = torch.device("cuda")
+    Fs = Cs = Es = cs.SCALE_C
+    B_, K_, G = cs.B, cs.K, 4
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 53)
+    ring = torch.randn(Fs, B_, 2, K_, generator=g, device=dev)
+    bank = torch.randn(Es, B_, 2, K_, generator=g, device=dev)
+    xnews = torch.randn(Fs, G - 1, 2, K_, generator=g, device=dev)
+    w = torch.randn(Cs, Fs, generator=g, device=dev) / 16.0
+    idx = torch.randperm(Fs, generator=g, device=dev).to(torch.int32)
+    delay = (torch.arange(Fs, device=dev) % (G + 2)).to(torch.int32)
+    mask = cs.cblocks_mask(delay, B_)
+    ones = torch.ones(Fs, B_, device=dev)
+    zeros = torch.zeros(Fs, dtype=torch.int32, device=dev)
+    t7 = torch.tensor(7, dtype=torch.int32, device=dev)
+    for combo in cs.BF16_COMBOS:
+        r, h, x = cs.bf16_operands(combo, ring, bank, xnews)
+        rb, hb = (2 if combo[0] else 4), (2 if combo[1] else 4)
+        what = f"bf16 {cs.BF16_NAMES[combo]}"
+        for name, other, this, plain, nbf in (
+                (f"bf_mac_mix_tiled {what} (scale)",
+                 lambda m: other_mix(libs, r, h, idx, m, t7, w, False,
+                                     combo),
+                 lambda m: mm.mac_mix(r, h, idx, m, t7, w, False),
+                 lambda: mm.mac_mix_reference(r, h, idx, mask, t7, w,
+                                              False),
+                 cs.mac_bytes_flops(Fs, B_, K_, Cs, Es, ring_bytes=rb,
+                                    bank_bytes=hb)),
+                (f"bf_mac_group G={G} {what} (scale)",
+                 lambda m, d=delay: other_group(
+                     libs["bf_mac_group"], r, x, h, idx, m, t7, d,
+                     flags=combo),
+                 lambda m, d=delay: mg.mac_group(r, x, h, idx, m, t7, d),
+                 lambda: mg.mac_group_reference(r, x, h, idx, mask, t7,
+                                                delay),
+                 cs.mac_bytes_flops(Fs, B_, K_, 0, Es, G, out_rows=Fs,
+                                    ring_bytes=rb, bank_bytes=hb))):
+            ref = plain()
+            got_o, got_t = other(mask), this(mask)
+            cs.check(f"{name} (other tree)", got_o, ref, 7)
+            cs.check(name, got_t, ref, 7)
+            diff = (got_o - got_t).abs().max().item()
+            print(f"{name}: max |this - other| {diff:.3e} "
+                  f"({diff / ref.abs().max().item():.3e} of the peak; "
+                  f"{'bit-equal' if diff == 0 else 'not bit-equal'})",
+                  flush=True)
+            del ref, got_o, got_t
+            if "group" in name:
+                o, t = (lambda: other(ones, zeros)), (lambda: this(ones,
+                                                                   zeros))
+            else:
+                o, t = (lambda: other(ones)), (lambda: this(ones))
+            in_turns(name, o, t, flush, cs.bound(*nbf)[0], bf16=True)
+        del r, h, x
+        torch.cuda.empty_cache()
+
+
+# labels whose mean time in this tree is more than 2% off the other's; bf16
+# forms whose mean time in this tree is above the other's
 OFF_2PCT = []
+SLOWER_BF16 = []
 
 
-def in_turns(label: str, other, this, flush, b_ms: float) -> None:
+def in_turns(label: str, other, this, flush, b_ms: float,
+             bf16: bool = False) -> None:
     """Time other, this, this, other; print the pairs' means and whether
-    this tree's is within 2% of the other's."""
+    this tree's is within 2% of the other's (``bf16``: a redesigned form,
+    noted where this tree's is slower)."""
     o1 = cs.time_ms(other, cs.REPS, flush)
     t1 = cs.time_ms(this, cs.REPS, flush)
     t2 = cs.time_ms(this, cs.REPS, flush)
     o2 = cs.time_ms(other, cs.REPS, flush)
     o, t = (o1 + o2) / 2, (t1 + t2) / 2
     within = abs(t / o - 1.0) <= 0.02
-    if not within:
+    if bf16:
+        if t > o:
+            SLOWER_BF16.append(label)
+    elif not within:
         OFF_2PCT.append(label)
     print(f"{label}: other tree {o1:.4f} / {o2:.4f} ms, this tree "
           f"{t1:.4f} / {t2:.4f} ms; means {o:.4f} -> {t:.4f} ({o / t:.2f}x, "
@@ -313,6 +404,7 @@ def main() -> int:
           flush=True)
     compare_mix(libs, flush)
     compare_group(libs, flush)
+    compare_bf16(libs, flush)
     t7 = torch.tensor(7, dtype=torch.int32, device=dev)
 
     g = torch.Generator(device=dev).manual_seed(cs.SEED + 3)
@@ -371,9 +463,10 @@ def main() -> int:
                  flush, cs.bound(nb, nf)[0])
         del ring, bank, refs
         torch.cuda.empty_cache()
-    print(f"every form bit-equal to the other tree's; means within 2%: "
-          f"{'all' if not OFF_2PCT else 'all but ' + ', '.join(OFF_2PCT)}",
-          flush=True)
+    print(f"every float32 form bit-equal to the other tree's; means within "
+          f"2%: {'all' if not OFF_2PCT else 'all but ' + ', '.join(OFF_2PCT)}"
+          f"; bf16 forms slower than the other tree's: "
+          f"{', '.join(SLOWER_BF16) or 'none'}", flush=True)
     return 0
 
 

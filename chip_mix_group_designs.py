@@ -253,7 +253,6 @@ constexpr int kPos = 4;                      // window positions a stage
 constexpr int kStages = 4;                   // the stage ring
 constexpr int kItem = 4 * kTileBins + 4;     // V re, V im, H re, H im, mask
 constexpr int kStageFloats = kFc * kPos * kItem;
-constexpr size_t kSmemMax = 232448;          // dynamic shared memory a block
 
 template <int G>
 struct MixShape {
@@ -266,10 +265,6 @@ struct MixShape {
       (size_t)kStages * kStageFloats + 2 * kFc * kCols + 2 * kFc * kWs +
       4 * kStages;                           // 2 kStages mbarriers
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -324,13 +319,6 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
 }
 
 // The compute warps' barrier (named barrier 1; the copy warp is not in it).
@@ -616,7 +604,6 @@ constexpr int kPos = 4;                      // window positions a stage
 constexpr int kStages = 4;                   // a MAC warp's stage ring
 constexpr int kItem = 4 * kTileBins + 4;     // V re, V im, H re, H im, mask
 constexpr int kMacRegs = 80, kMixRegs = 176;  // setmaxnreg: 80 + 176 = 256
-constexpr size_t kSmemMax = 232448;          // dynamic shared memory a block
 // named barriers: Ys/Ws buffer b full (the MAC warps arrive, the mix warps
 // wait) and empty (the other way round)
 constexpr int kBarFull = 1, kBarEmpty = 3;
@@ -633,50 +620,6 @@ struct MixShape {
       (size_t)kMacWarps * kStages * kPos * kItem + 2 * kFc * kCols +
       2 * kFc * kWs + 2 * kRows * kFc;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes, or nothing where `on` is false.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool on) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
-      " @p cp.async.cg.shared.global [%0], [%1], 16;\n}\n" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"((int)on)
-      : "memory");
-}
-
-// 4 bytes; zeros where `on` is false (src is not read then).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool on = true) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(on ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 4 bytes where `on`, else nothing.
-__device__ __forceinline__ void cp_async4_if(float* dst, const float* src,
-                                             bool on) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
-      " @p cp.async.ca.shared.global [%0], [%1], 4;\n}\n" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"((int)on)
-      : "memory");
-}
 
 // Named barrier `id` over all kMixThreads threads: wait, or arrive only.
 __device__ __forceinline__ void bar_sync(int id) {

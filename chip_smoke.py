@@ -293,7 +293,9 @@ Phases, in order; any failure exits non-zero:
 
 7d (after 7c). kernel vs plain, the bf16 operand forms
    (``BRUTEFIR_TPU_RING_DTYPE`` / ``BRUTEFIR_TPU_BANK_DTYPE`` = bf16):
-   rows 1-10 at their path shapes (``bf16_cases``), each under a bf16
+   rows 1-10 at their path shapes (``bf16_cases``), and rows 3-4 at a
+   2 x 2 shard of the scale shape (128 filters x 4096 bins, has_bin0 =
+   0; row 3's route forced), each under a bf16
    ring, a bf16 bank and both: the form against its plain version on the
    same bfloat16 operands (REL_TOL), its launch counted in its module's
    ``launches`` under the form's bf16 name, timed beside the plain version, the bound counting
@@ -4214,46 +4216,57 @@ def bf16_cases(mods):
     def i32(x):
         return x.to(torch.int32)
 
-    def mix_case(uniform, Fc, Cc, Ec):
+    def tiled_forced(fn):
+        # the bin-tiled kernel at a shape below the route's threshold (a
+        # shard's); the launch counts under its own key
+        def call(*a):
+            route = mm.tiled_route
+            mm.tiled_route = lambda *_: True
+            try:
+                return fn(*a)
+            finally:
+                mm.tiled_route = route
+        return call
+
+    def mix_case(uniform, Fc, Cc, Ec, K_=K, bin0=True, forced=False):
         def setup():
-            ring, bank = rnd(Fc, B, 2, K), rnd(Ec, B, 2, K)
+            ring, bank = rnd(Fc, B, 2, K_), rnd(Ec, B, 2, K_)
             w = rnd(Cc, Fc) / 16.0
             idx = (torch.full((Fc,), Ec - 1, dtype=torch.int32, device=dev)
                    if uniform else i32(torch.randperm(Fc, generator=g,
                                                       device=dev) % Ec))
             delay = i32(torch.arange(Fc, device=dev) % (1 if uniform else 4))
+            call = lambda r, h, x, m, t: mm.mac_mix(r, h, idx, m, t, w,
+                                                    uniform, bin0)
             return (ring, bank, None, cblocks_mask(delay, B),
-                    lambda r, h, x, m, t: mm.mac_mix(r, h, idx, m, t, w,
-                                                     uniform),
+                    tiled_forced(call) if forced else call,
                     lambda r, h, x, m, t: mm.mac_mix_reference(
-                        r, h, idx, m, t, w, uniform),
+                        r, h, idx, m, t, w, uniform, bin0),
                     lambda rb, hb: mac_bytes_flops(
-                        Fc, B, K, Cc, 1 if uniform else Ec, ring_bytes=rb,
+                        Fc, B, K_, Cc, 1 if uniform else Ec, ring_bytes=rb,
                         bank_bytes=hb))
         return setup
 
-    def group_case(G, fused):
-        Fs = SCALE_C
-
+    def group_case(G, fused, Fs=SCALE_C, K_=K, bin0=True):
         def setup():
-            ring, bank = rnd(Fs, B, 2, K), rnd(Fs, B, 2, K)
-            xnews = rnd(Fs, G - 1, 2, K)
+            ring, bank = rnd(Fs, B, 2, K_), rnd(Fs, B, 2, K_)
+            xnews = rnd(Fs, G - 1, 2, K_)
             w = rnd(Fs, Fs) / 16.0
             idx = i32(torch.randperm(Fs, generator=g, device=dev))
             delay = i32(torch.arange(Fs, device=dev) % (G + 2))
             if fused:
                 call = lambda r, h, x, m, t: mg.mac_mix_group(
-                    r, x, h, idx, m, t, w, delay)
+                    r, x, h, idx, m, t, w, delay, bin0)
                 plain = lambda r, h, x, m, t: mg.mac_mix_group_reference(
-                    r, x, h, idx, m, t, w, delay)
+                    r, x, h, idx, m, t, w, delay, bin0)
             else:
                 call = lambda r, h, x, m, t: mg.mac_group(
-                    r, x, h, idx, m, t, delay)
+                    r, x, h, idx, m, t, delay, bin0)
                 plain = lambda r, h, x, m, t: mg.mac_group_reference(
-                    r, x, h, idx, m, t, delay)
+                    r, x, h, idx, m, t, delay, bin0)
             return (ring, bank, xnews, cblocks_mask(delay, B), call, plain,
                     lambda rb, hb: mac_bytes_flops(
-                        Fs, B, K, Fs if fused else 0, Fs, G,
+                        Fs, B, K_, Fs if fused else 0, Fs, G,
                         out_rows=None if fused else Fs, ring_bytes=rb,
                         bank_bytes=hb))
         return setup
@@ -4301,8 +4314,15 @@ def bf16_cases(mods):
         (3, "mac_mix_tiled", scale, src + "mac_mix_tiled.cu", 665,
          "mac_mix", "tiled", both, mix_case(False, SCALE_C, SCALE_C,
                                             SCALE_C)),
+        (3, "mac_mix_tiled_shard", f"128 x {SCALE_C}, 4096 x {B}, "
+         "has_bin0 = 0 (a 2 x 2 shard of the scale shape; the route forced)",
+         src + "mac_mix_tiled.cu", 665, "mac_mix", "tiled", (),
+         mix_case(False, 128, SCALE_C, 128, 4096, False, True)),
         (4, "mac_group", "G=4, " + scale, src + "mac_group.cu", 956,
          "mac_group", "group", both, group_case(4, False)),
+        (4, "mac_group_shard", f"G=4, 128 filters, 4096 x {B}, has_bin0 = "
+         "0 (a 2 x 2 shard of the scale shape)", src + "mac_group.cu", 956,
+         "mac_group", "group", (), group_case(4, False, 128, 4096, False)),
         (5, "mac_mix_group", "G=2, " + scale, src + "mac_group.cu", 768,
          "mac_group", "mix_group", both, group_case(2, True)),
         (6, "mac_rows", f"Fs=4 of 6, {K} x 8", src + "mac.cu", 102, "mac",
@@ -4323,7 +4343,8 @@ def bf16_cases(mods):
 
 
 def kernels_bf16(mods, rows, flush):
-    """Phase 7d: each of rows 1-10 at its path's shape under the three
+    """Phase 7d: each of rows 1-10 at its path's shape, and rows 3-4 at
+    a 2 x 2 shard of the scale shape with has_bin0 = 0, under the three
     bf16 combinations (ring, bank, both): the kernel's bf16 form against
     its plain version on the same bfloat16 operands (which it widens:
     REL_TOL), its launch counted in ``launches``, timed beside the

@@ -201,21 +201,43 @@ def test_check_operands_admits_bf16_beside_float32_only():
         check_operands("mac", ring, bank, idx, mask.to(torch.bfloat16), t)
 
 
-def test_staged_forms_refuse_unaligned_bf16_shapes():
-    """The bf16 forms of the kernels that stage 16-byte runs take K % 8
-    == 0 only (ValueError, on every device: a shape rule); the unfused
-    MAC takes any K."""
+def test_staged_forms_refuse_unaligned_bf16_shapes(monkeypatch):
+    """The bf16 forms of the kernels that move whole 16-byte runs (the
+    fused MAC + mix, its tiled form, both grouped MACs) take K % 8 == 0
+    only (ValueError, on every device: a shape rule); the unfused MAC
+    takes any K."""
     ring = torch.ones(F, B, 2, 100, dtype=torch.bfloat16)
     bank = torch.ones(E, B, 2, 100)
     idx = torch.zeros(F, dtype=torch.int32)
     mask = torch.ones(F, B)
     t = torch.tensor(1, dtype=torch.int32)
     w = torch.ones(C_OUT, F)
+    xnews = torch.ones(F, 1, 2, 100, dtype=torch.bfloat16)
+    for tiled in (False, True):
+        monkeypatch.setattr(mm, "tiled_route", lambda *a, _t=tiled: _t)
+        with pytest.raises(ValueError):
+            mm.mac_mix(ring, bank, idx, mask, t, w, False)
+        with pytest.raises(ValueError):
+            mm.mac_mix(ring.float(), bank.to(torch.bfloat16), idx, mask, t,
+                       w, False)
+    monkeypatch.undo()
     with pytest.raises(ValueError):
-        mm.mac_mix(ring, bank, idx, mask, t, w, False)
+        mg.mac_mix_group(ring, xnews, bank, idx, mask, t, w, idx)
     with pytest.raises(ValueError):
-        mg.mac_mix_group(ring, torch.ones(F, 1, 2, 100, dtype=torch.bfloat16),
-                         bank, idx, mask, t, w, idx)
+        mg.mac_group(ring, xnews, bank, idx, mask, t, idx)
+    with pytest.raises(ValueError):
+        mg.mac_group(ring.float(), xnews.float(), bank.to(torch.bfloat16),
+                     idx, mask, t, idx)
+    # K % 8 == 0 but xnews 4 bytes off 16-byte alignment
+    r8 = torch.ones(F, B, 2, 96, dtype=torch.bfloat16)
+    buf = torch.ones(F * 2 * 96 + 2, dtype=torch.bfloat16)
+    x8 = buf[2:].view(F, 1, 2, 96)
+    assert x8.is_contiguous() and x8.data_ptr() % 16
+    with pytest.raises(ValueError):
+        mg.mac_group(r8, x8, torch.ones(E, B, 2, 96), idx, mask, t, idx)
+    y8 = mg.mac_group(r8, x8.clone(), torch.ones(E, B, 2, 96), idx, mask, t,
+                      idx)
+    assert y8.shape == (2, F, 2, 96)
     y = tm.mac(ring, bank, torch.arange(F, dtype=torch.int32), idx, mask, t,
                False)
     assert y.dtype == torch.float32 and y.shape == (F, 2, 100)

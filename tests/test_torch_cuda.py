@@ -1414,16 +1414,22 @@ def test_mix_bf16_forms_match_plain_version(cuda, combo, uniform, F, B, K,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("combo", BF16_COMBOS)
-@pytest.mark.parametrize("F,B,K,E,C", [
-    (5, 3, 1000, 3, 37),
-    (13, 4, 8200, 5, 300),
-    (9, 2, 24, 4, 3),
-    (256, 16, 1024, 256, 256),
+@pytest.mark.parametrize("F,B,K,E,C,has_bin0", [
+    (5, 3, 1000, 3, 37, 1),        # K % 64 = 40: a ragged last tile
+    (13, 4, 8200, 5, 300, 1),      # C past one block's 256 rows
+    (9, 2, 24, 4, 3, 1),           # K under one tile
+    (256, 16, 1024, 256, 256, 1),  # the full-width rows, 16 rounds of 16
+    (20, 5, 2056, 7, 20, 1),       # C_out 20, K % 64 = 8
+    (128, 16, 2048, 128, 256, 0),  # a 2048-bin shard, not the first
+    (128, 16, 2048, 128, 256, 1),  # ... the first
+    (33, 7, 1096, 9, 300, 0),      # F % 16 != 0, two row blocks
 ])
 def test_tiled_bf16_forms_match_plain_version(cuda, monkeypatch, combo, F, B,
-                                              K, E, C):
+                                              K, E, C, has_bin0):
     """The bf16 forms of bf_mac_mix_tiled (csrc/mac_mix_tiled.cu), forced
-    by the route."""
+    by the route: 64-bin tiles of 256 rows (gridDim.y past that), rounds
+    of 16 filters, a ragged last tile, bin 0 with and without the packed
+    rule."""
     monkeypatch.setattr(mm, "tiled_route", lambda *a: True)
     ring, bank, idx, mask, w = _mac_inputs(F * K + C + 2, F, B, K, E, C,
                                            False, cuda)
@@ -1432,42 +1438,50 @@ def test_tiled_bf16_forms_match_plain_version(cuda, monkeypatch, combo, F, B,
     for tv in (0, B - 1, 3 * B + 2):
         t = torch.tensor(tv, dtype=torch.int32, device=cuda)
         before = mm.launches[form]
-        got = mm.mac_mix(ring, bank, idx, mask, t, w, False)
-        ref = mm.mac_mix_reference(ring, bank, idx, mask, t, w, False)
+        got = mm.mac_mix(ring, bank, idx, mask, t, w, False, bool(has_bin0))
+        ref = mm.mac_mix_reference(ring, bank, idx, mask, t, w, False,
+                                   bool(has_bin0))
         torch.cuda.synchronize()
         assert mm.launches[form] == before + 1
         assert got.dtype == torch.float32 and _rel(got, ref) <= 1e-5
     assert _rel(got, mm.mac_mix(ring.float(), bank.float(), idx, mask, t, w,
-                                False)) <= 1e-5
+                                False, bool(has_bin0))) <= 1e-5
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("combo", BF16_COMBOS)
-@pytest.mark.parametrize("G", [2, 3, 4, 8])
-@pytest.mark.parametrize("F,B,K,E,C", [
-    (7, 6, 1000, 3, 9),
-    (19, 9, 296, 5, 70),
-    (256, 16, 1024, 256, 256),
-    (40, 3, 96, 3, 33),
+@pytest.mark.parametrize("G", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("F,B,K,E,C,has_bin0", [
+    (7, 6, 1000, 3, 9, 1),         # K % 512 != 0: a ragged last block
+    (19, 9, 296, 5, 70, 1),        # K under one block's 512 bins
+    (256, 16, 1024, 256, 256, 1),  # the full-width rows
+    (40, 3, 96, 3, 33, 1),         # E < F: bank rows used many times
+    (20, 5, 1000, 4, 20, 1),       # C_out 20
+    (20, 5, 1000, 4, 300, 1),      # C past one block's rows at every G
+    (128, 16, 2048, 128, 256, 0),  # a 2048-bin shard, not the first
+    (128, 16, 2048, 128, 256, 1),  # ... the first
 ])
 def test_group_bf16_forms_match_plain_versions(cuda, combo, G, F, B, K, E,
-                                               C):
+                                               C, has_bin0):
     """The bf16 forms of bf_mac_group and bf_mac_mix_group
     (csrc/mac_group.cu):
     xnews of the ring's dtype, delays 0 .. G+1, start times that wrap the
-    ring inside the group."""
+    ring inside the group, four bins a thread in blocks of 512 bins, bin 0
+    with and without the packed rule."""
     ring, xnews, bank, idx, mask, delay, w = _group_inputs(
         G * 100 + K + 1, F, B, K, E, G, C, cuda)
     ring, bank, xnews = _bf16(combo, ring, bank, xnews)
     sfx = mm.bf16_suffix(ring, bank)
+    b0 = bool(has_bin0)
     for tv in (0, B - 1, 2 * B + 1):
         t = torch.tensor(tv, dtype=torch.int32, device=cuda)
         before = dict(mg.launches)
-        got = mg.mac_group(ring, xnews, bank, idx, mask, t, delay)
-        ref = mg.mac_group_reference(ring, xnews, bank, idx, mask, t, delay)
-        gotm = mg.mac_mix_group(ring, xnews, bank, idx, mask, t, w, delay)
+        got = mg.mac_group(ring, xnews, bank, idx, mask, t, delay, b0)
+        ref = mg.mac_group_reference(ring, xnews, bank, idx, mask, t, delay,
+                                     b0)
+        gotm = mg.mac_mix_group(ring, xnews, bank, idx, mask, t, w, delay, b0)
         refm = mg.mac_mix_group_reference(ring, xnews, bank, idx, mask, t,
-                                          w, delay)
+                                          w, delay, b0)
         torch.cuda.synchronize()
         assert mg.launches["group" + sfx] == before["group" + sfx] + 1
         assert (mg.launches["mix_group" + sfx]
@@ -1476,35 +1490,62 @@ def test_group_bf16_forms_match_plain_versions(cuda, combo, G, F, B, K, E,
             assert a.dtype == torch.float32 and _rel(a, b) <= 1e-5
     wide = [x.float() for x in (ring, xnews, bank)]
     assert _rel(got, mg.mac_group(wide[0], wide[1], wide[2], idx, mask, t,
-                                  delay)) <= 1e-5
+                                  delay, b0)) <= 1e-5
     assert torch.equal(gotm, mg.mac_mix_group(wide[0], wide[1], wide[2], idx,
-                                              mask, t, w, delay))
+                                              mask, t, w, delay, b0))
 
 
 @pytest.mark.cuda
-def test_staged_bf16_forms_refuse_unaligned_operands(cuda):
-    """The bf16 forms that stage 16-byte runs (csrc/mac_mix.cu, the fused
-    grouped MAC + mix) raise ValueError at K % 8 != 0 or on an unaligned
-    ring, never read out of bounds; the unfused MAC takes such operands
-    (its scalar path)."""
+def test_staged_bf16_forms_refuse_unaligned_operands(cuda, monkeypatch):
+    """The bf16 forms that move whole 16-byte runs (csrc/mac_mix.cu, the
+    tiled kernel, both grouped MACs) raise ValueError at K % 8 != 0 or on
+    an unaligned ring, bank or xnews, never read out of bounds; the
+    unfused MAC takes such operands (its scalar path)."""
     ring, bank, idx, mask, w = _mac_inputs(3, 4, 3, 1004, 2, 5, False, cuda)
     t = torch.tensor(2, dtype=torch.int32, device=cuda)
     r16 = ring.to(torch.bfloat16)
-    with pytest.raises(ValueError):
-        mm.mac_mix(r16, bank, idx, mask, t, w, False)
+    for tiled in (False, True):
+        monkeypatch.setattr(mm, "tiled_route", lambda *a, _t=tiled: _t)
+        with pytest.raises(ValueError):
+            mm.mac_mix(r16, bank, idx, mask, t, w, False)
+        with pytest.raises(ValueError):
+            mm.mac_mix(ring, bank.to(torch.bfloat16), idx, mask, t, w, False)
+    monkeypatch.undo()
     ring, bank, idx, mask, w = _mac_inputs(4, 4, 3, 1024, 2, 5, False, cuda)
     r16 = _at_offset(ring.to(torch.bfloat16), 1)
-    with pytest.raises(ValueError):
-        mm.mac_mix(r16, bank, idx, mask, t, w, False)
+    for tiled in (False, True):
+        monkeypatch.setattr(mm, "tiled_route", lambda *a, _t=tiled: _t)
+        with pytest.raises(ValueError):
+            mm.mac_mix(r16, bank, idx, mask, t, w, False)
+        with pytest.raises(ValueError):
+            mm.mac_mix(ring, _at_offset(bank.to(torch.bfloat16), 4), idx,
+                       mask, t, w, False)
+    monkeypatch.undo()
     rows = torch.arange(4, dtype=torch.int32, device=cuda)
     got = tm.mac(r16, bank, rows, idx, mask, t, False)
     assert _rel(got, tm.mac_reference(r16, bank, rows, idx, mask, t,
                                       False)) <= 1e-5
     ring, xnews, bank, idx, mask, delay, w = _group_inputs(
         5, 6, 5, 1004, 3, 2, 7, cuda)
-    with pytest.raises(ValueError):
-        mg.mac_mix_group(ring.to(torch.bfloat16), xnews.to(torch.bfloat16),
-                         bank, idx, mask, t, w, delay)
+    for fn in (mg.mac_group, mg.mac_mix_group):
+        extra = (w,) if fn is mg.mac_mix_group else ()
+        with pytest.raises(ValueError):
+            fn(ring.to(torch.bfloat16), xnews.to(torch.bfloat16), bank, idx,
+               mask, t, *extra, delay)
+        with pytest.raises(ValueError):
+            fn(ring, xnews, bank.to(torch.bfloat16), idx, mask, t, *extra,
+               delay)
+    ring, xnews, bank, idx, mask, delay, w = _group_inputs(
+        6, 6, 5, 1024, 3, 3, 7, cuda)
+    r16 = ring.to(torch.bfloat16)
+    for fn in (mg.mac_group, mg.mac_mix_group):
+        extra = (w,) if fn is mg.mac_mix_group else ()
+        with pytest.raises(ValueError):
+            fn(r16, _at_offset(xnews.to(torch.bfloat16), 2), bank, idx,
+               mask, t, *extra, delay)
+        with pytest.raises(ValueError):
+            fn(_at_offset(r16, 4), xnews.to(torch.bfloat16), bank, idx,
+               mask, t, *extra, delay)
 
 
 @pytest.mark.cuda

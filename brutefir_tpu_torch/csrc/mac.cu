@@ -69,13 +69,16 @@ extern "C" int bf_mac_f64(const double* ring, const double* bank,
 }
 
 // The launch that bf_mac (sets = 1, real_bytes = 4), bf_mac_f64 (1, 8)
-// or bf_mac_dual (2, 4) make for a stage of Fs filters and K bins:
-// out[0..1] the grid, out[2] threads a block, out[3] partitions a thread
-// loads before their FMAs (the same in every operand form). For reports
-// and tests; launches nothing.
+// or bf_mac_dual (2, 4) make for a stage of Fs filters and K bins, with
+// the uniform controls or not, ring and bank values of ring_bytes /
+// bank_bytes (2 in a bf16 form, else real_bytes): out[0..1] the grid,
+// out[2] threads a block, out[3] partitions a thread loads before their
+// FMAs. For reports and tests; launches nothing.
 extern "C" int bf_mac_plan(int sets, int Fs, int K, int real_bytes,
+                           int uniform, int ring_bytes, int bank_bytes,
                            int* out) {
-  const auto p = bf_mac_core::plan(sets, Fs, K, real_bytes);
+  const auto p = bf_mac_core::plan(sets, Fs, K, real_bytes, uniform,
+                                   ring_bytes, bank_bytes);
   out[0] = static_cast<int>(p.grid.x);
   out[1] = static_cast<int>(p.grid.y);
   out[2] = bf_mac_core::kQuads;

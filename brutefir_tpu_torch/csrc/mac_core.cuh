@@ -75,11 +75,27 @@
 // as the JAX kernels upconvert on load (pallas_mac.py `_odt`, :73-76).
 // A thread still owns 4 bins: a bf16 run of 4 bins is one 8-byte load
 // (a uint2), widened to a float4 by shifting each 16-bit word into the
-// top of a float (bf16 -> float32 is exact), so the FMAs, their order
-// and the group sizes are the float32 form's. The vector path needs
-// K % 4 == 0 and a bf16 operand 8-byte aligned (a float32 one 16); else
-// the scalar path runs, as in float32. The float32 and float64 forms are
-// the instantiations with X = H = R, the same code as before.
+// top of a float (bf16 -> float32 is exact); the FMAs, their order and
+// the group sizes are the float32 form's, so each form equals the
+// float32 form on the widened operands, bit for bit. The widening waits
+// for the FMAs: a group's raw 8-byte words stay in registers (raw_t)
+// until then. The form this replaced widened each load where it landed,
+// inside the `if (j < ng)` block that issued it; cuobjdump -sass showed
+// its first widening reading a loaded register after one partition's
+// loads (4 of a group's 32 8- and 16-byte loads at bench1's stage, 6 of
+// 24 in the dual), so each partition of a group waited for the one
+// before it: a round trip a partition where float32 pays one a group.
+// Raw, all 32 of 32 issue first, as in float32. On an H100 (700 W):
+// bench1's stage under the bank knob 0.0103 -> 0.0082 ms (float32
+// 0.0083), bench5's dual with both 0.0157 -> 0.0103
+// (chip_mac_bf16_designs.py, which keeps both forms and the count).
+// Deeper groups where both are bf16 (16 / 8 partitions in the float32
+// group's registers) measured no faster: 0.0116 at bench5, 0.0172 at 52
+// rows against 0.0160. The vector path needs K % 4 == 0 and a bf16
+// operand 8-byte aligned (a float32 one 16); else the scalar path runs,
+// as in float32, widening each value as it loads it. The float32 and
+// float64 forms are the instantiations with X = H = R (raw_t their quads,
+// widen the identity), the same code as before.
 
 #pragma once
 
@@ -138,12 +154,23 @@ struct Plan {
   int group;     // partitions a thread loads before their FMAs
 };
 
-// real_bytes: 4 (float) or 8 (double).
-inline Plan plan(int NS, int Fs, int K, int real_bytes = 4) {
+// real_bytes: 4 (float) or 8 (double); uniform: the shared bank row;
+// ring_bytes, bank_bytes: the storage sizes of the ring's and the bank's
+// values (2 in a bf16 form). One set reading a shared bf16 bank row beside
+// a float32 ring takes groups of 8 on every grid: the bank row's loads
+// hit the caches, the ring's stream sets the pace, and 8 partitions' loads
+// fit fewer registers than the float32 form's group of 8 (the massive
+// cascade's 52 rows under the bank knob: 0.0249 ms against 0.0264 in
+// groups of 4, float32 0.0251; every other form measured no faster in
+// groups of 8, chip_mac_bf16_designs.py).
+inline Plan plan(int NS, int Fs, int K, int real_bytes = 4, int uniform = 0,
+                 int ring_bytes = 4, int bank_bytes = 4) {
   const int tiles = (K + kTK - 1) / kTK;
   const bool few = NS == 1 && static_cast<long>(tiles) * Fs <= kSms;
   if (real_bytes == 8)
     return {dim3(tiles, Fs), few ? kF64GroupFew : kF64Group};
+  if (NS == 1 && uniform && ring_bytes == 4 && bank_bytes == 2)
+    return {dim3(tiles, Fs), 8};
   return {dim3(tiles, Fs), few ? 8 : 4};
 }
 
@@ -180,12 +207,11 @@ __device__ __forceinline__ float bf16_hi(unsigned w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
-// 4 bf16 bins: one 8-byte load, widened to a float4.
+// 4 bf16 bins as they lie in memory: one 8-byte load, kept raw until
+// the FMAs (raw_t, widen below).
 template <bool STREAM>
-__device__ __forceinline__ float4 vload(const __nv_bfloat16* p) {
-  const uint2 u = ld<STREAM>(reinterpret_cast<const uint2*>(p));
-  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y),
-                     bf16_hi(u.y));
+__device__ __forceinline__ uint2 vload(const __nv_bfloat16* p) {
+  return ld<STREAM>(reinterpret_cast<const uint2*>(p));
 }
 
 // One value of storage type T as the real type R.
@@ -207,10 +233,25 @@ __device__ __forceinline__ void vstore(double* p, dquad v) {
   q[1] = make_double2(v.z, v.w);
 }
 
-// The 4 values at p (storage type T) as R; with VEC vector loads, else
-// scalar loads of the n (>= 1) that lie before K, zeros after.
+// What a thread holds of 4 loaded values of storage type T until their
+// FMAs: a bf16 vector load's raw 8 bytes (half the registers of the
+// widened values), else the values as R (the float32 and float64 forms,
+// and the scalar path, which widens each value as it loads it).
+template <bool VEC, class R, class T>
+using raw_t = std::conditional_t<VEC && std::is_same_v<T, __nv_bfloat16>,
+                                 uint2, quad_t<R>>;
+
+__device__ __forceinline__ float4 widen(uint2 u) {
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y),
+                     bf16_hi(u.y));
+}
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ dquad widen(dquad v) { return v; }
+
+// The 4 values at p (storage type T) as raw_t; with VEC vector loads,
+// else scalar loads of the n (>= 1) that lie before K, zeros after.
 template <bool VEC, bool STREAM, class R, class T>
-__device__ __forceinline__ quad_t<R> load4(const T* p, int n) {
+__device__ __forceinline__ raw_t<VEC, R, T> load4(const T* p, int n) {
   if constexpr (VEC) {
     return vload<STREAM>(p);
   } else {
@@ -320,7 +361,8 @@ __global__ void __launch_bounds__(kQuads)
   AccOf<R> acc[NS] = {};
   for (int g = 0; g < B; g += G) {
     const int ng = min(G, B - g);
-    quad_t<R> xr[G], xi[G], hr[NS][G], hi[NS][G];
+    raw_t<VEC, R, X> xr[G], xi[G];
+    raw_t<VEC, R, H> hr[NS][G], hi[NS][G];
     R mg[NS][G];
 #pragma unroll
     for (int j = 0; j < G; ++j) {
@@ -343,8 +385,9 @@ __global__ void __launch_bounds__(kQuads)
       if (j < ng) {
 #pragma unroll
         for (int s = 0; s < NS; ++s)
-          mac4<R>(acc[s], xr[j], xi[j], scale4(hr[s][j], mg[s][j]),
-                  scale4(hi[s][j], mg[s][j]));
+          mac4<R>(acc[s], widen(xr[j]), widen(xi[j]),
+                  scale4(widen(hr[s][j]), mg[s][j]),
+                  scale4(widen(hi[s][j]), mg[s][j]));
       }
     }
   }
@@ -398,7 +441,8 @@ void launch_group(const Args<NS, R, X, H>& a, dim3 grid,
 template <int NS, class R = float, class X = R, class H = R>
 int launch(const Args<NS, R, X, H>& a, cudaStream_t stream) {
   if (a.K <= 0 || a.Fs <= 0) return 0;
-  const Plan p = plan(NS, a.Fs, a.K, sizeof(R));
+  const Plan p = plan(NS, a.Fs, a.K, sizeof(R), a.uniform, sizeof(X),
+                      sizeof(H));
   if constexpr (std::is_same_v<R, double>) {
     if (p.group == kF64GroupFew)
       launch_group<R, X, H, NS, kF64GroupFew>(a, p.grid, stream);

@@ -67,16 +67,18 @@
 // bf_mac_group's bf16 forms take their own kernel, mac_group_bf16_kernel
 // (the note above it): kGVec bins a thread from one 8-byte bf16 load (a
 // 16-byte float4 for a float32 operand), kGDepth partitions' loads in
-// flight. bf_mac_mix_group stages a bf16 run as it is through the same
-// 16-byte cp.async copies: its 64 bytes are chunks 0-3 of the run's slot,
-// so lanes 4-7 of a bf16 run copy nothing, and the layout, the launch
-// plan and the shared memory a block stay the float32 form's; the lanes
-// widen their bins on the shared-to-register read. Both bf16 forms take
-// the aligned path only (K % 8 == 0, ring, xnews, bank and out 16-byte
-// aligned; the wrapper raises ValueError elsewhere). bf_mac_group's
+// flight. bf_mac_mix_group's form with both operands in bf16 takes its
+// own too, mac_mix_group_bf16_kernel (the note above it): the float32
+// form's design with bf16 runs staged densely (64 bytes, 4 chunks; two
+// positions of 16 chunks a warp-wide copy), 6 positions a stage, the mix
+// staggered over each SM sub-partition's warps. Its forms with one
+// float32 operand are the float32 form's kernel staging each bf16 run as
+// chunks 0-3 of the run's slot (lanes 4-7 of a bf16 run copy nothing).
+// Both bf16 forms take the aligned path only (K % 8 == 0, ring, xnews,
+// bank and out 16-byte aligned; the wrapper raises ValueError
+// elsewhere). bf_mac_group's
 // float32 form is group_mac and mac_group_kernel, the first port's
-// code; bf_mac_mix_group's is the instantiation of its kernel with X = H
-// = float.
+// code; bf_mac_mix_group's is mac_mix_group_kernel with X = H = float.
 
 #include <cstddef>
 #include <cstdint>
@@ -794,6 +796,344 @@ size_t mix_group_smem() {
   return MixShape<G>::kSmemFloats * sizeof(float);
 }
 
+// bf_mac_mix_group with both operands in bf16 (the note at the top): the
+// design above with dense bf16 copies. A 32-bin run is 64 bytes in bf16
+// (4 chunks), so a position is kChunks = 16 chunks with both operands in
+// bf16 (24 with one in float32: the forms launch_mix_bf16 leaves to the
+// float32 kernel). Lane c % kLanes of a warp copies chunk c of a position,
+// kPair positions a warp-wide copy (lanes 0-15 and 16-31 two positions
+// where a position is 16 chunks, else one on lanes 0-23); lane q copies
+// position q's mask value. Each lane keeps its position's ring slot (kPair
+// slots back a copy) and computes its source from it, from the bank
+// partition, or from xnews in a round's first G - 1 positions. The
+// smaller items leave room for 6 positions a stage (the float32 form 4).
+// The MAC reads a lane's bin of each run from shared memory, widened,
+// with the float32 form's expressions; each warp mixes at stage ((w >> 2)
+// + 4 (w & 3)) % stages, so that the warps of one SM sub-partition (w % 4)
+// mix at different stages; the rows, columns, mix and stores are the
+// float32 form's. So the outputs equal the float32 form's on the widened
+// operands, bit for bit.
+// On an H100 (700 W) at G = 2 at the scale shape, both in bf16: 0.269
+// ms, 34% of its 0.0927 ms bound (the float32 kernel with bf16 runs, which
+// it replaces: 0.297, in turns). The mix sets the pace and does not
+// overlap the rest: without the mix 0.152, the mix alone (no copies, no
+// MAC) 0.158, copies alone 0.136, neither 0.051. With one float32
+// operand (24 chunks a position on lanes 0-23) it ran 0.309 against the
+// float32 kernel's 0.303, so those forms stay there
+// (chip_mac_bf16_designs.py keeps that routing and the forms measured no
+// faster: 4 or 8 positions a stage, 2, 4 or 5 stages, each warp mixing
+// at stage w % stages, no mix at a round's last stage, the mix spread
+// over a round's stages).
+
+template <int G, class X, class H>
+struct MixBf16Shape {
+  using M = MixShape<G>;
+  static constexpr int kRunX = kTileBins * (int)sizeof(X) / 4;   // floats
+  static constexpr int kRunH = kTileBins * (int)sizeof(H) / 4;
+  static constexpr int kChunks = (2 * kRunX + 2 * kRunH) / 4;
+  static constexpr int kLanes = kChunks <= 16 ? 16 : 32;  // lanes a position
+  static constexpr int kPair = 32 / kLanes;  // positions a warp-wide copy
+  static constexpr int kItem = 2 * kRunX + 2 * kRunH + 4;  // + the mask
+  static constexpr int kPos = 6;           // positions a stage
+  static constexpr int kStages = 3;
+  static constexpr size_t kSmemFloats =
+      (size_t)kFc * kStages * kPos * kItem + 2 * kFc * M::kCols +
+      2 * kFc * M::kWs + 2 * M::kRows * kFc;
+  static_assert(kChunks <= 32 && kPos % kPair == 0 && kPos <= 32, "copies");
+  static_assert(kItem % 4 == 0, "16-byte aligned items");
+};
+
+template <int G, class X, class H>
+__global__ void __launch_bounds__(kMixThreads, 1)
+mac_mix_group_bf16_kernel(const X* __restrict__ ring,
+                          const X* __restrict__ xnews,
+                          const H* __restrict__ bank,
+                          const int* __restrict__ coeff_idx,
+                          const float* __restrict__ mask,
+                          const int* __restrict__ t_ptr,
+                          const int* __restrict__ delay,
+                          const float* __restrict__ w,
+                          float* __restrict__ out, int F, int B, int K,
+                          int E, int C_out, int has_bin0) {
+  using S = MixShape<G>;
+  using Q = MixBf16Shape<G, X, H>;
+  constexpr int kRows = S::kRows, kCols = S::kCols, kWs = S::kWs;
+  constexpr int kPos = Q::kPos, kItem = Q::kItem, kStg = Q::kStages;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k0 = blockIdx.x * kTileBins;
+  const int nk = min(kTileBins, K - k0);
+  const int c0 = blockIdx.y * kRows;
+  const size_t part = 2 * (size_t)K;
+  const int NP = B + G - 1;                  // window positions a round
+  const int nst = (NP + kPos - 1) / kPos;    // stages a round
+  const int rounds = (F + kFc - 1) / kFc;
+  const int total = rounds * nst;            // stages of a warp's ring
+  int t = *t_ptr % B;
+  t += t < 0 ? B : 0;
+
+  float* st = sm + warp * (kStg * kPos * kItem);          // this warp's ring
+  float* ys = sm + kFc * (kStg * kPos * kItem);  // [2][kFc][kCols]
+  float* ws = ys + 2 * kFc * kCols;                       // [2][kFc][kWs]
+  float* wraw = ws + 2 * kFc * kWs;                       // [2][kRows][kFc]
+
+  // the padding's columns (g >= G) of both Y buffers stay zero
+  for (int i = tid; i < 2 * kFc * kCols; i += kMixThreads)
+    if (i % kCols >= G * 2 * kTileBins) ys[i] = 0.f;
+
+  auto copy_w = [&](int r) {
+#pragma unroll
+    for (int u = 0; u < S::kWPer; ++u) {
+      const int i = tid + u * kMixThreads;
+      const int c = c0 + i / kFc, f = r * kFc + i % kFc;
+      const bool on = c < C_out && f < F;
+      cp_async4(wraw + (r & 1) * kRows * kFc + i,
+                on ? w + (size_t)c * F + f : w, on);
+    }
+  };
+
+  // This lane's chunk: position sub of each kPair, chunk c of its runs V
+  // re, V im (X), H re, H im (H); its source at element lane_off of the
+  // run's row (plane, bin) and its slot at float doff of the item. The
+  // issue side walks (round, stage) ahead of the MAC as in the float32
+  // form: the stage gi and its buffer gb, its index in the round ii, the
+  // round's filter fi, bank row ei and delay di, the next round's ne, nd;
+  // si is the ring slot of this lane's next position. Sources are
+  // computed from these and the kernel's parameters at each copy: no row
+  // pointers are held (registers go to the mix's accumulators).
+  const int sub = lane / Q::kLanes, c = lane % Q::kLanes;
+  const int run = c < Q::kRunX / 4 ? 0
+                  : c < Q::kRunX / 2 ? 1
+                  : c < Q::kRunX / 2 + Q::kRunH / 4 ? 2 : 3;
+  const bool is_v = run < 2;
+  const int cc = c - (is_v ? run * (Q::kRunX / 4)
+                           : Q::kRunX / 2 + (run - 2) * (Q::kRunH / 4));
+  const int bin = cc * (is_v ? 16 / (int)sizeof(X) : 16 / (int)sizeof(H));
+  const bool lane_on = c < Q::kChunks && bin < nk;
+  const int doff = (is_v ? run * Q::kRunX
+                         : 2 * Q::kRunX + (run - 2) * Q::kRunH) + 4 * cc;
+  const int lane_off = (run & 1) * K + k0 + bin;
+  const int top = (t + G - 1) % B;           // slot of V(G-1)
+  int gi = 0, gb = 0, ii = 0, si = 0, fi = warp, ei, di, ne, nd;
+  auto next_ctrl = [&](int f) {
+    ne = f < F ? min(max(coeff_idx[f], 0), E - 1) : 0;
+    nd = f < F ? delay[f] : 0;
+  };
+  auto start_round = [&]() {               // filter fi, from ne and nd
+    si = top - sub;
+    si += si < 0 ? B : 0;
+    si += si < 0 ? B : 0;
+    ei = ne;
+    di = nd;
+    next_ctrl(fi + kFc);
+  };
+  next_ctrl(fi);
+  start_round();
+  auto issue = [&]() {
+    float* dst = st + gb * (kPos * kItem);
+    const bool live = fi < F;
+    const int p0 = ii * kPos;
+#pragma unroll
+    for (int q0 = 0; q0 < kPos; q0 += Q::kPair) {
+      const int q = q0 + sub;
+      const int pos = p0 + q;
+      const int b = pos - (G - 1);           // bank partition, < 0: none
+      const int j = min(G - 2 - pos - di, G - 2);     // xnews index
+      const bool from_x = pos < G - 1 && j >= 0;
+      const void* src;
+      if (!is_v)
+        src = bank + ((size_t)ei * B + max(b, 0)) * part + lane_off;
+      else if (from_x)
+        src = xnews + ((size_t)fi * (G - 1) + j) * part + lane_off;
+      else
+        src = ring + ((size_t)fi * B + si) * part + lane_off;
+      cp_async16(dst + q * kItem + doff, src,
+                 lane_on && live && pos < NP && (is_v || b >= 0));
+      si -= Q::kPair;
+      si += si < 0 ? B : 0;
+      si += si < 0 ? B : 0;
+    }
+    {
+      const int b = p0 + lane - (G - 1);
+      cp_async4_if(dst + lane * kItem + kItem - 4,
+                   mask + (size_t)fi * B + max(b, 0),
+                   lane < kPos && live && b >= 0 && b < B);
+    }
+    ++gi;
+    gb = gb + 1 == kStg ? 0 : gb + 1;
+    if (++ii == nst) {
+      ii = 0;
+      fi += kFc;
+      start_round();
+    }
+  };
+  copy_w(0);
+#pragma unroll 1
+  for (int p = 0; p < kStg - 1; ++p) {
+    if (gi < total) issue();
+    cp_async_commit();
+  }
+
+  // The mix: the float32 form's thread tiles (rows {h * kRows/2 + 4 rg +
+  // i}, columns {h * kCols/2 + 4 cg + j})
+  const int cg = (warp % S::kGP) * 8 + (lane & 7);
+  const int rg = (warp / S::kGP) * 4 + (lane >> 3);
+  const bool mixes = (warp / S::kGP) * 16 < C_out - c0;
+  const int mix_at = ((warp >> 2) + 4 * (warp & 3)) % nst;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  auto mix_step = [&](int buf, int fl) {
+    const float* wrow = ws + (buf * kFc + fl) * kWs;
+    const float* yrow = ys + (buf * kFc + fl) * kCols;
+    const float4 a0 = *reinterpret_cast<const float4*>(wrow + 4 * rg);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(wrow + kRows / 2 + 4 * rg);
+    const float4 b0 = *reinterpret_cast<const float4*>(yrow + 4 * cg);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(yrow + kCols / 2 + 4 * cg);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float v[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
+  };
+
+  const bool bin0 = has_bin0 && k0 + lane == 0;
+  int g = 0;                                 // the stage the MAC reads
+#pragma unroll 1
+  for (int r = 0; r < rounds; ++r) {
+    float vr[G], vi[G], yr[G], yi[G];
+#pragma unroll
+    for (int p = 0; p < G; ++p) {
+      vr[p] = vi[p] = 0.f;
+      yr[p] = yi[p] = 0.f;
+    }
+#pragma unroll 1
+    for (int s = 0; s < nst; ++s) {
+      cp_async_wait<kStg - 2>();             // this lane's copies of g
+      __syncwarp();                          // ... and the warp's
+      if (gi < total) issue();               // refill stage g - 1's buffer
+      if (s == 0 && r + 1 < rounds) copy_w(r + 1);
+      cp_async_commit();
+      const float* sg = st + g * (kPos * kItem);
+      g = g + 1 == kStg ? 0 : g + 1;
+#pragma unroll
+      for (int q = 0; q < kPos; ++q) {
+        const int pos = s * kPos + q;
+        if (pos >= NP) break;
+        const float* item = sg + q * kItem;
+#pragma unroll
+        for (int p = G - 1; p > 0; --p) {
+          vr[p] = vr[p - 1];
+          vi[p] = vi[p - 1];
+        }
+        vr[0] = ldv(reinterpret_cast<const X*>(item) + lane);
+        vi[0] = ldv(reinterpret_cast<const X*>(item + Q::kRunX) + lane);
+        if (pos >= G - 1) {
+          // V(g - b) against bank row b; at bin 0 DC and Nyquist are
+          // two real products (hx = 0, hy = the Nyquist coefficient)
+          const float m = item[kItem - 4];
+          const float hr =
+              ldv(reinterpret_cast<const H*>(item + 2 * Q::kRunX) + lane) *
+              m;
+          const float hi =
+              ldv(reinterpret_cast<const H*>(item + 2 * Q::kRunX +
+                                             Q::kRunH) + lane) * m;
+          const float hx = bin0 ? 0.f : hi, hy = bin0 ? hi : hr;
+#pragma unroll
+          for (int p = 0; p < G; ++p) {
+            yr[p] = fmaf(vr[p], hr, yr[p]);
+            yr[p] = fmaf(-vi[p], hx, yr[p]);
+            yi[p] = fmaf(vr[p], hx, yi[p]);
+            yi[p] = fmaf(vi[p], hy, yi[p]);
+          }
+        }
+      }
+      // the previous round's mix, at this warp's stage of this round
+      if (r > 0 && mixes && s == mix_at) {
+        for (int fl = 0; fl < kFc; ++fl) mix_step((r - 1) & 1, fl);
+      }
+    }
+    const int buf = r & 1;
+    const bool live = r * kFc + warp < F;
+    float* y = ys + (buf * kFc + warp) * kCols;
+#pragma unroll
+    for (int p = 0; p < G; ++p) {
+      y[2 * kTileBins * p + lane] = live ? yr[p] : 0.f;
+      y[2 * kTileBins * p + kTileBins + lane] = live ? yi[p] : 0.f;
+    }
+    // this thread's copied elements of w's chunk, transposed (landed: the
+    // waits since their copies were issued a round ago have seen them)
+    if (nst < kStg) cp_async_wait<0>();
+#pragma unroll
+    for (int u = 0; u < S::kWPer; ++u) {
+      const int i = tid + u * kMixThreads;
+      ws[(buf * kFc + i % kFc) * kWs + i / kFc] =
+          wraw[buf * kRows * kFc + i];
+    }
+    __syncthreads();
+  }
+  if (rounds > 0 && mixes) {
+    const int fc = F - (rounds - 1) * kFc;
+    for (int fl = 0; fl < fc; ++fl) mix_step((rounds - 1) & 1, fl);
+  }
+
+  // out[g, c0 + row, plane, k0 + bin]: four bins a store
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int col = h * (kCols / 2) + 4 * cg;
+    const int gg = col / (2 * kTileBins), p = (col / kTileBins) & 1;
+    const int kk = col % kTileBins;
+    if (gg >= G || kk >= nk) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = c0 + (i >> 2) * (kRows / 2) + 4 * rg + (i & 3);
+      if (c >= C_out) continue;
+      float* o = out + (((size_t)gg * C_out + c) * 2 + p) * K + k0 + kk;
+      const float* a = &acc[i][4 * h];
+      *reinterpret_cast<float4*>(o) = make_float4(a[0], a[1], a[2], a[3]);
+    }
+  }
+}
+
+template <int G, class X, class H>
+size_t mix_group_bf16_smem() {
+  return MixBf16Shape<G, X, H>::kSmemFloats * sizeof(float);
+}
+
+template <int G, class X, class H>
+int launch_mix_group_bf16(const X* ring, const X* xnews, const H* bank,
+                          const int* coeff_idx, const float* mask,
+                          const int* t, const int* delay, const float* w,
+                          float* out, int F, int B, int K, int E, int C_out,
+                          int has_bin0, cudaStream_t s) {
+  const size_t bytes = mix_group_bf16_smem<G, X, H>();
+  if (bytes > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  // raise the kernel's shared-memory limit once per device
+  static bool granted[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!granted[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mac_mix_group_bf16_kernel<G, X, H>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted[dev] = true;
+  }
+  constexpr int rows = MixShape<G>::kRows;
+  const dim3 grid((K + kTileBins - 1) / kTileBins, (C_out + rows - 1) / rows);
+  mac_mix_group_bf16_kernel<G, X, H><<<grid, kMixThreads, bytes, s>>>(
+      ring, xnews, bank, coeff_idx, mask, t, delay, w, out, F, B, K, E,
+      C_out, has_bin0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int G, bool kAligned, class X, class H>
 int launch_mix_group(const X* ring, const X* xnews,
                      const H* bank, const int* coeff_idx,
@@ -846,6 +1186,26 @@ int launch_mix_group(const float* ring, const float* xnews,
                                     has_bin0, s);
 }
 
+// bf_mac_mix_group's bf16 forms at group size G: with both operands in
+// bf16 their own kernel; with one in float32 the float32 form's kernel
+// staging the bf16 runs in its slots (its dense 24-chunk staging measured
+// 2% slower, the note above mac_mix_group_bf16_kernel).
+template <int G, class X, class H>
+int launch_mix_bf16(const X* ring, const X* xnews, const H* bank,
+                    const int* coeff_idx, const float* mask, const int* t,
+                    const int* delay, const float* w, float* out, int F,
+                    int B, int K, int E, int C_out, int has_bin0,
+                    cudaStream_t s) {
+  if constexpr (std::is_same_v<X, H>)
+    return launch_mix_group_bf16<G>(ring, xnews, bank, coeff_idx, mask, t,
+                                    delay, w, out, F, B, K, E, C_out,
+                                    has_bin0, s);
+  else
+    return launch_mix_group<G, true>(ring, xnews, bank, coeff_idx, mask, t,
+                                     delay, w, out, F, B, K, E, C_out,
+                                     has_bin0, s);
+}
+
 // The launches of the bf16 operand forms at group size G (2 .. kMaxGroup;
 // else cudaErrorInvalidValue): `mix` the fused MAC + mix, else the
 // grouped MAC (both on the aligned path, which the caller checked).
@@ -861,9 +1221,9 @@ int launch_bf16(bool mix, int G, const void* ring, const void* xnews,
   switch (G) {
 #define BF_CASE(g)                                                         \
   case g:                                                                  \
-    return mix ? launch_mix_group<g, true>(r, x, h, coeff_idx, mask, t,    \
-                                           delay, w, out, F, B, K, E, C_out, \
-                                           has_bin0, s)                    \
+    return mix ? launch_mix_bf16<g>(r, x, h, coeff_idx, mask, t, delay,   \
+                                    w, out, F, B, K, E, C_out, has_bin0,   \
+                                    s)                                     \
                : launch_group_bf16<g>(r, x, h, coeff_idx, mask, t, delay,  \
                                       out, F, B, K, E, has_bin0, s);
     BF_CASE(2) BF_CASE(3) BF_CASE(4) BF_CASE(5) BF_CASE(6) BF_CASE(7)
@@ -973,19 +1333,37 @@ extern "C" int bf_mac_mix_group(const void* ring_, const void* xnews_,
   }
 }
 
-// The launch bf_mac_mix_group makes at group size G and C_out outputs:
+// The launch bf_mac_mix_group makes at group size G and C_out outputs
+// for the operand form of ring_bf16 / bank_bf16 (both 0: float32; one of
+// them: the float32 form's launch):
 // out[0] bins a block, out[1] threads a block, out[2] output rows a block,
 // out[3] gridDim.y, out[4] stages of a warp's copy ring, out[5] window
 // positions a stage, out[6] dynamic shared memory a block in bytes, out[7]
-// the column padding of G. For reports and tests; launches nothing.
-// Returns cudaErrorInvalidValue for G outside 2 .. kMaxGroup.
-extern "C" int bf_mac_mix_group_plan(int G, int C_out, int* out) {
+// the column padding of G, out[8] 16-byte chunks a position. For reports
+// and tests; launches nothing. Returns cudaErrorInvalidValue for G outside
+// 2 .. kMaxGroup.
+template <int G, class X, class H>
+void bf16_plan(int* out) {
+  using Q = MixBf16Shape<G, X, H>;
+  out[4] = Q::kStages;
+  out[5] = Q::kPos;
+  out[6] = static_cast<int>(mix_group_bf16_smem<G, X, H>());
+  out[8] = Q::kChunks;
+}
+
+extern "C" int bf_mac_mix_group_plan(int G, int C_out, int ring_bf16,
+                                     int bank_bf16, int* out) {
+  using bf = __nv_bfloat16;
   switch (G) {
 #define BF_CASE(g)                                                        \
   case g:                                                                 \
     out[2] = MixShape<g>::kRows;                                          \
-    out[6] = static_cast<int>(mix_group_smem<g>());                       \
     out[7] = MixShape<g>::kGP;                                            \
+    out[4] = kStages;                                                     \
+    out[5] = kPos;                                                        \
+    out[6] = static_cast<int>(mix_group_smem<g>());                       \
+    out[8] = 4 * kTileBins * 4 / 16;     /* four float32 runs */          \
+    if (ring_bf16 && bank_bf16) bf16_plan<g, bf, bf>(out);                \
     break;
     BF_CASE(2) BF_CASE(3) BF_CASE(4) BF_CASE(5) BF_CASE(6) BF_CASE(7)
     BF_CASE(8)
@@ -996,8 +1374,6 @@ extern "C" int bf_mac_mix_group_plan(int G, int C_out, int* out) {
   out[0] = kTileBins;
   out[1] = kMixThreads;
   out[3] = ((C_out > 1 ? C_out : 1) + out[2] - 1) / out[2];
-  out[4] = kStages;
-  out[5] = kPos;
   return 0;
 }
 

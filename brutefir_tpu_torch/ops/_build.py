@@ -40,13 +40,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "mac": {"bf_mac": [_P] * 7 + [_I] * 9 + [_P],
             "bf_mac_f64": [_P] * 7 + [_I] * 7 + [_P],
-            "bf_mac_plan": [_I] * 4 + [_P]},
+            "bf_mac_plan": [_I] * 7 + [_P]},
     "mac_dual": {"bf_mac_dual": [_P] * 10 + [_I] * 9 + [_P]},
     "mac_mix": {"bf_mac_mix": [_P] * 7 + [_I] * 12 + [_P]},
     "mac_mix_tiled": {"bf_mac_mix_tiled": [_P] * 7 + [_I] * 8 + [_P]},
     "mac_group": {"bf_mac_group": [_P] * 8 + [_I] * 8 + [_P],
                   "bf_mac_mix_group": [_P] * 9 + [_I] * 9 + [_P],
-                  "bf_mac_mix_group_plan": [_I] * 2 + [_P]},
+                  "bf_mac_mix_group_plan": [_I] * 4 + [_P]},
     "fft_glue": {"bf_glue_fwd": [_P] * 3 + [_I] * 2 + [_P],
                  "bf_glue_inv": [_P] * 3 + [_I] * 2 + [_P],
                  "bf_glue_fwd_f64": [_P] * 3 + [_I] * 2 + [_P],

@@ -45,15 +45,21 @@ def reset_launches() -> None:
 
 
 def launch_plan(sets: int, Fs: int, K: int,
-                dtype: torch.dtype = torch.float32) -> dict:
+                dtype: torch.dtype = torch.float32, uniform: bool = False,
+                ring_dtype: torch.dtype = None,
+                bank_dtype: torch.dtype = None) -> dict:
     """The launch ``csrc/mac_core.cuh``'s ``plan`` makes for ``mac``
     (``sets`` = 1, float32 or float64 ``dtype``) or ``mac_dual`` (2) at a
-    stage of ``Fs`` filters and ``K`` bins: ``grid``, ``threads`` a block
-    and ``group``, the partitions a thread loads before their FMAs. Asks
-    the built library (the card's machine only); the kernels choose their
-    launch there, not here."""
+    stage of ``Fs`` filters and ``K`` bins, with the ``uniform`` controls
+    or not and the ring and the bank of ``ring_dtype`` / ``bank_dtype``
+    (bfloat16 in a bf16 form; None: ``dtype``): ``grid``, ``threads`` a
+    block and ``group``, the partitions a thread loads before their FMAs.
+    Asks the built library (the card's machine only); the kernels choose
+    their launch there, not here."""
     o = (ctypes.c_int * 4)()
-    _build.load("mac").bf_mac_plan(sets, Fs, K, dtype.itemsize, o)
+    _build.load("mac").bf_mac_plan(
+        sets, Fs, K, dtype.itemsize, int(uniform),
+        (ring_dtype or dtype).itemsize, (bank_dtype or dtype).itemsize, o)
     return {"grid": (o[0], o[1]), "threads": o[2], "group": o[3]}
 
 

@@ -32,8 +32,8 @@ import ctypes
 import torch
 
 from . import _build
-from .mac_mix import (bf16_flags, bf16_suffix, check_operands, check_staged,
-                      with_bf16)
+from .mac_mix import (SMEM_MAX, bf16_flags, bf16_suffix, check_operands,
+                      check_staged, with_bf16)
 from .partconv import complex_mix, mac_terms, widen
 
 # the kernels are instantiated for G = 2 .. MAX_GROUP
@@ -49,20 +49,65 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def mix_group_plan(G: int, C_out: int) -> dict:
+# csrc/mac_group.cu's constants for mac_mix_group: bins and threads a
+# block, accumulators a thread, stages of a warp's copy ring, positions a
+# stage (float32, both operands in bf16)
+MIX_TILE = 32
+MIX_THREADS = 512
+MIX_ACC = 64
+MIX_STAGES = 3
+MIX_POS, MIX_POS_BF16 = 4, 6
+
+
+def mix_group_layout(G: int, C_out: int, ring_size: int = 4,
+                     bank_size: int = 4) -> dict:
+    """``csrc/mac_group.cu``'s launch of ``mac_mix_group`` (``MixShape``,
+    ``MixBf16Shape``) at group size ``G`` and ``C_out`` outputs for ring
+    and bank values of ``ring_size`` / ``bank_size`` bytes, as
+    ``mix_group_plan`` reads it from the library: a position's 16-byte
+    ``chunks`` (its four 32-bin runs: 32 in float32, 16 with both operands
+    in bf16, two positions a warp-wide copy), positions a stage (4 in
+    float32, 6 with both in bf16), its rows (all 64 accumulators of a
+    thread over G's padded columns) and shared memory. With one bf16
+    operand the launch is the float32 form's (each bf16 run in the first
+    4 chunks of its slot). The kernel chooses its launch in the library;
+    this mirror is for tests and reports."""
+    if not 2 <= G <= MAX_GROUP:
+        raise ValueError(f"mix_group_layout: no plan for G = {G}")
+    gp = 2 if G <= 2 else 4 if G <= 4 else 8
+    cols = gp * 2 * MIX_TILE
+    rows = MIX_THREADS * MIX_ACC // cols
+    warps = MIX_THREADS // 32
+    both = ring_size == bank_size == 2     # else the float32 form's launch
+    run = MIX_TILE // 2 if both else MIX_TILE       # floats a run
+    chunks, item = run, 4 * run + 4
+    pos = MIX_POS_BF16 if both else MIX_POS
+    floats = (warps * MIX_STAGES * pos * item + 2 * warps * cols
+              + 2 * warps * (rows + 4) + 2 * rows * warps)
+    return {"bins": MIX_TILE, "threads": MIX_THREADS, "rows": rows,
+            "grid_y": -(-max(C_out, 1) // rows), "stages": MIX_STAGES,
+            "positions": pos, "smem": 4 * floats, "padded_g": gp,
+            "chunks": chunks}
+
+
+def mix_group_plan(G: int, C_out: int, ring_bf16: int = 0,
+                   bank_bf16: int = 0) -> dict:
     """The launch ``csrc/mac_group.cu`` makes for ``mac_mix_group`` at
-    group size ``G`` and ``C_out`` outputs: ``bins`` and ``rows`` a block
-    (``grid_y`` blocks over C_out), ``threads``, the ``stages`` of a
-    warp's copy ring and the window ``positions`` a stage, dynamic
-    ``smem`` bytes a block and G's column padding ``padded_g``. Asks the
-    built library (the card's machine only); the kernel chooses its
-    launch there, not here."""
-    o = (ctypes.c_int * 8)()
-    rc = _build.load("mac_group").bf_mac_mix_group_plan(G, C_out, o)
+    group size ``G`` and ``C_out`` outputs, for the operand form of
+    ``ring_bf16`` / ``bank_bf16`` (both 0: float32): ``bins`` and
+    ``rows`` a block (``grid_y`` blocks over C_out), ``threads``, the
+    ``stages`` of a warp's copy ring and the window ``positions`` a
+    stage, dynamic ``smem`` bytes a block, G's column padding
+    ``padded_g`` and a position's 16-byte ``chunks``. Asks the built
+    library (the card's machine only); the kernel chooses its launch
+    there, not here (``mix_group_layout`` mirrors it)."""
+    o = (ctypes.c_int * 9)()
+    rc = _build.load("mac_group").bf_mac_mix_group_plan(
+        G, C_out, ring_bf16, bank_bf16, o)
     if rc != 0:
         raise ValueError(f"mix_group_plan: no plan for G = {G}")
     keys = ("bins", "threads", "rows", "grid_y", "stages", "positions",
-            "smem", "padded_g")
+            "smem", "padded_g", "chunks")
     return dict(zip(keys, o))
 
 

@@ -29,13 +29,16 @@ method (a kernel that writes 4 bytes) and each shape's bound are printed
 beside them. The forms compared are the float32 ones (this tree's
 wrappers pass its entries ``ring_bf16`` = ``bank_bf16`` = 0) and, where
 the other tree's entries take those flags (its ``SIGNATURES`` end in
-``ring_bf16, bank_bf16``), the
-bf16 operand forms of ``bf_mac_mix_tiled`` and ``bf_mac_group`` at G = 4
-at the scale shape under a bf16 ring, bank and both: each tree's output
-held against the plain version (1e-5 of its peak), their max difference
-printed (a redesigned bf16 form need not round as the other tree's
-does), then timed in turns, the last line listing the bf16 forms slower
-than the other tree's.
+``ring_bf16, bank_bf16``), the bf16 operand forms of
+``bf_mac_mix_tiled``, ``bf_mac_group`` at G = 4 and ``bf_mac_mix_group``
+at G = 2 at the scale shape and of ``bf_mac`` / ``bf_mac_dual`` at the
+shapes of rows 6, 7, 8 and 10, under a bf16 ring, bank and both: each
+tree's output held against the plain version (1e-5 of its peak), their
+max difference printed ("bit-equal" where 0: a redesigned bf16 form
+need not round as the other tree's does), then timed in turns; rows 6-10
+also in turns against this tree's float32 form of the row. The last line
+lists the bf16 forms slower than the other tree's and those of rows 6-10
+slower than their float32 form.
 """
 
 from __future__ import annotations
@@ -118,20 +121,21 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def other_mac(fn, ring, bank, rows, idx, mask, t, uniform):
+def other_mac(fn, ring, bank, rows, idx, mask, t, uniform, flags=(0, 0)):
     import torch
     F, B, _, K = ring.shape
     out = torch.empty((rows.numel(), 2, K), device=ring.device)
     rc = fn(ring.data_ptr(), bank.data_ptr(), rows.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), t.data_ptr(), out.data_ptr(),
             F, rows.numel(), B, K, bank.shape[0], int(uniform),
-            *trailing("bf_mac"), stream())
+            *trailing("bf_mac", flags), stream())
     if rc != 0:
         cs.fail(f"the other tree's bf_mac failed (cudaError {rc})")
     return out
 
 
-def other_dual(fn, ring, bank, rows, idx, mask, pidx, pmask, t, uniform):
+def other_dual(fn, ring, bank, rows, idx, mask, pidx, pmask, t, uniform,
+               flags=(0, 0)):
     import torch
     F, B, _, K = ring.shape
     y_new = torch.empty((rows.numel(), 2, K), device=ring.device)
@@ -140,7 +144,7 @@ def other_dual(fn, ring, bank, rows, idx, mask, pidx, pmask, t, uniform):
             idx.data_ptr(), mask.data_ptr(), pidx.data_ptr(),
             pmask.data_ptr(), t.data_ptr(), y_new.data_ptr(),
             y_old.data_ptr(), F, rows.numel(), B, K, bank.shape[0],
-            int(uniform), *trailing("bf_mac_dual"), stream())
+            int(uniform), *trailing("bf_mac_dual", flags), stream())
     if rc != 0:
         cs.fail(f"the other tree's bf_mac_dual failed (cudaError {rc})")
     return y_new, y_old
@@ -288,11 +292,14 @@ def compare_group(libs, flush) -> None:
 
 
 def compare_bf16(libs, flush) -> None:
-    """The bf16 operand forms of bf_mac_mix_tiled (row 3) and
-    bf_mac_group at G = 4 (row 4) at the scale shape under a bf16 ring,
-    bank and both, where the other tree's entries take the flags: each
-    tree's output against the plain version, their max difference, the
-    times in turns."""
+    """The bf16 operand forms of bf_mac_mix_tiled (row 3), bf_mac_group
+    at G = 4 (row 4) and bf_mac_mix_group at G = 2 (row 5) at the scale
+    shape, and of bf_mac and bf_mac_dual at the shapes of rows 6, 7, 8
+    and 10 (``CORE_BF16``), under a bf16 ring, bank and both, where the
+    other tree's entries take the flags: each tree's output against the
+    plain version, their max difference ("bit-equal" where 0), the times
+    in turns; then each of rows 6-10's bf16 forms in turns against this
+    tree's float32 form of the row (``compare_core_f32``)."""
     import torch
     from brutefir_tpu_torch.ops import mac_group as mg, mac_mix as mm
     if (TRAILING["bf_mac_mix_tiled"] < 3
@@ -311,11 +318,13 @@ def compare_bf16(libs, flush) -> None:
     idx = torch.randperm(Fs, generator=g, device=dev).to(torch.int32)
     delay = (torch.arange(Fs, device=dev) % (G + 2)).to(torch.int32)
     mask = cs.cblocks_mask(delay, B_)
+    x2news = xnews[:, :1].contiguous()        # row 5 at G = 2
     ones = torch.ones(Fs, B_, device=dev)
     zeros = torch.zeros(Fs, dtype=torch.int32, device=dev)
     t7 = torch.tensor(7, dtype=torch.int32, device=dev)
     for combo in cs.BF16_COMBOS:
         r, h, x = cs.bf16_operands(combo, ring, bank, xnews)
+        x2 = x2news.to(r.dtype)
         rb, hb = (2 if combo[0] else 4), (2 if combo[1] else 4)
         what = f"bf16 {cs.BF16_NAMES[combo]}"
         for name, other, this, plain, nbf in (
@@ -335,7 +344,17 @@ def compare_bf16(libs, flush) -> None:
                  lambda: mg.mac_group_reference(r, x, h, idx, mask, t7,
                                                 delay),
                  cs.mac_bytes_flops(Fs, B_, K_, 0, Es, G, out_rows=Fs,
-                                    ring_bytes=rb, bank_bytes=hb))):
+                                    ring_bytes=rb, bank_bytes=hb)),
+                (f"bf_mac_mix_group G=2 {what} (scale)",
+                 lambda m, d=delay: other_group(
+                     libs["bf_mac_mix_group"], r, x2, h, idx, m, t7, d, w,
+                     flags=combo),
+                 lambda m, d=delay: mg.mac_mix_group(r, x2, h, idx, m, t7,
+                                                     w, d),
+                 lambda: mg.mac_mix_group_reference(r, x2, h, idx, mask, t7,
+                                                    w, delay),
+                 cs.mac_bytes_flops(Fs, B_, K_, Cs, Es, 2, ring_bytes=rb,
+                                    bank_bytes=hb))):
             ref = plain()
             got_o, got_t = other(mask), this(mask)
             cs.check(f"{name} (other tree)", got_o, ref, 7)
@@ -352,8 +371,128 @@ def compare_bf16(libs, flush) -> None:
             else:
                 o, t = (lambda: other(ones)), (lambda: this(ones))
             in_turns(name, o, t, flush, cs.bound(*nbf)[0], bf16=True)
-        del r, h, x
+        del r, h, x, x2
         torch.cuda.empty_cache()
+    del ring, bank, xnews, x2news
+    torch.cuda.empty_cache()
+    compare_core_bf16(libs, flush)
+
+
+# rows 6-10's bf16 forms at the shapes of their paths: (row, label, F, B,
+# K, E, uniform, stage rows, dual)
+CORE_BF16 = (
+    (6, "bench1 stage, Fs=4 of 6, 8192 x 8", 6, 8, cs.K, 7, False,
+     [2, 3, 4, 5], False),
+    (7, f"{2 * cs.F} rows, 8192 x 16, shared", 2 * cs.F, cs.B, cs.K, 1,
+     True, list(range(2 * cs.F)), False),
+    (8, "bench5, 26 x 8192 x 8, shared (dual)", cs.BENCH5_C, cs.BENCH5_B,
+     cs.BENCH5_N, 2, True, None, True),
+    (10, "4 rows, 65536 x 8", 4, 8, 65536, 4, False, [0, 1, 2, 3], False),
+)
+
+
+def compare_core_bf16(libs, flush) -> None:
+    """Rows 6, 7, 8 and 10's bf16 forms (``CORE_BF16``) under each
+    combination: both trees' outputs against the plain version, their max
+    difference, the times in turns against the other tree's; then in
+    turns against this tree's float32 form of the row at the same shape
+    (``SLOWER_THAN_F32`` lists those slower)."""
+    import torch
+    from brutefir_tpu_torch.ops import mac as tm, mac_dual as td
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 54)
+    t7 = torch.tensor(7, dtype=torch.int32, device=dev)
+    for row, label, F_, B_, K_, E_, uniform, stage, dual in CORE_BF16:
+        if dual:
+            ring, bank, idx, mask, pidx, pmask, stage = cs.dual_inputs(
+                g, F_, B_, K_, E_, uniform, stage)
+        else:
+            ring, bank, idx, mask, stage = cs.mac_inputs(
+                g, F_, B_, K_, E_, uniform, stage)
+        rt = torch.tensor(stage, dtype=torch.int32, device=dev)
+        ones = torch.ones(F_, B_, device=dev)
+        Fs = len(stage)
+        used = (len(set(idx[rt.long()].tolist())) if not uniform
+                else 2 if dual else 1)
+
+        def this_f(r, h, m):
+            if dual:
+                return torch.cat(td.mac_dual(r, h, rt, idx, m, pidx,
+                                             pmask if m is mask else m, t7,
+                                             uniform))
+            return tm.mac(r, h, rt, idx, m, t7, uniform)
+
+        def other_f(r, h, m, combo):
+            if dual:
+                return torch.cat(other_dual(
+                    libs["bf_mac_dual"], r, h, rt, idx, m, pidx,
+                    pmask if m is mask else m, t7, uniform, combo))
+            return other_mac(libs["bf_mac"], r, h, rt, idx, m, t7, uniform,
+                             combo)
+
+        for combo in cs.BF16_COMBOS:
+            r, h, _ = cs.bf16_operands(combo, ring, bank)
+            rb, hb = (2 if combo[0] else 4), (2 if combo[1] else 4)
+            name = f"row {row} {label}, bf16 {cs.BF16_NAMES[combo]}"
+            if dual:
+                ref = torch.cat(td.mac_dual_reference(
+                    r, h, rt, idx, mask, pidx, pmask, t7, uniform))
+                nb, nf = cs.dual_bytes_flops(Fs, B_, K_, used, rb, hb)
+                nb32, nf32 = cs.dual_bytes_flops(Fs, B_, K_, used)
+                o_call = lambda: other_dual(libs["bf_mac_dual"], r, h, rt,
+                                            idx, ones, pidx, ones, t7,
+                                            uniform, combo)
+                t_call = lambda: td.mac_dual(r, h, rt, idx, ones, pidx, ones,
+                                             t7, uniform)
+                f_call = lambda: td.mac_dual(ring, bank, rt, idx, ones, pidx,
+                                             ones, t7, uniform)
+            else:
+                ref = tm.mac_reference(r, h, rt, idx, mask, t7, uniform)
+                nb, nf = cs.mac_bytes_flops(Fs, B_, K_, 0, used,
+                                            out_rows=Fs, ring_bytes=rb,
+                                            bank_bytes=hb)
+                nb32, nf32 = cs.mac_bytes_flops(Fs, B_, K_, 0, used,
+                                                out_rows=Fs)
+                nb, nb32 = nb + Fs * 4, nb32 + Fs * 4
+                o_call = lambda: other_mac(libs["bf_mac"], r, h, rt, idx,
+                                           ones, t7, uniform, combo)
+                t_call = lambda: tm.mac(r, h, rt, idx, ones, t7, uniform)
+                f_call = lambda: tm.mac(ring, bank, rt, idx, ones, t7,
+                                        uniform)
+            got_o, got_t = other_f(r, h, mask, combo), this_f(r, h, mask)
+            cs.check(f"{name} (other tree)", got_o, ref, 7)
+            cs.check(name, got_t, ref, 7)
+            diff = (got_o - got_t).abs().max().item()
+            print(f"{name}: max |this - other| {diff:.3e} "
+                  f"({diff / ref.abs().max().item():.3e} of the peak; "
+                  f"{'bit-equal' if diff == 0 else 'not bit-equal'})",
+                  flush=True)
+            del ref, got_o, got_t
+            in_turns(name, o_call, t_call, flush, cs.bound(nb, nf)[0],
+                     bf16=True)
+            vs_f32(name, f_call, t_call, flush, cs.bound(nb32, nf32)[0])
+            del r, h
+        del ring, bank
+        torch.cuda.empty_cache()
+
+
+SLOWER_THAN_F32 = []
+
+
+def vs_f32(label: str, f32, bf16, flush, b32_ms: float) -> None:
+    """This tree's float32 form and bf16 form of one row at one shape, in
+    turns: float32, bf16, bf16, float32."""
+    f1 = cs.time_ms(f32, cs.REPS, flush)
+    b1 = cs.time_ms(bf16, cs.REPS, flush)
+    b2 = cs.time_ms(bf16, cs.REPS, flush)
+    f2 = cs.time_ms(f32, cs.REPS, flush)
+    f, b = (f1 + f2) / 2, (b1 + b2) / 2
+    if b > f:
+        SLOWER_THAN_F32.append(label)
+    print(f"{label}: this tree's float32 form {f1:.4f} / {f2:.4f} ms, bf16 "
+          f"{b1:.4f} / {b2:.4f} ms; means {f:.4f} -> {b:.4f} "
+          f"({100.0 * (b / f - 1.0):+.2f}%); float32 bound {b32_ms:.4f} ms",
+          flush=True)
 
 
 # labels whose mean time in this tree is more than 2% off the other's; bf16
@@ -466,7 +605,9 @@ def main() -> int:
     print(f"every float32 form bit-equal to the other tree's; means within "
           f"2%: {'all' if not OFF_2PCT else 'all but ' + ', '.join(OFF_2PCT)}"
           f"; bf16 forms slower than the other tree's: "
-          f"{', '.join(SLOWER_BF16) or 'none'}", flush=True)
+          f"{', '.join(SLOWER_BF16) or 'none'}; rows 6-10's bf16 forms "
+          f"slower than their float32 form: "
+          f"{', '.join(SLOWER_THAN_F32) or 'none'}", flush=True)
     return 0
 
 

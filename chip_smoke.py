@@ -300,7 +300,10 @@ Phases, in order; any failure exits non-zero:
    same bfloat16 operands (REL_TOL), its launch counted in its module's
    ``launches`` under the form's bf16 name, timed beside the plain version, the bound counting
    bf16 bytes at 2 a value; each combination a main path below launches
-   enters the kernels summary (rows 1-2 all three).
+   enters the kernels summary (rows 1-2 all three); then the ptxas
+   registers and spills of row 5's bf16 kernel and its launch plans
+   (``mix_group_plan``) at G = 2 at the scale shape, and row 7's under
+   the bank knob (``launch_plan``: groups of 8).
 38-42. main paths of the opt-in knobs, the counts set to 0 just before
    each run: 38 the massive shape (shared, then two coefficients), each
    in turns float32, under ``BRUTEFIR_TPU_BANK_DTYPE=bf16``, under
@@ -4384,6 +4387,16 @@ def kernels_bf16(mods, rows, flush):
             del r, h, x
         del ring, bank, xnews
         torch.cuda.empty_cache()
+    print_ptxas("mac_group", ("mac_mix_group_bf16_kernel",),
+                "row 5's bf16 forms, one instance a G and operand form")
+    for combo in BF16_COMBOS:
+        print(f"  row 5's launch plan at G=2, C_out={SCALE_C}, bf16 "
+              f"{BF16_NAMES[combo]}: "
+              f"{mods['mac_group'].mix_group_plan(2, SCALE_C, *combo)}",
+              flush=True)
+    print(f"  row 7's launch plan at {2 * F} rows of {K} x {B} under the bank "
+          f"knob: {mods['mac'].launch_plan(1, 2 * F, K, torch.float32, True, None, torch.bfloat16)}"
+          f" (float32 {mods['mac'].launch_plan(1, 2 * F, K)})", flush=True)
 
 
 def quantized_spectra(bank_row) -> np.ndarray:

@@ -28,7 +28,9 @@ package on the same numpy inputs made from a seed.
 - ``float_bits: 64`` ignores both knobs; ``check_operands`` admits bf16
   only beside float32.
 - ``ops/mac_mix.plan`` stages bf16 runs densely, two partitions a
-  stage.
+  stage; ``ops/mac_group.mix_group_layout`` (row 5's launch) stages a
+  bf16 position in 16 or 24 chunks, more positions a stage, all 256 rows
+  a block at G = 2.
 - ``BRUTEFIR_TPU_PROFILE=<dir>``: a 4-block ``run()`` writes one Chrome
   trace into the directory it creates; an error inside ``run()`` still
   stops the profiler.
@@ -293,6 +295,43 @@ def test_mac_mix_plan_stages_bf16_densely(uniform, F, B, C):
         assert p["smem"] <= mm.SMEM_MAX
         if (F, B, C) == (26, 16, 26):
             assert p["smem"] <= mm.SMEM_MAX // 2 and p["FC"] == 26
+
+
+SIZES = {"float32": (4, 4), "ring": (2, 4), "bank": (4, 2), "both": (2, 2)}
+
+
+@pytest.mark.parametrize("sizes", list(SIZES))
+@pytest.mark.parametrize("G", range(2, mg.MAX_GROUP + 1))
+@pytest.mark.parametrize("C_out", [1, 20, 256, 300])
+def test_mix_group_layout_stages_bf16_densely(sizes, G, C_out):
+    """``mix_group_layout`` (csrc/mac_group.cu's row-5 launch): a
+    position's four 32-bin runs are 32 chunks of 16 bytes in float32 and
+    16 with both operands in bf16 (two positions a warp-wide copy), so
+    that form's stage holds 6 positions (float32 4); with one bf16
+    operand the launch is the float32 form's; the shared memory of three
+    stages fits SMEM_MAX; a thread's 64 accumulators cover the rows x
+    padded G columns, all 256 rows a block at G = 2; gridDim.y covers
+    C_out; the rest of the launch is the float32 form's; G outside 2 ..
+    8 is refused."""
+    rs, hs = SIZES[sizes]
+    p = mg.mix_group_layout(G, C_out, rs, hs)
+    f32 = mg.mix_group_layout(G, C_out)
+    assert p["chunks"] == (16 if sizes == "both" else 32)
+    assert p["positions"] == (6 if sizes == "both" else 4)
+    assert (p == f32) == (sizes != "both")
+    assert p["stages"] == 3 and p["bins"] == 32 and p["threads"] == 512
+    assert p["smem"] <= mg.SMEM_MAX
+    assert p["rows"] * p["padded_g"] * 2 * 32 == 512 * 64
+    assert p["padded_g"] >= G and p["rows"] == (256 if G == 2 else
+                                                128 if G <= 4 else 64)
+    assert (p["grid_y"] - 1) * p["rows"] < C_out <= p["grid_y"] * p["rows"]
+    assert {k: v for k, v in p.items() if k not in (
+        "chunks", "positions", "smem")} == {
+        k: v for k, v in f32.items() if k not in (
+            "chunks", "positions", "smem")}
+    for bad in (1, mg.MAX_GROUP + 1):
+        with pytest.raises(ValueError):
+            mg.mix_group_layout(bad, C_out, rs, hs)
 
 
 # --- engines ----------------------------------------------------------------

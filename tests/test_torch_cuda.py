@@ -200,12 +200,23 @@ def test_mac_core_plan_covers(cuda, sets, Fs, K):
     """csrc/mac_core.cuh's plan at the engine's and the smoke's shapes: the
     grid covers every (filter, bin) once as the kernel reads it (a block a
     filter and 256 bins, 4 a thread), and one set loads 8 partitions a
-    group on a grid of at most one block an SM (132), else 4."""
+    group on a grid of at most one block an SM (132), else 4; the bf16
+    forms the same, but one set reading a shared bf16 bank row beside a
+    float32 ring, which takes groups of 8 on every grid."""
     p = tm.launch_plan(sets, Fs, K)
     tiles, gy = p["grid"]
     assert p["threads"] == 64 and gy == Fs
     assert (tiles - 1) * 256 < K <= tiles * 256
     assert p["group"] == (8 if sets == 1 and tiles * Fs <= 132 else 4)
+    bf = torch.bfloat16
+    for uniform in (False, True):
+        for ring_dtype, bank_dtype in ((None, None), (bf, None), (None, bf),
+                                       (bf, bf)):
+            q = tm.launch_plan(sets, Fs, K, torch.float32, uniform,
+                               ring_dtype, bank_dtype)
+            shared_bank = sets == 1 and uniform and bank_dtype and \
+                not ring_dtype
+            assert q == ({**p, "group": 8} if shared_bank else p)
 
 
 @pytest.mark.cuda
@@ -425,14 +436,19 @@ def test_mix_group_unaligned_operands(cuda, G, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("flags", [(0, 0), (1, 0), (0, 1), (1, 1)])
 @pytest.mark.parametrize("G", range(2, mg.MAX_GROUP + 1))
 @pytest.mark.parametrize("C_out", [1, 9, 70, 256, 300])
-def test_mix_group_plan_fits_the_card(cuda, G, C_out):
-    """The launch bf_mac_mix_group makes: 32-bin tiles, its rows over
+def test_mix_group_plan_fits_the_card(cuda, flags, G, C_out):
+    """The launch bf_mac_mix_group makes, in float32 and in each bf16
+    form (``flags``: ring_bf16, bank_bf16): 32-bin tiles, its rows over
     gridDim.y cover C_out, its shared memory fits a block (232,448 bytes)
     and the device's limit, its threads the block limit; 64 accumulators
-    a thread (rows x padded G x 64 = threads x 64)."""
-    p = mg.mix_group_plan(G, C_out)
+    a thread (rows x padded G x 64 = threads x 64); the library's plan
+    is ``mix_group_layout``'s (its Python mirror)."""
+    p = mg.mix_group_plan(G, C_out, *flags)
+    assert p == mg.mix_group_layout(G, C_out, *(2 if f else 4
+                                                for f in flags))
     props = torch.cuda.get_device_properties(cuda)
     assert p["bins"] == 32 and p["padded_g"] >= G
     assert p["grid_y"] * p["rows"] >= C_out > (p["grid_y"] - 1) * p["rows"]
@@ -1305,14 +1321,28 @@ def _rel(a, b):
     return (a - b).abs().max().item() / b.abs().max().item()
 
 
+# the bf16 forms' edges beside the core's shapes: bench5's 26 x 8192 x 8;
+# groups of 8 (one set, at most one block an SM) that B does not fill (24
+# = 8 + 8 + 8 of 8192 bins at Fs = 4; 20 = 8 + 8 + 4), groups of 4 past
+# B = 40
+MAC_BF16_SHAPES = MAC_CORE_SHAPES + [
+    (26, 8, 8192, 2, list(range(26)), 0),
+    (4, 24, 8192, 5, [0, 1, 2, 3], 0),
+    (4, 20, 1024, 3, [3, 1, 2, 0], 0),
+    (40, 42, 1024, 3, list(range(40)), 0),
+    (3, 20, 1001, 2, [0, 1, 2], 0),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("combo", BF16_COMBOS)
 @pytest.mark.parametrize("uniform", [True, False])
-@pytest.mark.parametrize("F,B,K,E,rows,offset", MAC_CORE_SHAPES)
+@pytest.mark.parametrize("F,B,K,E,rows,offset", MAC_BF16_SHAPES)
 def test_unfused_mac_bf16_forms_match_plain_version(cuda, combo, uniform, F,
                                                     B, K, E, rows, offset):
-    """The bf16 forms of bf_mac (csrc/mac.cu) on the core's paths: an offset ring view
-    takes the scalar path, as K % 4 != 0 does."""
+    """The bf16 forms of bf_mac (csrc/mac.cu) on the core's paths (bench1's
+    stage, bench5's 26 rows, load groups that B does not fill): an offset
+    ring view takes the scalar path, as K % 4 != 0 does."""
     ring, bank, idx, mask, _ = _mac_inputs(F * K + 3, F, B, K, E, 1,
                                            uniform, cuda)
     mask[:, 0] = 1.0
@@ -1339,15 +1369,18 @@ def test_unfused_mac_bf16_forms_match_plain_version(cuda, combo, uniform, F,
 @pytest.mark.parametrize("uniform", [True, False])
 @pytest.mark.parametrize("F,B,K,E,rows,offset", [
     (26, 8, 8192, 2, list(range(26)), 0),   # bench5's shape
+    (6, 8, 8192, 7, [2, 3, 4, 5], 0),       # bench1's first stage
     (6, 8, 8192, 7, [2, 3, 4, 5], 1),
-    (5, 6, 1001, 3, [4, 1, 1], 0),
+    (5, 6, 1001, 3, [4, 1, 1], 0),          # K % 4 != 0: the scalar path
     (40, 4, 8192, 2, list(range(40)) + [3, 3], 0),
+    (3, 22, 1024, 2, [0, 1, 2], 0),         # groups of 4: 5 and a half
 ])
 def test_dual_mac_bf16_forms_match_plain_version(cuda, combo, uniform, F, B,
                                                  K, E, rows, offset):
-    """The bf16 forms of bf_mac_dual (csrc/mac_dual.cu): both products,
-    prev_mask != mask; the new set equal to bf_mac's bf16 form's, bit for
-    bit."""
+    """The bf16 forms of bf_mac_dual (csrc/mac_dual.cu) at bench5's and
+    bench1's shapes, on the scalar path and past one group: both
+    products, prev_mask != mask; the new set equal to bf_mac's bf16
+    form's, bit for bit."""
     ring, bank, idx, mask, _ = _mac_inputs(F * K + 5, F, B, K, E, 1,
                                            uniform, cuda)
     mask[:, 0] = 1.0
@@ -1460,14 +1493,21 @@ def test_tiled_bf16_forms_match_plain_version(cuda, monkeypatch, combo, F, B,
     (20, 5, 1000, 4, 300, 1),      # C past one block's rows at every G
     (128, 16, 2048, 128, 256, 0),  # a 2048-bin shard, not the first
     (128, 16, 2048, 128, 256, 1),  # ... the first
+    (33, 7, 1096, 9, 300, 0),      # F % 16 != 0, C_out past 256, no bin 0
+    (20, 5, 1000, 4, 20, 0),       # C_out 20 without the packed bin 0
+    (37, 2, 8, 5, 256, 1),         # K = 8: one chunk of a bf16 run
+    (5, 1, 64, 2, 7, 1),           # B = 1: ring slots wrap twice a copy
 ])
 def test_group_bf16_forms_match_plain_versions(cuda, combo, G, F, B, K, E,
                                                C, has_bin0):
     """The bf16 forms of bf_mac_group and bf_mac_mix_group
     (csrc/mac_group.cu):
     xnews of the ring's dtype, delays 0 .. G+1, start times that wrap the
-    ring inside the group, four bins a thread in blocks of 512 bins, bin 0
-    with and without the packed rule."""
+    ring inside the group, four bins a thread in blocks of 512 bins (the
+    grouped MAC), dense 16- or 24-chunk positions with two positions a
+    copy and ragged 32-bin tiles (the fused form), bin 0 with and without
+    the packed rule; the fused form equal to its float32 form on the
+    widened operands, bit for bit."""
     ring, xnews, bank, idx, mask, delay, w = _group_inputs(
         G * 100 + K + 1, F, B, K, E, G, C, cuda)
     ring, bank, xnews = _bf16(combo, ring, bank, xnews)

@@ -12,13 +12,23 @@
 
 // Forward: X = a Z + b conj(Zm), Zm = Z[(M-k) % M]; packed bin 0 carries
 // DC (the combine gives Re Z0 + Im Z0) and Nyquist (Re Z0 - Im Z0) in its
-// imaginary slot.
+// imaginary slot. Every product and sum is rounded on its own (the _rn
+// intrinsics, which the compiler never contracts into a fused
+// multiply-add), in the plain version's order: the kernel's float32 and
+// float64 values are then the plain torch version's bit for bit, and a
+// bfloat16 ring written from them is the plain version's cast.
 __device__ __forceinline__ float2 bf_untangle(float4 t, float2 z, float2 zm,
                                               bool bin0) {
   const float mr = zm.x, mi = -zm.y;
-  const float xr = t.x * z.x - t.y * z.y + t.z * mr - t.w * mi;
-  const float xi = bin0 ? z.x - z.y
-                        : t.x * z.y + t.y * z.x + t.z * mi + t.w * mr;
+  const float xr = __fsub_rn(__fadd_rn(__fsub_rn(__fmul_rn(t.x, z.x),
+                                                 __fmul_rn(t.y, z.y)),
+                                       __fmul_rn(t.z, mr)),
+                             __fmul_rn(t.w, mi));
+  const float xi = bin0 ? __fsub_rn(z.x, z.y)
+                        : __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(t.x, z.y),
+                                                        __fmul_rn(t.y, z.x)),
+                                              __fmul_rn(t.z, mi)),
+                                    __fmul_rn(t.w, mr));
   return make_float2(xr, xi);
 }
 
@@ -34,9 +44,15 @@ __device__ __forceinline__ double2 bf_untangle(double2 ta, double2 tb,
                                                double2 z, double2 zm,
                                                bool bin0) {
   const double mr = zm.x, mi = -zm.y;
-  const double xr = ta.x * z.x - ta.y * z.y + tb.x * mr - tb.y * mi;
-  const double xi = bin0 ? z.x - z.y
-                         : ta.x * z.y + ta.y * z.x + tb.x * mi + tb.y * mr;
+  const double xr = __dsub_rn(__dadd_rn(__dsub_rn(__dmul_rn(ta.x, z.x),
+                                                  __dmul_rn(ta.y, z.y)),
+                                        __dmul_rn(tb.x, mr)),
+                              __dmul_rn(tb.y, mi));
+  const double xi = bin0 ? __dsub_rn(z.x, z.y)
+                         : __dadd_rn(__dadd_rn(__dadd_rn(__dmul_rn(ta.x, z.y),
+                                                         __dmul_rn(ta.y, z.x)),
+                                               __dmul_rn(tb.x, mi)),
+                                     __dmul_rn(tb.y, mr));
   return make_double2(xr, xi);
 }
 

@@ -27,6 +27,28 @@
 // float64 graphs take because `glue_ok` wants float32. Every byte doubles:
 // 6.8 MB a direction at the massive shape, about 2 us at 3.35 TB/s.
 //
+// bf_glue_fwd_ring / bf_glue_fwd_ring_f64 glue the engine's mixed spectra
+// straight into the spectra ring: X of row f lands at ring[rows[f],
+// (t + delay[rows[f]]) % B] (float32, float64, or a bfloat16 ring rounded
+// to nearest even), or with slot addressing off into a [Fs, 2, M]
+// destination with a row stride (the grouped dispatch's later blocks). It
+// replaces, beside `_fwd_kernel` (pallas_glue.py:89), the ring write that
+// the JAX package leaves to XLA (`write_ring`, brutefir_tpu/graph/
+// compile.py:260-274: the cast, a dynamic_update_slice or a scatter).
+// The glue moved after the input mix: the glue is linear in Z bin by bin
+// and the mix is a real matrix, so in_mix @ glue(Z) = glue(in_mix @ Z);
+// the engine mixes cuFFT's M-point output (the same matmul on the
+// [C_in, 2M] real view) and this one pass then does the glue, the cast
+// and the slot write. The planes route (taps, meshes) instead makes a
+// glue pass, reads the planes back in the mix and writes them into the
+// ring with four to six small launches. Bound: bytes, 8M read and 8M
+// written a row (4M into a bfloat16 ring, 16M and 16M in float64): 3.4
+// MB at 26 rows of M = 8192, about 1.0 us at 3.35 TB/s, 10 us at 256
+// rows, below the 0.005 ms one timed launch takes at the smaller shapes.
+// A row's stores wait on two dependent loads, its row and its delay, so
+// a stage of a few rows sits above that floor (0.0070 ms at bench1's 4
+// rows, chip_smoke.py phase 6c).
+//
 // Design: one thread per bin pair (k, M-k), k = 0..M/2. It loads both
 // values once and writes both outputs, so each input element crosses device
 // memory once: neighbouring threads read neighbouring addresses from both
@@ -45,6 +67,7 @@
 // reversed in shared memory, was slower at every tile and channel group
 // tried: chip_glue_designs.py holds it and times it against this kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "fft_common.cuh"
@@ -87,6 +110,38 @@ struct Glue<double> {
   }
 };
 
+// Where a glued value lands: its own real type, or a bfloat16 ring
+// rounded to nearest even (as torch.Tensor.to(torch.bfloat16)).
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(double* p, double v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// The forward glue of bin pair (j, M - j) of one channel: zc its M-point
+// spectrum, xr its real plane (the imaginary plane follows at xr + M). The
+// one body of the glue's arithmetic: glue_fwd_kernel (into planes) and
+// glue_fwd_ring_kernel (into the ring) both call it, so a path that glues
+// into planes and copies them gives the bits of one that glues into the
+// ring.
+template <class R, class Out>
+__device__ __forceinline__ void glue_fwd_pair(
+    const typename Glue<R>::C* __restrict__ zc,
+    const typename Glue<R>::Row* __restrict__ ab, Out* __restrict__ xr,
+    int M, int j) {
+  Out* xi = xr + M;
+  const int jm = j ? M - j : 0;                 // the mirror bin
+  const auto a = zc[j], b = zc[jm];
+  const auto x = Glue<R>::untangle(ab, j, a, b, j == 0);
+  put(xr + j, x.x);
+  put(xi + j, x.y);
+  if (jm != j) {
+    const auto y = Glue<R>::untangle(ab, jm, b, a, false);
+    put(xr + jm, y.x);
+    put(xi + jm, y.y);
+  }
+}
+
 template <class R>
 __global__ void __launch_bounds__(kThreads)
 glue_fwd_kernel(const typename Glue<R>::C* __restrict__ z,
@@ -95,19 +150,33 @@ glue_fwd_kernel(const typename Glue<R>::C* __restrict__ z,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j > M / 2) return;
   const size_t c = blockIdx.y;
-  const typename Glue<R>::C* zc = z + c * M;
-  R* xr = out + c * 2 * M;
-  R* xi = xr + M;
-  const int jm = j ? M - j : 0;                 // the mirror bin
-  const auto a = zc[j], b = zc[jm];
-  const auto x = Glue<R>::untangle(ab, j, a, b, j == 0);
-  xr[j] = x.x;
-  xi[j] = x.y;
-  if (jm != j) {
-    const auto y = Glue<R>::untangle(ab, jm, b, a, false);
-    xr[jm] = y.x;
-    xi[jm] = y.y;
+  glue_fwd_pair<R>(z + c * M, ab, out + c * 2 * M, M, j);
+}
+
+// Row f of the mixed spectra z lands at dst + rows[f] * row_stride (rows
+// null: f), and with B > 0 at its delayed ring slot (t[0] + dt +
+// delay[rows[f]]) % B of 2M values. Every thread of a block works on one
+// row, so the row, the delay and t are the same three words for all of
+// them (one broadcast load each).
+template <class R, class Out>
+__global__ void __launch_bounds__(kThreads)
+glue_fwd_ring_kernel(const typename Glue<R>::C* __restrict__ z,
+                     const typename Glue<R>::Row* __restrict__ ab,
+                     Out* __restrict__ dst, const int* __restrict__ rows,
+                     const int* __restrict__ delay,
+                     const int* __restrict__ t, int dt, int M, int B,
+                     int row_stride) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j > M / 2) return;
+  const int f = blockIdx.y;
+  const int r = rows ? rows[f] : f;
+  size_t off = static_cast<size_t>(r) * row_stride;
+  if (B > 0) {
+    long long s = (static_cast<long long>(t[0]) + dt + delay[r]) % B;
+    if (s < 0) s += B;
+    off += static_cast<size_t>(s) * 2 * M;
   }
+  glue_fwd_pair<R>(z + static_cast<size_t>(f) * M, ab, dst + off, M, j);
 }
 
 template <class R>
@@ -151,6 +220,18 @@ int launch_inv(const R* p, const typename Glue<R>::Row* ab,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class R, class Out>
+int launch_fwd_ring(const typename Glue<R>::C* z,
+                    const typename Glue<R>::Row* ab, Out* dst,
+                    const int* rows, const int* delay, const int* t, int dt,
+                    int Fs, int M, int B, int row_stride, void* stream) {
+  if (Fs <= 0 || M <= 0) return 0;
+  glue_fwd_ring_kernel<R, Out><<<grid_of(Fs, M), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      z, ab, dst, rows, delay, t, dt, M, B, row_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // All launch on `stream` and return cudaGetLastError() (0 on success). The
@@ -173,4 +254,30 @@ extern "C" int bf_glue_fwd_f64(const double2* z, const double2* ab,
 extern "C" int bf_glue_inv_f64(const double* p, const double2* ab,
                                double2* v, int C, int M, void* stream) {
   return launch_inv<double>(p, ab, v, C, M, stream);
+}
+
+// The forward glue of the mixed spectra z [Fs, M] straight into its
+// destination: with B > 0 the ring [F, B, 2, M] (row_stride B * 2M), row
+// f at ring[rows[f], (t[0] + dt + delay[rows[f]]) % B]; with B = 0 a
+// [Fs, 2, M] destination whose rows lie row_stride values apart (delay
+// and t unread). dst is float32, or bfloat16 where dst_bf16 is 1.
+extern "C" int bf_glue_fwd_ring(const float2* z, const float4* ab, void* dst,
+                                const int* rows, const int* delay,
+                                const int* t, int dt, int Fs, int M, int B,
+                                int row_stride, int dst_bf16, void* stream) {
+  if (dst_bf16)
+    return launch_fwd_ring<float>(z, ab, static_cast<__nv_bfloat16*>(dst),
+                                  rows, delay, t, dt, Fs, M, B, row_stride,
+                                  stream);
+  return launch_fwd_ring<float>(z, ab, static_cast<float*>(dst), rows, delay,
+                                t, dt, Fs, M, B, row_stride, stream);
+}
+
+extern "C" int bf_glue_fwd_ring_f64(const double2* z, const double2* ab,
+                                    double* dst, const int* rows,
+                                    const int* delay, const int* t, int dt,
+                                    int Fs, int M, int B, int row_stride,
+                                    void* stream) {
+  return launch_fwd_ring<double>(z, ab, dst, rows, delay, t, dt, Fs, M, B,
+                                 row_stride, stream);
 }

@@ -3,9 +3,23 @@
 Torch twin of ``_step_impl`` in :mod:`brutefir_tpu.graph.compile`
 (compile.py:241-533). One block is
 
-    frame = [prev_in, x] -> (powersave gate) -> rfft -> per stage:
-    input mix (+ cascade input) -> ring write at (t + delay[f]) % B -> MAC
-    -> output mix -> valid-half irfft -> y [C_out, N]
+    frame = [prev_in, x] -> (powersave gate) -> M-point FFT -> per
+    stage: input mix (+ cascade input) -> forward glue + ring write at
+    (t + delay[f]) % B -> MAC -> output mix -> valid-half irfft
+    -> y [C_out, N]
+
+The forward transform is split around the input mix (the **points
+route**): cuFFT's M-point transform of the frame (``fft_glue.
+fft_points``), the mix on those complex spectra (``partconv.
+mix_points``; the glue is linear bin by bin and the mix real, so they
+commute), and one kernel, ``fft_glue.glue_fwd_ring``, that glues the
+mixed spectra, casts them to the ring's dtype and writes each filter's
+row at its slot. The JAX package rfft's, mixes the packed planes and
+writes the ring with XLA's ops; the port's words differ from it by the
+rounding of the moved glue. Under a mesh the mixed spectra are glued into
+planes on the first device and split into the shards' rings (a bin shard
+lacks the mirror bins the glue reads); under taps the **planes route**
+keeps the JAX package's order, as the hooks see packed planes.
 
 ``taps`` (from ``Engine.attach_logic``) maps the frequency-domain module
 hooks to functions ``tap(planes, idx) -> planes``, called as the JAX
@@ -85,7 +99,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import partconv
+from ..ops import fft_glue, partconv
 from ..ops.partconv import static_index as _index
 from ..ops.mac import mac
 from ..ops.mac_dual import mac_dual
@@ -350,6 +364,40 @@ def _write_ring_mesh(mesh, ring, blk, t, delay, uniform_delay: bool,
                         uniform_delay, local)
 
 
+def _mix(mix: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """The input mix of the spectra ``S``: M-point spectra (complex
+    ``[C, M]``, the points route) or packed planes (``[C, 2, N]``, the
+    planes route under taps)."""
+    return (partconv.mix_points(mix, S) if S.is_complex()
+            else partconv.complex_mix(mix, S))
+
+
+def _land(ring, S, t, delay, uniform_delay: bool, rows=None, mesh=None,
+          taps=None, tap_idx=None) -> None:
+    """Land a stage's mixed spectra ``S`` in the ring at each filter's
+    delayed slot; ``rows`` the stage's filters as a numpy vector, or None
+    for every filter in order. M-point spectra on one device take
+    ``fft_glue.glue_fwd_ring``, the glue, the cast and the slot write in
+    one launch; under ``mesh`` they are glued into planes on the first
+    device (a bin shard lacks the mirror bins the glue reads) and split by
+    ``_write_ring``. Packed planes (the planes route) go through the
+    ``pre_convolve`` tap (with ids ``tap_idx``), then ``_write_ring``: the
+    ring takes the tapped spectra, so a mutation persists in its history,
+    as the reference's in-place cbuf[n][curblock] (bfrun.c:1688-1690)."""
+    if S.is_complex() and mesh is None:
+        r32 = None if rows is None else _index(tuple(rows.tolist()),
+                                               ring.device, torch.int32)
+        fft_glue.glue_fwd_ring(S, ring, r32, delay, t)
+        return
+    if S.is_complex():
+        S = fft_glue.glue_fwd(S)
+    else:
+        S = _tap(taps, "pre_convolve", S, tap_idx)
+    if rows is not None and mesh is None:
+        rows = _index(tuple(rows.tolist()), ring.device)
+    _write_ring(ring, S, t, delay, uniform_delay, rows, mesh)
+
+
 def _mac(ring, bank, idx: np.ndarray, coeff_idx, mask, t, uniform: bool,
          mesh=None) -> torch.Tensor:
     """The unfused MAC of the stage filters ``idx``: ``mac`` on the ring
@@ -369,7 +417,10 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     its filters, the cascade input of those with filter inputs, the
     ``pre_convolve`` tap, the ring write and the unfused MAC of its
     filters (read in place in the ring), the ``post_convolve`` tap; then
-    every filter's spectra [F, 2, N] in filter order. On a crossfade
+    every filter's spectra [F, 2, N] in filter order. ``X``: the input's
+    M-point spectra (the points route: the mixes and the cascade input
+    stay M-point spectra up to the ring write, ``_land``) or its packed
+    planes (the planes route, under taps). On a crossfade
     block a stage holding a crossfading filter runs the dual MAC and
     ``crossfade_spectra`` instead, and keeps the ramped spectra of the
     filters whose ``xfade`` is set (compile.py:456-505 without the
@@ -386,7 +437,7 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     for stage in spec.stages:
         idx = tuple(stage.idx.tolist())
         rows = _index(idx, dev)
-        mixed = partconv.complex_mix(full.in_mix[rows], X)    # [Fs, 2, N]
+        mixed = _mix(full.in_mix[rows], X)          # [Fs, M] or [Fs, 2, N]
         if stage.casc_local.size:
             # the mixed spectra of the earlier stages' filters that feed
             # this one, contracted stage by stage in stage order
@@ -397,17 +448,19 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
                     full.fmix[cidx[:, None], prows[None, :]], py)
                 z = zc if z is None else z + zc
             slots = _index(tuple(stage.casc_slots.tolist()), dev)
-            e, tails = partconv.convolve_eval(z, eval_prev[slots])
+            ev = (partconv.convolve_eval_points if mixed.is_complex()
+                  else partconv.convolve_eval)
+            e, tails = ev(z, eval_prev[slots])
             eval_prev.index_copy_(0, slots, tails)
-            mixed.index_add_(0, _index(tuple(stage.casc_local.tolist()), dev),
-                             e)
-        # the ring takes the tapped spectra: a mutation persists in its
-        # history, as the reference's in-place cbuf[n][curblock]
-        # (bfrun.c:1688-1690)
-        mixed = _tap(taps, "pre_convolve", mixed, stage.idx)
-        sel = None if idx == tuple(range(F)) else (
-            rows if mesh is None else stage.idx)
-        _write_ring(ring, mixed, t, rctrl.delay, uniform_delay, sel, mesh)
+            local = _index(tuple(stage.casc_local.tolist()), dev)
+            if mixed.is_complex():
+                torch.view_as_real(mixed).index_add_(
+                    0, local, torch.view_as_real(e))
+            else:
+                mixed.index_add_(0, local, e)
+        _land(ring, mixed, t, rctrl.delay, uniform_delay,
+              None if idx == tuple(range(F)) else stage.idx, mesh, taps,
+              stage.idx)
         if stage.any_crossfade and xfade_now:
             y_new, y_old = _xfade_macs(ring, bank, stage.idx, ctrl, t,
                                        uniform, mesh)
@@ -505,18 +558,22 @@ def step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     check_supported(spec)
     full = ctrl.full if mesh is not None else ctrl
     frame = _gate(spec, full, torch.cat([state.prev_in, x], dim=-1))
-    X = partconv.rfft_planes(frame)                         # [C_in, 2, N]
-    X = _tap(taps, "input_freqd", X, np.arange(spec.n_inputs))
+    if taps:
+        # the planes route: the hooks see packed planes
+        X = _tap(taps, "input_freqd", partconv.rfft_planes(frame),
+                 np.arange(spec.n_inputs))                  # [C_in, 2, N]
+    else:
+        X = fft_glue.fft_points(frame)                      # [C_in, M]
     ring, t = state.ring, state.t
     new_state = StepState(prev_in=x, ring=ring, eval_prev=state.eval_prev,
                           t=t + 1)
     td_xfade = fused_xfade_route(spec, xfade_now, taps)
     if td_xfade or fused_mix_route(spec, xfade_now, taps, mesh):
-        mixed = partconv.complex_mix(full.in_mix, X)        # [F, 2, N]
         # the block lands at each filter's delayed slot BEFORE the MAC
         # reads the ring
         rc = ctrl.shards if mesh is not None else ctrl
-        _write_ring(ring, mixed, t, rc.delay, uniform_delay, mesh=mesh)
+        _land(ring, _mix(full.in_mix, X), t, rc.delay, uniform_delay,
+              mesh=mesh)
         if td_xfade:
             return new_state, _fused_xfade(spec, ctrl, bank, ring, t,
                                            uniform, mesh)
@@ -649,15 +706,18 @@ def group_step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     bank: the twin of ``_group_step_impl`` (brutefir_tpu/graph/
     compile.py:615-752). Only reachable through ``group_size``.
 
-    Per block, the rfft and input mix (with the powersave gate); block
-    t's ring write; then ONE kernel launch for the group, which reads the
-    ring holding block t's write and no later one, plus the later blocks'
-    spectra as ``xnews``; then the ring writes of blocks t+1 .. t+G-1, in
-    order. The launch and the later writes run in that order on one
-    stream; writing first would let the kernel read a later block where
-    an earlier one belongs, in partitions the mask does not zero. The
-    group kernels read ``coeff_idx`` per filter even for a shared
-    coefficient, as the JAX group path does.
+    Per block, the M-point FFT and the input mix (with the powersave
+    gate); block t's ring write (``glue_fwd_ring``); the later blocks'
+    spectra glued into ``xnews`` in the ring's dtype (``glue_fwd_into``);
+    then ONE kernel launch for the group, which reads the ring holding
+    block t's write and no later one, plus ``xnews``; then the ring writes
+    of blocks t+1 .. t+G-1, in order, glued again from their spectra (the
+    same bits as ``xnews``; under a mesh the planes, split as
+    ``_write_ring`` splits them). The launch and the later writes run in
+    that order on one stream; writing first would let the kernel read a
+    later block where an earlier one belongs, in partitions the mask does
+    not zero. The group kernels read ``coeff_idx`` per filter even for a
+    shared coefficient, as the JAX group path does.
 
     The fused form mixes in the kernel; the unfused form mixes outside
     with ``partconv.complex_mix`` (an FP32 matmul, where the JAX package
@@ -670,14 +730,23 @@ def group_step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
     rc = ctrl.shards if mesh is not None else ctrl
     frames = [torch.cat([p, x], dim=-1)
               for p, x in zip([state.prev_in] + list(xs[:-1]), xs)]
-    blks = [partconv.complex_mix(full.in_mix,
-                                 partconv.rfft_planes(_gate(spec, full, f)))
-            for f in frames]                                # G x [F, 2, N]
+    zs = [partconv.mix_points(full.in_mix,
+                              fft_glue.fft_points(_gate(spec, full, f)))
+          for f in frames]                                  # G x [F, M]
     ring, t = state.ring, state.t
-    _write_ring(ring, blks[0], t, rc.delay, uniform_delay, mesh=mesh)
-    # the later blocks read the spectra the ring will hold: cast as the
-    # ring writes cast (compile.py:700-702)
-    xnews = torch.stack(blks[1:], dim=1).to(ring.dtype)     # [F, G-1, 2, N]
+    # the later blocks read the spectra the ring will hold: glued and
+    # cast as the ring writes glue and cast them (compile.py:700-702)
+    if mesh is not None:
+        blks = [fft_glue.glue_fwd(z) for z in zs]           # G x [F, 2, N]
+        _write_ring(ring, blks[0], t, rc.delay, uniform_delay, mesh=mesh)
+        xnews = torch.stack(blks[1:], dim=1).to(ring.dtype)
+    else:
+        fft_glue.glue_fwd_ring(zs[0], ring, None, rc.delay, t)
+        F, N = spec.n_filters, spec.block_length
+        xnews = torch.empty((F, G - 1, 2, N), dtype=ring.dtype,
+                            device=ring.device)             # [F, G-1, 2, N]
+        for g in range(1, G):
+            fft_glue.glue_fwd_into(zs[g], xnews[:, g - 1])
     if mesh is not None:
         ys = mac_group_shard(mesh, ring, split(mesh, xnews, 0, 3), bank,
                              rc.coeff_idx, rc.mask, t, rc.delay)
@@ -690,7 +759,11 @@ def group_step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
                        ctrl.delay)
         outs = [partconv.complex_mix(ctrl.out_mix, y) for y in ys]
     for g in range(1, G):
-        _write_ring(ring, blks[g], t + g, rc.delay, uniform_delay, mesh=mesh)
+        if mesh is not None:
+            _write_ring(ring, blks[g], t + g, rc.delay, uniform_delay,
+                        mesh=mesh)
+        else:
+            fft_glue.glue_fwd_ring(zs[g], ring, None, rc.delay, t, dt=g)
     ys = [partconv.irfft_planes_valid(o) for o in outs]     # G x [C_out, N]
     return StepState(prev_in=xs[-1], ring=ring, eval_prev=state.eval_prev,
                      t=t + G), ys

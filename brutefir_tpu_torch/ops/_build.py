@@ -50,7 +50,9 @@ SIGNATURES = {
     "fft_glue": {"bf_glue_fwd": [_P] * 3 + [_I] * 2 + [_P],
                  "bf_glue_inv": [_P] * 3 + [_I] * 2 + [_P],
                  "bf_glue_fwd_f64": [_P] * 3 + [_I] * 2 + [_P],
-                 "bf_glue_inv_f64": [_P] * 3 + [_I] * 2 + [_P]},
+                 "bf_glue_inv_f64": [_P] * 3 + [_I] * 2 + [_P],
+                 "bf_glue_fwd_ring": [_P] * 6 + [_I] * 6 + [_P],
+                 "bf_glue_fwd_ring_f64": [_P] * 6 + [_I] * 5 + [_P]},
     "fft_fused": {"bf_fft_fused_fwd": [_P] * 6 + [_I] * 3 + [_P],
                   "bf_fft_fused_inv": [_P] * 6 + [_I] * 4 + [_P]},
 }

@@ -19,7 +19,13 @@ the time samples as re/im pairs.
 ``glue_fwd`` (Z -> packed planes) and ``glue_inv`` (packed planes -> V)
 launch ``csrc/fft_glue.cu`` on a CUDA tensor and run their plain torch
 versions on a CPU tensor; there is no fallback from the kernel to the
-plain version on a CUDA tensor: a failed build or launch raises. The
+plain version on a CUDA tensor: a failed build or launch raises.
+``glue_fwd_ring`` and ``glue_fwd_into`` are the engine's forward route:
+the input mix runs on cuFFT's M-point output ``fft_points(x)`` (the glue
+is linear bin by bin and the mix real, so the two commute), and one
+launch glues the mixed spectra straight into the spectra ring at each
+filter's delayed slot, cast to the ring's dtype (``glue_fwd_ring``), or
+into a strided destination (``glue_fwd_into``). The
 complex FFTs around them are ``torch.fft`` (cuFFT), as the JAX package
 leaves them to XLA. Each takes one of two type pairs: complex64 with
 float32 planes, or complex128 with float64 planes (``float_bits: 64``:
@@ -40,7 +46,8 @@ from . import _build
 # kernel launches per direction, counted where the kernel is launched and
 # nowhere else (the smoke run reads them to prove the main path used it)
 launches = {"glue_fwd": 0, "glue_inv": 0, "glue_fwd_f64": 0,
-            "glue_inv_f64": 0}
+            "glue_inv_f64": 0, "glue_fwd_ring": 0, "glue_fwd_ring_bf16": 0,
+            "glue_fwd_ring_f64": 0}
 
 # complex dtype -> the real dtype of its planes, and back
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
@@ -170,13 +177,132 @@ def glue_inv(p: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def rfft_planes_glue(x: torch.Tensor) -> torch.Tensor:
-    """rfft of real ``x [..., 2M]`` -> packed planes ``[..., 2, M]``: the
-    even/odd pairs viewed as M complex points (no copy), cuFFT's M-point
-    transform, then the forward glue, which writes the planes directly."""
+def fft_points(x: torch.Tensor) -> torch.Tensor:
+    """The route's first half: real ``x [..., 2M]`` -> complex ``Z [...,
+    M]``, the even/odd pairs viewed as M complex points (no copy) and
+    cuFFT's M-point transform."""
     M = x.shape[-1] // 2
     z = torch.view_as_complex(x.reshape(x.shape[:-1] + (M, 2)))
-    return glue_fwd(torch.fft.fft(z, dim=-1))
+    return torch.fft.fft(z, dim=-1)
+
+
+def rfft_planes_glue(x: torch.Tensor) -> torch.Tensor:
+    """rfft of real ``x [..., 2M]`` -> packed planes ``[..., 2, M]``:
+    ``fft_points``, then the forward glue, which writes the planes
+    directly."""
+    return glue_fwd(fft_points(x))
+
+
+def glue_fwd_ring_reference(Zm: torch.Tensor, ring: torch.Tensor, rows,
+                            delay: torch.Tensor, t: torch.Tensor,
+                            dt: int = 0) -> None:
+    """Plain torch version of ``glue_fwd_ring``: ``glue_fwd_reference``,
+    the cast to the ring's dtype, and the ring write's index arithmetic
+    (row f at ``ring[rows[f], (t + dt + delay[rows[f]]) % B]``)."""
+    blk = glue_fwd_reference(Zm).to(ring.dtype)
+    r = (torch.arange(Zm.shape[0], device=Zm.device) if rows is None
+         else rows.long())
+    tt = t if dt == 0 else t + dt
+    wpos = torch.remainder(tt + delay[r], ring.shape[1]).long()
+    ring.index_put_((r, wpos), blk)
+
+
+def glue_fwd_into_reference(Zm: torch.Tensor, dst: torch.Tensor) -> None:
+    """Plain torch version of ``glue_fwd_into``."""
+    dst.copy_(glue_fwd_reference(Zm))
+
+
+def _check_points(fn: str, Zm: torch.Tensor, dst: torch.Tensor) -> None:
+    """Raise on what ``bf_glue_fwd_ring`` does not take: ``Zm`` complex64
+    (complex128) ``[Fs, M]`` contiguous, ``dst`` float32 or bfloat16
+    (float64) on Zm's device."""
+    check_tensor(fn, Zm, Zm.dtype if Zm.dtype in _REAL else torch.complex64)
+    if Zm.dim() != 2:
+        raise ValueError(f"{fn}: spectra must be [Fs, M], got "
+                         f"{tuple(Zm.shape)}")
+    ok = ((torch.float32, torch.bfloat16) if Zm.dtype == torch.complex64
+          else (torch.float64,))
+    if dst.dtype not in ok:
+        raise TypeError(f"{fn}: {Zm.dtype} spectra cannot land in a "
+                        f"{dst.dtype} destination")
+    if dst.device != Zm.device:
+        raise ValueError(f"{fn}: spectra on {Zm.device}, destination on "
+                         f"{dst.device}")
+
+
+def _launch_ring(Zm, dst, rows, delay, t, dt: int, B: int,
+                 row_stride: int) -> None:
+    """Launch ``bf_glue_fwd_ring`` (``_f64``) over Zm's rows into
+    ``dst``; count it under ``glue_fwd_ring`` and the destination's
+    dtype."""
+    Fs, M = Zm.shape
+    f64 = Zm.dtype == torch.complex128
+    ab = ab_table(M, True, Zm.device, _REAL[Zm.dtype])
+    ptr = [Zm.data_ptr(), ab.data_ptr(), dst.data_ptr(),
+           0 if rows is None else rows.data_ptr(),
+           0 if delay is None else delay.data_ptr(),
+           0 if t is None else t.data_ptr(), dt, Fs, M, B, row_stride]
+    bf16 = dst.dtype == torch.bfloat16
+    with torch.cuda.device(Zm.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        lib = _build.load("fft_glue")
+        rc = (lib.bf_glue_fwd_ring_f64(*ptr, stream) if f64
+              else lib.bf_glue_fwd_ring(*ptr, int(bf16), stream))
+    if rc != 0:
+        raise RuntimeError(f"glue_fwd_ring: kernel launch failed (cudaError "
+                           f"{rc})")
+    launches["glue_fwd_ring" + ("_f64" if f64 else "_bf16" if bf16
+                                else "")] += 1
+
+
+def glue_fwd_ring(Zm: torch.Tensor, ring: torch.Tensor, rows,
+                  delay: torch.Tensor, t: torch.Tensor, dt: int = 0) -> None:
+    """The forward glue of the mixed M-point spectra ``Zm [Fs, M]``
+    (complex64, or complex128 for a float64 ring), written in place into
+    the ring ``[F, B, 2, M]`` (float32, bfloat16 rounded to nearest even,
+    or float64): row f at ``ring[rows[f], (t + dt + delay[rows[f]]) %
+    B]``. ``rows``: an int32 ``[Fs]`` index of the ring's rows, or None
+    for rows 0..Fs-1; ``delay`` int32 ``[F]`` and ``t`` an int32 scalar,
+    read by the kernel from device memory (no host sync); ``dt`` a host
+    offset of ``t``. Everything contiguous, on one device."""
+    _check_points("glue_fwd_ring", Zm, ring)
+    Fs, M = Zm.shape
+    if ring.dim() != 4 or ring.shape[2:] != (2, M) or not \
+            ring.is_contiguous():
+        raise ValueError(f"glue_fwd_ring: ring must be a contiguous "
+                         f"[F, B, 2, {M}], got {tuple(ring.shape)}")
+    F, B = ring.shape[:2]
+    if rows is None and Fs > F:
+        raise ValueError(f"glue_fwd_ring: {Fs} rows into a ring of {F}")
+    for name, v, n in (("rows", rows, Fs), ("delay", delay, F), ("t", t, 1)):
+        if v is not None and (v.dtype != torch.int32 or v.numel() != n
+                              or not v.is_contiguous()
+                              or v.device != Zm.device):
+            raise ValueError(f"glue_fwd_ring: {name} must be a contiguous "
+                             f"int32 tensor of {n} on {Zm.device}")
+    if Zm.device.type == "cpu":
+        glue_fwd_ring_reference(Zm, ring, rows, delay, t, dt)
+        return
+    _launch_ring(Zm, ring, rows, delay, t, dt, B, B * 2 * M)
+
+
+def glue_fwd_into(Zm: torch.Tensor, dst: torch.Tensor) -> None:
+    """The forward glue of ``Zm [Fs, M]`` written into ``dst [Fs, 2, M]``
+    (float32, bfloat16 or float64 as for ``glue_fwd_ring``), whose rows
+    may lie any stride apart (a block of the grouped dispatch's ``xnews
+    [F, G-1, 2, M]``) but whose planes are contiguous: the same kernel
+    with slot addressing off, counted with ``glue_fwd_ring``."""
+    _check_points("glue_fwd_into", Zm, dst)
+    Fs, M = Zm.shape
+    if (dst.shape != (Fs, 2, M) or dst.stride(2) != 1
+            or dst.stride(1) != M):
+        raise ValueError(f"glue_fwd_into: destination must be [{Fs}, 2, "
+                         f"{M}] with contiguous planes, got shape "
+                         f"{tuple(dst.shape)} strides {tuple(dst.stride())}")
+    if Zm.device.type == "cpu":
+        glue_fwd_into_reference(Zm, dst)
+        return
+    _launch_ring(Zm, dst, None, None, None, 0, 0, dst.stride(0))
 
 
 def irfft_planes_glue(p: torch.Tensor) -> torch.Tensor:

@@ -154,8 +154,17 @@ def convolve_eval(z: torch.Tensor, eval_prev: torch.Tensor):
     -> their valid time-domain output, overlap-save framed with the
     previous block's valid output ``eval_prev [Fc, N]``, re-transformed.
     Returns ``(E [Fc, 2, N], new eval_prev [Fc, N])``."""
+    e, valid = convolve_eval_points(z, eval_prev)
+    return fft_glue.glue_fwd(e), valid
+
+
+def convolve_eval_points(z: torch.Tensor, eval_prev: torch.Tensor):
+    """``convolve_eval`` before its forward glue: ``(E [Fc, M] complex,
+    the M-point spectra of the re-framed output (``fft_glue.fft_points``),
+    new eval_prev [Fc, N])``. The stage loop adds E to the stage's mixed
+    spectra and glues the sum once, into the ring."""
     valid = irfft_planes_valid(z)
-    return rfft_planes(torch.cat([eval_prev, valid], dim=-1)), valid
+    return fft_glue.fft_points(torch.cat([eval_prev, valid], dim=-1)), valid
 
 
 def complex_mix(mix: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -169,6 +178,17 @@ def complex_mix(mix: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     F = x.shape[0]
     return torch.matmul(mix, x.reshape(F, -1)).reshape(
         (mix.shape[0],) + x.shape[1:])
+
+
+def mix_points(mix: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """Real mixing matrix applied to M-point spectra (``fft_glue.
+    fft_points``): [A, C] @ complex [C, M] -> complex [A, M], one matmul
+    of the real type on the [C, 2M] real view, as ``complex_mix`` on
+    planes. The forward glue is linear bin by bin, so mixing before it
+    equals mixing its planes up to rounding."""
+    C, M = Z.shape
+    y = torch.matmul(mix, torch.view_as_real(Z).reshape(C, 2 * M))
+    return torch.view_as_complex(y.reshape(mix.shape[0], M, 2))
 
 
 def widen(x: torch.Tensor) -> torch.Tensor:

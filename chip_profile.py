@@ -59,8 +59,9 @@ in the timed run (the reads, the main thread's logic hooks, control
 snapshots and dispatch, the writer's fetch, meters and writes; the
 threads overlap), the device's busy
 time a block (the sum of the device time of every kernel and copy in the
-profiled run) and its share of the timed run's wall time, and the device
-time by name, largest first. ``--pair`` sets BRUTEFIR_TPU_PAIR (default:
+profiled run) and its share of the timed run's wall time, the device
+operations a block (kernels, copies and memsets), and the device time
+by name, largest first. ``--pair`` sets BRUTEFIR_TPU_PAIR (default:
 the engine's own). ``--mlock`` calls ``mlockall(MCL_CURRENT |
 MCL_FUTURE)`` after the warm-up run and prints what it returned, so the
 timed and profiled runs allocate under the lock (``mlock_probe``).
@@ -254,7 +255,9 @@ def main():
         print(f"device busy {busy_ms:.3f} ms a block = "
               f"{busy_ms / wall_ms * 100:.1f}% of the timed run's wall "
               f"time (profiled run: {pwall / pstats['blocks'] * 1e3:.3f} "
-              f"ms a block)", flush=True)
+              f"ms a block); device operations "
+              f"{sum(r[1] for r in rows) / pstats['blocks']:.2f} a block "
+              f"(kernels, copies and memsets)", flush=True)
         for dev_us, count, key in rows[:40]:
             print(f"  {dev_us / 1e3 / pstats['blocks']:9.4f} ms a block "
                   f"{count:7d} calls  {key[:90]}", flush=True)

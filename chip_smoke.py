@@ -68,6 +68,20 @@ Phases, in order; any failure exits non-zero:
    as above beside its float64 bound (8-byte bytes over 3.35 TB/s, FP64
    operations over 34 TFLOP/s), the float64 routes beside
    ``torch.fft.rfft`` / ``irfft`` on float64;
+6c. kernel vs plain, the forward glue into the ring
+   (``bf_glue_fwd_ring`` of ``csrc/fft_glue.cu``): its float32, bfloat16
+   and float64 forms at the massive shape (one shared delay; per-filter
+   delays), bench1's first stage (rows 2-5 of 6, B = 8) and 256 rows,
+   M = 8192, each against its plain version on the same CUDA tensors
+   (float32 within 1e-5 of the peak, float64 1e-12, the bfloat16 ring
+   equal to the plain version's cast, every other slot untouched), timed
+   beside its bound, the floor and the plain version; its
+   plain-destination form into block 1 of a G = 4 ``xnews`` at 256 rows;
+   then the frames-to-ring sequences at C = 26 and 256, in turns: old
+   (cuFFT fft, ``glue_fwd``, the mix of planes, ``_write_ring``), new
+   (cuFFT fft, the mix on the M-point spectra, ``glue_fwd_ring``) and the
+   library sequence (``torch.fft.rfft``, its packing, the mix,
+   ``_write_ring``), each ring within 1e-5 of the new one's;
 7. the fused real FFT's probe path (``csrc/fft_fused.cu``, TPU kernel 12;
    tools/fused_fft_probe.py's comparison): frame -> digit-permuted planes
    and permuted planes -> valid half at C = 26 and 256, M = 8192, one
@@ -325,11 +339,16 @@ Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
 launch its kernels the expected number of times (launch counts are set
 to 0 just before each run). Every run launches the glue kernels: a
-single stage one forward and one inverse a block, a two-stage cascade
-two of each (the input, ``convolve_eval`` both ways, the output), and
-``crossfade_spectra`` one forward and two full inverses more on each
-crossfade block of a cascade. No module of jax or of the JAX package
-may be loaded at the end.
+single stage one forward glue into the ring (``glue_fwd_ring``, its
+``_bf16`` form under the ring knob, its ``_f64`` form in float64) and one
+inverse a block, a two-stage cascade two of each (the input, the cascade
+input's inverse and its forward into the ring, the output), a group of
+G blocks G - 1 more into its ``xnews``, and ``crossfade_spectra`` one
+``glue_fwd`` and two full inverses more on each crossfade block of a
+cascade; ``glue_fwd`` (the planes) replaces ``glue_fwd_ring`` under
+taps (phases 24-25) and on a mesh (32-37), whose ring writes stay
+torch's. No module of jax or of the JAX package may be loaded at the
+end.
 
 The last lines are the kernel summary JSON, the card line, and
 ``{"ok": true, "device": {...}}``. The script imports no jax and nothing
@@ -1084,6 +1103,178 @@ def kernels_glue(tg, rows, flush):
         torch.cuda.empty_cache()
 
 
+# phase 6c's shapes of the forward glue into the ring, M = 8192: (label,
+# F, B, stage rows or None, per-filter delays)
+RING_SHAPES = (
+    ("massive, one shared delay", F, B, None, [0] * F),
+    ("massive, per-filter delays", F, B, None, [f % B for f in range(F)]),
+    ("bench1's first stage, rows 2-5 of 6", 6, 8, [2, 3, 4, 5],
+     [0, 1, 2, 3, 4, 5]),
+    ("scale, 256 rows", SCALE_C, B, None, [0] * SCALE_C))
+RING_FORMS = (("glue_fwd_ring", "float32"), ("glue_fwd_ring_bf16",
+                                             "bfloat16"),
+              ("glue_fwd_ring_f64", "float64"))
+SEQ_ROUNDS = 2           # phase 6c: the frames-to-ring sequences in turns
+
+
+def kernels_glue_ring(tg, pc, rows, flush):
+    """Phase 6c: ``bf_glue_fwd_ring`` (csrc/fft_glue.cu) in its three
+    forms at RING_SHAPES against its plain version on the same CUDA
+    tensors (float32 within REL_TOL of the peak, float64 REL_TOL_F64,
+    a bfloat16 ring equal to the plain version's cast; every slot it does
+    not write untouched), each timed beside its bound, the floor and the
+    plain version; the plain-destination form into the grouped
+    dispatch's ``xnews`` at the scale shape, G = 4; then the three
+    frames-to-ring sequences at C = 26 and 256 in turns: old (cuFFT fft,
+    ``glue_fwd``, the mix of planes, ``_write_ring``), new (cuFFT fft,
+    the mix on the M-point spectra, ``glue_fwd_ring``) and the library
+    sequence (``torch.fft.rfft``, its packing into planes, the mix,
+    ``_write_ring``), each ring within REL_TOL of the others."""
+    import torch
+    from brutefir_tpu_torch.graph.compile import _write_ring
+    M = FFT_M
+    print_ptxas("fft_glue", ("glue_fwd_ring_kernel",),
+                "one pair of bins a thread, the slot a row")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    t = torch.tensor(5, dtype=torch.int32, device="cuda")
+    for label, F_, B_, stage, delays in RING_SHAPES:
+        Fs = F_ if stage is None else len(stage)
+        r32 = (None if stage is None else
+               torch.tensor(stage, dtype=torch.int32, device="cuda"))
+        delay = torch.tensor(delays, dtype=torch.int32, device="cuda")
+        idx = (torch.arange(Fs, device="cuda") if r32 is None
+               else r32.long())
+        slots = torch.remainder(t + delay[idx], B_).long()
+        written = torch.zeros(F_, B_, dtype=torch.bool, device="cuda")
+        written[idx, slots] = True
+        for key, what in RING_FORMS:
+            f64 = key.endswith("_f64")
+            rdt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                   "float64": torch.float64}[what]
+            Zm = torch.randn(Fs, M, generator=g, device="cuda",
+                             dtype=torch.complex128 if f64
+                             else torch.complex64)
+            ring = torch.randn(F_, B_, 2, M, generator=g,
+                               device="cuda").to(rdt)
+            ref = ring.clone()
+            before = tg.launches[key]
+            tg.glue_fwd_ring(Zm, ring, r32, delay, t)
+            tg.glue_fwd_ring_reference(Zm, ref, r32, delay, t)
+            torch.cuda.synchronize()
+            if tg.launches[key] != before + 1:
+                fail(f"{key} ({label}): not counted under its key")
+            if not torch.equal(ring[~written], ref[~written]):
+                fail(f"{key} ({label}): a slot it must not write changed")
+            got, want = ring[written], ref[written]
+            same = float((got == want).float().mean())
+            if rdt == torch.bfloat16:
+                if not torch.equal(got, want):
+                    fail(f"{key} ({label}): the bfloat16 ring is not the "
+                         f"plain version's cast")
+                rel = err = 0.0
+            else:
+                rel, err = check(f"{key} ({label})", got, want, 5,
+                                 REL_TOL_F64 if f64 else REL_TOL)
+            k_ms = time_ms(lambda: tg.glue_fwd_ring(Zm, ring, r32, delay, t),
+                           REPS, flush)
+            p_ms = time_ms(lambda: tg.glue_fwd_ring_reference(
+                Zm, ref, r32, delay, t), REPS, flush)
+            rb = {"float32": 4, "bfloat16": 2, "float64": 8}[what]
+            cb = 16 if f64 else 8
+            nb = (Fs * M * cb + M * (32 if f64 else 16) + Fs * 2 * M * rb
+                  + 4 * (Fs + F_ + 1))
+            report(rows, key, "brutefir_tpu_torch/csrc/fft_glue.cu", 89,
+                   rel, err, k_ms, p_ms, nb, Fs * 14 * M,
+                   ("fft_glue", key) if label.startswith("massive, one")
+                   else None,
+                   note=f" ({label}: Fs={Fs}, F={F_}, B={B_}, M={M}, "
+                   f"{what} ring; {same * 100:.2f}% of the written words "
+                   f"equal to the plain version's)", pallas=GLUE_SRC,
+                   f64=f64)
+            del Zm, ring, ref
+        torch.cuda.empty_cache()
+    # the plain-destination form into xnews [F, G-1, 2, M] at G = 4
+    for key, what in RING_FORMS[:2]:
+        rdt = torch.float32 if what == "float32" else torch.bfloat16
+        Zm = torch.randn(SCALE_C, M, generator=g, device="cuda",
+                         dtype=torch.complex64)
+        xnews = torch.zeros(SCALE_C, 3, 2, M, dtype=rdt, device="cuda")
+        ref = xnews.clone()
+        tg.glue_fwd_into(Zm, xnews[:, 1])
+        tg.glue_fwd_into_reference(Zm, ref[:, 1])
+        torch.cuda.synchronize()
+        if rdt == torch.bfloat16:
+            if not torch.equal(xnews, ref):
+                fail("glue_fwd_into (bfloat16): not the plain version's cast")
+            rel = err = 0.0
+        else:
+            rel, err = check("glue_fwd_into", xnews, ref, 0)
+        k_ms = time_ms(lambda: tg.glue_fwd_into(Zm, xnews[:, 1]), REPS, flush)
+        p_ms = time_ms(lambda: tg.glue_fwd_into_reference(Zm, ref[:, 1]),
+                       REPS, flush)
+        rb = 4 if what == "float32" else 2
+        report(rows, f"{key} into xnews", "brutefir_tpu_torch/csrc/"
+               "fft_glue.cu", 89, rel, err, k_ms, p_ms,
+               SCALE_C * M * 8 + M * 16 + SCALE_C * 2 * M * rb,
+               SCALE_C * 14 * M, None,
+               note=f" (the plain-destination form, block 1 of xnews "
+               f"[{SCALE_C}, 3, 2, {M}], {what})", pallas=GLUE_SRC)
+        del Zm, xnews, ref
+    torch.cuda.empty_cache()
+    frames_to_ring(tg, pc, _write_ring, flush)
+
+
+def frames_to_ring(tg, pc, write_ring, flush):
+    """The three frames-to-ring sequences of phase 6c at C = 26 and 256
+    (F = C filters, a dense [C, C] input mix, B = 16, one shared delay:
+    the massive and scale shapes' step), timed in turns, SEQ_ROUNDS
+    rounds of old, new, library; each ring within REL_TOL of the new
+    one's."""
+    import torch
+    M = FFT_M
+    for C in (F, SCALE_C):
+        x, _ = fft_inputs(C, SEED + 62 + C)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 63 + C)
+        mix = torch.randn(C, C, generator=g, device="cuda") / C
+        delay = torch.zeros(C, dtype=torch.int32, device="cuda")
+        t = torch.tensor(3, dtype=torch.int32, device="cuda")
+        rings = {k: torch.zeros(C, B, 2, M, device="cuda")
+                 for k in ("old", "new", "library")}
+        seqs = {
+            "old": lambda: write_ring(
+                rings["old"], pc.complex_mix(mix, tg.rfft_planes_glue(x)),
+                t, delay, True),
+            "new": lambda: tg.glue_fwd_ring(
+                pc.mix_points(mix, tg.fft_points(x)), rings["new"], None,
+                delay, t),
+            "library": lambda: write_ring(
+                rings["library"],
+                pc.complex_mix(mix, packed(torch.fft.rfft(x))), t, delay,
+                True)}
+        for fn in seqs.values():
+            fn()
+        torch.cuda.synchronize()
+        ref = rings["new"][:, 3]
+        peak = ref.abs().max().item()
+        for k in ("old", "library"):
+            rel = (rings[k][:, 3] - ref).abs().max().item() / peak
+            if not rel <= REL_TOL:
+                fail(f"frames to ring at C={C}: the {k} sequence is "
+                     f"{rel:.3e} of the peak from the new one")
+        times = {k: [] for k in seqs}
+        for _ in range(SEQ_ROUNDS):
+            for k, fn in seqs.items():
+                times[k].append(time_ms(fn, REPS, flush))
+        print(f"  frames to ring at C={C}, M={M}, B={B}, in turns "
+              f"({SEQ_ROUNDS} rounds of old, new, library; median of "
+              f"{REPS} each): " + "; ".join(
+                  f"{k} " + ", ".join(f"{v:.4f}" for v in ts) + " ms"
+                  for k, ts in times.items())
+              + f"; floor {FLOOR_MS:.4f} ms", flush=True)
+        del x, rings, seqs
+        torch.cuda.empty_cache()
+
+
 def kernels_f64(tm, tg, rows, flush):
     """The float64 forms (``float_bits: 64``): the unfused MAC
     (``bf_mac_f64`` of csrc/mac.cu) at MAC_SHAPES, then checked at
@@ -1494,14 +1685,22 @@ def knob(name: str, value):
 
 
 def add_glue(launched: dict, counts: dict):
-    """Add a run's glue launches (``counts`` by (module, form)) to the
-    glue rows' launches."""
-    for key in (("fft_glue", "glue_fwd"), ("fft_glue", "glue_inv")):
-        launched[key] = launched.get(key, 0) + counts[key]
+    """Add a run's launches of the float32 and bfloat16 glue forms
+    (``counts`` by (module, form)) to the glue rows' launches."""
+    for key in counts:
+        if key[0] == "fft_glue" and not key[1].endswith("_f64"):
+            launched[key] = launched.get(key, 0) + counts[key]
 
 
-def glue_want(n_fwd: int, n_inv: int) -> dict:
-    return {"glue_fwd": n_fwd, "glue_inv": n_inv}
+def glue_want(n_ring: int, n_inv: int, n_fwd: int = 0,
+              ring: str = "glue_fwd_ring") -> dict:
+    """The glue launches a run must make: ``n_ring`` of the forward glue
+    into the ring (``glue_fwd_ring``, or ``ring``: its bfloat16 form
+    under the ring knob), one a ring write and one a block of a group's
+    ``xnews``; ``n_fwd`` of ``glue_fwd`` (the planes route under taps, a
+    mesh's planes, ``crossfade_spectra``'s re-transform, the stage
+    probe); ``n_inv`` inverses."""
+    return {ring: n_ring, "glue_fwd": n_fwd, "glue_inv": n_inv}
 
 
 def main_massive(main, mods: dict, launched: dict):
@@ -1559,13 +1758,19 @@ def write_scale_inputs(work: str, frames: int, seed: int = SEED + 2):
     return taps, x, cfg
 
 
+# the grouped dispatch's xnews blocks in a 16-block batch run of the
+# scale shape, by BRUTEFIR_TPU_PAIR: 4 groups of 4 (3 each), 8 of 2 (1)
+GROUP_INTO = {None: 4 * 3, "2": 8 * 1}
+
+
 def main_scale(main, mods: dict, launched: dict):
     C = SCALE_C
     frames = int(BLOCKS * K)
     blocks = int(np.ceil(BLOCKS))
     taps, x, cfg = write_scale_inputs(WORK, frames)
-    # every block one forward and one inverse glue at C = 256, the groups'
-    # blocks included
+    # every block one ring write and one inverse glue at C = 256, the
+    # groups' blocks included, and each group's later blocks glued into
+    # its xnews once more (GROUP_INTO)
     runs = (("scale, groups of 4", None,
              {"group": 4, "tiled": 4, "mix_group": 0},
              (("mac_group", "group"), ("mac_mix", "tiled"))),
@@ -1580,7 +1785,8 @@ def main_scale(main, mods: dict, launched: dict):
             ys.append(run_main(main, cfg, frames, C, label))
             counts = all_counts(mods)
         expect_launches({k[1]: v for k, v in counts.items()},
-                        {**want, **glue_want(blocks, blocks)}, label)
+                        {**want, **glue_want(blocks + GROUP_INTO[pair],
+                                             blocks)}, label)
         for key in keys:
             launched[key] = counts[key]
         add_glue(launched, counts)
@@ -2015,12 +2221,12 @@ def main_bench1_xfade(main, mods: dict, launched: dict):
     counts = all_counts(mods)
     blocks = int(np.ceil(BLOCKS))
     swaps = len(range(0, blocks, 3))
-    # bench1's two glue launches each way a block, and on each swap block
-    # crossfade_spectra's two full inverses and one forward
+    # bench1's two ring writes and two inverse glues a block, and on each
+    # swap block crossfade_spectra's two full inverses and one forward
     expect_only(counts, {"mac_dual_rows": swaps,
                          "mac_rows": 2 * blocks - swaps,
-                         **glue_want(2 * blocks + swaps,
-                                     2 * blocks + 2 * swaps)}, label)
+                         **glue_want(2 * blocks, 2 * blocks + 2 * swaps,
+                                     swaps)}, label)
     ref = cascade_xfade_oracle(taps, x)
     for c in range(2):
         peak = np.abs(ref[:, c]).max()
@@ -2502,7 +2708,7 @@ def main_benchmark(main, mods: dict, launched: dict):
         counts = all_counts(mods)
         probe = n_probe if breakdown else 0
         expect_only(counts, {"uniform": blocks, "mac_rows": probe,
-                             **glue_want(blocks + probe, blocks + probe)},
+                             **glue_want(blocks, blocks + probe, probe)},
                     label)
         table = [ln for ln in err.splitlines()
                  if ln.startswith(TABLE_PREFIXES)]
@@ -3115,8 +3321,9 @@ def main_hooks(main, mods: dict, launched: dict):
     inst = loaded_module("spectap").SpecTap.instances[-1]
     if inst.engine.dio is not None:
         fail(f"{label}: the engine kept the device-IO path")
-    expect_only(counts, {"mac_uniform": blocks, **glue_want(blocks, blocks)},
-                label)
+    # the planes route: the hooks see packed planes
+    expect_only(counts, {"mac_uniform": blocks,
+                         **glue_want(0, blocks, blocks)}, label)
     print(f"hook calls in this run ({label}): {inst.calls}", flush=True)
     for kind, n in inst.calls.items():
         if n != F * blocks:
@@ -3196,11 +3403,12 @@ def main_xfade_hooks(main, mods: dict, launched: dict):
     if fused or inst.engine.dio is not None:
         fail(f"{label}: the fused time-domain crossfade ran "
              f"{len(fused)} times, or the engine kept the device-IO path")
-    # the stage loop: a crossfade block adds crossfade_spectra's forward
-    # and two full inverse transforms
+    # the stage loop on the planes route: a crossfade block adds
+    # crossfade_spectra's forward and two full inverse transforms
     xf = blocks - 1
     expect_only(counts, {"mac_dual_uniform": xf, "mac_uniform": 1,
-                         **glue_want(blocks + xf, blocks + 2 * xf)}, label)
+                         **glue_want(0, blocks + 2 * xf, blocks + xf)},
+                label)
     if inst.calls != C * blocks:
         fail(f"{label}: post_convolve called {inst.calls} times")
     worst, peak = xfade_lsb(
@@ -3571,14 +3779,17 @@ def as_float64(cfg: str, name: str, pairs=()) -> str:
     return retarget(path, pairs)
 
 
-def f64_want(mac: dict, n_fwd: int, n_inv: int) -> dict:
+def f64_want(mac: dict, n_ring: int, n_inv: int, n_fwd: int = 0) -> dict:
     """The launches a float64 run must make: ``mac`` (the float64 MAC's
-    forms) and the float64 glue; expect_only holds every other form,
-    each float32 kernel's among them, to 0."""
-    return {**mac, "glue_fwd_f64": n_fwd, "glue_inv_f64": n_inv}
+    forms) and the float64 glue, counted as ``glue_want`` counts the
+    float32 one; expect_only holds every other form, each float32
+    kernel's among them, to 0."""
+    return {**mac, "glue_fwd_ring_f64": n_ring, "glue_fwd_f64": n_fwd,
+            "glue_inv_f64": n_inv}
 
 
-F64_GLUE = (("fft_glue", "glue_fwd_f64"), ("fft_glue", "glue_inv_f64"))
+F64_GLUE = (("fft_glue", "glue_fwd_f64"), ("fft_glue", "glue_inv_f64"),
+            ("fft_glue", "glue_fwd_ring_f64"))
 
 
 def main_massive_f64(main, mods: dict, launched: dict):
@@ -3632,7 +3843,7 @@ def main_bench1_xfade_f64(main, mods: dict, launched: dict):
     blocks = int(np.ceil(BLOCKS))
     swaps = len(range(0, blocks, 3))
     expect_only(counts, f64_want({"mac_rows_f64": 2 * blocks + swaps},
-                                 2 * blocks + swaps, 2 * blocks + 2 * swaps),
+                                 2 * blocks, 2 * blocks + 2 * swaps, swaps),
                 label)
     ref = cascade_xfade_oracle(taps, xf)
     for c in range(2):
@@ -3985,7 +4196,7 @@ def main_sharded_massive(mods: dict, launched: dict):
     ys, y1, _ = sharded_pair(mods, cfg, frames, F, "massive at 2 x 2",
                              card_mesh(2, 2),
                              {"uniform": 4 * blocks,
-                              **glue_want(blocks, blocks)}, launched)
+                              **glue_want(0, blocks, blocks)}, launched)
     lsb = oracle_lsbs([ys, y1], x, lambda c: taps[0])
     print(f"main path (massive at 2 x 2): max |y - oracle| {lsb[0]} LSB "
           f"(tol {LSB_TOL}); unsharded {lsb[1]}", flush=True)
@@ -4005,7 +4216,7 @@ def main_sharded_scale(mods: dict, launched: dict):
     ys, y1, _ = sharded_pair(mods, cfg, frames, SCALE_C, "scale at 1 x 4",
                              card_mesh(1, 4),
                              {"group": 4 * 4, "rows": 4 * 4,
-                              **glue_want(blocks, blocks)}, launched)
+                              **glue_want(0, blocks, blocks)}, launched)
     lsb = oracle_lsbs([ys, y1], x, lambda c: taps[c].astype(np.float64))
     print(f"main path (scale at 1 x 4): max |y - oracle| {lsb[0]} LSB (tol "
           f"{LSB_TOL}); unsharded {lsb[1]}", flush=True)
@@ -4024,7 +4235,7 @@ def main_sharded_bench5(mods: dict, launched: dict):
     ys, _, _ = sharded_pair(mods, cfg, frames, C, "bench5 at 2 x 1",
                             card_mesh(2, 1),
                             {"mac_dual_uniform": 2 * (blocks - 1),
-                             "uniform": 2, **glue_want(blocks, blocks)},
+                             "uniform": 2, **glue_want(0, blocks, blocks)},
                             launched, how="run")
     worst, peak = xfade_lsb(
         ys.astype(np.float64), x, taps, N_,
@@ -4045,7 +4256,7 @@ def main_sharded_bench1(mods: dict, launched: dict):
     taps, x, cfg = write_bench1_inputs(WORK, frames)
     ys, y1, _ = sharded_pair(mods, cfg, frames, 2, "bench1 at 1 x 2",
                              card_mesh(1, 2),
-                             {"mac_rows": 2 * n, **glue_want(n, n)},
+                             {"mac_rows": 2 * n, **glue_want(0, n, n)},
                              launched)
     if not np.array_equal(ys, y1):
         fail("bench1 at 1 x 2 is not bit-equal to the unsharded run")
@@ -4093,7 +4304,7 @@ def main_sharded_pinned(mods: dict, launched: dict, y_massive):
     ys, y1, err = sharded_pair(mods, cfg, frames, F, "massive pinned at "
                                "2 x 1", card_mesh(2, 1),
                                {"uniform": 2 * blocks,
-                                **glue_want(blocks, blocks)}, launched)
+                                **glue_want(0, blocks, blocks)}, launched)
     line = ("Manual process placement: 2 process group(s) onto the 2-way "
             "'f' mesh axis (28 filter rows incl. padding)")
     if line not in err:
@@ -4140,7 +4351,7 @@ def mesh_child():
                           card_mesh(f, sp, devs))
         counts = all_counts(mods)
         expect_only(counts, {"uniform": 2 * blocks,
-                             **glue_want(blocks, blocks)},
+                             **glue_want(0, blocks, blocks)},
                     f"massive across two cards at {f} x {sp}")
         for k, v in counts.items():
             total[f"{k[0]}/{k[1]}"] = total.get(f"{k[0]}/{k[1]}", 0) + v
@@ -4484,6 +4695,7 @@ def main_massive_bf16(main, mods: dict, launched: dict):
     blocks = int(np.ceil(BLOCKS))
     taps, x = write_massive_inputs(np.random.default_rng(SEED), frames)
     glue = glue_want(blocks, blocks)
+    glue16 = glue_want(blocks, blocks, ring="glue_fwd_ring_bf16")
     for two in (False, True):
         cfg = massive_config("run2.conf" if two else "run1.conf", two)
         form = "rows" if two else "uniform"
@@ -4517,9 +4729,10 @@ def main_massive_bf16(main, mods: dict, launched: dict):
                                  ("_bf16rb", BOTH16, "bf16 bank and ring")):
             label = f"massive, {tag}, {what}"
             y, counts = run_counted(main, mods, cfg, frames, F, label, {
-                form + sfx: blocks, **glue}, F32 + knobs)
+                form + sfx: blocks, **glue16}, F32 + knobs)
             ring_check(label, y, y32)
-            add_counts(launched, counts, ("mac_mix", form + sfx))
+            add_counts(launched, counts, ("mac_mix", form + sfx),
+                       ("fft_glue", "glue_fwd_ring_bf16"))
 
 
 def main_scale_bf16(main, mods: dict, launched: dict):
@@ -4540,10 +4753,12 @@ def main_scale_bf16(main, mods: dict, launched: dict):
     for (label, pair, want, keys), y32 in zip(runs, F32_OUT.pop("scale")):
         y16, counts = run_counted(
             main, mods, cfg, frames, SCALE_C, label,
-            {**want, **glue_want(blocks, blocks)},
+            {**want, **glue_want(blocks + GROUP_INTO[pair], blocks,
+                                 ring="glue_fwd_ring_bf16")},
             BOTH16 + (("BRUTEFIR_TPU_PAIR", pair),))
         ring_check(label, y16, y32)
-        add_counts(launched, counts, *keys)
+        add_counts(launched, counts, *keys,
+                   ("fft_glue", "glue_fwd_ring_bf16"))
 
 
 def ring_check(label: str, y16, y32) -> None:
@@ -4572,7 +4787,7 @@ def main_bench5_bf16(main, mods: dict, launched: dict):
     label = "bench5, bf16 ring and bank"
     y16, counts = run_counted(main, mods, cfg, frames, C, label, {
         "mac_dual_uniform_bf16rb": blocks - 1, "uniform_bf16rb": 1,
-        **glue_want(blocks, blocks)}, BOTH16)
+        **glue_want(blocks, blocks, ring="glue_fwd_ring_bf16")}, BOTH16)
     ring_check(label, y16, F32_OUT.pop("bench5"))
     worst, _ = xfade_lsb(
         y16.astype(np.float64), x, taps, N_,
@@ -4580,7 +4795,8 @@ def main_bench5_bf16(main, mods: dict, launched: dict):
         range(0, C, 5))
     print(f"main path ({label}): max |y - ramp oracle| {worst:.3f} LSB "
           f"(the float32 run's {F32_ERR['bench5']:.3f})", flush=True)
-    add_counts(launched, counts, ("mac_dual", "mac_dual_uniform_bf16rb"))
+    add_counts(launched, counts, ("mac_dual", "mac_dual_uniform_bf16rb"),
+               ("fft_glue", "glue_fwd_ring_bf16"))
 
 
 def main_cascades_bf16(main, mods: dict, launched: dict):
@@ -4637,7 +4853,8 @@ def main_cascades_bf16(main, mods: dict, launched: dict):
     add_counts(launched, counts, ("mac", "mac_uniform_bf16b"))
 
 
-PROFILE_KERNELS = ("mac_mix_kernel", "glue_fwd_kernel", "glue_inv_kernel")
+PROFILE_KERNELS = ("mac_mix_kernel", "glue_fwd_ring_kernel",
+                   "glue_inv_kernel")
 
 
 def main_profile(mods: dict, launched: dict):
@@ -4747,6 +4964,9 @@ def run():
     launched = {}
     phase("kernel vs plain, the FFT glue, and the FFT routes")
     kernels_glue(tg, rows, flush)
+    phase("kernel vs plain, the forward glue into the ring, and the "
+          "frames-to-ring sequences")
+    kernels_glue_ring(tg, pc, rows, flush)
     phase("kernel vs plain, the float64 forms (float_bits: 64)")
     kernels_f64(tm, tg, rows, flush)
     phase("the fused real FFT's probe path")

@@ -333,8 +333,9 @@ logic: "cli" {{ script: "{script}"; echo: false; }};
     assert (tm.launches["mac_uniform_f64"] + tm.launches["mac_rows_f64"]
             == blocks + 2)
     assert tm.launches["mac_uniform_f64"] > 0
-    assert tg.launches == {"glue_fwd": 0, "glue_inv": 0,
-                           "glue_fwd_f64": blocks, "glue_inv_f64": blocks}
+    assert tg.launches == {**dict.fromkeys(tg.launches, 0),
+                           "glue_fwd_ring_f64": blocks,
+                           "glue_inv_f64": blocks}
     assert not any(td.launches.values()) and not any(mm.launches.values())
     assert not any(mg.launches.values())
     Engine(conf("cpu.raw"), device=torch.device("cpu")).run()
@@ -769,14 +770,141 @@ def test_failed_fft_launches_raise(cuda, monkeypatch):
     assert (tg.launches, tf.launches) == before
 
 
+# (Fs, F, B, M, rows, delays): the massive shape (26 filters, one shared
+# delay), per-filter delays, bench1's second stage (2 of 6 rows), 256
+# rows, and lengths with a ragged last tile (1, 3, 255, 4097)
+RING_SHAPES = [
+    (26, 26, 16, 8192, None, [3] * 26),
+    (26, 26, 16, 8192, None, [f % 16 for f in range(26)]),
+    (2, 6, 8, 8192, [0, 1], [0, 1, 2, 3, 4, 5]),
+    (256, 256, 2, 8192, None, [f % 2 for f in range(256)]),
+    (3, 5, 3, 1, [4, 0, 2], [0, 1, 2, 0, 1]),
+    (3, 3, 2, 3, None, [1, 0, 1]),
+    (4, 4, 3, 255, [3, 2, 1, 0], [2, 1, 0, 2]),
+    (2, 2, 2, 4097, None, [0, 1]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("Fs,F,B,M,rows,delays", RING_SHAPES)
+def test_glue_fwd_ring_kernel_matches_plain_version(cuda, dtype, Fs, F, B,
+                                                    M, rows, delays):
+    """``bf_glue_fwd_ring`` (``_f64``) against its plain version on the
+    same CUDA tensors: the ring's written rows within 1e-5 of their peak
+    (1e-12 in float64), a bfloat16 ring equal to the plain version's
+    cast, every other slot untouched; one launch under the form's key."""
+    g = torch.Generator(device="cpu").manual_seed(Fs * M + B)
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    Zm = torch.randn(Fs, M, dtype=cdt, generator=g).to(cuda)
+    ring = torch.randn(F, B, 2, M, generator=g).to(cuda, dtype)
+    ref = ring.clone()
+    r32 = (None if rows is None
+           else torch.tensor(rows, dtype=torch.int32, device=cuda))
+    delay = torch.tensor(delays, dtype=torch.int32, device=cuda)
+    t = torch.tensor(5, dtype=torch.int32, device=cuda)
+    key = "glue_fwd_ring" + {torch.float32: "", torch.bfloat16: "_bf16",
+                             torch.float64: "_f64"}[dtype]
+    before = dict(tg.launches)
+    tg.glue_fwd_ring(Zm, ring, r32, delay, t, dt=2)
+    torch.cuda.synchronize()
+    assert tg.launches == {**before, key: before[key] + 1}
+    tg.glue_fwd_ring_reference(Zm, ref, r32, delay, t, dt=2)
+    idx = torch.arange(Fs, device=cuda) if r32 is None else r32.long()
+    slots = torch.remainder(7 + delay[idx], B).long()
+    written = torch.zeros(F, B, dtype=torch.bool, device=cuda)
+    written[idx, slots] = True
+    assert torch.equal(ring[~written], ref[~written])
+    got, want = ring[written].double(), ref[written].double()
+    if dtype == torch.bfloat16:
+        assert torch.equal(ring[written], ref[written])
+    else:
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        assert (got - want).abs().max().item() <= \
+            tol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("F,G,M", [(26, 2, 8192), (256, 4, 8192),
+                                   (3, 3, 255)])
+def test_glue_fwd_into_kernel_matches_plain_version(cuda, dtype, F, G, M):
+    """The plain-destination form into block g of ``xnews [F, G-1, 2,
+    M]`` (the grouped dispatch's row stride): the block as the plain
+    version writes it (bfloat16 equal, float32 within 1e-5 of the peak,
+    float64 1e-12), the other blocks untouched."""
+    g = torch.Generator(device="cpu").manual_seed(F * G + M)
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    Zm = torch.randn(F, M, dtype=cdt, generator=g).to(cuda)
+    xnews = torch.full((F, G - 1, 2, M), 3.0, dtype=dtype, device=cuda)
+    ref = xnews.clone()
+    tg.glue_fwd_into(Zm, xnews[:, G - 2])
+    tg.glue_fwd_into_reference(Zm, ref[:, G - 2])
+    torch.cuda.synchronize()
+    assert torch.equal(xnews[:, : G - 2], ref[:, : G - 2])
+    if dtype == torch.bfloat16:
+        assert torch.equal(xnews, ref)
+    else:
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        d = (xnews - ref).abs().max().item()
+        assert d <= tol * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_glue_fwd_ring_refuses_and_raises(cuda, monkeypatch):
+    """Operands on two devices are refused before any launch; a refused
+    launch raises and counts nothing."""
+    Zm = torch.zeros(2, 256, dtype=torch.complex64, device=cuda)
+    ring = torch.zeros(2, 2, 2, 256, device=cuda)
+    delay = torch.zeros(2, dtype=torch.int32, device=cuda)
+    t = torch.zeros((), dtype=torch.int32, device=cuda)
+    before = dict(tg.launches)
+    with pytest.raises(ValueError):
+        tg.glue_fwd_ring(Zm, ring, None, delay.cpu(), t)
+    with pytest.raises(ValueError):
+        tg.glue_fwd_ring(Zm, ring.cpu(), None, delay, t)
+
+    class Refused:
+        def __getattr__(self, name):
+            return lambda *a: 9          # cudaErrorInvalidConfiguration
+    monkeypatch.setattr(tg._build, "load", lambda stem: Refused())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tg.glue_fwd_ring(Zm, ring, None, delay, t)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tg.glue_fwd_into(Zm, ring[:, 0])
+    assert tg.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair,into", [("0", 0), ("force:4", 6),
+                                       ("force", 4)])
+def test_ring_route_engine_on_card_matches_cpu(cuda, tmp_path, monkeypatch,
+                                               pair, into):
+    """The engine on the card block by block and in groups of 4 and 2
+    (the batch of 8, then the 4-block tail block by block), per-filter
+    delays: every forward transform lands through ``bf_glue_fwd_ring``
+    (each block's ring write, and the group's later blocks into
+    ``xnews``), no ``glue_fwd``; within 2 LSB of the CPU engine and of
+    the float64 oracle."""
+    monkeypatch.setenv("BRUTEFIR_TPU_PAIR", pair)
+    tg.reset_launches()
+    _card_and_cpu(cuda, tmp_path, [0, 1, 0], delays=(0, 1, 2))
+    assert tg.launches == {**dict.fromkeys(tg.launches, 0),
+                           "glue_fwd_ring": 12 + into,
+                           "glue_inv": 12}
+
+
 @pytest.mark.cuda
 def test_glue_route_engine_on_card_matches_cpu(cuda, tmp_path):
-    """The glue route, the engine's only FFT route: one forward and one
-    inverse glue kernel a block on the card, within 2 LSB of the CPU
-    engine and of the float64 oracle."""
+    """The glue route, the engine's only FFT route: one forward glue
+    into the ring (``glue_fwd_ring``) and one inverse glue kernel a block
+    on the card, no ``glue_fwd``, within 2 LSB of the CPU engine and of
+    the float64 oracle."""
     before = dict(tg.launches)
     _card_and_cpu(cuda, tmp_path, [0, 1, 0])
-    assert tg.launches == {k: v + 12 * (not k.endswith("_f64"))
+    assert tg.launches == {k: v + 12 * (k in ("glue_fwd_ring", "glue_inv"))
                            for k, v in before.items()}
 
 
@@ -920,8 +1048,8 @@ def test_stage_probe_on_card(cuda):
     assert tm.launches == {**with_bf16("mac_uniform", "mac_rows"),
                            "mac_rows": n, "mac_uniform_f64": 0,
                            "mac_rows_f64": 0}
-    assert tg.launches == {"glue_fwd": n, "glue_inv": n, "glue_fwd_f64": 0,
-                           "glue_inv_f64": 0}
+    assert tg.launches == {**dict.fromkeys(tg.launches, 0),
+                           "glue_fwd": n, "glue_inv": n}
 
 
 def _eq_xfade_conf(tmp_path, name):
@@ -1156,7 +1284,9 @@ filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 1; }};
                            "mac_uniform": 1, "mac_rows": blocks + 1,
                            "mac_uniform_f64": 0, "mac_rows_f64": 0}
     assert not any(mm.launches.values())
-    assert tg.launches["glue_fwd"] == tg.launches["glue_inv"] == blocks + 2
+    assert tg.launches["glue_fwd_ring"] == tg.launches["glue_inv"] == \
+        blocks + 2
+    assert tg.launches["glue_fwd"] == 0
     yc = run("cpu", torch.device("cpu"))
     assert yg.size == (frames + 2 * N) * C and not yg[:2 * N * C].any()
     assert np.abs(yc).max() > 2 ** 18
@@ -1592,7 +1722,8 @@ def test_staged_bf16_forms_refuse_unaligned_operands(cuda, monkeypatch):
 @pytest.mark.parametrize("fail", [False, True])
 def test_profile_traces_run_on_card(cuda, tmp_path, monkeypatch, fail):
     """BRUTEFIR_TPU_PROFILE=<dir>: run() writes one Chrome trace that
-    names the MAC kernel and both glue kernels; also when run() raises,
+    names the MAC kernel and both glue kernels of the route (the forward
+    one into the ring); also when run() raises,
     and the profiler is stopped then (a new one starts)."""
     from brutefir_tpu_torch.runtime.engine import Engine
     N, B, C = 512, 2, 2
@@ -1625,7 +1756,8 @@ filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 0; }};
     assert len(files) == 1
     if not fail:
         text = files[0].read_text()
-        for name in ("mac_mix_kernel", "glue_fwd_kernel", "glue_inv_kernel"):
+        for name in ("mac_mix_kernel", "glue_fwd_ring_kernel",
+                     "glue_inv_kernel"):
             assert name in text, name
     with torch.profiler.profile():
         pass

@@ -121,14 +121,15 @@ def test_glue_grid_writes_each_bin_once(M):
 
 def _spy(monkeypatch):
     """Count the glue kernels' wrapper calls (on the CPU they run their
-    plain versions)."""
-    calls = {"glue_fwd": 0, "glue_inv": 0}
+    plain versions): ``glue_fwd_ring`` is the engine's forward route into
+    the ring, ``glue_fwd`` every other forward glue."""
+    calls = {"glue_fwd": 0, "glue_inv": 0, "glue_fwd_ring": 0}
     for name in calls:
         orig = getattr(tg, name)
 
-        def spy(t, _o=orig, _n=name):
+        def spy(*a, _o=orig, _n=name, **k):
             calls[_n] += 1
-            return _o(t)
+            return _o(*a, **k)
         monkeypatch.setattr(tg, name, spy)
     return calls
 
@@ -154,7 +155,7 @@ def test_partconv_dispatch_matches_jax(rng, monkeypatch, mode):
                jpc.irfft_planes(jnp.asarray(p)))
         _close(tpc.irfft_planes_valid(torch.as_tensor(p)).numpy(),
                jpc.irfft_planes_valid(jnp.asarray(p)))
-    assert calls == {"glue_fwd": 3, "glue_inv": 6}
+    assert calls == {"glue_fwd": 3, "glue_inv": 6, "glue_fwd_ring": 0}
 
 
 def test_roundtrip_identity(rng):
@@ -189,7 +190,8 @@ def _engines(tmp_path, monkeypatch, make_text):
 
 def test_two_channel_engine_matches_jax(tmp_path, monkeypatch, rng):
     """tests/test_fft_glue_pallas.py's engine config (256 x 2, a dirac on
-    two channels): one forward and one inverse glue a block."""
+    two channels): one forward glue into the ring (``glue_fwd_ring``) and
+    one inverse glue a block."""
     vals = np.clip((rng.standard_normal((256 * 4, 2)) * 2 ** 20).round(),
                    -(2 ** 23), 2 ** 23 - 1).astype("<i4")
     vals.tofile(tmp_path / "in.raw")
@@ -208,8 +210,8 @@ filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 0; }};
     assert yt.size == yj.size == vals.size
     assert np.abs(yt - yj).max() <= 1
     assert np.abs(yt.reshape(-1, 2) - vals).max() <= 1      # a dirac
-    assert calls == {"glue_fwd": stats["blocks"],
-                     "glue_inv": stats["blocks"]}
+    assert calls == {"glue_fwd": 0, "glue_inv": stats["blocks"],
+                     "glue_fwd_ring": stats["blocks"]}
 
 
 def _cascade_inputs(tmp_path, seed, N_, B_):
@@ -234,14 +236,15 @@ def _check_oracle(y, ref):
 def test_bench1_cascade_engine_matches_jax(tmp_path, monkeypatch):
     """bench1's cascade at 256 x 4: per block the input's forward glue,
     the cascade re-framing's inverse and forward (convolve_eval) and the
-    output's inverse."""
+    output's inverse; both forwards glue into the ring."""
     N_, B_ = 256, 4
     taps, x, frames = _cascade_inputs(tmp_path, 21, N_, B_)
     stats, yj, yt, calls = _engines(
         tmp_path, monkeypatch,
         lambda name: bench1_config(tmp_path, name, N_, B_))
     assert stats["blocks"] == 14
-    assert calls == {"glue_fwd": 2 * 14, "glue_inv": 2 * 14}
+    assert calls == {"glue_fwd": 0, "glue_inv": 2 * 14,
+                     "glue_fwd_ring": 2 * 14}
     assert yt.size == yj.size == frames * 2
     assert np.abs(yt - yj).max() <= 1
     ref = cascade_oracle(x, taps, N_, lambda k: [2, 3, 4, 5])
@@ -259,7 +262,8 @@ def test_crossfading_cascade_engine_matches_jax(tmp_path, monkeypatch):
         lambda name: bench1_xfade_config(tmp_path, name, N_, B_,
                                          CASCADE_SCRIPT))
     assert stats["blocks"] == 14
-    assert calls == {"glue_fwd": 2 * 14 + 5, "glue_inv": 2 * 14 + 2 * 5}
+    assert calls == {"glue_fwd": 5, "glue_inv": 2 * 14 + 2 * 5,
+                     "glue_fwd_ring": 2 * 14}
     assert yt.size == yj.size == frames * 2
     assert np.abs(yt - yj).max() <= 1
     _check_oracle(yt.reshape(frames, 2),

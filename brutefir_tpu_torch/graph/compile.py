@@ -439,25 +439,7 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
         rows = _index(idx, dev)
         mixed = _mix(full.in_mix[rows], X)          # [Fs, M] or [Fs, 2, N]
         if stage.casc_local.size:
-            # the mixed spectra of the earlier stages' filters that feed
-            # this one, contracted stage by stage in stage order
-            cidx = _index(tuple(stage.idx[stage.casc_local].tolist()), dev)
-            z = None
-            for prows, py in zip(done, ys):
-                zc = partconv.complex_mix(
-                    full.fmix[cidx[:, None], prows[None, :]], py)
-                z = zc if z is None else z + zc
-            slots = _index(tuple(stage.casc_slots.tolist()), dev)
-            ev = (partconv.convolve_eval_points if mixed.is_complex()
-                  else partconv.convolve_eval)
-            e, tails = ev(z, eval_prev[slots])
-            eval_prev.index_copy_(0, slots, tails)
-            local = _index(tuple(stage.casc_local.tolist()), dev)
-            if mixed.is_complex():
-                torch.view_as_real(mixed).index_add_(
-                    0, local, torch.view_as_real(e))
-            else:
-                mixed.index_add_(0, local, e)
+            _cascade_input(stage, full.fmix, done, ys, eval_prev, mixed)
         _land(ring, mixed, t, rctrl.delay, uniform_delay,
               None if idx == tuple(range(F)) else stage.idx, mesh, taps,
               stage.idx)
@@ -475,9 +457,40 @@ def _stage_loop(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
         y = _tap(taps, "post_convolve", y, stage.idx)
         ys.append(y)
         done.append(rows)
+    return _in_filter_order(spec, ys, dev)
+
+
+def _cascade_input(stage, fmix, done, ys, eval_prev, mixed) -> None:
+    """Add the cascade input of ``stage``'s filters that take other
+    filters' outputs to their rows of ``mixed`` in place: the spectra
+    ``ys`` of the earlier stages (their filters ``done``) mixed by
+    ``fmix`` stage by stage in stage order, then ``convolve_eval`` of the
+    sum against the cascade tails ``eval_prev`` (updated in place), in
+    the domain of ``mixed`` (M-point spectra or packed planes)."""
+    dev = eval_prev.device
+    cidx = _index(tuple(stage.idx[stage.casc_local].tolist()), dev)
+    z = None
+    for prows, py in zip(done, ys):
+        zc = partconv.complex_mix(fmix[cidx[:, None], prows[None, :]], py)
+        z = zc if z is None else z + zc
+    slots = _index(tuple(stage.casc_slots.tolist()), dev)
+    ev = (partconv.convolve_eval_points if mixed.is_complex()
+          else partconv.convolve_eval)
+    e, tails = ev(z, eval_prev[slots])
+    eval_prev.index_copy_(0, slots, tails)
+    local = _index(tuple(stage.casc_local.tolist()), dev)
+    if mixed.is_complex():
+        torch.view_as_real(mixed).index_add_(0, local, torch.view_as_real(e))
+    else:
+        mixed.index_add_(0, local, e)
+
+
+def _in_filter_order(spec: GraphSpec, ys, dev) -> torch.Tensor:
+    """The stages' spectra ``ys`` as one [F, 2, N] tensor in filter
+    order."""
     y_all = ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
     order = np.concatenate([s.idx for s in spec.stages])
-    if not np.array_equal(order, np.arange(F)):
+    if not np.array_equal(order, np.arange(spec.n_filters)):
         y_all = y_all[_index(tuple(np.argsort(order).tolist()), dev)]
     return y_all
 

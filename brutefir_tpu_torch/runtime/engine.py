@@ -21,7 +21,8 @@ reference's stage table every 10 periods (bfrun.c:2035-2078): host ms a
 block to read, to snapshot and dispatch ("device": the host's enqueue
 time, as dispatch is asynchronous), to hand the block to the writer, and
 in all; with ``BRUTEFIR_TPU_STAGE_BREAKDOWN=1`` the device column is split
-by ``runtime/stageprobe.py``'s per-op device times. ``debug: true;`` also
+by the device times of one block of the engine's route, column by column
+(``runtime/stageprobe.py``). ``debug: true;`` also
 dumps the input/filter/output event timeline at the end of the run.
 
 The fixed-latency contract holds: output frame m is the convolution of
@@ -1456,6 +1457,7 @@ class Engine:
         show = self.conf.benchmark or self.conf.debug
         quiet = getattr(self.conf, "quiet", False)
         eof = False
+        epoch = None
         while not self._stopped and not eof:
             if max_blocks is not None and self.blockcounter >= max_blocks:
                 break
@@ -1515,7 +1517,7 @@ class Engine:
             self._stage_t += (t1 - t0, t2 - t1, t3 - t2, period)
             self._stage_blocks += 1
             if show and self._stage_blocks % 10 == 0:
-                self._print_stage_table()
+                self._print_stage_table(epoch)
             if (self.conf.show_progress and not quiet
                     and t3 - self._last_progress > 1.0):
                 # the rti echo (engine.py:1599-1607)
@@ -1540,21 +1542,24 @@ class Engine:
                             f"{measured:.0f} Hz, configured "
                             f"{self.conf.sampling_rate} Hz")
 
-    def _print_stage_table(self):
+    def _print_stage_table(self, epoch=None):
         """The reference's benchmark table (bfrun.c:2035-2078), the JAX
         package's text: host ms a block averaged over the periods since
         the last print. With ``BRUTEFIR_TPU_STAGE_BREAKDOWN`` set, the
-        device column is apportioned by per-op device times taken once,
-        at the first print, at this engine's shapes
+        device column is apportioned by the device times of one block's
+        calls, taken once, at the first print, on this engine's route
+        under ``epoch`` (the last block's ``_snapshot_epoch``; None: a new
+        one) with its bank, taps and mesh
         (``stageprobe.device_stage_slopes``)."""
         t = self._stage_t / max(self._stage_blocks, 1) * 1e3
         if os.environ.get("BRUTEFIR_TPU_STAGE_BREAKDOWN"):
             from .stageprobe import STAGES, device_stage_slopes
             if not hasattr(self, "_stage_slopes"):
+                ctrl, _, uni, udl, _, bank, _ = (epoch
+                                                 or self._snapshot_epoch())
                 self._stage_slopes = device_stage_slopes(
-                    self.spec, self.bank if self.mesh is None
-                    else mesh_mod.gather(self.bank), self.device,
-                    self.ring_dtype)
+                    self.spec, bank, self.device, self.ring_dtype, ctrl,
+                    uni, udl, self.taps, self.mesh)
                 tot = sum(self._stage_slopes.values())
                 sys.stderr.write(
                     "device stage calibration (ms/block): "

@@ -181,8 +181,16 @@ Phases, in order; any failure exits non-zero:
    of the oracle; the stage table printed once every 10 periods (4
    lines); then the same run under BRUTEFIR_TPU_STAGE_BREAKDOWN=1, bit-
    equal, with the stage probe's calibration line naming its five stages
-   and its launches of the unfused MAC and the glue counted exactly
-   (``runtime/stageprobe.py``: 1 + CALLS x REPS each); then ``debug:
+   (mix2 0.000: the fused route folds the output mix into the MAC) and
+   its launches counted exactly (``runtime/stageprobe.py`` times one
+   block of the route: the uniform fused MAC + mix, ``glue_fwd_ring`` and
+   ``glue_inv`` ``stageprobe.RUNS`` times each beside one a block,
+   ``mac_rows`` and ``glue_fwd`` none); then the bench1 cascade under
+   ``benchmark: true;`` (20.5 blocks, 2 lines, 2e-5 of the peak + 4 of
+   the oracle), without and with the breakdown, bit-equal, the probe's
+   stage loop launching ``mac_rows``, ``glue_fwd_ring`` and ``glue_inv``
+   2 x RUNS times each beside two a block; both calibration lines
+   printed; then ``debug:
    true;`` on the first 19.5 blocks of the input: bit-equal to the
    benchmark run over its full blocks (its half block within 1 LSB),
    its timeline one call/ret pair a period for input, filter and output;
@@ -2650,6 +2658,7 @@ def main_xtc(main, tm, tg, mods: dict, launched: dict):
 
 
 BENCH_BLOCKS = 40.5      # phase 19: 41 periods, 4 stage-table lines
+BENCH1_BLOCKS = 20.5     # phase 19's bench1 run: 21 periods, 2 lines
 DEBUG_BLOCKS = 19.5      # phase 19's debug run
 TABLE_PREFIXES = ("decode/ms", "decode ")
 
@@ -2687,29 +2696,45 @@ def debug_events(err: str):
     return ev
 
 
-def main_benchmark(main, mods: dict, launched: dict):
-    """Phase 19: the massive shape under benchmark: true (run(), the stage
-    table), then with the stage probe's calibration, then debug: true."""
+def calibration(label: str, err: str, fused: bool) -> str:
+    """The one calibration line of a run under the stage breakdown, naming
+    every stage; mix2 0.000 on the fused route (the output mix is folded
+    into the MAC), positive elsewhere."""
     from brutefir_tpu_torch.runtime import stageprobe
-    rng = np.random.default_rng(SEED + 19)
-    frames = int(BENCH_BLOCKS * K)
-    blocks = int(np.ceil(BENCH_BLOCKS))
-    taps, x = write_massive_inputs(rng, frames)
-    cfg = mode_config("bench.conf", "benchmark: true;")
-    ys = []
-    n_probe = 1 + stageprobe.CALLS * stageprobe.REPS
+    calib = [ln for ln in err.splitlines()
+             if ln.startswith("device stage calibration")]
+    if len(calib) != 1 or not all(f" {k} " in calib[0]
+                                  for k in stageprobe.STAGES):
+        fail(f"{label}: no calibration line naming every stage")
+    vals = dict(zip(stageprobe.STAGES, calib[0].split(": ", 1)[1].split()[
+        1::2]))
+    if (vals["mix2"] == "0.000") != fused:
+        fail(f"{label}: mix2 reads {vals['mix2']} on the "
+             f"{'fused route' if fused else 'stage loop'}")
+    return calib[0]
+
+
+def benchmark_runs(main, mods: dict, cfg: str, frames: int, channels: int,
+                   blocks: int, label: str, want) -> list:
+    """``cfg`` (under ``benchmark: true;``) through ``main()`` without and
+    with BRUTEFIR_TPU_STAGE_BREAKDOWN=1, every count set to 0 just before
+    each run: the launches ``want(probe)`` (``probe`` the stage probe's
+    RUNS, 0 without the breakdown), one stage-table line every
+    10 periods of its ``blocks``, one calibration line with the breakdown,
+    the two outputs bit-equal. Returns [(y, counts, err)] of both runs."""
+    from brutefir_tpu_torch.runtime import stageprobe
+    runs = []
     for breakdown in (None, "1"):
-        label = ("massive, benchmark: true"
-                 + (", BRUTEFIR_TPU_STAGE_BREAKDOWN=1" if breakdown else ""))
+        tag = (label + (", BRUTEFIR_TPU_STAGE_BREAKDOWN=1" if breakdown
+                        else ""))
         for m in mods.values():
             m.reset_launches()
         with knob("BRUTEFIR_TPU_STAGE_BREAKDOWN", breakdown):
-            y, err = run_main(main, cfg, frames, F, label, with_err=True)
+            y, err = run_main(main, cfg, frames, channels, tag,
+                              with_err=True)
         counts = all_counts(mods)
-        probe = n_probe if breakdown else 0
-        expect_only(counts, {"uniform": blocks, "mac_rows": probe,
-                             **glue_want(blocks, blocks + probe, probe)},
-                    label)
+        probe = stageprobe.RUNS if breakdown else 0
+        expect_only(counts, want(probe), tag)
         table = [ln for ln in err.splitlines()
                  if ln.startswith(TABLE_PREFIXES)]
         calib = [ln for ln in err.splitlines()
@@ -2717,23 +2742,73 @@ def main_benchmark(main, mods: dict, launched: dict):
         for ln in calib + table:
             print(f"  {ln}", flush=True)
         if len(table) != blocks // 10:
-            fail(f"{label}: {len(table)} stage-table lines, expected "
+            fail(f"{tag}: {len(table)} stage-table lines, expected "
                  f"{blocks // 10}")
-        if breakdown and (len(calib) != 1 or not all(
-                f" {k} " in calib[0] for k in stageprobe.STAGES)):
-            fail(f"{label}: no calibration line naming every stage")
+        if not breakdown and calib:
+            fail(f"{tag}: a calibration line without the breakdown")
+        runs.append((y, counts, err))
+    if not np.array_equal(runs[0][0], runs[1][0]):
+        fail(f"{label}: the calibrated benchmark run's output differs from "
+             f"the first")
+    return runs
+
+
+def main_benchmark(main, mods: dict, launched: dict):
+    """Phase 19: the massive shape under benchmark: true (run(), the stage
+    table), then with the stage probe's calibration (the fused route),
+    the bench1 cascade the same way (the stage loop), then debug: true."""
+    rng = np.random.default_rng(SEED + 19)
+    frames = int(BENCH_BLOCKS * K)
+    blocks = int(np.ceil(BENCH_BLOCKS))
+    taps, x = write_massive_inputs(rng, frames)
+    cfg = mode_config("bench.conf", "benchmark: true;")
+    label = "massive, benchmark: true"
+    runs = benchmark_runs(
+        main, mods, cfg, frames, F, blocks, label,
+        lambda p: {"uniform": blocks + p,
+                   **glue_want(blocks + p, blocks + p)})
+    calib = [calibration(label, runs[1][2], True)]
+    for _, counts, _ in runs:
         launched[("mac_mix", "uniform")] += counts[("mac_mix", "uniform")]
-        launched[("mac", "mac_rows")] += counts[("mac", "mac_rows")]
         add_glue(launched, counts)
-        ys.append(y)
-    if not np.array_equal(ys[0], ys[1]):
-        fail("the calibrated benchmark run's output differs from the first")
+    ys = [runs[0][0]]
     lsb = oracle_lsb(ys[0], x, lambda c: taps[0])
     print(f"main path (massive, benchmark: true): max |y - oracle| {lsb} "
           f"LSB (tol {LSB_TOL}) on all {F} channels; the calibrated run "
           f"bit-equal", flush=True)
     if lsb > LSB_TOL:
         fail(f"benchmark run off the float64 oracle by {lsb} LSB")
+
+    label = "bench1 cascade, benchmark: true"
+    bframes = int(BENCH1_BLOCKS * BENCH1_N)
+    bblocks = int(np.ceil(BENCH1_BLOCKS))
+    btaps, bx, bcfg = write_bench1_inputs(WORK, bframes, SEED + 191)
+    with open(bcfg) as fh:
+        text = fh.read()
+    with open(bcfg, "w") as fh:
+        fh.write(text.replace("float_bits: 32;",
+                              "float_bits: 32;\nbenchmark: true;", 1))
+    runs = benchmark_runs(
+        main, mods, bcfg, bframes, 2, bblocks, label,
+        lambda p: {"mac_rows": 2 * (bblocks + p),
+                   **glue_want(2 * (bblocks + p), 2 * (bblocks + p))})
+    calib.append(calibration(label, runs[1][2], False))
+    for _, counts, _ in runs:
+        launched[("mac", "mac_rows")] += counts[("mac", "mac_rows")]
+        add_glue(launched, counts)
+    ref = bench1_oracle(btaps, bx)
+    worst = 0.0
+    for c in range(2):
+        err = np.abs(runs[0][0][:, c] - ref[:, c]).max()
+        tol = 2e-5 * np.abs(ref[:, c]).max() + 4.0
+        worst = max(worst, err / tol)
+    print(f"main path ({label}): max |y - oracle| {worst:.3f} of the "
+          f"tolerance (2e-5 of the peak + 4) on both channels; the "
+          f"calibrated run bit-equal", flush=True)
+    if not worst <= 1.0:
+        fail(f"{label} off the float64 oracle")
+    for ln in calib:
+        print(f"stage probe, {ln}", flush=True)
 
     label = "massive, debug: true"
     dframes = int(DEBUG_BLOCKS * K)

@@ -1030,26 +1030,36 @@ output 0,1,2 {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "S24_LE
 
 @pytest.mark.cuda
 def test_stage_probe_on_card(cuda):
-    """``stageprobe.device_stage_slopes`` on the card: five positive times,
-    and its launches of the unfused MAC and the glue kernels are
-    1 + CALLS * REPS each."""
+    """``stageprobe.device_stage_slopes`` on the card times the route a
+    block runs, each call RUNS times: at a fused shape (one
+    stage of 6 filters, 1024 x 4, three coefficient sets) the per-filter
+    fused MAC + mix, ``glue_fwd_ring`` and ``glue_inv``, mix2 0 and the
+    other columns positive; on a two-stage cascade the stage loop's
+    ``mac_rows``, ``glue_fwd_ring`` and ``glue_inv`` (the cascade input's
+    and the output's) twice each, every column positive."""
     from brutefir_tpu_torch.graph.spec import build_graph_spec
     from brutefir_tpu_torch.runtime import stageprobe as sp
     N, B, F = 1024, 4, 6
-    spec = build_graph_spec(N, B, 3, 2, [[]] * F, [False] * F,
-                            np.dtype(np.float32))
+    n = sp.RUNS
     bank = torch.randn(3, B, 2, N, device=cuda)
-    tm.reset_launches()
-    tg.reset_launches()
-    got = sp.device_stage_slopes(spec, bank, cuda)
-    assert list(got) == list(sp.STAGES)
-    assert all(0 < v < 0.01 for v in got.values()), got
-    n = 1 + sp.CALLS * sp.REPS
-    assert tm.launches == {**with_bf16("mac_uniform", "mac_rows"),
-                           "mac_rows": n, "mac_uniform_f64": 0,
-                           "mac_rows_f64": 0}
-    assert tg.launches == {**dict.fromkeys(tg.launches, 0),
-                           "glue_fwd": n, "glue_inv": n}
+    for inputs, mac_want, mix_want, k in (
+            ([[]] * F, {}, {"rows": n}, 1),
+            ([[2], [3], [], [], [], []], {"mac_rows": 2 * n}, {}, 2)):
+        spec = build_graph_spec(N, B, 3, 2, inputs, [False] * F,
+                                np.dtype(np.float32))
+        tm.reset_launches()
+        tg.reset_launches()
+        mm.reset_launches()
+        got = sp.device_stage_slopes(spec, bank, cuda)
+        assert list(got) == list(sp.STAGES)
+        fused = k == 1
+        assert (got["mix2"] == 0.0) == fused, got
+        assert all(0 < v < 0.01 for s, v in got.items()
+                   if not (fused and s == "mix2")), got
+        assert tm.launches == {**dict.fromkeys(tm.launches, 0), **mac_want}
+        assert mm.launches == {**dict.fromkeys(mm.launches, 0), **mix_want}
+        assert tg.launches == {**dict.fromkeys(tg.launches, 0),
+                               "glue_fwd_ring": k * n, "glue_inv": k * n}
 
 
 def _eq_xfade_conf(tmp_path, name):

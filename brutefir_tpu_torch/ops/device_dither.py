@@ -85,11 +85,12 @@ def dither_window(tab: torch.Tensor, randmap: torch.Tensor,
     return d, (p + n).to(torch.int32), cur[:, -1]
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _phase_tables(n: int, device):
     """[6, n] bool masks (i % 6 == r) and [6, n] int64 coefficients
     c[(i - r) % 6], cached per length and device (building them per block
-    would be host -> device copies)."""
+    would be host -> device copies) and never evicted: a captured step
+    program (``runtime/program.py``) reads them at their address."""
     i = np.arange(n)
     masks = np.stack([i % 6 == r for r in range(6)])
     coefs = np.stack([np.asarray(_KERNEL)[(i - r) % 6] for r in range(6)])

@@ -59,14 +59,15 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def ab_table(M: int, forward: bool, device,
              dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[M, 4] rows (a.re, a.im, b.re, b.im) of the combine, built in
     float64; for float32 rounded once (as ``pallas_glue._ab_consts``), for
     float64 kept (a float32 table would put a 1e-7 error into every
     float64 spectrum). Cached per (M, direction, device, dtype): building
-    it is a host -> device copy."""
+    it is a host -> device copy. Never evicted: a captured step program
+    (``runtime/program.py``) reads it at its address."""
     k = np.arange(M)
     if forward:
         w = np.exp(-1j * np.pi * k / M)

@@ -116,20 +116,24 @@ irfft_planes = fft_glue.irfft_planes_glue          # [..., 2, M] -> [..., 2M]
 irfft_planes_valid = fft_glue.irfft_planes_valid_glue  # -> [..., M], lower half
 
 
-@functools.lru_cache(maxsize=512)
+@functools.lru_cache(maxsize=None)
 def static_index(values: tuple, device: torch.device,
                  dtype: torch.dtype = torch.long) -> torch.Tensor:
     """A static index vector (a stage's filters, slots, an inverse
-    permutation, a shard's rows) on ``device``, built once: a tensor made
-    from host data inside the per-block loop is a synchronous host ->
-    device copy."""
+    permutation, a shard's rows) on ``device``, built once per (values,
+    device, dtype) and kept: a tensor made from host data inside the
+    per-block loop is a synchronous host -> device copy, which no CUDA
+    graph capture allows, and a captured step program
+    (``runtime/program.py``) reads the cached tensor at its address, so
+    the cache never evicts. A key's first, eager call fills it."""
     return torch.tensor(values, dtype=dtype, device=device)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def xfade_ramp(n: int, dtype, device) -> torch.Tensor:
     """The crossfade's linear ramp ``arange(n) / (n - 1)``, built once per
-    (n, dtype, device) rather than on every crossfade block."""
+    (n, dtype, device) rather than on every crossfade block, and never
+    evicted (a captured step program reads it at its address)."""
     return torch.arange(n, dtype=dtype, device=device) / (n - 1)
 
 

@@ -26,11 +26,19 @@ the dither's error feedback and the quantizer). Runtime delay and
 subdelay changes reach them through ``update_delays`` and
 ``update_subdelays``, which the engine calls with each control snapshot.
 
-``multi_step`` runs m blocks as a Python loop (the ``lax.scan`` analog)
-with controls frozen across the batch; nothing in the loop synchronises
-with the host. At big single-stage shapes it steps G blocks at a time
+``step_eager`` runs one block op by op; ``multi_step_eager`` runs m
+blocks as a Python loop (the ``lax.scan`` analog) with controls frozen
+across the batch, nothing in the loop synchronising with the host, and
+at big single-stage shapes steps G blocks at a time
 (``graph.compile.group_size`` / ``group_step_impl``), reading the ring
-and the bank once per group.
+and the bank once per group. ``step`` and ``multi_step`` run them as the
+programs of ``runtime/program.py``: one per key, the JAX package's keys
+(``(uniform, udelay, xfade)`` and ``(m, uniform, udelay)``), eager at a
+key's first call and a replayed CUDA graph after, over static copies of
+the state, ``dstate``, the controls, the gains and the bank. The delay
+vectors and the subdelay rows are refreshed in place by
+``update_delays`` / ``update_subdelays``, so every program reads them at
+one address.
 
 Under the engine's mesh (``parallel/mesh.py``) the IO halves run on the
 mesh's first device and the graph step over the mesh: ``step_impl`` and
@@ -49,6 +57,7 @@ docs/PARITY.md).
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -60,6 +69,7 @@ from ..graph.compile import (group_size, group_step_impl, real_dtype,
 from ..ops.device_codec import (device_format_word, decode_words,
                                 encode_words, scatter_words, torch_dtype)
 from ..ops.device_dither import dither_quantize, dither_window
+from .program import Program, Statics, capturable
 
 
 def _wire3(fmt) -> bool:
@@ -140,6 +150,15 @@ def apply_subdelay(x: torch.Tensor, rest: torch.Tensor, hrows: torch.Tensor,
     return torch.where(byp[:, None], x, y), frames[:, N:]
 
 
+def _refresh(d: dict, key: str, value: torch.Tensor) -> None:
+    """``d[key] = value``, written into the tensor already there: the
+    step programs read it at one address."""
+    if key in d:
+        d[key].copy_(value)
+    else:
+        d[key] = value
+
+
 def aggregate_meters(meters: list) -> torch.Tensor:
     """Per-block meter rows [ch, 4] of a batch -> one row set: clip
     counts sum, peaks max."""
@@ -211,6 +230,9 @@ class DeviceIO:
             self._out_devs.append((on_dev(dev.channel_selection), mix,
                                    dev.open_channels, fmt))
         self.dstate = {}
+        # the step programs by key, and the static tensors they share
+        self._programs = {}
+        self._statics = None
 
         # integer delay lines: per virtual channel a window of the last W
         # pre-delay samples, out[n] = window[W + n - delay]. The capacity
@@ -294,8 +316,9 @@ class DeviceIO:
             else:
                 rows.append(steps - 1)               # centred dirac row
                 byp.append(d["defined"][ch])
-        d["hrows"] = d["H"][torch.as_tensor(rows, device=self.device)]
-        d["byp"] = torch.as_tensor(byp, device=self.device)
+        _refresh(d, "hrows",
+                 d["H"][torch.as_tensor(rows, device=self.device)])
+        _refresh(d, "byp", torch.as_tensor(byp, device=self.device))
 
     def update_subdelays(self, in_vals, out_vals):
         for io, vals in ((IN, in_vals), (OUT, out_vals)):
@@ -326,8 +349,8 @@ class DeviceIO:
                 d["cur"][ch] = new
                 changed = True
             if changed:
-                d["arr"] = torch.as_tensor(np.asarray(d["cur"], np.int64),
-                                           device=self.device)
+                _refresh(d, "arr", torch.as_tensor(
+                    np.asarray(d["cur"], np.int64), device=self.device))
 
     # ----- the IO halves ----------------------------------------------------
     def input_half(self, in_words, in_gain):
@@ -394,11 +417,87 @@ class DeviceIO:
             ds.update(ptr=ptr, last=last, sf=sf_all)
         return outs, meters, nan_ok
 
+    # ----- the step programs -------------------------------------------------
     def step(self, state, ctrl, in_gain, out_gain, bank, in_words,
              uniform=False, udelay=False, xfade=False):
         """One block: per-device words [N, ...] -> (state', outs, meters,
-        nan_ok). ``xfade``: the snapshot carries a crossfade on this block
-        (``step_impl``'s ``xfade_now``)."""
+        nan_ok), as ``step_eager``, through the program of the key
+        ``(uniform, udelay, xfade)``. ``state'`` is the programs' static
+        state, which the next call reads in place."""
+        return self._call(("step", uniform, udelay, xfade), state, ctrl,
+                          in_gain, out_gain, bank, in_words,
+                          lambda: functools.partial(
+                              self.step_eager, uniform=uniform,
+                              udelay=udelay, xfade=xfade))
+
+    def multi_step(self, state, ctrl, in_gain, out_gain, bank, in_words,
+                   uniform=False, udelay=False):
+        """m blocks, as ``multi_step_eager``, through the program of the key
+        ``(m, uniform, udelay)``; its group size is chosen at the key's
+        first call, as the JAX package chooses it when it builds the
+        key's program."""
+        m = in_words[0].shape[0]
+        return self._call(("multi", m, uniform, udelay), state, ctrl,
+                          in_gain, out_gain, bank, in_words,
+                          lambda: functools.partial(
+                              self.multi_step_eager, uniform=uniform,
+                              udelay=udelay,
+                              G=group_size(self.spec, m, self.mesh)))
+
+    def _call(self, key, state, ctrl, in_gain, out_gain, bank, in_words,
+              make):
+        """Bind the arguments to the static tensors, then run the key's
+        program (made from ``make()``, the eager form, on first use).
+        ``dstate`` is the static one from here on: a replay runs no
+        Python, so nothing else would rebind it."""
+        args = (state, ctrl, in_gain, out_gain, bank, self.dstate)
+        if self._statics is None:
+            self._statics = Statics(*args)
+        else:
+            self._statics.bind(*args)
+        self.dstate = self._statics.dstate.tree
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = Program(
+                self._body(make()), self.device, self.captures)
+        return (self._statics.state.tree,) + prog(in_words)
+
+    def _body(self, fn):
+        """``fn`` (an eager form) over the static tensors: words ->
+        (outs, meters, nan_ok), the new state and ``dstate`` copied into
+        the static ones at the end."""
+        S = self._statics
+
+        def body(words):
+            self.dstate = dict(S.dstate.tree)
+            try:
+                st, outs, meters, nan_ok = fn(S.state.tree, *S.args.tree,
+                                              words)
+                S.state.store(st)
+                S.dstate.store(self.dstate)
+            finally:
+                self.dstate = S.dstate.tree
+            return outs, meters, nan_ok
+
+        return body
+
+    @property
+    def captures(self) -> bool:
+        """Whether the programs are captured as CUDA graphs (a key's
+        second call captures), or run eagerly at every call (the CPU, a
+        mesh over several cards)."""
+        return capturable(self.device, self.mesh)
+
+    def programs(self) -> dict:
+        """The step programs made so far, by key."""
+        return dict(self._programs)
+
+    # ----- the eager forms ---------------------------------------------------
+    def step_eager(self, state, ctrl, in_gain, out_gain, bank, in_words,
+                   uniform=False, udelay=False, xfade=False):
+        """One block op by op: per-device words [N, ...] -> (state', outs,
+        meters, nan_ok). ``xfade``: the snapshot carries a crossfade on
+        this block (``step_impl``'s ``xfade_now``)."""
         x = self.input_half(in_words, in_gain)
         state, y = step_impl(self.spec, state, ctrl, bank, x,
                              uniform=uniform, uniform_delay=udelay,
@@ -406,17 +505,19 @@ class DeviceIO:
         outs, meters, nan_ok = self.output_half(y, out_gain)
         return state, outs, meters, nan_ok
 
-    def multi_step(self, state, ctrl, in_gain, out_gain, bank, in_words,
-                   uniform=False, udelay=False):
+    def multi_step_eager(self, state, ctrl, in_gain, out_gain, bank,
+                         in_words, uniform=False, udelay=False, G=None):
         """m blocks with frozen controls and no crossfade (the engine
         dispatches crossfade blocks one at a time, as the JAX package
         groups only then, device_io.py:587-613): per-device stacked words
         [m, N, ...] -> (state', per-device stacked outs [m, N, ...],
         per-device aggregated meters, nan_ok over all blocks). ``dstate``
-        chains block by block in order, as m calls of ``step`` chain it."""
+        chains block by block in order, as m calls of ``step_eager`` chain
+        it. ``G``: blocks a group (default ``group_size``)."""
         m = in_words[0].shape[0]
         outs_b, meters_b, nans = [], [], []
-        G = group_size(self.spec, m, self.mesh)
+        if G is None:
+            G = group_size(self.spec, m, self.mesh)
         for b0 in range(0, m, G):
             if G >= 2:
                 # grouped dispatch (device_io.py:587-613, 727-782): the
@@ -429,7 +530,7 @@ class DeviceIO:
                                             mesh=self.mesh)
                 blocks = [self.output_half(y, out_gain) for y in ys]
             else:
-                state, *one = self.step(
+                state, *one = self.step_eager(
                     state, ctrl, in_gain, out_gain, bank,
                     [w[b0] for w in in_words], uniform=uniform,
                     udelay=udelay)

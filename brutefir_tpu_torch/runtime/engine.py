@@ -65,9 +65,10 @@ to the host, calls the hooks and uploads the result.
 
 Clocked devices (engine.py:471-483, 781-936, 1001-1028, 1147-1257,
 1312-1388, 1599-1620): ``setup()`` opens the devices, runs every step
-variant once on zeros before a clocked device starts
+variant on zeros before a clocked device starts
 (``_warm_programs``: the kernels' build, cuFFT plans, the allocator's
-blocks; no module hook and no persistent state sees it), asks for
+blocks, the capture of the device-IO path's step programs; no module
+hook and no persistent state sees it), asks for
 SCHED_FIFO and ``mlockall`` (``_maybe_go_realtime``), starts the
 devices, writes two silent fragments to each clocked output
 (``_iodelay_fill``) and fires ``synch_start``. Inputs that cannot
@@ -143,6 +144,7 @@ from ..ops.partconv import np_c2p, np_p2c, pack_spectrum, unpack_spectrum
 from ..parallel import mesh as mesh_mod
 from .control import RuntimeControl
 from .device_io import DeviceIO, dithered_phys, eligible
+from .program import tree_map
 from .subdelay import SubsampleDelay
 
 # blocks per offline dispatch: block latency becomes BATCH_BLOCKS * N
@@ -671,20 +673,28 @@ class Engine:
                    for io in (IN, OUT) for inst in self.devices[io])
 
     def _warm_programs(self):
-        """Run every step variant that ``_snapshot_epoch`` can pick once on
+        """Run every step variant that ``_snapshot_epoch`` can pick on
         zeros before a clocked device starts (engine.py:798-862), so the
         first audio block and a later control change pay no first-use
         cost: the kernels' nvcc build and ctypes load, cuFFT plans, the
         glue tables, the caching allocator's blocks and, on the host path,
         the pinned staging buffers. The variants: ``uniform`` False and
         True, ``xfade`` True as well when a filter can crossfade, the
-        snapshot's ``uniform_delay``; each on a fresh ``init_state``.
+        snapshot's ``uniform_delay``. On the device-IO path each is a key
+        of ``DeviceIO.step``, called on the engine's own state, twice
+        where the programs are captured (``DeviceIO.captures``): the key's
+        first call warms up, its second captures the key's CUDA graph
+        (``runtime/program.py``), so a clocked run never captures inside
+        its realtime loop. The host path steps the graph on a fresh
+        ``init_state``.
 
-        The warm-up leaves no trace: the device-IO path's ``dstate`` (the
-        dither pointers are part of the bit-exact dither sequence) is
-        cloned before and restored after; the host path steps the graph
-        only, never ``read_block`` / ``write_block``, so delay lines and
-        host dither states stay put; ``_warming`` silences the taps.
+        The warm-up leaves no trace: on the device-IO path the state and
+        ``dstate`` (the dither pointers are part of the bit-exact dither
+        sequence) are cloned before and handed back after, the next block
+        copying them into the programs' static tensors; the host path
+        steps the graph only, never ``read_block`` / ``write_block``, so
+        delay lines and host dither states stay put; ``_warming``
+        silences the taps.
         Clockless (file) runs skip it, and so do runs on a mesh, as in the
         JAX package (engine.py:806). A failure is reported and left to the
         audio path, as there."""
@@ -706,16 +716,18 @@ class Engine:
                     np.zeros((self.N,) + tuple(self.dio.in_wire_shape[i]),
                              self.dio.in_wire_dtype[i]), device=self.device)
                     for i in range(len(self.conf.iodevs[IN]))]
-                dstate0 = {k: v.clone() for k, v in self.dio.dstate.items()}
+                state0 = tree_map(torch.clone, self.state)
+                dstate0 = tree_map(torch.clone, self.dio.dstate)
                 try:
                     for uni in (False, True):
                         for xf in xfs:
-                            self.dio.step(init_state(self.spec, self.device,
-                                                     self.ring_dtype),
-                                          ctrl, g0, g1, self.bank,
-                                          list(words), uniform=uni,
-                                          udelay=udl, xfade=xf)
+                            for _ in range(2 if self.dio.captures else 1):
+                                self.state = self.dio.step(
+                                    self.state, ctrl, g0, g1, self.bank,
+                                    list(words), uniform=uni, udelay=udl,
+                                    xfade=xf)[0]
                 finally:
+                    self.state = state0
                     self.dio.dstate = dstate0
             else:
                 x = np.zeros((self.conf.n_channels[IN], self.N), self.rd)

@@ -10,7 +10,7 @@ Usage (from the repository root, one CUDA card):
                                      benchmark|eq|hostcodec|hooks|
                                      clocked|xtc_clocked|f64]
                             [--blocks N]
-                            [--pair G] [--mlock] [--mesh FxS]
+                            [--pair G] [--mlock] [--mesh FxS] [--eager]
 
 Writes the shape's seeded inputs for N blocks (default 64) as
 ``chip_smoke.py`` does: the scale shape (``write_scale_inputs``: 256 x
@@ -69,6 +69,14 @@ timed and profiled runs allocate under the lock (``mlock_probe``).
 on the one visible card (``make_mesh([cuda:0] * F * S, F, S)`` passed as
 ``Engine(conf, mesh=...)``): every MAC launch becomes F x S launches at
 the shard shape, beside the same shape unsharded in another call.
+The engine's DeviceIO runs its step programs (``runtime/program.py``: a
+key's first call eager, its second captured as a CUDA graph, the later
+ones replayed); ``--eager`` routes it through the eager forms instead
+(``chip_smoke.eager_forms``: ``DeviceIO.step_eager`` /
+``multi_step_eager``, op by op), the dispatch the graphs replace.
+Prints the programs of the timed run: each key's calls, its capture's
+host ms and the bytes its graph pool reserved, and the card's reserved
+and peak allocated bytes (``torch.cuda.memory_stats``).
 """
 
 from __future__ import annotations
@@ -99,6 +107,8 @@ def main():
     ap.add_argument("--mlock", action="store_true")
     ap.add_argument("--mesh", default=None,
                     help="FxS: shard over F x S shards on the one card")
+    ap.add_argument("--eager", action="store_true",
+                    help="run DeviceIO's eager forms, not its graphs")
     args = ap.parse_args()
     if args.pair is not None:
         os.environ["BRUTEFIR_TPU_PAIR"] = args.pair
@@ -173,6 +183,8 @@ def main():
 
     def run(host=None):
         eng = Engine(parse_config(text), mesh=mesh)
+        if args.eager and eng.dio is not None:
+            cs.eager_forms(eng)
         per_block = eng.conf.benchmark or eng.conf.debug or eng._clocked()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -220,6 +232,26 @@ def main():
           f"wall {wall_ms:.3f} ms a block, engine xrt "
           f"{stats['xrt']:.2f}, p50 batch period {stats['p50_block_ms']:.3f}"
           f" ms a block", flush=True)
+    if timed_eng.dio is not None:
+        progs = timed_eng.dio.programs()
+        mem = torch.cuda.memory_stats()
+        print(f"programs ({'eager forms' if args.eager else 'graphs'}): "
+              + (", ".join(f"{k} {p.calls} calls, capture "
+                           f"{p.capture_s * 1e3:.1f} ms, pool "
+                           f"{p.pool_bytes} B" for k, p in progs.items())
+                 or "none")
+              + f"; graph pools {sum(p.pool_bytes for p in progs.values())}"
+              f" B; card reserved {mem.get('reserved_bytes.all.current', 0)}"
+              f" B, peak allocated "
+              f"{mem.get('allocated_bytes.all.peak', 0)} B", flush=True)
+        for name in ("step", "multi_step"):
+            sec = host.get(name) or []
+            per = ([t / BATCH_BLOCKS for t in sec[2:]] if name ==
+                   "multi_step" else sec[2:])
+            if per:
+                print(f"{name}: median of the calls after the first two "
+                      f"{np.median(per) * 1e3:.3f} ms a block ({len(sec)} "
+                      f"calls)", flush=True)
     print("host a block: " + ", ".join(
         f"{name} {sum(sec) / blocks * 1e3:.3f} ms"
         for name, sec in sorted(host.items()) if sec), flush=True)

@@ -274,7 +274,7 @@ Phases, in order; any failure exits non-zero:
    within 16 LSB of the pattern's float64 oracle, ``mac_rows`` and the
    glue once a block; 28: the xtc example on the paced device, 2000
    blocks (2.9 s): the same gates as 27, the deadline misses printed and
-   not gated (the step's eager dispatch outlasts the 1.451 ms period);
+   not gated (the host's pace spikes past the 1.451 ms period);
 29. main path, ``float_bits: 64``: phase 8's shared-coefficient massive
    config and input in float64 through ``main()``: the stage loop's
    float64 MAC (``mac_uniform_f64``) and one float64 glue each way a
@@ -342,6 +342,18 @@ Phases, in order; any failure exits non-zero:
    of the cascaded quantized-bank oracle; 42 the massive shape
    through ``Engine.run`` under ``BRUTEFIR_TPU_PROFILE=<dir>``: one
    Chrome trace naming the fused MAC + mix and both glue kernels.
+43. the step programs (``runtime/program.py``: a key's first call eager,
+   its second captured as a CUDA graph, the later ones replayed; every
+   main path above runs through them): the massive shape, the scale
+   shape (groups of 4, then ``BRUTEFIR_TPU_PAIR=2``) and bench1's
+   cascade through ``run_offline`` (40.5 blocks), bench5 through
+   ``run()``, each through the graphs and through the eager forms
+   (``eager_forms``: ``DeviceIO.step_eager`` / ``multi_step_eager`` on
+   the instance, no knob), and in the clocked child the xtc example on
+   the paced device the same way (phase 28's twin): the words
+   byte-equal, every launch count equal, every key called twice
+   captured; prints each route's main-thread ms a block in the DeviceIO
+   dispatch and the graph pools' bytes.
 
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
@@ -3762,17 +3774,31 @@ def clocked_alsa(mods: dict) -> dict:
     return res
 
 
-def clocked_xtc(mods: dict) -> dict:
-    """Phase 28: the xtc example on the paced device, 2000 blocks."""
-    label = "xtc_lowlatency.conf on the paced device"
+def clocked_xtc(mods: dict, eager: bool = False) -> dict:
+    """Phase 28: the xtc example on the paced device, 2000 blocks, its
+    DeviceIO through the captured graphs or (``eager``, phase 43's twin)
+    through the eager forms; ``res["y"]`` the output's words after the
+    silent fill, ``res["dispatch_ms"]`` the main thread's ms a block in
+    ``DeviceIO.step``."""
+    label = ("xtc_lowlatency.conf on the paced device"
+             + (", the eager forms" if eager else ""))
     frames = XTC_CLOCKED_BLOCKS * XTC_N
     taps, x, cfg = xtc_config(frames, SEED + 30)
     cfg = to_paced(cfg, "input.f32", "output.s24",
                    write_module("paced", PACED_MODULE, "bfio"))
     eng = clocked_engine(cfg)
-    stats, warm, blocks = split_run(eng, mods)
+    if eager:
+        eager_forms(eng)
+    step = []
+    with timed_method(eng.dio, "step", step):
+        stats, warm, blocks = split_run(eng, mods)
     period = XTC_N / 44100 * 1e3
     res = clocked_summary(stats, eng, label, period)
+    res["dispatch_ms"] = dispatch_ms(step, [], len(step))
+    print(f"clocked ({label}): DeviceIO.step {res['dispatch_ms']['ms']:.3f} "
+          f"ms a call, the warm-up's included (later calls "
+          f"{res['dispatch_ms']['steady_ms']:.3f}); programs "
+          f"{program_summary(eng, eager, label)}", flush=True)
     res.update(deadlines(loaded_module("paced", "bfio").PacedDevice.instances[-1],
                          label, period))
     res["warm"], res["counts"] = launch_keys(warm), launch_keys(blocks)
@@ -3788,7 +3814,29 @@ def clocked_xtc(mods: dict) -> dict:
     expect_only(blocks, {"mac_rows": XTC_CLOCKED_BLOCKS,
                          **glue_want(XTC_CLOCKED_BLOCKS,
                                      XTC_CLOCKED_BLOCKS)}, label)
+    res["y"] = y
     return res
+
+
+def xtc_graphs_vs_eager(mods: dict, graphs: dict) -> dict:
+    """Phase 43's twin of phase 28 (``graphs``, its result): the same run
+    through the eager forms, the words byte-equal and every launch count
+    equal, warm-up and blocks."""
+    eager = clocked_xtc(mods, eager=True)
+    label = "xtc clocked, graphs against the eager forms"
+    same = np.array_equal(graphs["y"], eager["y"])
+    print(f"programs ({label}): words "
+          f"{'byte-equal' if same else 'DIFFER'}; processing p50 "
+          f"{graphs['proc_p50_ms']:.3f} / {eager['proc_p50_ms']:.3f} ms, "
+          f"missed deadlines {graphs['misses']} / {eager['misses']} "
+          f"(graphs / eager)", flush=True)
+    if not same:
+        fail(f"{label}: the words differ")
+    if (graphs["counts"], graphs["warm"]) != (eager["counts"],
+                                              eager["warm"]):
+        fail(f"{label}: launch counts differ: {graphs['counts']} "
+             f"{graphs['warm']} against {eager['counts']} {eager['warm']}")
+    return eager
 
 
 def clocked_child():
@@ -3806,6 +3854,11 @@ def clocked_child():
     res["alsa"] = clocked_alsa(mods)
     phase("28, clocked: xtc_lowlatency.conf on the paced device")
     res["xtc"] = clocked_xtc(mods)
+    phase("43 (28's twin), clocked: xtc_lowlatency.conf through the eager "
+          "forms")
+    res["xtc_eager"] = xtc_graphs_vs_eager(mods, res["xtc"])
+    for part in ("xtc", "xtc_eager"):
+        del res[part]["y"]
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] == "brutefir_tpu" or m.startswith("jax"))
     if bad:
@@ -4928,6 +4981,138 @@ def main_cascades_bf16(main, mods: dict, launched: dict):
     add_counts(launched, counts, ("mac", "mac_uniform_bf16b"))
 
 
+# ---- phase 43: the step programs, graphs against the eager forms ----------
+
+PROGRAM_BLOCKS = 40.5   # 5 batches of 8 (the batch key eager, captured,
+#                         then replayed 3 times) and a half-block tail
+
+
+def eager_forms(eng) -> None:
+    """Route ``eng``'s DeviceIO through its eager forms (``step_eager``,
+    ``multi_step_eager``): the op-by-op dispatch the captured graphs
+    replace, the same kernels and ops."""
+    eng.dio.step = eng.dio.step_eager
+    eng.dio.multi_step = eng.dio.multi_step_eager
+
+
+def dispatch_ms(step: list, multi: list, blocks: int, m: int = 8) -> dict:
+    """Main-thread ms a block in ``DeviceIO.step`` / ``multi_step`` (the
+    calls' seconds): in all, and the median of the calls after each
+    route's first two (a key's warm-up and capture), a block."""
+    later = ([t / m for t in multi[2:]] if len(multi) > 2
+             else step[2:])
+    return {"ms": (sum(step) + sum(multi)) / blocks * 1e3,
+            "steady_ms": float(np.median(later)) * 1e3 if later else None}
+
+
+def program_summary(eng, eager: bool, label: str) -> dict:
+    """The programs an engine made: with the graphs every key called
+    twice or more is captured; with the eager forms there is none."""
+    progs = eng.dio.programs()
+    if eager and progs:
+        fail(f"{label}: the eager forms made programs {sorted(progs)}")
+    uncaptured = [k for k, p in progs.items()
+                  if p.calls >= 2 and p.graph is None]
+    if uncaptured:
+        fail(f"{label}: keys called twice but not captured: {uncaptured}")
+    if not eager and not any(p.graph is not None for p in progs.values()):
+        fail(f"{label}: no key was captured")
+    return {"keys": {str(k): p.calls for k, p in progs.items()},
+            "pool_bytes": sum(p.pool_bytes for p in progs.values())}
+
+
+def program_run(mods, cfg: str, frames: int, channels: int, label: str,
+                eager: bool, how: str = "run_offline"):
+    """One file-to-file run of ``Engine`` on ``cfg`` through the graphs
+    or (``eager``) the eager forms, the counts set to 0 just before the
+    run: (output words, counts, dispatch_ms, program_summary)."""
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.runtime.engine import Engine
+    out = os.path.join(WORK, "output.raw")
+    if os.path.exists(out):
+        os.remove(out)
+    with open(cfg) as fh:
+        text = fh.read()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        eng = Engine(parse_config(text))
+        if eager:
+            eager_forms(eng)
+        for m in mods.values():
+            m.reset_launches()
+        step, multi = [], []
+        with timed_method(eng.dio, "step", step), \
+                timed_method(eng.dio, "multi_step", multi):
+            stats = getattr(eng, how)()
+    counts = all_counts(mods)
+    y = np.fromfile(out, "<i4")
+    if y.size != frames * channels:
+        fail(f"{label}: output has {y.size // channels} frames, input "
+             f"{frames}")
+    return (y, counts, dispatch_ms(step, multi, stats["blocks"]),
+            program_summary(eng, eager, label))
+
+
+def graphs_vs_eager(mods: dict, launched: dict, label: str, cfg: str,
+                    frames: int, channels: int, how: str = "run_offline"):
+    """``cfg`` through the graphs and through the eager forms: the words
+    byte-equal and every launch count equal; prints each route's
+    main-thread ms a block."""
+    yg, cg, tg_, pg = program_run(mods, cfg, frames, channels, label, False,
+                                  how)
+    ye, ce, te, _ = program_run(mods, cfg, frames, channels, label, True,
+                                how)
+    same = np.array_equal(yg, ye)
+    print(f"programs ({label}): graphs {tg_['ms']:.3f} ms a block in "
+          f"DeviceIO dispatch (later calls {tg_['steady_ms']:.3f}), eager "
+          f"forms {te['ms']:.3f} (later calls {te['steady_ms']:.3f}); "
+          f"words {'byte-equal' if same else 'DIFFER'}; keys {pg['keys']}, "
+          f"graph pools {pg['pool_bytes']} bytes", flush=True)
+    if not same:
+        fail(f"{label}: the graphs' words differ from the eager forms' "
+             f"(max {int(np.abs(yg.astype(np.int64) - ye).max())} LSB)")
+    if cg != ce:
+        fail(f"{label}: launch counts differ: graphs "
+             f"{ {k: v for k, v in cg.items() if v} }, eager "
+             f"{ {k: v for k, v in ce.items() if v} }")
+    expect_launches({k[1]: v for k, v in cg.items()},
+                    {k[1]: v for k, v in ce.items()}, f"{label}, graphs")
+    add_counts(launched, cg, *[k for k in cg if cg[k]])
+    return {"graph_ms": tg_, "eager_ms": te, **pg}
+
+
+def main_programs(mods: dict, launched: dict) -> dict:
+    """Phase 43: the massive shape, the scale shape (groups of 4, then
+    ``BRUTEFIR_TPU_PAIR=2``) and bench1's cascade through
+    ``run_offline`` (40.5 blocks: batches of 8, the tail block by block),
+    bench5 through ``run()`` (a crossfade every block), each through the
+    captured graphs and through the eager forms (``eager_forms``): the
+    output words byte-equal, the launch counts equal, each route's
+    main-thread ms a block in the DeviceIO dispatch. The xtc example on
+    the paced device is phase 28's twin in the clocked child."""
+    res = {}
+    frames = int(PROGRAM_BLOCKS * K)
+    write_massive_inputs(np.random.default_rng(SEED + 43), frames)
+    res["massive"] = graphs_vs_eager(
+        mods, launched, "massive", massive_config("programs.conf", False),
+        frames, F)
+    _, _, cfg = write_scale_inputs(WORK, frames, SEED + 44)
+    for pair in (None, "2"):
+        with knob("BRUTEFIR_TPU_PAIR", pair):
+            res[f"scale_pair_{pair or 'default'}"] = graphs_vs_eager(
+                mods, launched, f"scale, BRUTEFIR_TPU_PAIR={pair or '4'}",
+                cfg, frames, SCALE_C)
+    frames = int(PROGRAM_BLOCKS * BENCH1_N)
+    _, _, cfg = write_bench1_inputs(WORK, frames, SEED + 45)
+    res["bench1"] = graphs_vs_eager(mods, launched, "bench1 cascade", cfg,
+                                    frames, 2)
+    frames = int(BLOCKS * BENCH5_N)
+    _, _, cfg = write_bench5_inputs(WORK, frames, SEED + 46)
+    res["bench5"] = graphs_vs_eager(mods, launched, "bench5", cfg, frames,
+                                    BENCH5_C, "run")
+    return res
+
+
 PROFILE_KERNELS = ("mac_mix_kernel", "glue_fwd_ring_kernel",
                    "glue_inv_kernel")
 
@@ -5139,6 +5324,10 @@ def run():
     main_cascades_bf16(main, mods, launched)
     phase("main path, massive through run() under BRUTEFIR_TPU_PROFILE")
     main_profile(mods, launched)
+    torch.cuda.empty_cache()
+    phase("main path, the step programs: captured graphs against the eager "
+          "forms")
+    main_programs(mods, launched)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules

@@ -1241,11 +1241,12 @@ output 0,1,2 {{ device: "file" {{ path: "{tmp_path / (tag + '.raw')}"; }}; sampl
 def test_clocked_engine_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """The paced device of chip_smoke.py (``bfio_paced.py``, clocked) at
     64 x 4 partitions, two coefficient sets, dithered S24_4LE: on the card
-    the warm-up runs both step variants before the start (one
-    ``mac_rows`` and one ``mac_uniform`` launch, one glue launch each
-    way each) and every block one ``mac_rows`` and one glue launch each
-    way; the output is 2N silent frames, then within 2 LSB of the CPU
-    engine's (ROADMAP queue 3). Realtime is refused here."""
+    the warm-up runs both step variants twice before the start, the
+    key's warm-up and its capture (two ``mac_rows`` and two
+    ``mac_uniform`` launches, two glue launches each way each) and every
+    block one ``mac_rows`` and one glue launch each way; the output is 2N
+    silent frames, then within 2 LSB of the CPU engine's (ROADMAP queue
+    3). Realtime is refused here."""
     import importlib.util
     import os
     from brutefir_tpu_torch.runtime.engine import Engine
@@ -1291,11 +1292,11 @@ filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 1; }};
     yg = run("gpu", cuda)
     blocks = -(-frames // N)
     assert tm.launches == {**with_bf16("mac_uniform", "mac_rows"),
-                           "mac_uniform": 1, "mac_rows": blocks + 1,
+                           "mac_uniform": 2, "mac_rows": blocks + 2,
                            "mac_uniform_f64": 0, "mac_rows_f64": 0}
     assert not any(mm.launches.values())
     assert tg.launches["glue_fwd_ring"] == tg.launches["glue_inv"] == \
-        blocks + 2
+        blocks + 4
     assert tg.launches["glue_fwd"] == 0
     yc = run("cpu", torch.device("cpu"))
     assert yg.size == (frames + 2 * N) * C and not yg[:2 * N * C].any()
@@ -1826,3 +1827,142 @@ output 0,1,2 {{ device: "file" {{ path: "{tmp_path / (tag + '.raw')}"; }}; sampl
               f"{ring_dt or 'f32'}: card vs CPU {gap} LSB (peak {peak})")
     assert peak > 2 ** 18
     assert gap <= 4
+
+
+# --- the step programs: captured graphs against the eager forms -------------
+
+def _program_config(tmp_path, topology: str, N: int = 256, B: int = 4,
+                    C: int = 3) -> str:
+    """tests/test_torch_program.py's configs: S24_4LE, input delays up to
+    a maxdelay, output delays; ``shared`` (one coefficient), ``per`` (two,
+    per-filter pre-delays), ``cascade`` (two stages), ``xfade`` (shared,
+    crossfading)."""
+    rng = np.random.default_rng(5)
+    coeffs = ""
+    for k in range(2):
+        (tmp_path / f"c{k}.txt").write_text("\n".join(
+            repr(float(v)) for v in rng.standard_normal(N * B - 50 * k)
+            * 0.03) + "\n")
+        coeffs += (f'coeff {k} {{ filename: "{tmp_path / f"c{k}.txt"}"; '
+                   f'format: "TEXT"; }};\n')
+    chans = ",".join(str(c) for c in range(C))
+    if topology == "cascade":
+        filters = (
+            "filter 0 { from_inputs: 0; to_filters: 2; coeff: 0; };\n"
+            "filter 1 { from_inputs: 1, 2; to_filters: 2; coeff: 1; };\n"
+            "filter 2 { from_filters: 0, 1; to_outputs: 0, 1, 2; "
+            "coeff: 0; };\n")
+    else:
+        filters = "".join(
+            f"filter {f} {{ from_inputs: {f}; to_outputs: {f}; "
+            f"coeff: {f % 2 if topology == 'per' else 0}; "
+            f"{'delay: ' + str(f) + '; ' if topology == 'per' else ''}"
+            f"{'crossfade: true; ' if topology == 'xfade' else ''}}};\n"
+            for f in range(C))
+    return f"""
+sampling_rate: 44100;
+filter_length: {N},{B};
+{coeffs}
+input {chans} {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: {C}; delay: 3, 0, 7; maxdelay: 20; }};
+output {chans} {{ device: "file" {{ path: "{tmp_path / 'out.raw'}"; }}; sample: "S24_4LE"; channels: {C}; dither: false; delay: 0, 5, 2; }};
+{filters}"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology,op,pair,form", [
+    ("shared", "multi", None, None),
+    ("per", "multi", None, None),
+    ("cascade", "multi", None, None),
+    ("shared", "multi", "force:2", None),
+    ("per", "multi", "force:4", None),
+    ("per", "multi", "force:4", "unfused"),
+    ("xfade", "step", None, None),
+    ("per", "step", None, None)])
+def test_program_graphs_match_eager_forms(cuda, tmp_path, monkeypatch,
+                                          topology, op, pair, form):
+    """DeviceIO through its captured graphs and through its eager forms,
+    two engines on the card, the same words and control changes (a
+    coefficient change and a mute, an input delay change and a bank
+    swap, a state and ``dstate`` handed back): byte-equal outputs,
+    meters and NaN flags; the launches a call
+    counts equal to the eager call's; the outputs of a call unchanged
+    after the later calls; every key called twice captured."""
+    from brutefir_tpu_torch.config.model import IN, OUT
+    from brutefir_tpu_torch.runtime.engine import Engine
+    from brutefir_tpu_torch.runtime.program import COUNTERS, tree_map
+    if pair:
+        monkeypatch.setenv("BRUTEFIR_TPU_PAIR", pair)
+    if form:
+        monkeypatch.setenv("BRUTEFIR_TPU_GROUP_FORM", form)
+    text = _program_config(tmp_path, topology)
+    engines = [Engine(parse_config(text), device=cuda) for _ in range(2)]
+    entry = 0.5 * engines[0].bank[1].cpu().numpy()
+    rng = np.random.default_rng(23)
+    N, C, m = 256, 3, 8
+
+    def counts():
+        return [dict(c) for c in COUNTERS]
+
+    def call(eng, eager, words):
+        ctrl, gains, uni, udl, xf, bank, _ = eng._snapshot_epoch()
+        w = [torch.as_tensor(words, device=cuda)]
+        if op == "multi":
+            fn = eng.dio.multi_step_eager if eager else eng.dio.multi_step
+            r = fn(eng.state, ctrl, gains[0], gains[1], bank, w,
+                   uniform=uni, udelay=udl)
+        else:
+            fn = eng.dio.step_eager if eager else eng.dio.step
+            r = fn(eng.state, ctrl, gains[0], gains[1], bank, w,
+                   uniform=uni, udelay=udl, xfade=xf)
+        eng.state = r[0]
+        return r[1:]
+
+    def host(out):
+        outs, meters, nan_ok = out
+        return [o.cpu().numpy() for o in outs + meters] + [
+            nan_ok.cpu().numpy()]
+
+    kept = []
+    for i in range(7):
+        for e in engines:
+            if i == 2:
+                e.control.change_coeff(0, 1)
+                e.control.set_mute(OUT, 2, True)
+            elif i == 4:
+                e.control.change_coeff(0, 0)
+                e.control.set_delay(IN, 1, 9)
+                e.update_bank_entry(0, entry)
+            elif i == 5:
+                e.control.set_mute(OUT, 2, False)
+                # a state and dstate handed back, as the warm-up does
+                e.state = tree_map(torch.clone, e.state)
+                e.dio.dstate = tree_map(torch.clone, e.dio.dstate)
+        x = np.round(rng.standard_normal(
+            ((m,) if op == "multi" else ()) + (N, C)) * 2.0 ** 18)
+        words = np.ascontiguousarray(x.astype("<i4").view(np.uint8).reshape(
+            x.shape + (4,))[..., :3])
+        deltas, results = [], []
+        for eng, eager in zip(engines, (False, True)):
+            before = counts()
+            out = call(eng, eager, words)
+            torch.cuda.synchronize()
+            after = counts()
+            deltas.append([{k: a[k] - b[k] for k in a}
+                           for a, b in zip(after, before)])
+            results.append(host(out))
+            if not eager:
+                kept.append((out, results[-1]))
+        assert deltas[0] == deltas[1], (i, deltas)
+        assert sum(n for d in deltas[0] for n in d.values()) > 0
+        for j, (a, b) in enumerate(zip(*results)):
+            assert a.dtype == b.dtype and np.array_equal(a, b), (
+                i, j, np.abs(a.astype(np.float64) - b).max())
+    for out, first in kept:
+        for a, b in zip(host(out), first):
+            assert np.array_equal(a, b)
+    progs = engines[0].dio.programs()
+    assert engines[0].dio.captures and not engines[1].dio.programs()
+    assert all(p.graph is not None for p in progs.values() if p.calls >= 2)
+    assert any(p.graph is not None for p in progs.values())
+    if topology == "xfade":
+        assert any(k[3] for k in progs)

@@ -450,7 +450,7 @@ class DeviceIO:
         program (made from ``make()``, the eager form, on first use).
         ``dstate`` is the static one from here on: a replay runs no
         Python, so nothing else would rebind it."""
-        args = (state, ctrl, in_gain, out_gain, bank, self.dstate)
+        args = (state, (ctrl, in_gain, out_gain, bank), self.dstate)
         if self._statics is None:
             self._statics = Statics(*args)
         else:

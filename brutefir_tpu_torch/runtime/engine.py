@@ -40,11 +40,13 @@ JAX package chooses them (``self.dio``):
   ``read_block`` decodes (``core/codecs.py``, the native C++ codec of
   ``core/native`` or numpy) and runs the input mutes, delay lines
   (``core/delayline.py``) and subsample delays on the host; the block
-  goes up through a pinned staging buffer, ``graph/compile.step_impl``
-  runs on the card with the same kernels as on the device path, and the
-  writer thread fetches the output and ``write_block`` runs the output
-  subdelays, delay lines, mutes, dither (``DitherState.quantize``),
-  meters and encode.
+  goes up through a pinned staging buffer into the static input of the
+  path's step programs (``self.host_step``, ``runtime/program.HostStep``:
+  ``graph/compile.step_impl`` with the same kernels as on the device
+  path, one captured CUDA graph a key on the card; an engine with
+  frequency-domain taps steps eagerly), and the writer thread fetches
+  the output and ``write_block`` runs the output subdelays, delay lines,
+  mutes, dither (``DitherState.quantize``), meters and encode.
 
 Runtime delay and subdelay changes land on the block boundary of the
 control snapshot that carries them.
@@ -67,8 +69,8 @@ Clocked devices (engine.py:471-483, 781-936, 1001-1028, 1147-1257,
 1312-1388, 1599-1620): ``setup()`` opens the devices, runs every step
 variant on zeros before a clocked device starts
 (``_warm_programs``: the kernels' build, cuFFT plans, the allocator's
-blocks, the capture of the device-IO path's step programs; no module
-hook and no persistent state sees it), asks for
+blocks, the capture of the step programs; no module hook and no
+persistent state sees it), asks for
 SCHED_FIFO and ``mlockall`` (``_maybe_go_realtime``), starts the
 devices, writes two silent fragments to each clocked output
 (``_iodelay_fill``) and fires ``synch_start``. Inputs that cannot
@@ -144,7 +146,7 @@ from ..ops.partconv import np_c2p, np_p2c, pack_spectrum, unpack_spectrum
 from ..parallel import mesh as mesh_mod
 from .control import RuntimeControl
 from .device_io import DeviceIO, dithered_phys, eligible
-from .program import tree_map
+from .program import HostStep, tree_map
 from .subdelay import SubsampleDelay
 
 # blocks per offline dispatch: block latency becomes BATCH_BLOCKS * N
@@ -427,6 +429,9 @@ class Engine:
         # the device-IO path when every device format has a device codec,
         # else the host codec path for all devices (engine.py:456)
         self.dio = DeviceIO(self) if eligible(conf) else None
+        # the host codec path's step programs (_host_route)
+        self.host_step = None
+        self._host_route()
         self._gain_version = -1
         self._in_gain = self._out_gain = None
         self._v2p_in = np.asarray(conf.virt2phys[IN], dtype=np.int64)
@@ -557,6 +562,7 @@ class Engine:
         self.taps = taps
         if self._has_timed_hooks or taps:
             self.dio = None
+        self._host_route()
         self.control.coeff_final_mod_hooks = [
             m.coeff_final for m in self.logic
             if getattr(m, "coeff_final", None) is not None]
@@ -583,6 +589,17 @@ class Engine:
             self.control.mark_dirty()
         if self.dio is not None:
             self.dio.mesh = None
+
+    def _host_route(self):
+        """The host codec path's step programs (``self.host_step``, a
+        ``runtime/program.HostStep``): made when the engine is on that
+        path without frequency-domain taps, and kept while it stays there;
+        None on the device-IO path and under taps, which step eagerly
+        (``_dispatch_eager``)."""
+        if self.dio is not None or self.taps:
+            self.host_step = None
+        elif self.host_step is None:
+            self.host_step = HostStep(self.spec, self.device, self.mesh)
 
     @staticmethod
     def _make_freqd_tap(hooks, row2conf=None, warming=None):
@@ -680,21 +697,22 @@ class Engine:
         glue tables, the caching allocator's blocks and, on the host path,
         the pinned staging buffers. The variants: ``uniform`` False and
         True, ``xfade`` True as well when a filter can crossfade, the
-        snapshot's ``uniform_delay``. On the device-IO path each is a key
-        of ``DeviceIO.step``, called on the engine's own state, twice
-        where the programs are captured (``DeviceIO.captures``): the key's
-        first call warms up, its second captures the key's CUDA graph
+        snapshot's ``uniform_delay``. Each is a key of ``DeviceIO.step``
+        on the device-IO path, of ``HostStep.step`` through
+        ``_dispatch_host`` on the host path (an engine with taps steps
+        eagerly), called on the engine's own state, twice where the
+        programs are captured (``captures``): the key's first call warms
+        up, its second captures the key's CUDA graph
         (``runtime/program.py``), so a clocked run never captures inside
-        its realtime loop. The host path steps the graph on a fresh
-        ``init_state``.
+        its realtime loop.
 
-        The warm-up leaves no trace: on the device-IO path the state and
+        The warm-up leaves no trace: the state and, on the device-IO path,
         ``dstate`` (the dither pointers are part of the bit-exact dither
         sequence) are cloned before and handed back after, the next block
         copying them into the programs' static tensors; the host path
-        steps the graph only, never ``read_block`` / ``write_block``, so
-        delay lines and host dither states stay put; ``_warming``
-        silences the taps.
+        dispatches only, never ``read_block`` / ``write_block``, so delay
+        lines and host dither states stay put; ``_warming`` silences the
+        taps.
         Clockless (file) runs skip it, and so do runs on a mesh, as in the
         JAX package (engine.py:806). A failure is reported and left to the
         audio path, as there."""
@@ -711,34 +729,36 @@ class Engine:
             xfs = ((False, True)
                    if any(f.crossfade for f in self.conf.filters)
                    else (False,))
+            state0 = tree_map(torch.clone, self.state)
             if self.dio is not None:
                 words = [torch.as_tensor(
                     np.zeros((self.N,) + tuple(self.dio.in_wire_shape[i]),
                              self.dio.in_wire_dtype[i]), device=self.device)
                     for i in range(len(self.conf.iodevs[IN]))]
-                state0 = tree_map(torch.clone, self.state)
                 dstate0 = tree_map(torch.clone, self.dio.dstate)
-                try:
-                    for uni in (False, True):
-                        for xf in xfs:
-                            for _ in range(2 if self.dio.captures else 1):
-                                self.state = self.dio.step(
-                                    self.state, ctrl, g0, g1, self.bank,
-                                    list(words), uniform=uni, udelay=udl,
-                                    xfade=xf)[0]
-                finally:
-                    self.state = state0
-                    self.dio.dstate = dstate0
+                reps = 2 if self.dio.captures else 1
+
+                def step(uni, xf):
+                    self.state = self.dio.step(
+                        self.state, ctrl, g0, g1, self.bank, list(words),
+                        uniform=uni, udelay=udl, xfade=xf)[0]
             else:
                 x = np.zeros((self.conf.n_channels[IN], self.N), self.rd)
+                reps = (2 if self.host_step is not None
+                        and self.host_step.captures else 1)
+
+                def step(uni, xf):
+                    self._dispatch_host(x, (ctrl, (g0, g1), uni, udl, xf,
+                                            self.bank, None))
+            try:
                 for uni in (False, True):
                     for xf in xfs:
-                        step_impl(self.spec, init_state(self.spec,
-                                                        self.device,
-                                                        self.ring_dtype),
-                                  ctrl, self.bank, self._upload_host(x),
-                                  uniform=uni, uniform_delay=udl,
-                                  xfade_now=xf, taps=self.taps)
+                        for _ in range(reps):
+                            step(uni, xf)
+            finally:
+                self.state = state0
+                if self.dio is not None:
+                    self.dio.dstate = dstate0
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         except Exception as e:
@@ -946,10 +966,23 @@ class Engine:
         return bool(np.all(peaks < thr32))
 
     def _dispatch_host(self, x: np.ndarray, epoch) -> torch.Tensor:
-        """The host path's dispatch: upload x [C_in, N] and run the step
-        under ``epoch``; returns y [C_out, N] on the device, unfetched.
-        On the card x goes through one of two pinned staging buffers, each
-        reused only once the copy that last read it has completed."""
+        """The host path's dispatch: upload x [C_in, N] into the static
+        input of ``self.host_step`` and run the step under ``epoch``
+        through the key's program; returns y [C_out, N] on the device,
+        unfetched. An engine with taps (no ``host_step``) dispatches
+        eagerly (``_dispatch_eager``)."""
+        hs = self.host_step
+        if hs is None:
+            return self._dispatch_eager(x, epoch)
+        ctrl, _, uni, udl, xf, bank, _ = epoch
+        self._upload_host(x, hs.x)
+        self.state, y = hs.step(self.state, ctrl, bank, uniform=uni,
+                                udelay=udl, xfade=xf)
+        return y
+
+    def _dispatch_eager(self, x: np.ndarray, epoch) -> torch.Tensor:
+        """The host path's eager dispatch: upload x and run ``step_impl``
+        op by op, the taps included."""
         ctrl, _, uni, udl, xf, bank, _ = epoch
         self.state, y = step_impl(self.spec, self.state, ctrl, bank,
                                   self._upload_host(x), uniform=uni,
@@ -957,12 +990,14 @@ class Engine:
                                   taps=self.taps, mesh=self.mesh)
         return y
 
-    def _upload_host(self, x: np.ndarray) -> torch.Tensor:
-        """x [C_in, N] on the engine's device: on the card through one of
-        two pinned staging buffers, each reused only once the copy that
-        last read it has completed."""
+    def _upload_host(self, x: np.ndarray, out=None) -> torch.Tensor:
+        """x [C_in, N] on the engine's device, into ``out`` if given: on
+        the card an asynchronous copy from one of two pinned staging
+        buffers, each reused only once the copy that last read it has
+        completed."""
         if self.device.type != "cuda":
-            return torch.as_tensor(x)
+            xt = torch.as_tensor(x)
+            return xt if out is None else out.copy_(xt)
         if not self._staging:
             self._staging = [
                 (torch.empty(x.shape, dtype=real_dtype(self.spec),
@@ -972,7 +1007,8 @@ class Engine:
         self._staged ^= 1
         done.synchronize()
         buf.numpy()[...] = x
-        xd = buf.to(self.device, non_blocking=True)
+        xd = (buf.to(self.device, non_blocking=True) if out is None
+              else out.copy_(buf, non_blocking=True))
         done.record()
         return xd
 

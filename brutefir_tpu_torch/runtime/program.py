@@ -1,13 +1,17 @@
-"""DeviceIO's step programs: one captured CUDA graph per key, replayed.
+"""The step programs: one captured CUDA graph per key, replayed.
 
-Twin of the JAX package's compiled step programs
+Twin of the JAX package's compiled step programs: DeviceIO's
 (brutefir_tpu/runtime/device_io.py): ``_program`` (:460-466) jits one
 step program per key, ``multi_step`` (:561-677) one batch program per
 key, run as a ``lax.scan`` over the blocks (``_multi_step_scanned``,
 :703-725) or over groups of G blocks (``_multi_step_grouped``,
-:727-782), and ``_register_multi`` (:679-701) donates the state. PyTorch
-runs eagerly; its counterpart of "one compiled program per key, replayed"
-is a ``torch.cuda.CUDAGraph`` of the eager body:
+:727-782), and ``_register_multi`` (:679-701) donates the state; and the
+host codec path's (:class:`HostStep`): ``CompiledGraph._program`` /
+``step`` (brutefir_tpu/graph/compile.py:105-113, 125-133) and, on a
+mesh, ``ShardedGraph._program`` / ``step``
+(brutefir_tpu/parallel/mesh.py:253-268) jit one graph step per key.
+PyTorch runs eagerly; its counterpart of "one compiled program per key,
+replayed" is a ``torch.cuda.CUDAGraph`` of the eager body:
 
 - a key's **first call runs the body eagerly**: a real block, and the
   warm-up that builds and loads the kernels, makes the cuFFT plans, the
@@ -33,7 +37,12 @@ gets it copied in first. The read-only arguments are copied only when
 the tensor object differs from the last one seen: a new control
 snapshot, new mute gains, a bank rebound by an EQ render or a
 coefficient swap. An unchanged bank is never copied. The input words
-are copied into the program's own buffers on every call.
+are copied into the program's own buffers on every call. The host
+path's programs share the same :class:`Statics` (the step state, and
+``ctrl`` and the bank read-only; no ``dstate``: its delay lines, dither
+and meters run on the host) and one static input block ``HostStep.x``,
+which the engine fills by an asynchronous copy from a pinned staging
+buffer before each call.
 
 Outputs outlive the next call: a replay writes the graph's own output
 tensors, so each call hands out clones of them (the writer thread
@@ -52,8 +61,10 @@ capturing, raises. Routes that stay eager by design:
   body run eagerly at every call, which is what the CPU tests exercise;
 - a mesh whose shards span more than one card (one capture would need
   every card's stream); a mesh on one card is captured like the rest;
-- the host codec path (``Engine._dispatch_host``), whose frequency-domain
-  taps sync the host in the middle of a block: it never reaches DeviceIO;
+- a host-path engine with frequency-domain taps (``Engine.taps``), whose
+  taps sync the host in the middle of a block: it makes no
+  :class:`HostStep` and runs ``step_impl`` op by op
+  (``Engine._dispatch_eager``);
 - the stage probe (``runtime/stageprobe.record_block``), which times the
   eager calls of one block.
 """
@@ -66,6 +77,7 @@ import weakref
 
 import torch
 
+from ..graph.compile import real_dtype, step_impl
 from ..ops import fft_fused, fft_glue, mac, mac_dual, mac_group, mac_mix
 from ..parallel.mesh import Sharded
 
@@ -153,21 +165,22 @@ class Slot:
 
 
 class Statics:
-    """The tensors every program of one DeviceIO reads and writes at
-    fixed addresses: the step state (its ring adopted, the rest owned
-    copies), ``dstate``, and copies of the controls, the gains and the
-    bank."""
+    """The tensors every program of one DeviceIO or :class:`HostStep`
+    reads and writes at fixed addresses: the step state (its ring
+    adopted, the rest owned copies), ``dstate`` (DeviceIO's; None on the
+    host path), and copies of the read-only ``args`` (DeviceIO's controls,
+    gains and bank; the host path's controls and bank)."""
 
-    def __init__(self, state, ctrl, in_gain, out_gain, bank, dstate):
+    def __init__(self, state, args, dstate=None):
         ring = {id(t) for t in leaves(state.ring)}
         self.state = Slot(state, True, lambda t: id(t) in ring)
         self.dstate = Slot(dstate, True)
-        self.args = Slot((ctrl, in_gain, out_gain, bank), False)
+        self.args = Slot(args, False)
 
-    def bind(self, state, ctrl, in_gain, out_gain, bank, dstate) -> None:
+    def bind(self, state, args, dstate=None) -> None:
         self.state.fill(state)
         self.dstate.fill(dstate)
-        self.args.fill((ctrl, in_gain, out_gain, bank))
+        self.args.fill(args)
 
 
 def capturable(device: torch.device, mesh=None) -> bool:
@@ -250,3 +263,64 @@ class Program:
         self.delta = [(c, k, n - b[k]) for c, b in zip(COUNTERS, before)
                       for k, n in c.items() if n != b[k]]
         self.graph = graph
+
+
+class HostStep:
+    """The host codec path's step programs (``Engine._dispatch_host``):
+    one :class:`Program` a key ``(uniform, udelay, xfade)``, the key of
+    ``DeviceIO.step`` (the JAX package's ``(uniform, xfade)`` and the
+    port's ``uniform_delay``), whose body is ``step_impl`` over the
+    :class:`Statics` (the state, ``ctrl`` and the bank) and the static
+    input block :attr:`x`. The caller fills ``x`` before each call."""
+
+    def __init__(self, spec, device: torch.device, mesh=None):
+        self.spec = spec
+        self.device = device
+        self.mesh = mesh
+        # the block's input [C_in, N], at one address for every program
+        self.x = torch.zeros((spec.n_inputs, spec.block_length),
+                             dtype=real_dtype(spec), device=device)
+        self._statics = None
+        self._programs = {}
+
+    def step(self, state, ctrl, bank, uniform=False, udelay=False,
+             xfade=False):
+        """One block of :attr:`x` -> (state', y [C_out, N]), as
+        ``step_impl`` without taps, through the key's program. ``state'``
+        is the programs' static state, which the next call reads in
+        place."""
+        if self._statics is None:
+            self._statics = Statics(state, (ctrl, bank))
+        else:
+            self._statics.bind(state, (ctrl, bank))
+        key = (uniform, udelay, xfade)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = Program(self._body(key),
+                                                 self.device, self.captures)
+        return self._statics.state.tree, prog(())
+
+    def _body(self, key):
+        """``step_impl`` over the static tensors: () -> y, the new state
+        copied into the static one at the end."""
+        S = self._statics
+        uniform, udelay, xfade = key
+
+        def body(words):
+            st, y = step_impl(self.spec, S.state.tree, *S.args.tree, self.x,
+                              uniform=uniform, uniform_delay=udelay,
+                              xfade_now=xfade, mesh=self.mesh)
+            S.state.store(st)
+            return y
+
+        return body
+
+    @property
+    def captures(self) -> bool:
+        """Whether the programs are captured as CUDA graphs, as
+        ``DeviceIO.captures``."""
+        return capturable(self.device, self.mesh)
+
+    def programs(self) -> dict:
+        """The step programs made so far, by key."""
+        return dict(self._programs)

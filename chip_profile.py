@@ -34,7 +34,8 @@ block 8 (``eq_config``: 2 channels, 8192 x 8, FLOAT_LE, 48 kHz, through
 ``run()``) or the massive shape with S24_BE devices (``hostcodec_config``,
 ``chip_smoke.py``'s phase 21: the host codec path, block by block through
 ``run()``; the host stages are the main thread's ``read_block`` and
-``_dispatch_host`` and the writer's ``write_block``) or the massive shape
+``_dispatch_host``, of it the pinned upload ``_upload_host``, and the
+writer's ``write_block``) or the massive shape
 with ``chip_smoke.py``'s phase 24 module ``bflogic_spectap.py`` (all six
 hooks, a gain each; the host codec path through ``run()``, the taps'
 transfers and the hook calls timed as well) or, clocked, the massive
@@ -69,14 +70,16 @@ timed and profiled runs allocate under the lock (``mlock_probe``).
 on the one visible card (``make_mesh([cuda:0] * F * S, F, S)`` passed as
 ``Engine(conf, mesh=...)``): every MAC launch becomes F x S launches at
 the shard shape, beside the same shape unsharded in another call.
-The engine's DeviceIO runs its step programs (``runtime/program.py``: a
-key's first call eager, its second captured as a CUDA graph, the later
-ones replayed); ``--eager`` routes it through the eager forms instead
-(``chip_smoke.eager_forms``: ``DeviceIO.step_eager`` /
-``multi_step_eager``, op by op), the dispatch the graphs replace.
-Prints the programs of the timed run: each key's calls, its capture's
-host ms and the bytes its graph pool reserved, and the card's reserved
-and peak allocated bytes (``torch.cuda.memory_stats``).
+The engine's DeviceIO, or on the host codec path its ``HostStep``, runs
+its step programs (``runtime/program.py``: a key's first call eager, its
+second captured as a CUDA graph, the later ones replayed); ``--eager``
+routes it through the eager forms instead (``chip_smoke.eager_forms``:
+``DeviceIO.step_eager`` / ``multi_step_eager``, and the host path's
+``Engine._dispatch_eager``, op by op), the dispatch the graphs replace.
+Prints the programs of the timed run (``--shape hostcodec``: the host
+path's): each key's calls, its capture's host ms and the bytes its graph
+pool reserved, and the card's reserved and peak allocated bytes
+(``torch.cuda.memory_stats``).
 """
 
 from __future__ import annotations
@@ -108,7 +111,8 @@ def main():
     ap.add_argument("--mesh", default=None,
                     help="FxS: shard over F x S shards on the one card")
     ap.add_argument("--eager", action="store_true",
-                    help="run DeviceIO's eager forms, not its graphs")
+                    help="run the eager forms of DeviceIO and of the "
+                    "host path, not their graphs")
     args = ap.parse_args()
     if args.pair is not None:
         os.environ["BRUTEFIR_TPU_PAIR"] = args.pair
@@ -183,7 +187,7 @@ def main():
 
     def run(host=None):
         eng = Engine(parse_config(text), mesh=mesh)
-        if args.eager and eng.dio is not None:
+        if args.eager:
             cs.eager_forms(eng)
         per_block = eng.conf.benchmark or eng.conf.debug or eng._clocked()
         torch.cuda.synchronize()
@@ -195,7 +199,8 @@ def main():
                 # a logic module may drop the device-IO path when run()
                 # attaches it, so the host path's stages are always timed
                 stages = ((eng, "read_block"), (eng, "_dispatch_host"),
-                          (eng, "write_block"), (eng, "_block_start_hooks"),
+                          (eng, "_upload_host"), (eng, "write_block"),
+                          (eng, "_block_start_hooks"),
                           (eng, "_snapshot_epoch"),
                           (eng_mod, "_spectra_to_host"),
                           (eng_mod, "_spectra_to_device"))
@@ -232,8 +237,9 @@ def main():
           f"wall {wall_ms:.3f} ms a block, engine xrt "
           f"{stats['xrt']:.2f}, p50 batch period {stats['p50_block_ms']:.3f}"
           f" ms a block", flush=True)
-    if timed_eng.dio is not None:
-        progs = timed_eng.dio.programs()
+    hs = timed_eng.host_step
+    if timed_eng.dio is not None or hs is not None:
+        progs = (hs if timed_eng.dio is None else timed_eng.dio).programs()
         mem = torch.cuda.memory_stats()
         print(f"programs ({'eager forms' if args.eager else 'graphs'}): "
               + (", ".join(f"{k} {p.calls} calls, capture "
@@ -244,7 +250,7 @@ def main():
               f" B; card reserved {mem.get('reserved_bytes.all.current', 0)}"
               f" B, peak allocated "
               f"{mem.get('allocated_bytes.all.peak', 0)} B", flush=True)
-        for name in ("step", "multi_step"):
+        for name in ("step", "multi_step", "_dispatch_host"):
             sec = host.get(name) or []
             per = ([t / BATCH_BLOCKS for t in sec[2:]] if name ==
                    "multi_step" else sec[2:])

@@ -354,6 +354,20 @@ Phases, in order; any failure exits non-zero:
    byte-equal, every launch count equal, every key called twice
    captured; prints each route's main-thread ms a block in the DeviceIO
    dispatch and the graph pools' bytes.
+44. the host codec path's step programs (``runtime/program.HostStep``:
+   one program a key ``(uniform, udelay, xfade)``, captured as DeviceIO's
+   are; phases 21-23 run through them): phases 21-23's configs (the
+   massive shape with S24_BE devices, phase 22's time-aligned and
+   dithered config with S24_BE outputs, the crossover example with
+   FLOAT_BE in and FLOAT64_LE out and per-filter sets) and the massive
+   S24_BE config on a 2 x 2 mesh on cuda:0, 40.5 blocks each through
+   ``run()``, through the graphs and through the eager dispatch
+   (``eager_forms``: ``Engine._dispatch_eager``): the output bytes equal,
+   every launch count equal, every key called twice captured; prints
+   ``_dispatch_host``'s main-thread ms a block (in all, and the calls
+   after the first two), the run's wall a block, and each key's capture
+   seconds and graph pool bytes; phase 24's tapped engine must have made
+   no program.
 
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
@@ -3381,7 +3395,8 @@ def with_module(cfg: str, name: str, mods: str, cli: bool = False) -> str:
 def main_hooks(main, mods: dict, launched: dict):
     """Phase 24: the massive shape through main() with the external
     module bflogic_spectap.py defining all six hooks, then the same graph
-    without it."""
+    without it. Returns the tapped engine's (``host_step``, tap kinds)
+    for phase 44."""
     from brutefir_tpu_torch.runtime import engine as eng_mod
     label = "massive with a spectral logic module"
     frames = int(HOOK_BLOCKS * K)
@@ -3466,6 +3481,7 @@ def main_hooks(main, mods: dict, launched: dict):
     print(f"main path ({plain}): {sum(wall0) / blocks * 1e3:.3f} ms a "
           f"block in run_offline(), against {ms['wall']:.3f} with the "
           f"module; max |y| {np.abs(y0).max()} LSB", flush=True)
+    return inst.engine.host_step, sorted(inst.engine.taps)
 
 
 def main_xfade_hooks(main, mods: dict, launched: dict):
@@ -3798,7 +3814,8 @@ def clocked_xtc(mods: dict, eager: bool = False) -> dict:
     print(f"clocked ({label}): DeviceIO.step {res['dispatch_ms']['ms']:.3f} "
           f"ms a call, the warm-up's included (later calls "
           f"{res['dispatch_ms']['steady_ms']:.3f}); programs "
-          f"{program_summary(eng, eager, label)}", flush=True)
+          f"{program_summary(eng.dio.programs(), eager, label)}",
+          flush=True)
     res.update(deadlines(loaded_module("paced", "bfio").PacedDevice.instances[-1],
                          label, period))
     res["warm"], res["counts"] = launch_keys(warm), launch_keys(blocks)
@@ -4988,11 +5005,14 @@ PROGRAM_BLOCKS = 40.5   # 5 batches of 8 (the batch key eager, captured,
 
 
 def eager_forms(eng) -> None:
-    """Route ``eng``'s DeviceIO through its eager forms (``step_eager``,
-    ``multi_step_eager``): the op-by-op dispatch the captured graphs
-    replace, the same kernels and ops."""
-    eng.dio.step = eng.dio.step_eager
-    eng.dio.multi_step = eng.dio.multi_step_eager
+    """Route ``eng``'s step through its eager forms: DeviceIO's
+    (``step_eager``, ``multi_step_eager``) and the host codec path's
+    (``Engine._dispatch_eager``, ``step_impl`` op by op): the dispatch
+    the captured graphs replace, the same kernels and ops."""
+    if eng.dio is not None:
+        eng.dio.step = eng.dio.step_eager
+        eng.dio.multi_step = eng.dio.multi_step_eager
+    eng._dispatch_host = eng._dispatch_eager
 
 
 def dispatch_ms(step: list, multi: list, blocks: int, m: int = 8) -> dict:
@@ -5005,10 +5025,10 @@ def dispatch_ms(step: list, multi: list, blocks: int, m: int = 8) -> dict:
             "steady_ms": float(np.median(later)) * 1e3 if later else None}
 
 
-def program_summary(eng, eager: bool, label: str) -> dict:
-    """The programs an engine made: with the graphs every key called
-    twice or more is captured; with the eager forms there is none."""
-    progs = eng.dio.programs()
+def program_summary(progs: dict, eager: bool, label: str) -> dict:
+    """The programs an engine made (``DeviceIO.programs()`` or
+    ``HostStep.programs()``): with the graphs every key called twice or
+    more is captured; with the eager forms there is none."""
     if eager and progs:
         fail(f"{label}: the eager forms made programs {sorted(progs)}")
     uncaptured = [k for k, p in progs.items()
@@ -5018,7 +5038,10 @@ def program_summary(eng, eager: bool, label: str) -> dict:
     if not eager and not any(p.graph is not None for p in progs.values()):
         fail(f"{label}: no key was captured")
     return {"keys": {str(k): p.calls for k, p in progs.items()},
-            "pool_bytes": sum(p.pool_bytes for p in progs.values())}
+            "pool_bytes": sum(p.pool_bytes for p in progs.values()),
+            "captures": {str(k): {"capture_s": p.capture_s,
+                                  "pool_bytes": p.pool_bytes}
+                         for k, p in progs.items() if p.graph is not None}}
 
 
 def program_run(mods, cfg: str, frames: int, channels: int, label: str,
@@ -5050,7 +5073,7 @@ def program_run(mods, cfg: str, frames: int, channels: int, label: str,
         fail(f"{label}: output has {y.size // channels} frames, input "
              f"{frames}")
     return (y, counts, dispatch_ms(step, multi, stats["blocks"]),
-            program_summary(eng, eager, label))
+            program_summary(eng.dio.programs(), eager, label))
 
 
 def graphs_vs_eager(mods: dict, launched: dict, label: str, cfg: str,
@@ -5165,6 +5188,129 @@ def main_profile(mods: dict, launched: dict):
         fail(f"{label}: {lsb} LSB off the float64 oracle")
     add_counts(launched, counts, ("mac_mix", "uniform"))
     add_glue(launched, counts)
+
+# ---- phase 44: the host path's programs, graphs against the eager dispatch
+
+def host_program_run(mods, cfg: str, out: str, label: str, eager: bool,
+                     mesh=None) -> dict:
+    """One run of ``Engine.run`` on the host-path config ``cfg`` through
+    its step programs or (``eager``) its eager dispatch, the counts set to
+    0 just before the run: the output file's bytes, the counts, the main
+    thread's ms a block in ``_dispatch_host`` and the programs."""
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.runtime.engine import Engine
+    path = os.path.join(WORK, out)
+    if os.path.exists(path):
+        os.remove(path)
+    with open(cfg) as fh:
+        text = fh.read()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        eng = Engine(parse_config(text), mesh=mesh)
+        if eng.dio is not None or eng.host_step is None:
+            fail(f"{label}: not on the host path's programs")
+        if eager:
+            eager_forms(eng)
+        for m in mods.values():
+            m.reset_launches()
+        calls = []
+        t0 = time.perf_counter()
+        with timed_method(eng, "_dispatch_host", calls):
+            stats = eng.run()
+        wall = time.perf_counter() - t0
+    blocks = stats["blocks"]
+    return {"bytes": open(path, "rb").read(), "counts": all_counts(mods),
+            "dispatch": dispatch_ms(calls, [], blocks),
+            "wall_ms": wall / blocks * 1e3, "blocks": blocks,
+            "programs": program_summary(eng.host_step.programs(), eager,
+                                        label),
+            "captures": eng.host_step.captures}
+
+
+def host_graphs_vs_eager(mods: dict, launched: dict, label: str, cfg: str,
+                         out: str, mesh=None) -> dict:
+    """``cfg`` through the host path's graphs and through its eager
+    dispatch: the output bytes equal and every launch count equal; prints
+    ``_dispatch_host``'s main-thread ms a block, in all and after each
+    key's first two calls, and each key's capture seconds and pool
+    bytes."""
+    g = host_program_run(mods, cfg, out, label, False, mesh)
+    e = host_program_run(mods, cfg, out, label, True, mesh)
+    same = g["bytes"] == e["bytes"] and len(g["bytes"]) > 0
+    caps = ", ".join(f"{k} {v['capture_s'] * 1e3:.1f} ms, pool "
+                     f"{v['pool_bytes']} B"
+                     for k, v in g["programs"]["captures"].items())
+    print(f"host programs ({label}): _dispatch_host {g['dispatch']['ms']:.3f}"
+          f" ms a block with the graphs (later calls "
+          f"{g['dispatch']['steady_ms']:.3f}), {e['dispatch']['ms']:.3f} "
+          f"eager (later calls {e['dispatch']['steady_ms']:.3f}); run() "
+          f"{g['wall_ms']:.3f} / {e['wall_ms']:.3f} ms a block (graphs / "
+          f"eager, {g['blocks']} blocks); output "
+          f"{'byte-equal' if same else 'DIFFERS'} ({len(g['bytes'])} bytes);"
+          f" keys {g['programs']['keys']}; captures: {caps or 'none'}",
+          flush=True)
+    if not g["captures"]:
+        fail(f"{label}: the host path's programs are not captured")
+    if not same:
+        fail(f"{label}: the graphs' output differs from the eager "
+             f"dispatch's")
+    if g["counts"] != e["counts"]:
+        fail(f"{label}: launch counts differ: graphs "
+             f"{ {k: v for k, v in g['counts'].items() if v} }, eager "
+             f"{ {k: v for k, v in e['counts'].items() if v} }")
+    expect_launches({k[1]: v for k, v in g["counts"].items()},
+                    {k[1]: v for k, v in e["counts"].items()},
+                    f"{label}, graphs")
+    add_counts(launched, g["counts"], *[k for k in g["counts"]
+                                        if g["counts"][k]])
+    return {"graph_ms": g["dispatch"], "eager_ms": e["dispatch"],
+            "wall_ms": (g["wall_ms"], e["wall_ms"]), **g["programs"]}
+
+
+def main_host_programs(mods: dict, launched: dict, tapped) -> dict:
+    """Phase 44: phases 21-23's configs (the massive shape with S24_BE
+    devices; phase 22's time-aligned and dithered config with S24_BE
+    outputs; examples/crossover_2way.conf with FLOAT_BE in and FLOAT64_LE
+    out, per-filter sets) and the massive S24_BE config on a 2 x 2 mesh
+    on cuda:0, each through the host path's captured graphs and through
+    its eager dispatch (``eager_forms``); ``tapped``: phase 24's engine's
+    (host_step, taps), which must have made no program."""
+    host_step, taps = tapped
+    print(f"host programs: phase 24's tapped engine: taps {taps}, "
+          f"host_step {host_step}", flush=True)
+    if host_step is not None or not taps:
+        fail("phase 24's tapped engine made step programs")
+    res = {}
+    frames = int(PROGRAM_BLOCKS * K)
+    _, x = write_massive_inputs(np.random.default_rng(SEED + 47), frames)
+    s24_bytes(x, True).tofile(os.path.join(WORK, "input.s24be"))
+    cfg = hostcodec_config("host44.conf", "S24_BE", "s24be")
+    res["massive_s24_be"] = host_graphs_vs_eager(
+        mods, launched, "massive, S24_BE", cfg, "output.s24be")
+    res["massive_s24_be_mesh"] = host_graphs_vs_eager(
+        mods, launched, "massive, S24_BE, 2 x 2 on cuda:0", cfg,
+        "output.s24be", card_mesh(2, 2))
+    write_massive_inputs(np.random.default_rng(SEED + 48), frames)
+    cfg = retarget(aligned_config("aligned44.conf"),
+                   (('sample: "S24_LE";', 'sample: "S24_BE";', 1),))
+    res["aligned_s24_be"] = host_graphs_vs_eager(
+        mods, launched, "massive, time-aligned and dithered, S24_BE", cfg,
+        "output.raw")
+    frames = int(PROGRAM_BLOCKS * XO_N)
+    _, x, cfg = write_float_example(WORK, "crossover_2way.conf", frames,
+                                    4 * XO_N, ("lp.txt", "hp.txt"),
+                                    SEED + 49)
+    x.astype(">f4").tofile(os.path.join(WORK, "input.f32be"))
+    retarget(cfg, (('sample: "FLOAT_LE";', 'sample: "FLOAT_BE";', 1),
+                   ('sample: "S24_LE";', 'sample: "FLOAT64_LE";', 1),
+                   (os.path.join(WORK, "input.f32"),
+                    os.path.join(WORK, "input.f32be"), 1),
+                   (os.path.join(WORK, "output.s24"),
+                    os.path.join(WORK, "output.f64"), 1)))
+    res["crossover_floats"] = host_graphs_vs_eager(
+        mods, launched, "crossover_2way.conf, FLOAT_BE in, FLOAT64_LE out",
+        cfg, "output.f64")
+    return res
 
 
 HOST_DITHER_TOL = 5      # phase 22, LSB: the HP-TPDF error reaches 4.5
@@ -5283,7 +5429,7 @@ def run():
     phase("main path, host codec, 8-byte floats and per-filter sets")
     main_hostcodec_floats(main, mods, launched)
     phase("main path, massive with a spectral logic module")
-    main_hooks(main, mods, launched)
+    tapped = main_hooks(main, mods, launched)
     phase("main path, bench5 crossfade under a post_convolve module")
     main_xfade_hooks(main, mods, launched)
     torch.cuda.empty_cache()
@@ -5328,6 +5474,10 @@ def run():
     phase("main path, the step programs: captured graphs against the eager "
           "forms")
     main_programs(mods, launched)
+    torch.cuda.empty_cache()
+    phase("main path, the host codec path's step programs: captured graphs "
+          "against the eager dispatch")
+    main_host_programs(mods, launched, tapped)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules

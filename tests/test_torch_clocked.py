@@ -30,6 +30,7 @@ from brutefir_tpu.config import parse_config as jax_parse_config
 from brutefir_tpu_torch.config import parse_config
 from brutefir_tpu_torch.io import IoDevice, register_io_module
 from brutefir_tpu_torch.runtime import engine as engine_mod
+from brutefir_tpu_torch.runtime import program as program_mod
 from brutefir_tpu_torch.runtime.engine import Engine, EngineError
 
 CPU = torch.device("cpu")
@@ -190,11 +191,12 @@ def test_warmup_leaves_no_trace(tmp_path, out_fmt):
     after its 2N silent frames the paced run is byte-equal to the same
     config's file run, which has no warm-up, on the device-IO path
     (``dstate`` restored) and on the host path (S24_BE: the graph only,
-    no read_block / write_block)."""
+    through the step programs' ``step_impl``, no read_block /
+    write_block)."""
     mods = _modules(tmp_path)["mods"]
     _setup(tmp_path)
     steps = []
-    real = engine_mod.step_impl
+    real = program_mod.step_impl
     outs = {}
     for dev in ("paced", "file"):
         eng = _engine(_config(tmp_path, mods, dev, dev, out_fmt=out_fmt,
@@ -206,12 +208,12 @@ def test_warmup_leaves_no_trace(tmp_path, out_fmt):
             eng.dio.step = (lambda *a, _r=real_dio, **k:
                             (steps.append(dev), _r(*a, **k))[1])
         else:
-            engine_mod.step_impl = (lambda *a, **k:
-                                    (steps.append(dev), real(*a, **k))[1])
+            program_mod.step_impl = (lambda *a, **k:
+                                     (steps.append(dev), real(*a, **k))[1])
         try:
             eng.run()
         finally:
-            engine_mod.step_impl = real
+            program_mod.step_impl = real
         outs[dev] = _words(tmp_path / f"out_{dev}.raw", out_fmt)
     assert steps.count("paced") == steps.count("file") + 4
     assert not outs["paced"][:2 * N * C].any()

@@ -1966,3 +1966,74 @@ def test_program_graphs_match_eager_forms(cuda, tmp_path, monkeypatch,
     assert any(p.graph is not None for p in progs.values())
     if topology == "xfade":
         assert any(k[3] for k in progs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["S24_BE", "FLOAT64_LE"])
+def test_host_programs_match_eager_on_card(cuda, tmp_path, fmt):
+    """The host codec path on the card through its captured graphs
+    (``runtime/program.HostStep``) and through the eager dispatch
+    (``Engine._dispatch_eager``), file to file through ``run()``: S24_BE
+    devices (crossfading filters swapped and a mute set by a CLI script:
+    the ``xfade`` key and new controls copied in) and FLOAT64_LE devices
+    under ``float_bits: 64`` (the float64 stage loop and glue). The
+    output files byte-equal, every launch count equal, every key called
+    twice captured."""
+    from brutefir_tpu_torch.runtime.engine import Engine
+    from brutefir_tpu_torch.runtime.program import COUNTERS
+    N, B, C, frames = 256, 4, 3, 256 * 12 + 77
+    rng = np.random.default_rng(41)
+    coeffs = ""
+    for k in range(2):
+        (tmp_path / f"c{k}.txt").write_text("\n".join(
+            repr(float(v)) for v in rng.standard_normal(N * B - 60 * k)
+            * 0.05) + "\n")
+        coeffs += (f'coeff {k} {{ filename: "{tmp_path / f"c{k}.txt"}"; '
+                   f'format: "TEXT"; }};\n')
+    x = rng.standard_normal((frames, C))
+    if fmt == "S24_BE":
+        w = np.round(x * 2.0 ** 18).astype("<i4")
+        (w.view(np.uint8).reshape(frames, C, 4)[..., 2::-1]
+         .tofile(tmp_path / "in.raw"))
+        head = ('logic: "cli" { script: "sleep b2\\ncfc 0 1; tmo 2\\n'
+                'sleep b3\\ncfc 0 0; tmo 2\\nsleep b999"; echo: false; };')
+        xf = "crossfade: true; "
+    else:
+        (x * 0.3).astype("<f8").tofile(tmp_path / "in.raw")
+        head, xf = "float_bits: 64;", ""
+    filters = "".join(f"filter {f} {{ from_inputs: {f}; to_outputs: {f}; "
+                      f"coeff: {f % 2}; {xf}}};\n" for f in range(C))
+    chans = ",".join(str(c) for c in range(C))
+    outs, launched, engines = {}, {}, {}
+    for route in ("graphs", "eager"):
+        conf = parse_config(
+            f"sampling_rate: 44100;\nfilter_length: {N},{B};\n{head}\n"
+            f"{coeffs}"
+            f'input {chans} {{ device: "file" {{ path: '
+            f'"{tmp_path / "in.raw"}"; }}; sample: "{fmt}"; channels: {C}; '
+            f'}};\noutput {chans} {{ device: "file" {{ path: '
+            f'"{tmp_path / (route + ".raw")}"; }}; sample: "{fmt}"; '
+            f'channels: {C}; dither: false; }};\n{filters}')
+        conf.quiet = True
+        eng = Engine(conf, device=cuda)
+        assert eng.dio is None and eng.host_step is not None
+        if route == "eager":
+            eng._dispatch_host = eng._dispatch_eager
+        before = [dict(c) for c in COUNTERS]
+        eng.run()
+        torch.cuda.synchronize()
+        launched[route] = [{k: n - b[k] for k, n in c.items()}
+                           for c, b in zip(COUNTERS, before)]
+        outs[route] = (tmp_path / (route + ".raw")).read_bytes()
+        engines[route] = eng
+    assert len(outs["graphs"]) == frames * C * (3 if fmt == "S24_BE" else 8)
+    assert outs["graphs"] == outs["eager"]
+    assert launched["graphs"] == launched["eager"]
+    assert sum(n for d in launched["graphs"] for n in d.values()) > 0
+    hs = engines["graphs"].host_step
+    progs = hs.programs()
+    assert hs.captures and not engines["eager"].host_step.programs()
+    assert all(p.graph is not None for p in progs.values() if p.calls >= 2)
+    assert any(p.graph is not None for p in progs.values())
+    if fmt == "S24_BE":
+        assert {k[2] for k in progs} == {False, True}

@@ -54,8 +54,11 @@ def unpack_spectrum(Hp: np.ndarray) -> np.ndarray:
     return np.concatenate([dc, Hp[..., 1:], nyq], axis=-1)
 
 
-def np_c2p(z: np.ndarray) -> np.ndarray:
-    """complex [..., N] -> float planes [..., 2, N] (numpy)."""
+def np_c2p(z: np.ndarray, out: np.ndarray = None) -> np.ndarray:
+    """complex [..., N] -> float planes [..., 2, N] (numpy), into ``out``
+    if given (the same values, written in place)."""
+    if out is not None:
+        return np.stack([z.real, z.imag], axis=-2, out=out)
     return np.ascontiguousarray(np.stack([z.real, z.imag], axis=-2))
 
 

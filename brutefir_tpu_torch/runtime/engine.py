@@ -43,8 +43,9 @@ JAX package chooses them (``self.dio``):
   goes up through a pinned staging buffer into the static input of the
   path's step programs (``self.host_step``, ``runtime/program.HostStep``:
   ``graph/compile.step_impl`` with the same kernels as on the device
-  path, one captured CUDA graph a key on the card; an engine with
-  frequency-domain taps steps eagerly), and the writer thread fetches
+  path, one captured CUDA graph a key on the card; under
+  frequency-domain taps a ``TapStep``, one graph a segment between tap
+  sites, the hooks run on the host between them), and the writer thread fetches
   the output and ``write_block`` runs the output subdelays, delay lines,
   mutes, dither (``DitherState.quantize``), meters and encode.
 
@@ -63,7 +64,8 @@ hook of bfmod.h:192-215. A module that defines ``input_timed`` /
 the host codec path, as in the JAX package: the timed hooks see the host
 blocks of ``read_block`` / ``write_block``, and each frequency-domain
 hook is a tap in the step (``_make_freqd_tap``) that fetches its spectra
-to the host, calls the hooks and uploads the result.
+to the host, calls the hooks and uploads the result, between two
+segments of the step's captured graphs (``runtime/program.TapStep``).
 
 Clocked devices (engine.py:471-483, 781-936, 1001-1028, 1147-1257,
 1312-1388, 1599-1620): ``setup()`` opens the devices, runs every step
@@ -146,7 +148,7 @@ from ..ops.partconv import np_c2p, np_p2c, pack_spectrum, unpack_spectrum
 from ..parallel import mesh as mesh_mod
 from .control import RuntimeControl
 from .device_io import DeviceIO, dithered_phys, eligible
-from .program import HostStep, tree_map
+from .program import HostStep, TapStep, tree_map
 from .subdelay import SubsampleDelay
 
 # blocks per offline dispatch: block latency becomes BATCH_BLOCKS * N
@@ -187,16 +189,26 @@ def _wait_for(result) -> None:
         ev.synchronize()
 
 
-def _spectra_to_host(planes: torch.Tensor) -> np.ndarray:
+def _spectra_to_host(planes: torch.Tensor, ready=None) -> np.ndarray:
     """A tap's fetch: packed planes [C, 2, N] -> natural rfft rows
-    [C, N+1], writable and C-contiguous (one copy off the card)."""
+    [C, N+1], writable and C-contiguous (one copy off the card; none
+    from a host buffer, once the event ``ready`` says the copy into it
+    has landed)."""
+    if ready is not None:
+        ready.synchronize()
     return np.ascontiguousarray(unpack_spectrum(np_p2c(
         planes.cpu().numpy())))
 
 
-def _spectra_to_device(z: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+def _spectra_to_device(z: np.ndarray, like: torch.Tensor,
+                       out: torch.Tensor = None) -> torch.Tensor:
     """A tap's upload: natural rfft rows [C, N+1] -> packed planes
-    [C, 2, N] of ``like``'s dtype on its device (one copy)."""
+    [C, 2, N] of ``like``'s dtype on its device (one copy), or written
+    into ``out`` (a host buffer of that dtype, which the step copies
+    up)."""
+    if out is not None:
+        np_c2p(pack_spectrum(z), out.numpy())
+        return out
     return torch.from_numpy(np_c2p(pack_spectrum(z))).to(like.device,
                                                          like.dtype)
 
@@ -591,13 +603,17 @@ class Engine:
             self.dio.mesh = None
 
     def _host_route(self):
-        """The host codec path's step programs (``self.host_step``, a
-        ``runtime/program.HostStep``): made when the engine is on that
-        path without frequency-domain taps, and kept while it stays there;
-        None on the device-IO path and under taps, which step eagerly
-        (``_dispatch_eager``)."""
-        if self.dio is not None or self.taps:
+        """The host codec path's step programs (``self.host_step``): a
+        ``runtime/program.HostStep`` on that path, a ``TapStep`` (one
+        captured graph a segment between tap sites) under
+        frequency-domain taps, each kept while the engine stays on its
+        route; None on the device-IO path."""
+        if self.dio is not None:
             self.host_step = None
+        elif self.taps:
+            if (not isinstance(self.host_step, TapStep)
+                    or self.host_step.taps is not self.taps):
+                self.host_step = TapStep(self.spec, self.device, self.taps)
         elif self.host_step is None:
             self.host_step = HostStep(self.spec, self.device, self.mesh)
 
@@ -615,7 +631,11 @@ class Engine:
         On the card each tap is one copy to the host, which waits for the
         step's work queued before it, and one copy back: a host sync in
         the middle of the step, the cost of the module ABI (the reference
-        hands its modules host buffers), not a fallback.
+        hands its modules host buffers), not a fallback. The tapped
+        step's programs (``runtime/program.TapStep``) call it on a pinned
+        host buffer that their segment's copy fills, with ``ready`` the
+        event to wait on and ``out`` that buffer itself: the planes come
+        back in place, and the next segment copies them up.
 
         ``row2conf`` maps spec rows to config filters (padding rows -1
         skip the hooks): the engine's ``spec_rows`` under ``process:``
@@ -624,10 +644,10 @@ class Engine:
         while it returns True the tap hands the planes back untouched and
         calls no hook, so a module never sees ``_warm_programs``' blocks."""
 
-        def tapfn(planes, idx):
+        def tapfn(planes, idx, ready=None, out=None):
             if warming is not None and warming():
                 return planes
-            z = _spectra_to_host(planes)
+            z = _spectra_to_host(planes, ready)
             for ch in range(z.shape[0]):
                 fid = int(idx[ch])
                 if row2conf is not None:
@@ -637,7 +657,7 @@ class Engine:
                 row = z[ch]
                 for h in hooks:
                     h(row, fid)
-            return _spectra_to_device(z, planes)
+            return _spectra_to_device(z, planes, out)
 
         return tapfn
 
@@ -699,12 +719,12 @@ class Engine:
         True, ``xfade`` True as well when a filter can crossfade, the
         snapshot's ``uniform_delay``. Each is a key of ``DeviceIO.step``
         on the device-IO path, of ``HostStep.step`` through
-        ``_dispatch_host`` on the host path (an engine with taps steps
-        eagerly), called on the engine's own state, twice where the
-        programs are captured (``captures``): the key's first call warms
-        up, its second captures the key's CUDA graph
-        (``runtime/program.py``), so a clocked run never captures inside
-        its realtime loop.
+        ``_dispatch_host`` on the host path (with taps ``TapStep.step``),
+        called on the engine's own state, twice where the programs are
+        captured (``captures``): the key's first call warms up, its
+        second captures the key's CUDA graph, or under taps its
+        segments' graphs (``runtime/program.py``), so a clocked run never
+        captures inside its realtime loop.
 
         The warm-up leaves no trace: the state and, on the device-IO path,
         ``dstate`` (the dither pointers are part of the bit-exact dither
@@ -712,7 +732,8 @@ class Engine:
         copying them into the programs' static tensors; the host path
         dispatches only, never ``read_block`` / ``write_block``, so delay
         lines and host dither states stay put; ``_warming`` silences the
-        taps.
+        taps' hooks (a silenced tap hands its planes on unchanged, so the
+        next segment reads defined data).
         Clockless (file) runs skip it, and so do runs on a mesh, as in the
         JAX package (engine.py:806). A failure is reported and left to the
         audio path, as there."""
@@ -968,12 +989,10 @@ class Engine:
     def _dispatch_host(self, x: np.ndarray, epoch) -> torch.Tensor:
         """The host path's dispatch: upload x [C_in, N] into the static
         input of ``self.host_step`` and run the step under ``epoch``
-        through the key's program; returns y [C_out, N] on the device,
-        unfetched. An engine with taps (no ``host_step``) dispatches
-        eagerly (``_dispatch_eager``)."""
+        through the key's program (under taps its segments, the hooks
+        run between them); returns y [C_out, N] on the device,
+        unfetched."""
         hs = self.host_step
-        if hs is None:
-            return self._dispatch_eager(x, epoch)
         ctrl, _, uni, udl, xf, bank, _ = epoch
         self._upload_host(x, hs.x)
         self.state, y = hs.step(self.state, ctrl, bank, uniform=uni,
@@ -982,7 +1001,8 @@ class Engine:
 
     def _dispatch_eager(self, x: np.ndarray, epoch) -> torch.Tensor:
         """The host path's eager dispatch: upload x and run ``step_impl``
-        op by op, the taps included."""
+        op by op, the taps included: the form the programs replace,
+        where ``chip_smoke.eager_forms`` routes an engine."""
         ctrl, _, uni, udl, xf, bank, _ = epoch
         self.state, y = step_impl(self.spec, self.state, ctrl, bank,
                                   self._upload_host(x), uniform=uni,

@@ -42,7 +42,9 @@ path's programs share the same :class:`Statics` (the step state, and
 ``ctrl`` and the bank read-only; no ``dstate``: its delay lines, dither
 and meters run on the host) and one static input block ``HostStep.x``,
 which the engine fills by an asynchronous copy from a pinned staging
-buffer before each call.
+buffer before each call; so do the tapped host step's
+(:class:`TapStep`), whose segments also share a static host buffer and
+a static device input at each tap site.
 
 Outputs outlive the next call: a replay writes the graph's own output
 tensors, so each call hands out clones of them (the writer thread
@@ -54,17 +56,24 @@ calls of their wrappers, which a replay makes none of: each program
 records every counter's change over its capture and adds it at every
 later replay, so the counts read as if every block ran eagerly.
 
+A host-path engine with frequency-domain taps (``Engine.taps``) hands
+its modules host buffers in the middle of a block, as the JAX package's
+ordered ``io_callback`` does inside its program (brutefir_tpu/graph/
+compile.py:165-178). Its programs (:class:`TapStep`, one
+:class:`Segmented` a key) are cut at the S tap sites into S + 1 captured
+graphs: segment k ends by copying the planes tap k sees into a pinned
+host buffer, the host waits for it, runs the tap's hooks on that buffer
+in place, and segment k + 1 starts by copying the buffer into a static
+device input, which the rest of the step reads.
+
 There is no fallback: a failed capture, or a kernel's launch error while
 capturing, raises. Routes that stay eager by design:
 
-- the CPU: the same plumbing (static tensors, copies in and out) with the
-  body run eagerly at every call, which is what the CPU tests exercise;
+- the CPU: the same plumbing (static tensors, copies in and out, the tap
+  sites' static buffers) with the body run eagerly at every call, which
+  is what the CPU tests exercise;
 - a mesh whose shards span more than one card (one capture would need
   every card's stream); a mesh on one card is captured like the rest;
-- a host-path engine with frequency-domain taps (``Engine.taps``), whose
-  taps sync the host in the middle of a block: it makes no
-  :class:`HostStep` and runs ``step_impl`` op by op
-  (``Engine._dispatch_eager``);
 - the stage probe (``runtime/stageprobe.record_block``), which times the
   eager calls of one block.
 """
@@ -75,6 +84,7 @@ import gc
 import time
 import weakref
 
+import numpy as np
 import torch
 
 from ..graph.compile import real_dtype, step_impl
@@ -198,6 +208,36 @@ def _counts() -> list:
     return [dict(c) for c in COUNTERS]
 
 
+def _delta(before: list) -> list:
+    """Each launch counter's change since ``before``: (counter dict,
+    key, launches)."""
+    return [(c, k, n - b.get(k, 0)) for c, b in zip(COUNTERS, before)
+            for k, n in c.items() if n != b.get(k, 0)]
+
+
+def _capturing(device: torch.device, capture):
+    """Run ``capture()`` on a synchronised card with the allocator's
+    cache emptied and Python's cycle collector off (``torch.cuda.graph``
+    collects just before; a collection in the middle could free a dropped
+    engine's graph, and destroying a graph there ends the capture).
+    Returns (its result, the device bytes the capture reserved, its host
+    seconds)."""
+    t0 = time.perf_counter()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.device(device):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_reserved()
+            out = capture()
+            pool = torch.cuda.memory_reserved() - base
+    finally:
+        if collecting:
+            gc.enable()
+    return out, pool, time.perf_counter() - t0
+
+
 class Program:
     """One key's program: ``body(words) -> outputs`` reads and writes the
     DeviceIO's :class:`Statics`; the program owns the key's input word
@@ -236,32 +276,20 @@ class Program:
         return out
 
     def _capture(self, words) -> None:
-        """Capture the body into a CUDA graph. Its Python calls count
-        their launches once, for this call; the changes are kept for the
-        replays. Python's cycle collector is off while capturing
-        (``torch.cuda.graph`` collects just before): it could free a
-        dropped engine's graph in the middle of the capture, and
-        destroying a graph there ends the capture."""
+        """Capture the body into a CUDA graph (``_capturing``). Its Python
+        calls count their launches once, for this call; the changes are
+        kept for the replays."""
         before = _counts()
-        t0 = time.perf_counter()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.device(self.device):
-                torch.cuda.synchronize()
-                torch.cuda.empty_cache()
-                base = torch.cuda.memory_reserved()
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph,
-                                      capture_error_mode="thread_local"):
-                    self.out = self.body(words)
-                self.pool_bytes = torch.cuda.memory_reserved() - base
-        finally:
-            if collecting:
-                gc.enable()
-        self.capture_s = time.perf_counter() - t0
-        self.delta = [(c, k, n - b[k]) for c, b in zip(COUNTERS, before)
-                      for k, n in c.items() if n != b[k]]
+
+        def capture():
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.out = self.body(words)
+            return graph
+
+        graph, self.pool_bytes, self.capture_s = _capturing(self.device,
+                                                            capture)
+        self.delta = _delta(before)
         self.graph = graph
 
 
@@ -286,9 +314,8 @@ class HostStep:
     def step(self, state, ctrl, bank, uniform=False, udelay=False,
              xfade=False):
         """One block of :attr:`x` -> (state', y [C_out, N]), as
-        ``step_impl`` without taps, through the key's program. ``state'``
-        is the programs' static state, which the next call reads in
-        place."""
+        ``step_impl``, through the key's program. ``state'`` is the
+        programs' static state, which the next call reads in place."""
         if self._statics is None:
             self._statics = Statics(state, (ctrl, bank))
         else:
@@ -296,9 +323,11 @@ class HostStep:
         key = (uniform, udelay, xfade)
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._programs[key] = Program(self._body(key),
-                                                 self.device, self.captures)
+            prog = self._programs[key] = self._program(key)
         return self._statics.state.tree, prog(())
+
+    def _program(self, key):
+        return Program(self._body(key), self.device, self.captures)
 
     def _body(self, key):
         """``step_impl`` over the static tensors: () -> y, the new state
@@ -324,3 +353,192 @@ class HostStep:
     def programs(self) -> dict:
         """The step programs made so far, by key."""
         return dict(self._programs)
+
+
+class Site:
+    """One tap site of the tapped step: the hook ``kind`` and the ids
+    ``idx`` of its rows; ``buf``, the host buffer of the planes the tap
+    sees (pinned on the card: its segment's last copy fills it, the
+    hooks mutate it, the next segment's first copy reads it); ``inp``,
+    the static device input of the next segment; ``ready``, the event
+    the host waits on before reading ``buf`` (None on the CPU)."""
+
+    def __init__(self, kind: str, idx, planes: torch.Tensor):
+        self.kind = kind
+        self.idx = idx
+        cuda = planes.device.type == "cuda"
+        self.buf = torch.empty(planes.shape, dtype=planes.dtype,
+                               pin_memory=cuda)
+        self.inp = torch.empty_like(planes,
+                                    memory_format=torch.contiguous_format)
+        self.ready = torch.cuda.Event() if cuda else None
+
+
+class TapStep(HostStep):
+    """The tapped host step's programs: :class:`HostStep` for an engine
+    with frequency-domain taps, the twin of the JAX package's
+    ``CompiledGraph._program`` / ``step`` with ``taps`` set
+    (brutefir_tpu/graph/compile.py:105-133, its taps ordered host
+    callbacks at :165-178). One :class:`Segmented` program a key, on the
+    same :class:`Statics` and static input block :attr:`x`; ``taps`` is
+    the engine's (``Engine._make_freqd_tap``: kind -> ``tap(planes, idx,
+    ready=None, out=None)``). Never on a mesh: taps drop an automatic
+    mesh and an explicit one refuses them (``Engine.attach_logic``).
+
+    Every key's step reaches the same S tap sites in one fixed order
+    (``input_freqd``; each stage's ``pre_convolve`` and
+    ``post_convolve``; ``output_freqd``; only the kinds some module
+    hooks), kept in :attr:`sites` and shared by the keys' programs, one
+    key's block never interleaving with another's."""
+
+    def __init__(self, spec, device: torch.device, taps: dict):
+        super().__init__(spec, device)
+        self.taps = taps
+        self.sites = []
+
+    def _program(self, key):
+        return Segmented(self, key, self.captures)
+
+    def _site(self, k: int, kind: str, planes: torch.Tensor, idx) -> Site:
+        """Tap site ``k``, made at its first call."""
+        if k == len(self.sites):
+            self.sites.append(Site(kind, idx, planes))
+        site = self.sites[k]
+        if (site.kind != kind or site.buf.shape != planes.shape
+                or site.buf.dtype != planes.dtype
+                or not np.array_equal(site.idx, idx)):
+            raise ValueError(
+                f"tap site {k}: {kind} {tuple(planes.shape)} "
+                f"{planes.dtype}, its static buffers {site.kind} "
+                f"{tuple(site.buf.shape)} {site.buf.dtype}")
+        return site
+
+    def segments(self, key, boundary):
+        """One block of ``step_impl`` over the static tensors with every
+        tap site k a segment boundary: the planes tap k sees are copied
+        into ``sites[k].buf`` (segment k's last copy), ``boundary(site)``
+        runs, and ``buf`` is copied into ``sites[k].inp`` (segment k +
+        1's first), which the step reads on. Returns y; the new state is
+        copied into the static one at the end."""
+        S = self._statics
+        uniform, udelay, xfade = key
+        n = 0
+
+        def stub(kind):
+            def tap(planes, idx):
+                nonlocal n
+                site = self._site(n, kind, planes, idx)
+                n += 1
+                site.buf.copy_(planes, non_blocking=True)
+                boundary(site)
+                return site.inp.copy_(site.buf, non_blocking=True)
+            return tap
+
+        st, y = step_impl(self.spec, S.state.tree, *S.args.tree, self.x,
+                          uniform=uniform, uniform_delay=udelay,
+                          xfade_now=xfade,
+                          taps={kind: stub(kind) for kind in self.taps})
+        S.state.store(st)
+        return y
+
+    def tap(self, site: Site) -> None:
+        """A site's host side: the engine's tap of its kind on ``buf`` in
+        place, once the copy into it (queued on the current stream) has
+        landed: the fetch, the hooks in module order, the planes back."""
+        if site.ready is not None:
+            site.ready.record()
+        self.taps[site.kind](site.buf, site.idx, site.ready, site.buf)
+
+
+class Segmented:
+    """One key's program of a :class:`TapStep`: S + 1 CUDA graphs, one
+    segment of the step between each pair of tap sites, sharing one
+    private memory pool (tensors live across the boundaries, and the
+    segments are always replayed in capture order). Eager at the first
+    call (``TapStep.segments`` with the real taps; at every call unless
+    ``capture``), captured at the second, then replayed: segment 0, tap
+    0's host side, segment 1, ..., segment S; the output is cloned, as
+    :class:`Program` clones its outputs. A replay adds each segment's
+    launch counts as it replays it."""
+
+    def __init__(self, owner: TapStep, key, capture: bool):
+        self.owner = owner
+        self.key = key
+        self.capture = capture
+        self.calls = 0
+        self.graph = None        # the segments' graphs, once captured
+        self.out = None
+        self.delta = []          # a segment: (counter dict, key, launches)
+        self.pool_bytes = 0      # device memory the capture reserved
+        self.capture_s = 0.0     # host seconds the capture took
+        self._stream = None
+
+    @property
+    def segments(self) -> int:
+        """S + 1, for the S tap sites of the step."""
+        return len(self.owner.sites) + 1
+
+    def __call__(self, in_words=()):
+        owner = self.owner
+        if not self.capture or self.calls == 0:
+            out = owner.segments(self.key, owner.tap)
+        else:
+            replayed = self.graph is not None
+            if not replayed:
+                self._capture()
+            for k, graph in enumerate(self.graph):
+                if replayed:
+                    for c, name, n in self.delta[k]:
+                        c[name] += n
+                graph.replay()
+                if k < len(owner.sites):
+                    owner.tap(owner.sites[k])
+            out = tree_map(torch.clone, self.out)
+        self.calls += 1
+        return out
+
+    def _capture(self) -> None:
+        """Capture the segments (``_capturing``) on a side stream with
+        ``capture_begin`` / ``capture_end``, which, unlike
+        ``torch.cuda.graph``, can end in the middle of ``step_impl``: each
+        tap site ends one graph and begins the next. The Python calls
+        count their launches once, for this call; each segment's changes
+        are kept for its replays."""
+        graphs, delta, marks = [], [], []
+        pool = torch.cuda.graph_pool_handle()
+
+        def begin():
+            graphs.append(torch.cuda.CUDAGraph())
+            marks.append(_counts())
+            graphs[-1].capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
+
+        def end():
+            graphs[-1].capture_end()
+            delta.append(_delta(marks[-1]))
+
+        def boundary(site):
+            end()
+            begin()
+
+        def capture():
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
+            with torch.cuda.stream(self._stream):
+                begin()
+                try:
+                    out = self.owner.segments(self.key, boundary)
+                except BaseException:
+                    # close the open capture, then raise what broke it
+                    try:
+                        graphs[-1].capture_end()
+                    except RuntimeError:
+                        pass
+                    raise
+                end()
+            return out
+
+        self.out, self.pool_bytes, self.capture_s = _capturing(
+            self.owner.device, capture)
+        self.delta = delta
+        self.graph = tuple(graphs)

@@ -77,9 +77,13 @@ routes it through the eager forms instead (``chip_smoke.eager_forms``:
 ``DeviceIO.step_eager`` / ``multi_step_eager``, and the host path's
 ``Engine._dispatch_eager``, op by op), the dispatch the graphs replace.
 Prints the programs of the timed run (``--shape hostcodec``: the host
-path's): each key's calls, its capture's host ms and the bytes its graph
-pool reserved, and the card's reserved and peak allocated bytes
-(``torch.cuda.memory_stats``).
+path's; ``--shape hooks``: the tapped step's, ``runtime/program.TapStep``,
+with its tap sites and each key's segments): each key's calls, its
+capture's host ms and the bytes its graph pool reserved, and the card's
+reserved and peak allocated bytes (``torch.cuda.memory_stats``). Under
+``--shape hooks`` the taps' transfers (``_spectra_to_host``, which waits
+for the step's work before each tap, and ``_spectra_to_device``) are
+timed beside the hook calls.
 """
 
 from __future__ import annotations
@@ -241,9 +245,14 @@ def main():
     if timed_eng.dio is not None or hs is not None:
         progs = (hs if timed_eng.dio is None else timed_eng.dio).programs()
         mem = torch.cuda.memory_stats()
+        sites = getattr(hs, "sites", None)
         print(f"programs ({'eager forms' if args.eager else 'graphs'}): "
-              + (", ".join(f"{k} {p.calls} calls, capture "
-                           f"{p.capture_s * 1e3:.1f} ms, pool "
+              + (f"tap sites {[s.kind for s in sites]}; "
+                 if sites is not None else "")
+              + (", ".join(f"{k} {p.calls} calls, "
+                           + (f"{p.segments} segments, " if sites is not None
+                              else "")
+                           + f"capture {p.capture_s * 1e3:.1f} ms, pool "
                            f"{p.pool_bytes} B" for k, p in progs.items())
                  or "none")
               + f"; graph pools {sum(p.pool_bytes for p in progs.values())}"

@@ -236,17 +236,21 @@ Phases, in order; any failure exits non-zero:
    once a block, the fused MAC + mix never; every hook 26 times a block;
    ``input_freqd``'s copy of channel 0 at block 3 within 1e-5 of the
    peak of ``np.fft.rfft`` of the float64 frame [prev, x] with
-   ``input_timed``'s gain; the host ms a block of the taps' transfers
-   (``engine._spectra_to_host`` / ``_spectra_to_device``) and of the
-   hook calls beside the wall; then the same graph and input without
-   the module through ``main()`` (``run_offline``), for comparison;
+   ``input_timed``'s gain; the step through the tapped programs
+   (``runtime/program.TapStep``: every key called twice captured into
+   S + 1 graphs for its S tap sites, here four); the host ms a block of
+   the taps' transfers (``engine._spectra_to_host`` /
+   ``_spectra_to_device``) and of the hook calls beside the wall; then
+   the same graph and input without the module through ``main()``
+   (``run_offline``), for comparison;
 25. main path, crossfade under hooks: bench5 (phase 11) with a second
    module ``bflogic_xfgain.py`` whose ``post_convolve`` scales each
    filter by a seeded gain: the stage loop's dual MAC on every block
    after the first, ``crossfade_spectra``'s extra forward and two
    inverse glue launches on each crossfade block, the fused time-domain
    crossfade never; within 8e-6 of the peak + 4 LSB of the ramp oracle
-   scaled by the gains;
+   scaled by the gains; through the tapped programs (one site, two
+   segments), as phase 24;
 26-28. main path, clocked devices, in a child process of their own
    (``chip_smoke.py --clocked-child``: a clocked engine asks for
    SCHED_FIFO and mlockall, which must not reach the other phases; its
@@ -367,7 +371,21 @@ Phases, in order; any failure exits non-zero:
    ``_dispatch_host``'s main-thread ms a block (in all, and the calls
    after the first two), the run's wall a block, and each key's capture
    seconds and graph pool bytes; phase 24's tapped engine must have made
-   no program.
+   the tapped program (a ``TapStep``, its keys captured into S + 1
+   graphs).
+45. the tapped host step's programs (``runtime/program.TapStep``: one
+   program a key, cut at the S tap sites into S + 1 captured graphs, the
+   hooks run on the host between them; phases 24-25 run through them):
+   phase 24's spectap config (the massive shape, all six hooks, four
+   sites), phase 25's crossfading bench5 with its ``post_convolve``
+   module (one site) and bench1's cascade with a ``pre_convolve`` +
+   ``post_convolve`` module (``CASCTAP_MODULE``; four sites), 40.5
+   blocks each through ``run()``, through the graphs and through the
+   eager dispatch (``eager_forms``): the output bytes equal, every launch
+   count equal, every hook's call count equal, every key called twice
+   captured into S + 1 graphs; prints ``_dispatch_host``'s main-thread
+   ms a block, the taps' transfers, each key's segments, capture
+   seconds and graph pool bytes.
 
 Each main-path run must exit 0, write as many frames as it read, stay
 within its bound of a float64 convolution oracle on every channel, and
@@ -3423,6 +3441,9 @@ def main_hooks(main, mods: dict, launched: dict):
     inst = loaded_module("spectap").SpecTap.instances[-1]
     if inst.engine.dio is not None:
         fail(f"{label}: the engine kept the device-IO path")
+    tapped_programs(inst.engine.host_step, label)
+    print(f"tapped programs ({label}): "
+          f"{tap_programs_line(inst.engine.host_step)}", flush=True)
     # the planes route: the hooks see packed planes
     expect_only(counts, {"mac_uniform": blocks,
                          **glue_want(0, blocks, blocks)}, label)
@@ -3506,6 +3527,9 @@ def main_xfade_hooks(main, mods: dict, launched: dict):
     if fused or inst.engine.dio is not None:
         fail(f"{label}: the fused time-domain crossfade ran "
              f"{len(fused)} times, or the engine kept the device-IO path")
+    tapped_programs(inst.engine.host_step, label)
+    print(f"tapped programs ({label}): "
+          f"{tap_programs_line(inst.engine.host_step)}", flush=True)
     # the stage loop on the planes route: a crossfade block adds
     # crossfade_spectra's forward and two full inverse transforms
     xf = blocks - 1
@@ -5274,12 +5298,13 @@ def main_host_programs(mods: dict, launched: dict, tapped) -> dict:
     out, per-filter sets) and the massive S24_BE config on a 2 x 2 mesh
     on cuda:0, each through the host path's captured graphs and through
     its eager dispatch (``eager_forms``); ``tapped``: phase 24's engine's
-    (host_step, taps), which must have made no program."""
+    (host_step, taps), which must have made the tapped program."""
     host_step, taps = tapped
     print(f"host programs: phase 24's tapped engine: taps {taps}, "
-          f"host_step {host_step}", flush=True)
-    if host_step is not None or not taps:
-        fail("phase 24's tapped engine made step programs")
+          f"{tap_programs_line(host_step)}", flush=True)
+    if not taps:
+        fail("phase 24's engine has no taps")
+    tapped_programs(host_step, "phase 24's tapped engine")
     res = {}
     frames = int(PROGRAM_BLOCKS * K)
     _, x = write_massive_inputs(np.random.default_rng(SEED + 47), frames)
@@ -5313,6 +5338,207 @@ def main_host_programs(mods: dict, launched: dict, tapped) -> dict:
     return res
 
 
+# ---- phase 45: the tapped host step's programs, graphs against eager ------
+
+# phase 45's cascade module: pre_convolve and post_convolve, a gain a
+# filter each
+CASCTAP_MODULE = """
+import numpy as np
+
+from brutefir_tpu_torch.control import register_logic_module
+
+GAINS = np.random.default_rng({seed}).uniform(0.5, 1.5, (2, {c}))
+
+
+class CascTap:
+    instances = []
+
+    def __init__(self, params, engine):
+        self.engine = engine
+        self.calls = {{"pre_convolve": 0, "post_convolve": 0}}
+        CascTap.instances.append(self)
+
+    def pre_convolve(self, buf, f):
+        buf *= GAINS[0, f]
+        self.calls["pre_convolve"] += 1
+
+    def post_convolve(self, buf, f):
+        buf *= GAINS[1, f]
+        self.calls["post_convolve"] += 1
+
+
+register_logic_module("casctap", CascTap)
+"""
+
+
+def tapped_programs(hs, label: str) -> dict:
+    """The programs of a tapped engine's ``host_step``: a ``TapStep``
+    whose every key called twice is captured into S + 1 graphs for its S
+    tap sites, one key at least. Returns ``program_summary`` with each
+    key's segments."""
+    from brutefir_tpu_torch.runtime.program import TapStep
+    if not isinstance(hs, TapStep):
+        fail(f"{label}: host_step is {type(hs).__name__}, not a TapStep")
+    progs = hs.programs()
+    summary = program_summary(progs, False, label)
+    S = len(hs.sites)
+    bad = {k: len(p.graph) for k, p in progs.items()
+           if p.graph is not None and len(p.graph) != S + 1}
+    if not S or bad:
+        fail(f"{label}: {S} tap sites, keys with another count of "
+             f"segments: {bad}")
+    return {**summary, "segments": {str(k): p.segments
+                                    for k, p in progs.items()}}
+
+
+def tap_programs_line(hs) -> str:
+    """The tapped programs of ``hs`` in one line: the sites, each key's
+    calls, segments, capture ms and pool bytes."""
+    if hs is None or not hasattr(hs, "sites"):
+        return f"host_step {type(hs).__name__}"
+    return (f"{type(hs).__name__}, tap sites "
+            f"{[s.kind for s in hs.sites]}; " + ", ".join(
+                f"{k} {p.calls} calls, {p.segments} segments, capture "
+                f"{p.capture_s * 1e3:.1f} ms, pool {p.pool_bytes} B"
+                for k, p in hs.programs().items()))
+
+
+def tap_program_run(mods, cfg: str, label: str, eager: bool,
+                    module: tuple) -> dict:
+    """One run of ``Engine.run`` on the tapped config ``cfg`` through the
+    segmented programs or (``eager``) the eager dispatch, the counts set
+    to 0 just before the run: the output file's bytes, the counts, the
+    hooks' call counts (``module``: the module and class names), the main
+    thread's ms a block in ``_dispatch_host`` and in the taps'
+    transfers, the programs."""
+    from brutefir_tpu_torch.config import parse_config
+    from brutefir_tpu_torch.runtime import engine as eng_mod
+    from brutefir_tpu_torch.runtime.engine import Engine
+    path = os.path.join(WORK, "output.raw")
+    if os.path.exists(path):
+        os.remove(path)
+    with open(cfg) as fh:
+        text = fh.read()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.ExitStack() as stack:
+        eng = Engine(parse_config(text))
+        if eager:
+            eager_forms(eng)
+        for m in mods.values():
+            m.reset_launches()
+        calls = stack.enter_context(timed_method(eng, "_dispatch_host", []))
+        fetch = stack.enter_context(timed_method(eng_mod, "_spectra_to_host",
+                                                 []))
+        upload = stack.enter_context(timed_method(
+            eng_mod, "_spectra_to_device", []))
+        t0 = time.perf_counter()
+        stats = eng.run()
+        wall = time.perf_counter() - t0
+    blocks = stats["blocks"]
+    inst = getattr(loaded_module(module[0]), module[1]).instances[-1]
+    if inst.engine is not eng or eng.dio is not None or not eng.taps:
+        fail(f"{label}: the module's engine is not this run's, or the run "
+             f"is not on the host path with taps")
+    hs = eng.host_step
+    return {"bytes": open(path, "rb").read(), "counts": all_counts(mods),
+            "hooks": inst.calls, "dispatch": dispatch_ms(calls, [], blocks),
+            "wall_ms": wall / blocks * 1e3, "blocks": blocks,
+            "fetch_ms": sum(fetch) / blocks * 1e3,
+            "upload_ms": sum(upload) / blocks * 1e3, "taps": len(fetch),
+            "line": tap_programs_line(hs),
+            "programs": (program_summary(hs.programs(), True, label)
+                         if eager else tapped_programs(hs, label))}
+
+
+def tap_graphs_vs_eager(mods: dict, launched: dict, label: str, cfg: str,
+                        module: tuple) -> dict:
+    """``cfg`` through the segmented programs and through the eager
+    dispatch: the output bytes, every launch count and every hook's call
+    count equal; prints ``_dispatch_host``'s ms a block, the taps'
+    transfers, each key's segments, capture seconds and pool bytes."""
+    g = tap_program_run(mods, cfg, label, False, module)
+    e = tap_program_run(mods, cfg, label, True, module)
+    same = g["bytes"] == e["bytes"] and len(g["bytes"]) > 0
+    print(f"tapped programs ({label}): _dispatch_host "
+          f"{g['dispatch']['ms']:.3f} ms a block with the graphs (later "
+          f"calls {g['dispatch']['steady_ms']:.3f}), "
+          f"{e['dispatch']['ms']:.3f} eager (later calls "
+          f"{e['dispatch']['steady_ms']:.3f}); of it the taps' transfers "
+          f"{g['fetch_ms'] + g['upload_ms']:.3f} (fetch {g['fetch_ms']:.3f}, "
+          f"upload {g['upload_ms']:.3f}; {g['taps']} taps) against "
+          f"{e['fetch_ms'] + e['upload_ms']:.3f} (fetch {e['fetch_ms']:.3f}, "
+          f"upload {e['upload_ms']:.3f}; {e['taps']} taps); run() "
+          f"{g['wall_ms']:.3f} / {e['wall_ms']:.3f} ms a block (graphs / "
+          f"eager, {g['blocks']} blocks); output "
+          f"{'byte-equal' if same else 'DIFFERS'} ({len(g['bytes'])} bytes);"
+          f" hook calls {g['hooks']}; {g['line']}", flush=True)
+    if not same:
+        fail(f"{label}: the graphs' output differs from the eager "
+             f"dispatch's")
+    if g["counts"] != e["counts"]:
+        fail(f"{label}: launch counts differ: graphs "
+             f"{ {k: v for k, v in g['counts'].items() if v} }, eager "
+             f"{ {k: v for k, v in e['counts'].items() if v} }")
+    if g["hooks"] != e["hooks"] or not g["hooks"]:
+        fail(f"{label}: hook calls differ: graphs {g['hooks']}, eager "
+             f"{e['hooks']}")
+    if g["taps"] != e["taps"]:
+        fail(f"{label}: {g['taps']} taps with the graphs, {e['taps']} eager")
+    expect_launches({k[1]: v for k, v in g["counts"].items()},
+                    {k[1]: v for k, v in e["counts"].items()},
+                    f"{label}, graphs")
+    add_counts(launched, g["counts"], *[k for k in g["counts"]
+                                        if g["counts"][k]])
+    return {"graph_ms": g["dispatch"], "eager_ms": e["dispatch"],
+            "wall_ms": (g["wall_ms"], e["wall_ms"]),
+            "transfers_ms": (g["fetch_ms"] + g["upload_ms"],
+                             e["fetch_ms"] + e["upload_ms"]),
+            **g["programs"]}
+
+
+def main_tap_programs(mods: dict, launched: dict) -> dict:
+    """Phase 45: phase 24's spectap config (the massive shape, all six
+    hooks: four tap sites), phase 25's crossfading bench5 with its
+    post_convolve module (one site; the plain and the ``xfade`` keys) and
+    bench1's cascade with a pre_convolve + post_convolve module (two
+    stages: four sites), 40.5 blocks each through ``run()``, through the
+    segmented programs and through the eager dispatch
+    (``eager_forms``)."""
+    res = {}
+    frames = int(TAP_BLOCKS * K)
+    write_massive_inputs(np.random.default_rng(SEED + 50), frames,
+                         HOOK_LEVEL)
+    folder = write_module("spectap", SPECTAP_MODULE.format(
+        kinds=HOOK_KINDS, seed=SEED + 25, c=F, copy_block=COPY_BLOCK))
+    cfg = with_module(massive_config("taps45.conf", False), "spectap",
+                      folder)
+    res["massive_spectap"] = tap_graphs_vs_eager(
+        mods, launched, "massive, spectap (six hooks)", cfg,
+        ("spectap", "SpecTap"))
+    frames = int(TAP_BLOCKS * BENCH5_N)
+    _, _, cfg = write_bench5_inputs(WORK, frames, SEED + 51)
+    folder = write_module("xfgain", XFGAIN_MODULE.format(seed=SEED + 27,
+                                                         c=BENCH5_C))
+    res["bench5_xfgain"] = tap_graphs_vs_eager(
+        mods, launched, "bench5, post_convolve", with_module(
+            cfg, "xfgain", folder, cli=True), ("xfgain", "XfGain"))
+    frames = int(TAP_BLOCKS * BENCH1_N)
+    _, _, cfg = write_bench1_inputs(WORK, frames, SEED + 52)
+    folder = write_module("casctap", CASCTAP_MODULE.format(seed=SEED + 53,
+                                                           c=6))
+    text = open(cfg).read().replace(
+        "float_bits: 32;", f'float_bits: 32;\nmodules_path: "{folder}";\n'
+        'logic: "casctap" { };', 1)
+    cfg = os.path.join(WORK, "bench1_taps.conf")
+    with open(cfg, "w") as fh:
+        fh.write(text)
+    res["bench1_casctap"] = tap_graphs_vs_eager(
+        mods, launched, "bench1 cascade, pre_convolve + post_convolve",
+        cfg, ("casctap", "CascTap"))
+    return res
+
+
+TAP_BLOCKS = 40.5        # phase 45: 41 blocks through run() each
 HOST_DITHER_TOL = 5      # phase 22, LSB: the HP-TPDF error reaches 4.5
 FLOAT_TOL = 2e-5         # phase 23, of the output's peak
 
@@ -5478,6 +5704,10 @@ def run():
     phase("main path, the host codec path's step programs: captured graphs "
           "against the eager dispatch")
     main_host_programs(mods, launched, tapped)
+    torch.cuda.empty_cache()
+    phase("main path, the tapped host step's programs: segmented graphs "
+          "against the eager dispatch")
+    main_tap_programs(mods, launched)
     shutil.rmtree(WORK, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules

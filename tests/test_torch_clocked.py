@@ -250,8 +250,8 @@ def test_freqd_hooks_never_see_the_warmup(tmp_path):
 
     def counted(hooks, row2conf=None, warming=None):
         fn = real(hooks, row2conf, warming)
-        return lambda planes, idx: (taps.append(warming()),
-                                    fn(planes, idx))[1]
+        return lambda planes, idx, *host: (taps.append(warming()),
+                                           fn(planes, idx, *host))[1]
 
     eng._make_freqd_tap = counted
     stats = eng.run()

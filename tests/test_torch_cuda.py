@@ -2037,3 +2037,102 @@ def test_host_programs_match_eager_on_card(cuda, tmp_path, fmt):
     assert any(p.graph is not None for p in progs.values())
     if fmt == "S24_BE":
         assert {k[2] for k in progs} == {False, True}
+
+
+class _GainTaps:
+    """Frequency-domain hooks of ``kinds``, each scaling its row by a
+    seeded gain of the row's id, each call recorded as (kind, id, the
+    bytes of the row it is handed)."""
+
+    def __init__(self, kinds, seed=43):
+        self.rows = []
+        gains = np.random.default_rng(seed).uniform(0.5, 1.5, (4, 16))
+        for k, kind in enumerate(kinds):
+            setattr(self, kind, self._hook(kind, gains[k]))
+
+    def _hook(self, kind, gains):
+        def hook(buf, i):
+            self.rows.append((kind, i, buf.tobytes()))
+            buf *= gains[i]
+        return hook
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology", ["single", "crossfade"])
+def test_tap_programs_match_eager_on_card(cuda, tmp_path, topology):
+    """The tapped host step on the card through its segmented graphs
+    (``runtime/program.TapStep``: S + 1 captured graphs a key, the hooks
+    on the host between them) and through the eager dispatch
+    (``Engine._dispatch_eager``), file to file through ``run()``: a
+    single stage under all four frequency-domain hooks (four tap sites,
+    five segments), and two crossfading filters a CLI script swaps every
+    third block under ``post_convolve`` (the plain and the ``xfade``
+    keys replayed in turns, each on its own pool). The output files
+    byte-equal, every launch count equal, the hooks handed the same rows,
+    every key called twice captured into S + 1 graphs."""
+    from brutefir_tpu_torch.runtime.engine import Engine
+    from brutefir_tpu_torch.runtime.program import COUNTERS, TapStep
+    N, B, C, frames = 256, 4, 3, 256 * 14 + 77
+    rng = np.random.default_rng(44)
+    coeffs = ""
+    for k in range(2):
+        (tmp_path / f"c{k}.txt").write_text("\n".join(
+            repr(float(v)) for v in rng.standard_normal(N * B - 60 * k)
+            * 0.05) + "\n")
+        coeffs += (f'coeff {k} {{ filename: "{tmp_path / f"c{k}.txt"}"; '
+                   f'format: "TEXT"; }};\n')
+    x = rng.standard_normal((frames, C))
+    w = np.round(x * 2.0 ** 18).astype("<i4")
+    (w.view(np.uint8).reshape(frames, C, 4)[..., 2::-1]
+     .tofile(tmp_path / "in.raw"))
+    if topology == "single":
+        kinds = ("input_freqd", "pre_convolve", "post_convolve",
+                 "output_freqd")
+        head, xf = "", ""
+    else:
+        kinds = ("post_convolve",)
+        head = ('logic: "cli" { script: "cfc 0 1; cfc 1 0\\nsleep b2\\n'
+                'cfc 0 0; cfc 1 1\\nsleep b2"; echo: false; };')
+        xf = "crossfade: true; "
+    filters = "".join(f"filter {f} {{ from_inputs: {f}; to_outputs: {f}; "
+                      f"coeff: {f % 2}; {xf}}};\n" for f in range(C))
+    chans = ",".join(str(c) for c in range(C))
+    outs, launched, engines, rows = {}, {}, {}, {}
+    for route in ("graphs", "eager"):
+        conf = parse_config(
+            f"sampling_rate: 44100;\nfilter_length: {N},{B};\n{head}\n"
+            f"{coeffs}"
+            f'input {chans} {{ device: "file" {{ path: '
+            f'"{tmp_path / "in.raw"}"; }}; sample: "S24_BE"; channels: {C}; '
+            f'}};\noutput {chans} {{ device: "file" {{ path: '
+            f'"{tmp_path / (route + ".raw")}"; }}; sample: "S24_BE"; '
+            f'channels: {C}; dither: false; }};\n{filters}')
+        conf.quiet = True
+        eng = Engine(conf, device=cuda)
+        hooks = _GainTaps(kinds)
+        eng.logic.append(hooks)
+        if route == "eager":
+            eng._dispatch_host = eng._dispatch_eager
+        before = [dict(c) for c in COUNTERS]
+        eng.run()
+        torch.cuda.synchronize()
+        launched[route] = [{k: n - b[k] for k, n in c.items()}
+                           for c, b in zip(COUNTERS, before)]
+        outs[route] = (tmp_path / (route + ".raw")).read_bytes()
+        engines[route] = eng
+        rows[route] = hooks.rows
+    assert len(outs["graphs"]) == frames * C * 3
+    assert outs["graphs"] == outs["eager"]
+    assert launched["graphs"] == launched["eager"]
+    assert sum(n for d in launched["graphs"] for n in d.values()) > 0
+    assert rows["graphs"] == rows["eager"] and rows["graphs"]
+    hs = engines["graphs"].host_step
+    assert isinstance(hs, TapStep) and hs.captures
+    assert not engines["eager"].host_step.programs()
+    assert [s.kind for s in hs.sites] == list(kinds)
+    progs = hs.programs()
+    assert all(p.graph is not None and len(p.graph) == len(kinds) + 1
+               for p in progs.values() if p.calls >= 2)
+    assert all(p.calls >= 3 for p in progs.values())
+    if topology == "crossfade":
+        assert {k[2] for k in progs} == {False, True}

@@ -326,21 +326,27 @@ class _Timed:
         buf *= 0.75
 
 
-def test_tapped_engine_makes_no_program(tmp_path, monkeypatch):
-    """A frequency-domain hook makes a tap of the step: the engine has no
-    HostStep, dispatches eagerly with the tap, and makes no program."""
+def test_tapped_engine_makes_the_segmented_program(tmp_path, monkeypatch):
+    """A frequency-domain hook makes a tap of the step: ``attach_logic``
+    replaces the HostStep by a TapStep, whose program for the key has
+    S + 1 segments for the S tap sites (here one, the single stage's
+    ``post_convolve``); the engine never dispatches eagerly."""
     from brutefir_tpu_torch.runtime.engine import Engine
     _write(tmp_path / "in.raw", "S24_BE",
            _signal("S24_BE", N * 4 + 3, 3, 33, 0.1))
     eng = _engine(_config(tmp_path, "o.raw", "S24_BE", "S24_BE"),
                   "graphs", hooks=[_Tap()])
-    assert eng.host_step is not None            # before attach_logic
+    assert type(eng.host_step) is program.HostStep   # before attach_logic
     calls = []
     real = Engine._dispatch_eager
     monkeypatch.setattr(Engine, "_dispatch_eager",
                         lambda self, *a: calls.append(1) or real(self, *a))
     eng.run()
-    assert eng.taps and eng.host_step is None and len(calls) == 5
+    hs = eng.host_step
+    assert eng.taps and isinstance(hs, program.TapStep) and not calls
+    assert [s.kind for s in hs.sites] == ["post_convolve"]
+    progs = hs.programs()
+    assert [(p.calls, p.segments) for p in progs.values()] == [(5, 2)]
 
 
 def test_timed_hook_engine_makes_programs(tmp_path, host_emulated):

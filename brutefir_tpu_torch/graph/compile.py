@@ -88,7 +88,10 @@ the MACs run per shard through ``ops/mac_shard.py``: the fused MAC + mix
 where ``shardable`` holds (the shard sizes ``F/f`` and ``K/sp`` decide
 ``mix_fusable``), the per-filter MAC of each stage's rows otherwise (the
 JAX package's dense MAC, which XLA shards), the dual MAC on a crossfade
-block, the grouped MAC with the mix outside.
+block, the grouped MAC with the mix outside. Each shard's ring write,
+its part of the grouped dispatch's ``xnews`` (``split``) and its MAC run
+in the shard's cell context (``Mesh.cell``: on the card a stream of its
+own), each per-cell loop ending with the join.
 """
 
 from __future__ import annotations
@@ -338,8 +341,10 @@ def _write_ring(ring, blk, t, delay, uniform_delay: bool, rows=None,
 
 def _write_ring_mesh(mesh, ring, blk, t, delay, uniform_delay: bool,
                      rows=None) -> None:
-    """``_write_ring`` on each shard: its rows of ``blk`` (those of the
-    stage ``rows`` it holds), its bins, its delays, at its device."""
+    """``_write_ring`` on each shard, in the cell's context (the
+    ``Mesh.cell`` of ``parallel/mesh.py``): its rows of ``blk`` (those of
+    the stage ``rows`` it holds), its bins, its delays, at its device;
+    then the cells are joined."""
     K = ring.shape[3]
     for i, (r0, r1) in enumerate(mesh.rows(ring.shape[0])):
         if rows is None:
@@ -354,14 +359,16 @@ def _write_ring_mesh(mesh, ring, blk, t, delay, uniform_delay: bool,
         for j, (k0, k1) in enumerate(mesh.bins(K)):
             if k1 <= k0:
                 continue
-            dev = mesh.devices[i, j]
-            sub = (blk[r0:r1, :, k0:k1] if pos is None
-                   else blk[pos, :, k0:k1])
-            if pos is not None:
-                local = _index(tuple((rows[sel] - r0).tolist()), dev)
-            _write_ring(ring.parts[i][j], to_device(sub, dev),
-                        to_device(t, dev), delay.parts[i][j],
-                        uniform_delay, local)
+            with mesh.cell(i, j):
+                dev = mesh.devices[i, j]
+                sub = (blk[r0:r1, :, k0:k1] if pos is None
+                       else blk[pos, :, k0:k1])
+                if pos is not None:
+                    local = _index(tuple((rows[sel] - r0).tolist()), dev)
+                _write_ring(ring.parts[i][j], to_device(sub, dev),
+                            to_device(t, dev), delay.parts[i][j],
+                            uniform_delay, local)
+    mesh.join()
 
 
 def _mix(mix: torch.Tensor, S: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,13 @@ controls (rows), the mix ``w`` (its filter columns), ``xnews`` (rows and
 bins). ``t`` is the block counter on the first device, copied to each
 other device. A shard's launch counts in its kernel's ``launches`` like
 any other: on the card a shard form launches f x sp kernels.
+
+Each cell's body (the copies of ``t`` and of its index onto its device,
+the kernel launch, and the partial it hands back to the first device)
+runs in the cell's context (``Mesh.cell``: on the card the cell's own
+stream); the form joins the cells (``Mesh.join``) before the first
+device assembles the partials, in the order of ``i`` and ``j`` as
+before, so every output word is what the cells' sequential run gives.
 """
 
 from __future__ import annotations
@@ -64,14 +71,33 @@ def _stage_cells(mesh, ring, rows: np.ndarray):
 
 def _assemble(out: torch.Tensor, sel, k0: int, k1: int,
               part: torch.Tensor) -> None:
-    """Write a shard's ``part`` [n, 2, k1 - k0] into ``out`` [Fs, 2, K]
-    at the stage positions ``sel`` and bins k0:k1."""
-    part = to_device(part, out.device)
+    """Write a shard's ``part`` [n, 2, k1 - k0], on the first device,
+    into ``out`` [Fs, 2, K] at the stage positions ``sel`` and bins
+    k0:k1."""
     kind, pos = sel
     if kind == "run":
         out[pos[0]:pos[1], :, k0:k1] = part
     else:
         out[static_index(pos, out.device), :, k0:k1] = part
+
+
+def _per_cell(mesh, ring, rows: np.ndarray, body) -> list:
+    """``body(i, j, local, dev, has_bin0)`` in the context of each cell
+    holding some of the stage ``rows``, then the join: [(sel, k0, k1,
+    what body handed back)] in the cells' order."""
+    K = ring.shape[3]
+    out = []
+    for i, sel, local in _stage_cells(mesh, ring, rows):
+        for j, (k0, k1) in enumerate(mesh.bins(K)):
+            if k1 <= k0:
+                continue
+            with mesh.cell(i, j):
+                dev = mesh.devices[i, j]
+                out.append((sel, k0, k1, body(
+                    i, j, static_index(local, dev, torch.int32), dev,
+                    k0 == 0)))
+    mesh.join()
+    return out
 
 
 def mac_shard(mesh, ring, bank, rows, coeff_idx, mask,
@@ -84,19 +110,17 @@ def mac_shard(mesh, ring, bank, rows, coeff_idx, mask,
     ``coeff_idx`` [F] and ``mask`` [F, B] Sharded (0, None)."""
     rows = np.asarray(rows)
     K = ring.shape[3]
+
+    def body(i, j, local, dev, has_bin0):
+        return to_device(mac(ring.parts[i][j], bank.parts[i][j], local,
+                             coeff_idx.parts[i][j], mask.parts[i][j],
+                             to_device(t, dev), False, has_bin0=has_bin0),
+                         mesh.first)
+
     out = torch.empty((rows.size, 2, K), dtype=mask.dtype,
                       device=mesh.first)
-    for i, sel, local in _stage_cells(mesh, ring, rows):
-        for j, (k0, k1) in enumerate(mesh.bins(K)):
-            if k1 <= k0:
-                continue
-            dev = mesh.devices[i, j]
-            y = mac(ring.parts[i][j], bank.parts[i][j],
-                    static_index(local, dev, torch.int32),
-                    coeff_idx.parts[i][j],
-                    mask.parts[i][j], to_device(t, dev), False,
-                    has_bin0=(k0 == 0))
-            _assemble(out, sel, k0, k1, y)
+    for sel, k0, k1, y in _per_cell(mesh, ring, rows, body):
+        _assemble(out, sel, k0, k1, y)
     return out
 
 
@@ -110,22 +134,20 @@ def mac_dual_shard(mesh, ring, bank, rows, coeff_idx, mask, prev_idx,
     controls)."""
     rows = np.asarray(rows)
     K = ring.shape[3]
+
+    def body(i, j, local, dev, has_bin0):
+        ys = mac_dual(ring.parts[i][j], bank.parts[i][j], local,
+                      coeff_idx.parts[i][j], mask.parts[i][j],
+                      prev_idx.parts[i][j], prev_mask.parts[i][j],
+                      to_device(t, dev), uniform, has_bin0=has_bin0)
+        return [to_device(y, mesh.first) for y in ys]
+
     y_new = torch.empty((rows.size, 2, K), dtype=torch.float32,
                         device=mesh.first)
     y_old = torch.empty_like(y_new)
-    for i, sel, local in _stage_cells(mesh, ring, rows):
-        for j, (k0, k1) in enumerate(mesh.bins(K)):
-            if k1 <= k0:
-                continue
-            dev = mesh.devices[i, j]
-            yn, yo = mac_dual(ring.parts[i][j], bank.parts[i][j],
-                              static_index(local, dev, torch.int32),
-                              coeff_idx.parts[i][j],
-                              mask.parts[i][j], prev_idx.parts[i][j],
-                              prev_mask.parts[i][j], to_device(t, dev),
-                              uniform, has_bin0=(k0 == 0))
-            _assemble(y_new, sel, k0, k1, yn)
-            _assemble(y_old, sel, k0, k1, yo)
+    for sel, k0, k1, (yn, yo) in _per_cell(mesh, ring, rows, body):
+        _assemble(y_new, sel, k0, k1, yn)
+        _assemble(y_old, sel, k0, k1, yo)
     return y_new, y_old
 
 
@@ -138,20 +160,26 @@ def mac_mix_shard(mesh, ring, bank, coeff_idx, mask, t: torch.Tensor, w,
     ``uniform``: every filter reads coeff_idx[0] and mask[0] (each
     shard's first row: the same under uniform controls)."""
     K = ring.shape[3]
-    cols = []
+    parts = []                      # per bin shard j, the partials by i
     for j, (k0, k1) in enumerate(mesh.bins(K)):
         if k1 <= k0:
             continue
-        acc = None
+        parts.append([])
         for i, (r0, r1) in enumerate(mesh.rows(ring.shape[0])):
             if r1 <= r0:
                 continue
-            dev = mesh.devices[i, j]
-            part = to_device(
-                mac_mix(ring.parts[i][j], bank.parts[i][j],
-                        coeff_idx.parts[i][j], mask.parts[i][j],
-                        to_device(t, dev), w.parts[i][j], uniform,
-                        has_bin0=(k0 == 0)), mesh.first)
+            with mesh.cell(i, j):
+                dev = mesh.devices[i, j]
+                parts[-1].append(to_device(
+                    mac_mix(ring.parts[i][j], bank.parts[i][j],
+                            coeff_idx.parts[i][j], mask.parts[i][j],
+                            to_device(t, dev), w.parts[i][j], uniform,
+                            has_bin0=(k0 == 0)), mesh.first))
+    mesh.join()
+    cols = []
+    for col in parts:
+        acc = None
+        for part in col:
             acc = part if acc is None else acc + part
         cols.append(acc)
     return cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
@@ -165,17 +193,23 @@ def mac_group_shard(mesh, ring, xnews, bank, coeff_idx, mask,
     rest as ``mac_shard``'s."""
     F, B, _, K = ring.shape
     G = xnews.shape[1] + 1
-    out = torch.empty((G, F, 2, K), dtype=torch.float32, device=mesh.first)
+    parts = []
     for i, (r0, r1) in enumerate(mesh.rows(F)):
         if r1 <= r0:
             continue
         for j, (k0, k1) in enumerate(mesh.bins(K)):
             if k1 <= k0:
                 continue
-            dev = mesh.devices[i, j]
-            y = mac_group(ring.parts[i][j], xnews.parts[i][j],
-                          bank.parts[i][j], coeff_idx.parts[i][j],
-                          mask.parts[i][j], to_device(t, dev),
-                          delay.parts[i][j], has_bin0=(k0 == 0))
-            out[:, r0:r1, :, k0:k1] = to_device(y, mesh.first)
+            with mesh.cell(i, j):
+                dev = mesh.devices[i, j]
+                parts.append((r0, r1, k0, k1, to_device(
+                    mac_group(ring.parts[i][j], xnews.parts[i][j],
+                              bank.parts[i][j], coeff_idx.parts[i][j],
+                              mask.parts[i][j], to_device(t, dev),
+                              delay.parts[i][j], has_bin0=(k0 == 0)),
+                    mesh.first)))
+    mesh.join()
+    out = torch.empty((G, F, 2, K), dtype=torch.float32, device=mesh.first)
+    for r0, r1, k0, k1, y in parts:
+        out[:, r0:r1, :, k0:k1] = y
     return out

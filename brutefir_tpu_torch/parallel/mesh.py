@@ -3,7 +3,7 @@
 Torch twin of :mod:`brutefir_tpu.parallel.mesh`. The reference scales by
 forking filter processes (`bfconf.c:2227-2318`); the JAX package shards
 one jitted program over an ('f', 'sp') device mesh and lets XLA insert the
-collectives. Here one process drives every shard, eagerly:
+collectives. Here one process drives every shard:
 
 * **bin parallelism** ``sp``: the frequency-bin axis K of the spectra
   ring, the coefficient bank and the MAC is embarrassingly parallel; each
@@ -36,12 +36,29 @@ JAX package pins them replicated: a stage subset runs the per-shard MAC
 on the rows each shard holds (``ops/mac_shard.py``), and its spectra are
 gathered to the first device for the next stage's mix.
 
+On the card each shard runs on a stream of its own (:class:`CellStreams`),
+the nearest twin of the JAX package's shards running at once, one device
+each: a cell's work (its copies in, its kernel, the partial it hands
+back) runs inside ``Mesh.cell(i, j)``, whose stream waits on the first
+device's current stream when the cell begins, and ``Mesh.join()`` makes
+the first device's current stream wait on every cell that ran before the
+first device reads a result or goes on (every per-cell loop ends with
+it). Cells on one card share nothing they write (each owns its ring
+part), only read-only parts such as a bank bin shard. A mesh on one card
+runs the same forks and joins as a mesh across cards, so the step
+programs (``runtime/program.py``) capture both alike: the cell streams
+join the capture through their forks and are joined back before it
+ends, and the cards other than the first allocate into a private pool
+of their own while it runs (:meth:`Mesh.cards`). On the CPU a cell and
+a join do nothing: the shards run one after another.
+
 The JAX package's lane-tiled 5-d ring layout is a TPU matter: the port's
 ring is flat, so its sharding has one layout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -66,6 +83,9 @@ class Mesh:
                              f"devices, got shape {arr.shape}")
         self.devices = arr
         self.shape = {"f": arr.shape[0], "sp": arr.shape[1]}
+        # the cells' streams on the card; None on the CPU
+        self.streams = (CellStreams(self) if arr[0, 0].type == "cuda"
+                        else None)
 
     @property
     def first(self) -> torch.device:
@@ -79,6 +99,27 @@ class Mesh:
             for j in range(self.shape["sp"]):
                 yield i, j, self.devices[i, j]
 
+    def cards(self) -> list:
+        """The distinct devices of the mesh, the first device first: the
+        cards it spans (cells may share one)."""
+        out = []
+        for d in [self.first] + list(self.devices.ravel()):
+            if d not in out:
+                out.append(d)
+        return out
+
+    def cell(self, i: int, j: int):
+        """The context of cell (i, j)'s work: on the card its stream
+        (:meth:`CellStreams.cell`), on the CPU nothing."""
+        return (contextlib.nullcontext() if self.streams is None
+                else self.streams.cell(i, j))
+
+    def join(self) -> None:
+        """The first device waits on every cell that ran since the last
+        join (:meth:`CellStreams.join`); on the CPU nothing."""
+        if self.streams is not None:
+            self.streams.join()
+
     def rows(self, F: int) -> list:
         """Filter rows of each 'f' shard: [(lo, hi)] * f."""
         return _bounds(F, self.shape["f"])
@@ -90,6 +131,96 @@ class Mesh:
     def __repr__(self):
         return (f"Mesh(f={self.shape['f']}, sp={self.shape['sp']}, "
                 f"devices={[str(d) for d in self.devices.ravel()]})")
+
+
+class CellStreams:
+    """The cells' streams of a mesh on the card. Cell (i, j) runs its work
+    on a stream of its own on its device, made at its first use:
+
+    - :meth:`cell` forks it: the cell's stream waits on the first
+      device's current stream (and, on another card, on that card's
+      current stream, which carries the mesh's set-up and the statics'
+      copies onto that card) and is the current stream of its device
+      while the work is queued;
+    - :meth:`join` makes the first device's current stream (and each
+      other card's current stream) wait on every cell stream forked
+      since the last join. A per-cell loop joins before the first device
+      reads what the cells made, and before the tensors the cells read
+      can be freed: the first device's next allocation then waits on
+      their reads.
+
+    A capture (``runtime/program.py``) runs on the first device's current
+    stream: the forks make the cell streams join it, the joins bring them
+    back before it ends. Across cards, :meth:`capturing` and
+    :meth:`replaying` keep the other cards' current streams inside the
+    capture and ordered with each replay."""
+
+    def __init__(self, mesh: "Mesh"):
+        self.mesh = mesh
+        self.streams = {}        # (i, j) -> the cell's stream
+        self.forked = {}         # cells forked since the last join
+        self._side = {}          # card -> its stream while capturing
+
+    @contextlib.contextmanager
+    def cell(self, i: int, j: int):
+        dev = self.mesh.devices[i, j]
+        s = self.streams.get((i, j))
+        if s is None:
+            s = self.streams[(i, j)] = torch.cuda.Stream(device=dev)
+        s.wait_stream(torch.cuda.current_stream(self.mesh.first))
+        if dev != self.mesh.first:
+            s.wait_stream(torch.cuda.current_stream(dev))
+        self.forked[(i, j)] = s
+        with torch.cuda.stream(s):
+            yield
+
+    def join(self) -> None:
+        first = torch.cuda.current_stream(self.mesh.first)
+        for (i, j), s in self.forked.items():
+            first.wait_stream(s)
+            dev = self.mesh.devices[i, j]
+            if dev != self.mesh.first:
+                torch.cuda.current_stream(dev).wait_stream(s)
+        self.forked.clear()
+
+    @contextlib.contextmanager
+    def capturing(self):
+        """Around a capture's body on the first device's current stream:
+        each other card's current stream is a side stream of its own
+        that forks from the capture at entry and is joined back at exit,
+        so every copy and wait across cards stays inside the capture."""
+        first = self.mesh.first
+        cards = self.mesh.cards()[1:]
+        prev = []
+        for card in cards:
+            s = self._side.get(card)
+            if s is None:
+                s = self._side[card] = torch.cuda.Stream(device=card)
+            s.wait_stream(torch.cuda.current_stream(first))
+            with torch.cuda.device(card):
+                prev.append(torch.cuda.current_stream(card))
+                torch.cuda.set_stream(s)
+        try:
+            yield
+        finally:
+            for card, p in zip(cards, prev):
+                torch.cuda.current_stream(first).wait_stream(
+                    self._side[card])
+                with torch.cuda.device(card):
+                    torch.cuda.set_stream(p)
+
+    @contextlib.contextmanager
+    def replaying(self):
+        """Around a replay on the first device's current stream: it waits
+        on each other card's current stream, and they on it after, as the
+        forks and joins of a block's cells order the eager form."""
+        first = torch.cuda.current_stream(self.mesh.first)
+        cards = self.mesh.cards()[1:]
+        for card in cards:
+            first.wait_stream(torch.cuda.current_stream(card))
+        yield
+        for card in cards:
+            torch.cuda.current_stream(card).wait_stream(first)
 
 
 def _bounds(n: int, parts: int) -> list:
@@ -313,7 +444,8 @@ def split(mesh: Mesh, x: torch.Tensor, row_axis=None,
           bin_axis=None) -> Sharded:
     """``x`` split over ``mesh``: rows of ``row_axis`` over 'f', bins of
     ``bin_axis`` over 'sp' (either None: whole), each part a contiguous
-    tensor on its cell's device."""
+    tensor on its cell's device, made in the cell's context (a part that
+    several cells on one device share, in the first one's)."""
     memo = {}
     parts = []
     for i in range(mesh.shape["f"]):
@@ -327,10 +459,12 @@ def split(mesh: Mesh, x: torch.Tensor, row_axis=None,
                      else mesh.rows(x.shape[row_axis])[i])
                 b = (None if bin_axis is None
                      else mesh.bins(x.shape[bin_axis])[j])
-                memo[key] = to_device(_cell_slice(x, row_axis, bin_axis,
-                                                  r, b), dev).contiguous()
+                with mesh.cell(i, j):
+                    memo[key] = to_device(_cell_slice(
+                        x, row_axis, bin_axis, r, b), dev).contiguous()
             row.append(memo[key])
         parts.append(row)
+    mesh.join()
     return Sharded(mesh, parts, row_axis, bin_axis, x.shape, x.dtype)
 
 
@@ -355,8 +489,10 @@ def zeros(mesh: Mesh, shape, dtype, row_axis=None, bin_axis=None) -> Sharded:
 
 
 def gather(sh: Sharded) -> torch.Tensor:
-    """The whole tensor of ``sh`` on the mesh's first device."""
+    """The whole tensor of ``sh`` on the mesh's first device, once every
+    cell that ran has been joined."""
     mesh = sh.mesh
+    mesh.join()
     out = torch.empty(sh.shape, dtype=sh.dtype, device=mesh.first)
     seen = set()
     for i, j, _ in mesh.cells():

@@ -44,7 +44,10 @@ Under the engine's mesh (``parallel/mesh.py``) the IO halves run on the
 mesh's first device and the graph step over the mesh: ``step_impl`` and
 ``group_step_impl`` with ``mesh=`` (the grouped dispatch through
 ``mac_group_shard``, the mix outside), as the JAX package's program
-pins its IO state replicated (device_io.py:437-444).
+pins its IO state replicated (device_io.py:437-444). The programs
+capture such a step as they capture an unsharded one, the cells' streams
+taken into the capture (``runtime/program.py``), the twin of the JAX
+package's ``_program`` with in and out shardings (device_io.py:437-466).
 
 S24 in a 4-byte container crosses the wire as its 3 significant bytes
 unless ``BRUTEFIR_TPU_WIRE_PACK24=0`` (read when a DeviceIO is made, as
@@ -459,7 +462,7 @@ class DeviceIO:
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = Program(
-                self._body(make()), self.device, self.captures)
+                self._body(make()), self.device, self.captures, self.mesh)
         return (self._statics.state.tree,) + prog(in_words)
 
     def _body(self, fn):
@@ -484,8 +487,8 @@ class DeviceIO:
     @property
     def captures(self) -> bool:
         """Whether the programs are captured as CUDA graphs (a key's
-        second call captures), or run eagerly at every call (the CPU, a
-        mesh over several cards)."""
+        second call captures; on the card, under a mesh on one card or
+        across several too), or run eagerly at every call (the CPU)."""
         return capturable(self.device, self.mesh)
 
     def programs(self) -> dict:

@@ -66,20 +66,34 @@ host buffer, the host waits for it, runs the tap's hooks on that buffer
 in place, and segment k + 1 starts by copying the buffer into a static
 device input, which the rest of the step reads.
 
+Under a mesh (``parallel/mesh.py``, the twin of the JAX package's
+``ShardedGraph._program`` and of ``DeviceIO._program`` with in and out
+shardings) each shard's work runs on its cell's stream, forked from the
+first device's current stream and joined back (``Mesh.cell`` /
+``Mesh.join``); a capture begins on the first device's capture stream,
+the forks make every cell stream join it and the joins bring them back
+before it ends, whether the cells share one card or span several. Across
+cards, ``torch.cuda.graph``'s pool covers only the first card: each
+other card of the mesh (``Mesh.cards``) allocates into a private
+``torch.cuda.MemPool`` of its own while the capture runs, which the
+program keeps as long as its graph; each other card's current stream is
+a side stream that joins the capture (``CellStreams.capturing``), and a
+replay is ordered after, and before, the work on those cards' current
+streams (``CellStreams.replaying``).
+
 There is no fallback: a failed capture, or a kernel's launch error while
 capturing, raises. Routes that stay eager by design:
 
 - the CPU: the same plumbing (static tensors, copies in and out, the tap
   sites' static buffers) with the body run eagerly at every call, which
   is what the CPU tests exercise;
-- a mesh whose shards span more than one card (one capture would need
-  every card's stream); a mesh on one card is captured like the rest;
 - the stage probe (``runtime/stageprobe.record_block``), which times the
   eager calls of one block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 import weakref
@@ -195,13 +209,16 @@ class Statics:
 
 def capturable(device: torch.device, mesh=None) -> bool:
     """Whether programs on ``device`` (under ``mesh``) are captured: a
-    CUDA device, and every shard of a mesh on that one card."""
+    CUDA device, and every shard of a mesh on a card (one or several)."""
     if device.type != "cuda":
         return False
-    if mesh is None:
-        return True
-    cards = {(d.type, d.index or 0) for d in mesh.devices.ravel()}
-    return cards == {(device.type, device.index or 0)}
+    return mesh is None or all(d.type == "cuda"
+                               for d in mesh.devices.ravel())
+
+
+def _spans(mesh) -> bool:
+    """Whether ``mesh`` spans more than one card."""
+    return mesh is not None and len(mesh.cards()) > 1
 
 
 def _counts() -> list:
@@ -215,45 +232,66 @@ def _delta(before: list) -> list:
             for k, n in c.items() if n != b.get(k, 0)]
 
 
-def _capturing(device: torch.device, capture):
-    """Run ``capture()`` on a synchronised card with the allocator's
-    cache emptied and Python's cycle collector off (``torch.cuda.graph``
-    collects just before; a collection in the middle could free a dropped
-    engine's graph, and destroying a graph there ends the capture).
-    Returns (its result, the device bytes the capture reserved, its host
-    seconds)."""
+def _capturing(device: torch.device, capture, mesh=None):
+    """Run ``capture()`` on synchronised cards (``device``, and under a
+    ``mesh`` every card it spans) with the allocator's cache emptied and
+    Python's cycle collector off (``torch.cuda.graph`` collects just
+    before; a collection in the middle could free a dropped engine's
+    graph, and destroying a graph there ends the capture). Each card
+    other than ``device`` allocates into a private ``MemPool`` of its own
+    meanwhile. Returns (its result, the device bytes the capture reserved
+    by card, its host seconds, the private pools)."""
     t0 = time.perf_counter()
+    cards = [device] if mesh is None else mesh.cards()
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.device(device):
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            base = torch.cuda.memory_reserved()
-            out = capture()
-            pool = torch.cuda.memory_reserved() - base
+        base = {}
+        for card in cards:
+            with torch.cuda.device(card):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base[card] = torch.cuda.memory_reserved(card)
+        pools = []
+        for card in cards[1:]:
+            with torch.cuda.device(card):
+                pools.append(torch.cuda.MemPool())
+        with contextlib.ExitStack() as stack:
+            for card, pool in zip(cards[1:], pools):
+                stack.enter_context(torch.cuda.use_mem_pool(pool,
+                                                            device=card))
+            with torch.cuda.device(device):
+                out = capture()
+        reserved = {str(card): torch.cuda.memory_reserved(card) - base[card]
+                    for card in cards}
     finally:
         if collecting:
             gc.enable()
-    return out, pool, time.perf_counter() - t0
+    return out, reserved, time.perf_counter() - t0, pools
 
 
 class Program:
     """One key's program: ``body(words) -> outputs`` reads and writes the
     DeviceIO's :class:`Statics`; the program owns the key's input word
     buffers. Eager at the first call (and at every call unless
-    ``capture``), captured at the second, replayed after."""
+    ``capture``), captured at the second, replayed after. ``mesh``: the
+    step's mesh, whose cell streams the capture takes in and whose cards
+    other than the first get a private pool each (``_capturing``)."""
 
-    def __init__(self, body, device: torch.device, capture: bool):
+    def __init__(self, body, device: torch.device, capture: bool,
+                 mesh=None):
         self.body = body
         self.device = device
         self.capture = capture
+        self.mesh = mesh
         self.words = None
         self.calls = 0
         self.graph = None
         self.out = None
         self.delta = []          # (counter dict, key, launches a call)
         self.pool_bytes = 0      # device memory the capture reserved
+        self.card_pool_bytes = {}   # the same by card
+        self.pools = []          # the private pools of the other cards
         self.capture_s = 0.0     # host seconds the capture took
 
     def __call__(self, in_words):
@@ -270,25 +308,33 @@ class Program:
             else:
                 for c, k, n in self.delta:
                     c[k] += n
-            self.graph.replay()
+            with (self.mesh.streams.replaying() if _spans(self.mesh)
+                  else contextlib.nullcontext()):
+                self.graph.replay()
             out = tree_map(torch.clone, self.out)
         self.calls += 1
         return out
 
     def _capture(self, words) -> None:
-        """Capture the body into a CUDA graph (``_capturing``). Its Python
-        calls count their launches once, for this call; the changes are
-        kept for the replays."""
+        """Capture the body into a CUDA graph (``_capturing``), across
+        cards with each other card's current stream inside the capture
+        (``CellStreams.capturing``). Its Python calls count their launches
+        once, for this call; the changes are kept for the replays."""
         before = _counts()
+        spans = _spans(self.mesh)
 
         def capture():
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.out = self.body(words)
+                with (self.mesh.streams.capturing() if spans
+                      else contextlib.nullcontext()):
+                    self.out = self.body(words)
             return graph
 
-        graph, self.pool_bytes, self.capture_s = _capturing(self.device,
-                                                            capture)
+        graph, reserved, self.capture_s, self.pools = _capturing(
+            self.device, capture, self.mesh)
+        self.card_pool_bytes = reserved
+        self.pool_bytes = sum(reserved.values())
         self.delta = _delta(before)
         self.graph = graph
 
@@ -327,7 +373,8 @@ class HostStep:
         return self._statics.state.tree, prog(())
 
     def _program(self, key):
-        return Program(self._body(key), self.device, self.captures)
+        return Program(self._body(key), self.device, self.captures,
+                       self.mesh)
 
     def _body(self, key):
         """``step_impl`` over the static tensors: () -> y, the new state
@@ -347,7 +394,7 @@ class HostStep:
     @property
     def captures(self) -> bool:
         """Whether the programs are captured as CUDA graphs, as
-        ``DeviceIO.captures``."""
+        ``DeviceIO.captures``: on the card, on a mesh too."""
         return capturable(self.device, self.mesh)
 
     def programs(self) -> dict:
@@ -470,6 +517,7 @@ class Segmented:
         self.out = None
         self.delta = []          # a segment: (counter dict, key, launches)
         self.pool_bytes = 0      # device memory the capture reserved
+        self.card_pool_bytes = {}   # the same by card
         self.capture_s = 0.0     # host seconds the capture took
         self._stream = None
 
@@ -538,7 +586,9 @@ class Segmented:
                 end()
             return out
 
-        self.out, self.pool_bytes, self.capture_s = _capturing(
+        self.out, reserved, self.capture_s, _ = _capturing(
             self.owner.device, capture)
+        self.card_pool_bytes = reserved
+        self.pool_bytes = sum(reserved.values())
         self.delta = delta
         self.graph = tuple(graphs)

@@ -59,7 +59,10 @@ previous and the new input block, through the powersave gate):
 - **mesh**: as the fused route or the stage loop, with each ring write
   ``fft_glue.glue_fwd`` on the first device split into the shards by
   ``_write_ring``, and the shard forms ``mac_mix_shard`` / ``mac_shard``
-  on the engine's mesh.
+  on the engine's mesh. Each of those calls runs its cells on their
+  streams and joins them before it returns (``Mesh.join``), so a
+  column's end event, recorded after its calls, follows its cells' work.
+  The probe runs them eagerly: it captures nothing.
 """
 
 from __future__ import annotations

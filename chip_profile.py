@@ -69,7 +69,9 @@ timed and profiled runs allocate under the lock (``mlock_probe``).
 ``--mesh FxS`` runs each engine sharded over an F x S mesh of shards all
 on the one visible card (``make_mesh([cuda:0] * F * S, F, S)`` passed as
 ``Engine(conf, mesh=...)``): every MAC launch becomes F x S launches at
-the shard shape, beside the same shape unsharded in another call.
+the shard shape, beside the same shape unsharded in another call; each
+cell runs on a stream of its own (``parallel/mesh.CellStreams``), and
+the programs capture the mesh's step as they capture an unsharded one.
 The engine's DeviceIO, or on the host codec path its ``HostStep``, runs
 its step programs (``runtime/program.py``: a key's first call eager, its
 second captured as a CUDA graph, the later ones replayed); ``--eager``
@@ -255,6 +257,8 @@ def main():
                            + f"capture {p.capture_s * 1e3:.1f} ms, pool "
                            f"{p.pool_bytes} B" for k, p in progs.items())
                  or "none")
+              + (f"; {len(timed_eng.mesh.streams.streams)} cell streams"
+                 if timed_eng.mesh is not None else "")
               + f"; graph pools {sum(p.pool_bytes for p in progs.values())}"
               f" B; card reserved {mem.get('reserved_bytes.all.current', 0)}"
               f" B, peak allocated "

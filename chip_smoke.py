@@ -298,7 +298,9 @@ Phases, in order; any failure exits non-zero:
 
 32-36. main path, sharded, every shard on cuda:0
    (``make_mesh([cuda:0] * n, f, sp)`` passed as ``Engine(conf,
-   mesh=...)``), each run beside the same config unsharded (within 1
+   mesh=...)``; each cell on a stream of its own, one a cell, and the
+   step captured as on one device), each run beside the same config
+   unsharded (within 1
    LSB; bench1 bit-equal), the counts set to 0 just before the sharded
    run: 32 the massive shape at 2 x 2 through ``run_offline`` (the
    uniform fused MAC + mix, 4 launches a block; 16 LSB of the oracle);
@@ -314,8 +316,12 @@ Phases, in order; any failure exits non-zero:
 37. across cards: when the host has two or more (the card phase's
    count), a child process (``chip_smoke.py --mesh-child``,
    ``CUDA_VISIBLE_DEVICES=0,1``) runs the massive shape at 2 x 1 and
-   1 x 2 across cuda:0 and cuda:1 to its oracle; its failure fails the
-   smoke. With one card it prints that it did not run, and why.
+   1 x 2 across cuda:0 and cuda:1 (40.5 blocks) through the captured
+   graphs (one capture over both cards) to its oracle and through the
+   eager forms, byte-equal with equal launch counts, printing the peer
+   access between the cards and the graph pools' bytes by card; its
+   failure fails the smoke. With one card it prints that it did not
+   run, and why.
 
 7d (after 7c). kernel vs plain, the bf16 operand forms
    (``BRUTEFIR_TPU_RING_DTYPE`` / ``BRUTEFIR_TPU_BANK_DTYPE`` = bf16):
@@ -351,7 +357,9 @@ Phases, in order; any failure exits non-zero:
    main path above runs through them): the massive shape, the scale
    shape (groups of 4, then ``BRUTEFIR_TPU_PAIR=2``) and bench1's
    cascade through ``run_offline`` (40.5 blocks), bench5 through
-   ``run()``, each through the graphs and through the eager forms
+   ``run()``, the massive shape at 2 x 2 and the scale shape at 1 x 4
+   on cuda:0 (each cell on a stream of its own, the graph pools by
+   card printed), each through the graphs and through the eager forms
    (``eager_forms``: ``DeviceIO.step_eager`` / ``multi_step_eager`` on
    the instance, no knob), and in the clocked child the xtc example on
    the paced device the same way (phase 28's twin): the words
@@ -4324,13 +4332,24 @@ def run_engine(cfg: str, frames: int, channels: int, label: str, mesh=None,
         fail(f"output has {y.size // channels} frames, input {frames} "
              f"({label})")
     shape = ("unsharded" if eng.mesh is None else
-             f"mesh {eng.mesh.shape['f']} x {eng.mesh.shape['sp']}")
+             f"mesh {eng.mesh.shape['f']} x {eng.mesh.shape['sp']}, "
+             f"{cell_streams(eng, label)} cell streams")
     print(f"main path ({label}, {shape}, {how}): {stats['blocks']} blocks, "
           f"{frames} frames in and out; run {stats['elapsed_s']:.3f} s "
           f"({stats['elapsed_s'] / stats['blocks'] * 1e3:.3f} ms a block, "
           f"xrt {stats['xrt']:.2f}), with the engine's build "
           f"{wall:.3f} s", flush=True)
     return y.reshape(frames, channels), err.getvalue()
+
+
+def cell_streams(eng, label: str) -> int:
+    """The streams the cells of ``eng``'s mesh ran on: one a cell, or the
+    run failed."""
+    n = len(eng.mesh.streams.streams)
+    if n != eng.mesh.devices.size:
+        fail(f"{label}: {n} cell streams on a mesh of "
+             f"{eng.mesh.devices.size} cells")
+    return n
 
 
 def sharded_pair(mods, cfg, frames, channels, label, mesh, want,
@@ -4498,33 +4517,51 @@ def main_sharded_pinned(mods: dict, launched: dict, y_massive):
 def mesh_child():
     """Phase 37 in a child process that sees two cards
     (CUDA_VISIBLE_DEVICES=0,1): the massive shape at 2 x 1 and 1 x 2
-    across cuda:0 and cuda:1, each to its float64 oracle; the last line
-    one JSON object of launch counts."""
+    across cuda:0 and cuda:1 through the captured graphs (one capture
+    over both cards, the second card's allocations in a private pool),
+    each to its float64 oracle, and through the eager forms, byte-equal
+    with equal launch counts; prints the peer access between the cards
+    and the graph pools' bytes by card. The last line is one JSON object
+    of the graphs' launch counts."""
     import torch
     from brutefir_tpu_torch.ops import (fft_glue as tg, mac_mix as mm)
     if torch.cuda.device_count() < 2:
         fail("the mesh child sees fewer than two cards")
+    print(f"across two cards: peer access 0 -> 1 "
+          f"{torch.cuda.can_device_access_peer(0, 1)}, 1 -> 0 "
+          f"{torch.cuda.can_device_access_peer(1, 0)}; "
+          f"{torch.cuda.get_device_name(1)}", flush=True)
     os.makedirs(WORK, exist_ok=True)
     mods = {"mac_mix": mm, "fft_glue": tg}
-    frames = int(BLOCKS * K)
-    blocks = int(np.ceil(BLOCKS))
+    frames = int(PROGRAM_BLOCKS * K)
+    blocks = int(np.ceil(PROGRAM_BLOCKS))
     taps, x = write_massive_inputs(np.random.default_rng(SEED), frames)
     cfg = massive_config("cards.conf", False)
     devs = [torch.device("cuda:0"), torch.device("cuda:1")]
     total = {}
     ys = []
     for f, sp in ((2, 1), (1, 2)):
-        for m in mods.values():
-            m.reset_launches()
-        y, _ = run_engine(cfg, frames, F, f"massive across two cards",
-                          card_mesh(f, sp, devs))
-        counts = all_counts(mods)
-        expect_only(counts, {"uniform": 2 * blocks,
-                             **glue_want(0, blocks, blocks)},
-                    f"massive across two cards at {f} x {sp}")
-        for k, v in counts.items():
+        label = f"massive across two cards at {f} x {sp}"
+        yg, cg, tg_, pg = program_run(mods, cfg, frames, F, label, False,
+                                      cells=(f, sp, devs))
+        ye, ce, te, _ = program_run(mods, cfg, frames, F, label, True,
+                                    cells=(f, sp, devs))
+        expect_only(cg, {"uniform": 2 * blocks,
+                         **glue_want(0, blocks, blocks)}, label)
+        same = np.array_equal(yg, ye)
+        pools = {k: v["card_pool_bytes"] for k, v in pg["captures"].items()}
+        print(f"{label}: graphs {tg_['ms']:.3f} ms a block in DeviceIO "
+              f"dispatch (later calls {tg_['steady_ms']:.3f}), eager forms "
+              f"{te['ms']:.3f} (later calls {te['steady_ms']:.3f}); words "
+              f"{'byte-equal' if same else 'DIFFER'}; graph pools by card "
+              f"{pools}", flush=True)
+        if not same:
+            fail(f"{label}: the graphs' words differ from the eager forms'")
+        if cg != ce:
+            fail(f"{label}: launch counts differ: graphs {cg}, eager {ce}")
+        for k, v in cg.items():
             total[f"{k[0]}/{k[1]}"] = total.get(f"{k[0]}/{k[1]}", 0) + v
-        ys.append(y)
+        ys.append(yg.reshape(frames, F))
     lsb = oracle_lsbs(ys, x, lambda c: taps[0])
     print(f"across two cards: max |y - oracle| {lsb[0]} LSB at 2 x 1, "
           f"{lsb[1]} at 1 x 2 (tol {LSB_TOL})", flush=True)
@@ -5064,15 +5101,18 @@ def program_summary(progs: dict, eager: bool, label: str) -> dict:
     return {"keys": {str(k): p.calls for k, p in progs.items()},
             "pool_bytes": sum(p.pool_bytes for p in progs.values()),
             "captures": {str(k): {"capture_s": p.capture_s,
-                                  "pool_bytes": p.pool_bytes}
+                                  "pool_bytes": p.pool_bytes,
+                                  "card_pool_bytes": p.card_pool_bytes}
                          for k, p in progs.items() if p.graph is not None}}
 
 
 def program_run(mods, cfg: str, frames: int, channels: int, label: str,
-                eager: bool, how: str = "run_offline"):
+                eager: bool, how: str = "run_offline", cells=None):
     """One file-to-file run of ``Engine`` on ``cfg`` through the graphs
     or (``eager``) the eager forms, the counts set to 0 just before the
-    run: (output words, counts, dispatch_ms, program_summary)."""
+    run; ``cells``: (f, sp, devices or None), the run on ``card_mesh(f,
+    sp, devices)``: (output words, counts, dispatch_ms,
+    program_summary)."""
     from brutefir_tpu_torch.config import parse_config
     from brutefir_tpu_torch.runtime.engine import Engine
     out = os.path.join(WORK, "output.raw")
@@ -5082,7 +5122,8 @@ def program_run(mods, cfg: str, frames: int, channels: int, label: str,
         text = fh.read()
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        eng = Engine(parse_config(text))
+        eng = Engine(parse_config(text),
+                     mesh=None if cells is None else card_mesh(*cells))
         if eager:
             eager_forms(eng)
         for m in mods.values():
@@ -5096,25 +5137,31 @@ def program_run(mods, cfg: str, frames: int, channels: int, label: str,
     if y.size != frames * channels:
         fail(f"{label}: output has {y.size // channels} frames, input "
              f"{frames}")
-    return (y, counts, dispatch_ms(step, multi, stats["blocks"]),
-            program_summary(eng.dio.programs(), eager, label))
+    summary = program_summary(eng.dio.programs(), eager, label)
+    if eng.mesh is not None:
+        summary["cell_streams"] = cell_streams(eng, label)
+    return y, counts, dispatch_ms(step, multi, stats["blocks"]), summary
 
 
 def graphs_vs_eager(mods: dict, launched: dict, label: str, cfg: str,
-                    frames: int, channels: int, how: str = "run_offline"):
-    """``cfg`` through the graphs and through the eager forms: the words
-    byte-equal and every launch count equal; prints each route's
-    main-thread ms a block."""
+                    frames: int, channels: int, how: str = "run_offline",
+                    cells=None):
+    """``cfg`` through the graphs and through the eager forms (``cells``:
+    on a mesh, as ``program_run``): the words byte-equal and every launch
+    count equal; prints each route's main-thread ms a block."""
     yg, cg, tg_, pg = program_run(mods, cfg, frames, channels, label, False,
-                                  how)
+                                  how, cells)
     ye, ce, te, _ = program_run(mods, cfg, frames, channels, label, True,
-                                how)
+                                how, cells)
     same = np.array_equal(yg, ye)
+    pools = [v["card_pool_bytes"] for v in pg["captures"].values()]
     print(f"programs ({label}): graphs {tg_['ms']:.3f} ms a block in "
           f"DeviceIO dispatch (later calls {tg_['steady_ms']:.3f}), eager "
           f"forms {te['ms']:.3f} (later calls {te['steady_ms']:.3f}); "
           f"words {'byte-equal' if same else 'DIFFER'}; keys {pg['keys']}, "
-          f"graph pools {pg['pool_bytes']} bytes", flush=True)
+          f"graph pools {pg['pool_bytes']} bytes"
+          + (f", by card {pools}; {pg['cell_streams']} cell streams"
+             if cells is not None else ""), flush=True)
     if not same:
         fail(f"{label}: the graphs' words differ from the eager forms' "
              f"(max {int(np.abs(yg.astype(np.int64) - ye).max())} LSB)")
@@ -5132,11 +5179,13 @@ def main_programs(mods: dict, launched: dict) -> dict:
     """Phase 43: the massive shape, the scale shape (groups of 4, then
     ``BRUTEFIR_TPU_PAIR=2``) and bench1's cascade through
     ``run_offline`` (40.5 blocks: batches of 8, the tail block by block),
-    bench5 through ``run()`` (a crossfade every block), each through the
-    captured graphs and through the eager forms (``eager_forms``): the
-    output words byte-equal, the launch counts equal, each route's
-    main-thread ms a block in the DeviceIO dispatch. The xtc example on
-    the paced device is phase 28's twin in the clocked child."""
+    bench5 through ``run()`` (a crossfade every block), then the massive
+    shape at 2 x 2 and the scale shape at 1 x 4 on cuda:0 (each cell on a
+    stream of its own), each through the captured graphs and through the
+    eager forms (``eager_forms``): the output words byte-equal, the
+    launch counts equal, each route's main-thread ms a block in the
+    DeviceIO dispatch. The xtc example on the paced device is phase 28's
+    twin in the clocked child."""
     res = {}
     frames = int(PROGRAM_BLOCKS * K)
     write_massive_inputs(np.random.default_rng(SEED + 43), frames)
@@ -5157,6 +5206,17 @@ def main_programs(mods: dict, launched: dict) -> dict:
     _, _, cfg = write_bench5_inputs(WORK, frames, SEED + 46)
     res["bench5"] = graphs_vs_eager(mods, launched, "bench5", cfg, frames,
                                     BENCH5_C, "run")
+    # meshes on cuda:0, each cell on a stream of its own
+    frames = int(PROGRAM_BLOCKS * K)
+    write_massive_inputs(np.random.default_rng(SEED + 43), frames)
+    res["massive_2x2"] = graphs_vs_eager(
+        mods, launched, "massive at 2 x 2 on cuda:0",
+        massive_config("programs.conf", False), frames, F,
+        cells=(2, 2, None))
+    _, _, cfg = write_scale_inputs(WORK, frames, SEED + 44)
+    res["scale_1x4"] = graphs_vs_eager(
+        mods, launched, "scale at 1 x 4 on cuda:0", cfg, frames, SCALE_C,
+        cells=(1, 4, None))
     return res
 
 
@@ -5243,6 +5303,8 @@ def host_program_run(mods, cfg: str, out: str, label: str, eager: bool,
             stats = eng.run()
         wall = time.perf_counter() - t0
     blocks = stats["blocks"]
+    if eng.mesh is not None:
+        cell_streams(eng, label)
     return {"bytes": open(path, "rb").read(), "counts": all_counts(mods),
             "dispatch": dispatch_ms(calls, [], blocks),
             "wall_ms": wall / blocks * 1e3, "blocks": blocks,

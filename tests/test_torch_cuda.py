@@ -2136,3 +2136,132 @@ def test_tap_programs_match_eager_on_card(cuda, tmp_path, topology):
     assert all(p.calls >= 3 for p in progs.values())
     if topology == "crossfade":
         assert {k[2] for k in progs} == {False, True}
+
+
+# --- the step programs on a mesh: cell streams, captured ---------------------
+
+def _mesh_program_config(tmp_path, shape: str, name: str) -> str:
+    """The smoke's main-path shapes at a reduced depth: ``massive`` (26
+    filters of one coefficient), ``scale`` (32 filters, a coefficient
+    each, the grouped dispatch under ``BRUTEFIR_TPU_PAIR=force:4``),
+    ``bench1`` (the reference's two-stage cascade) and ``bench5`` (26
+    crossfading filters a CLI script flips every block), S24_4LE."""
+    N, B = 1024, 4
+    C = {"massive": 26, "scale": 32, "bench1": 2, "bench5": 26}[shape]
+    E = {"massive": 1, "scale": 32, "bench1": 6, "bench5": 2}[shape]
+    rng = np.random.default_rng(61)
+    coeffs = ""
+    for k in range(E):
+        (rng.standard_normal(N * B) * 0.05 * np.exp(-np.arange(N * B)
+                                                    / 1500.0)).astype(
+            "<f4").tofile(tmp_path / f"h{k}.raw")
+        coeffs += (f'coeff {k} {{ filename: "{tmp_path / f"h{k}.raw"}"; '
+                   f'format: "FLOAT_LE"; }};\n')
+    head = ""
+    if shape == "bench1":
+        filters = """
+filter 0 { from_filters: 2, 5; to_outputs: 0; coeff: 0; };
+filter 1 { from_filters: 3, 4; to_outputs: 1; coeff: 1; };
+filter 2 { from_inputs: 0; to_filters: 0; coeff: 2; };
+filter 3 { from_inputs: 0; to_filters: 1; coeff: 3; };
+filter 4 { from_inputs: 1; to_filters: 1; coeff: 4; };
+filter 5 { from_inputs: 1; to_filters: 0; coeff: 5; };
+"""
+    else:
+        xf = "crossfade: true; " if shape == "bench5" else ""
+        filters = "".join(
+            f"filter {f} {{ from_inputs: {f}; to_outputs: {f}; "
+            f"coeff: {f % E}; {xf}}};\n" for f in range(C))
+    if shape == "bench5":
+        script = "\\n".join(" ".join(f"cfc {i} {s};" for i in range(C))
+                            for s in (1, 0))
+        head = f'logic: "cli" {{ script: "{script}"; echo: false; }};'
+    chans = ",".join(str(c) for c in range(C))
+    return (f"sampling_rate: 44100;\nfilter_length: {N},{B};\n{head}\n"
+            f"{coeffs}"
+            f'input {chans} {{ device: "file" {{ path: '
+            f'"{tmp_path / "in.raw"}"; }}; sample: "S24_4LE"; channels: '
+            f'{C}; }};\noutput {chans} {{ device: "file" {{ path: '
+            f'"{tmp_path / name}"; }}; sample: "S24_4LE"; channels: {C}; '
+            f'dither: false; }};\n{filters}')
+
+
+def _mesh_graphs_vs_eager(tmp_path, monkeypatch, shape, devices, f, sp):
+    """One shape on the mesh ``f`` x ``sp`` over ``devices`` through the
+    captured graphs and through the eager forms, file to file: the output
+    files byte-equal, every launch count equal, every key called twice
+    captured, each cell on a stream of its own. Returns the graphs'
+    engine."""
+    from brutefir_tpu_torch.parallel import make_mesh
+    from brutefir_tpu_torch.runtime.engine import Engine
+    from brutefir_tpu_torch.runtime.program import COUNTERS
+    if shape == "scale":
+        monkeypatch.setenv("BRUTEFIR_TPU_PAIR", "force:4")
+    N = 1024
+    C = {"massive": 26, "scale": 32, "bench1": 2, "bench5": 26}[shape]
+    frames = N * 17 + 300
+    np.round(np.random.default_rng(62).standard_normal((frames, C))
+             * 2 ** 18).astype("<i4").tofile(tmp_path / "in.raw")
+    outs, launched, engines = {}, {}, {}
+    for route in ("graphs", "eager"):
+        conf = parse_config(_mesh_program_config(tmp_path, shape,
+                                                 route + ".raw"))
+        conf.quiet = True
+        eng = Engine(conf, device=devices[0], mesh=make_mesh(devices, f, sp))
+        if route == "eager":
+            eng.dio.step = eng.dio.step_eager
+            eng.dio.multi_step = eng.dio.multi_step_eager
+        before = [dict(c) for c in COUNTERS]
+        if shape == "bench5":
+            eng.run()
+        else:
+            eng.run_offline(batch_blocks=4 if shape == "scale" else 2)
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        launched[route] = [{k: n - b.get(k, 0) for k, n in c.items()}
+                           for c, b in zip(COUNTERS, before)]
+        outs[route] = (tmp_path / (route + ".raw")).read_bytes()
+        engines[route] = eng
+    assert len(outs["graphs"]) == frames * C * 4
+    assert outs["graphs"] == outs["eager"]
+    assert launched["graphs"] == launched["eager"]
+    assert sum(n for d in launched["graphs"] for n in d.values()) > 0
+    if shape == "scale":
+        assert launched["graphs"][2].get("group", 0) > 0   # mac_group
+    eng = engines["graphs"]
+    progs = eng.dio.programs()
+    assert eng.dio.captures and not engines["eager"].dio.programs()
+    assert all(p.graph is not None for p in progs.values() if p.calls >= 2)
+    assert any(p.graph is not None for p in progs.values())
+    assert len(eng.mesh.streams.streams) == f * sp
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,sp", [(2, 2), (1, 4)])
+@pytest.mark.parametrize("shape", ["massive", "scale", "bench1", "bench5"])
+def test_mesh_programs_match_eager_on_card(cuda, tmp_path, monkeypatch,
+                                           shape, f, sp):
+    """A mesh of f x sp cells on cuda:0, each on its own stream, through
+    the captured graphs and through the eager forms: byte-equal, equal
+    launch counts."""
+    dev = torch.device("cuda:0")
+    _mesh_graphs_vs_eager(tmp_path, monkeypatch, shape, [dev] * (f * sp),
+                          f, sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,sp", [(2, 1), (1, 2)])
+def test_mesh_programs_across_two_cards(cuda, tmp_path, monkeypatch, f, sp):
+    """The massive shape across cuda:0 and cuda:1, captured in one graph
+    over both cards (the second card's allocations in a private pool of
+    its own): byte-equal to the eager forms, equal launch counts."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    devs = [torch.device("cuda:0"), torch.device("cuda:1")]
+    eng = _mesh_graphs_vs_eager(tmp_path, monkeypatch, "massive", devs, f,
+                                sp)
+    for p in eng.dio.programs().values():
+        if p.graph is not None:
+            assert len(p.pools) == 1 and set(p.card_pool_bytes) == {
+                "cuda:0", "cuda:1"}

@@ -73,6 +73,7 @@ from ..ops.device_codec import (device_format_word, decode_words,
                                 encode_words, scatter_words, torch_dtype)
 from ..ops.device_dither import dither_quantize, dither_window
 from .program import Program, Statics, capturable
+from .tracing import RECORDER as REC
 
 
 def _wire3(fmt) -> bool:
@@ -453,6 +454,7 @@ class DeviceIO:
         program (made from ``make()``, the eager form, on first use).
         ``dstate`` is the static one from here on: a replay runs no
         Python, so nothing else would rebind it."""
+        sp = REC.on and REC.begin("bind")
         args = (state, (ctrl, in_gain, out_gain, bank), self.dstate)
         if self._statics is None:
             self._statics = Statics(*args)
@@ -462,8 +464,9 @@ class DeviceIO:
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = Program(
-                self._body(make()), self.device, self.captures, self.mesh)
-        return (self._statics.state.tree,) + prog(in_words)
+                self._body(make()), self.device, self.captures, self.mesh,
+                key)
+        return (self._statics.state.tree,) + prog(in_words, sp)
 
     def _body(self, fn):
         """``fn`` (an eager form) over the static tensors: words ->

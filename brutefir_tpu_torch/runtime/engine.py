@@ -109,11 +109,14 @@ every shard is bfloat16, and ``update_bank_entry`` casts an EQ render or
 coefficient swap to it; the MAC kernels' bf16 forms widen both on load.
 Not the bit-parity contract: defaults stay the graph's type.
 
-``BRUTEFIR_TPU_PROFILE=<dir>`` wraps ``run()`` (not ``run_offline``, as
-in the JAX package, engine.py:1137-1139, 1269-1287) in a
-``torch.profiler`` trace of the host and the card, written to the
-directory as one Chrome trace when the run ends, normally or by an
-error.
+``BRUTEFIR_TPU_PROFILE=<dir>`` wraps ``run()`` (as the JAX package
+does, engine.py:1137-1139, 1269-1287) and ``run_offline``, the CLI's
+default for files, in a ``torch.profiler`` trace of the host and the
+card, written to the directory as one Chrome trace when the run ends,
+normally or by an error. The trace carries the engine's own spans
+(``runtime/tracing.py``: the producer's reads and uploads, the
+dispatches and their waits, the writer's parts) on the card's
+timeline, one track a thread.
 
 Not ported: the powersave dispatch skip (the JAX package makes it
 byte-identical to always dispatching, so the port always dispatches).
@@ -122,6 +125,7 @@ byte-identical to always dispatching, so the port always dispatches).
 from __future__ import annotations
 
 import collections
+import json
 import os
 import queue
 import sys
@@ -149,10 +153,19 @@ from ..parallel import mesh as mesh_mod
 from .control import RuntimeControl
 from .device_io import DeviceIO, dithered_phys, eligible
 from .program import HostStep, TapStep, tree_map
+from . import tracing
 from .subdelay import SubsampleDelay
+from .tracing import RECORDER as REC
 
 # blocks per offline dispatch: block latency becomes BATCH_BLOCKS * N
 BATCH_BLOCKS = 8
+
+# the debug timeline's sections (print_debug, bfrun.c:230-434): a span
+# name -> (stage, its start's event, its end's event)
+DEBUG_EVENTS = {"read": ("input", "call read", "ret {frames} frames"),
+                "dispatch": ("filter", "call dispatch", "ret"),
+                "write": ("output", "call write", "ret {frames} frames")}
+DEBUG_SPANS = 4096
 
 
 FREQD_HOOKS = ("input_freqd", "pre_convolve", "post_convolve",
@@ -428,12 +441,6 @@ class Engine:
         self._stopped = False
         self._stage_t = np.zeros(4)   # read, device, write, total
         self._stage_blocks = 0
-        # debug timeline ring (print_debug, bfrun.c:230-434): (wall time,
-        # stage, event, block) from the main and writer threads (deque
-        # append is thread-safe); 1024 periods of ~8 events, the
-        # reference's DEBUG_MAX ring depth
-        self._debug_ring = (collections.deque(maxlen=8192) if conf.debug
-                            else None)
         # set by attach_logic: input_timed / output_timed hooks, and the
         # frequency-domain taps of the step by hook kind
         self._has_timed_hooks = False
@@ -514,13 +521,6 @@ class Engine:
             bank = self.bank.index_copy(0, idx, H[None])
         with self.control_mutex:
             self.bank = bank
-
-    def _dbg(self, stage: str, event: str, block: int):
-        """Append one event to the debug timeline ring (no-op unless
-        ``debug: true;``)."""
-        if self._debug_ring is not None:
-            self._debug_ring.append(
-                (time.perf_counter(), stage, event, block))
 
     # ----- logic modules ---------------------------------------------------
     def attach_logic(self):
@@ -887,6 +887,7 @@ class Engine:
         are updated from the same epoch; on the host path ``out_snap`` is
         the output side's (delay, mute, subdelay) lists for
         ``write_block`` (engine.py:1522-1538), else None."""
+        sp = REC.on and REC.begin("snapshot")
         with self.control_mutex:
             ctrl = self.control.snapshot()
             gains = self._mute_gains()
@@ -904,6 +905,8 @@ class Engine:
         if self.dio is not None:
             self.dio.update_delays(*delays)
             self.dio.update_subdelays(*subdelays)
+        if sp:
+            REC.end(sp)
         return epoch
 
     # ----- host codec path: input ---------------------------------------------
@@ -1192,31 +1195,41 @@ class Engine:
     def _write_outputs(self, outs, meters, nan_ok, frames):
         """Writer-thread half of a dispatch: fetch, NaN check, meters and
         safety abort, then the device writes (first ``frames`` frames)."""
+        sp = REC.on and REC.begin("write.sync")
         if not bool(nan_ok):
             raise EngineError("NaN or Inf values in the system! "
                               "Invalid input?",
                               exit_code=BF_EXIT_INVALID_INPUT)
         for di, dev in enumerate(self.conf.iodevs[OUT]):
+            sp = sp and REC.next(sp, "write.meters")
             self._account_output_meters(dev, meters[di].cpu().numpy())
+            sp = sp and REC.next(sp, "write.fetch")
             raw = outs[di].cpu().numpy()
+            sp = sp and REC.next(sp, "write.encode")
             if self.dio.out_wire[di] == "p24":
                 raw = _expand_p24(raw)        # 3-byte wire -> 4-byte file
             if self.dio.out_wire[di] == "raw3":
                 raw = raw.reshape(-1, dev.open_channels, 3)
             else:
                 raw = raw.reshape(-1, dev.open_channels)
-            self.devices[OUT][di].write(raw[:frames].tobytes())
+            data = raw[:frames].tobytes()
+            sp = sp and REC.next(sp, "write.file")
+            self.devices[OUT][di].write(data)
+        sp = sp and REC.next(sp, "write.peak")
         self._peak_push()
+        if sp:
+            REC.end(sp)
 
     # ----- the writer thread and run statistics -----------------------------
     def _start_writer(self, sink_output: bool = False):
         """The output stage on its own thread (the analog of the
         reference's output process, bfrun.c:846-964): it fetches, meters
         and writes block k while the main thread dispatches block k+1.
-        An item is ("dio", frames, outs, meters, nan_ok) from the
-        device-IO path or ("host", frames, y, out_snap) from the host
-        path. Returns (queue, stats, thread); queue depth 2 bounds
-        latency.
+        An item is ("dio", frames, block, blocks, outs, meters, nan_ok)
+        from the device-IO path or ("host", frames, block, blocks, y,
+        out_snap) from the host path (``block``, ``blocks``: its first
+        block and block count, the id of its spans). Returns (queue,
+        stats, thread); queue depth 2 bounds latency.
 
         ``sink_output`` (engine.py:1159-1218): no sample leaves the card.
         The writer waits for the newest result once every
@@ -1243,18 +1256,22 @@ class Engine:
 
         def writer():
             while True:
+                sp = REC.on and REC.begin("write.wait")
                 item = wq.get()
                 if item is None:
+                    if sp:
+                        REC.end(sp)
                     try:
                         if sink["last"] is not None:
                             _wait_for(sink["last"])
                     except Exception as e:
                         wstats["err"] = e
                     return
-                kind, fk, *rest = item
+                kind, fk, blk, nb, *rest = item
+                if sp:
+                    REC.end(sp, block=(blk, nb))
+                sp = REC.on and REC.begin("write", blk, nb)
                 try:
-                    wblk = wstats["blocks"]
-                    self._dbg("output", "call write", wblk)
                     if kind == "dio":
                         if sink_output:
                             sink_drain(rest[0])
@@ -1268,16 +1285,20 @@ class Engine:
                         y, out_snap = rest
                         # C-contiguous rows of the real type, as
                         # float_to_raw takes them: one copy off the card
-                        self.write_block(y.contiguous().cpu().numpy(), fk,
-                                         out_snap)
+                        part = REC.on and REC.begin("write.fetch")
+                        y = y.contiguous().cpu().numpy()
+                        if part:
+                            REC.end(part)
+                        self.write_block(y, fk, out_snap)
                     wstats["frames"] += fk
                     wstats["blocks"] += 1
-                    self._dbg("output", f"ret {fk} frames", wblk)
+                    if sp:
+                        REC.end(sp, fk)
                 except Exception as e:
                     wstats["err"] = e
                     return
 
-        wth = threading.Thread(target=writer, daemon=True)
+        wth = threading.Thread(target=writer, daemon=True, name="bf-writer")
         wth.start()
         return wq, wstats, wth
 
@@ -1337,6 +1358,8 @@ class Engine:
             self.attach_logic()
             self.setup()
         prof = self._start_profile()
+        own = tracing.follow(DEBUG_SPANS if self.conf.debug else 0,
+                             DEBUG_EVENTS)
         budget = self.N / self.conf.sampling_rate    # seconds per block
         t_run0 = time.perf_counter()
         # bounded: p50/p95 over the most recent ~131k blocks
@@ -1360,19 +1383,17 @@ class Engine:
         except BaseException:
             # finish the trace and release the devices: a caller that
             # catches the error and builds a new Engine must not inherit
-            # a running profiler or still-open devices
-            if prof is not None:
-                try:
-                    self._stop_profile(prof)
-                except Exception:
-                    pass
+            # a running profiler, a recorder left on or still-open devices
+            self._stop_quietly(prof, own)
             if setup:
                 self._teardown_quietly()
             raise
+        if own:
+            REC.disable()
         if prof is not None:
             self._stop_profile(prof)
         elapsed = time.perf_counter() - t_run0
-        if self._debug_ring is not None:
+        if self.conf.debug:
             self._dump_debug_timeline()
         if self.conf.overflow_warnings and not getattr(self.conf, "quiet",
                                                        False):
@@ -1383,10 +1404,11 @@ class Engine:
         return stats
 
     def _start_profile(self):
-        """The opt-in trace of ``run()`` (``BRUTEFIR_TPU_PROFILE=<dir>``,
-        engine.py:1137-1139): a started ``torch.profiler.profile`` of the
-        host and, on a card, of CUDA, with its directory (made as
-        ``jax.profiler.start_trace`` makes it); None without the knob."""
+        """The opt-in trace of ``run()`` and ``run_offline``
+        (``BRUTEFIR_TPU_PROFILE=<dir>``, engine.py:1137-1139): a started
+        ``torch.profiler.profile`` of the host and, on a card, of CUDA,
+        with its directory (made as ``jax.profiler.start_trace`` makes
+        it); None without the knob."""
         out = os.environ.get("BRUTEFIR_TPU_PROFILE")
         if not out:
             return None
@@ -1402,13 +1424,32 @@ class Engine:
     @staticmethod
     def _stop_profile(prof) -> str:
         """Stop the trace of ``_start_profile`` and write it into its
-        directory as one Chrome trace, ``run_<pid>_<ns>.json``; returns
-        its path."""
+        directory as one Chrome trace, ``run_<pid>_<ns>.json``, with the
+        recorder's spans on each thread's track; returns its path."""
         p, out = prof
         p.stop()
         path = os.path.join(out, f"run_{os.getpid()}_{time.time_ns()}.json")
         p.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)
+        events = trace["traceEvents"]
+        events += tracing.chrome_events(
+            tracing.take(), trace.get("baseTimeNanoseconds", 0), os.getpid(),
+            {e.get("tid") for e in events if e.get("name") == "thread_name"})
+        with open(path, "w") as fh:
+            json.dump(trace, fh)
         return path
+
+    def _stop_quietly(self, prof, own: bool) -> None:
+        """On an entry's error: the recorder off where the entry switched
+        it on, the trace finished."""
+        if own:
+            REC.disable()
+        if prof is not None:
+            try:
+                self._stop_profile(prof)
+            except Exception:
+                pass
 
     def _start_watchdog(self) -> threading.Event:
         """The opt-in stall watchdog (``BRUTEFIR_TPU_WATCHDOG=<seconds>``,
@@ -1454,30 +1495,40 @@ class Engine:
         up_pool = ThreadPoolExecutor(max_workers=2,
                                      thread_name_prefix="bf-upload")
 
-        def upload(ws):
-            return [torch.as_tensor(np.array(w), device=self.device)
-                    for w in ws]
+        def upload(ws, blk):
+            sp = REC.on and REC.begin("upload", blk, 1)
+            words = [torch.as_tensor(np.array(w), device=self.device)
+                     for w in ws]
+            if sp:
+                REC.end(sp)
+            return words
 
         def producer():
             try:
                 left = (None if max_blocks is None
                         else max(0, max_blocks - self.blockcounter))
+                blk = self.blockcounter
                 while not pstate["stop"]:
                     if left is not None:
                         if left <= 0:
                             return
                         left -= 1
+                    sp = REC.on and REC.begin("read", blk, 1)
                     xw, f = self.read_block_dio()
                     # the silence test on the host's words (the uploaded
                     # ones would cost a fetch)
-                    item = (up_pool.submit(upload, xw), f,
+                    item = (up_pool.submit(upload, xw, blk), f,
                             self._input_silent_words(xw))
+                    sp = sp and REC.next(sp, "produce.wait", f)
                     while not pstate["stop"]:
                         try:
                             pq.put(item, timeout=0.5)
                             break
                         except queue.Full:
                             continue
+                    if sp:
+                        REC.end(sp)
+                    blk += 1
                     if f < N:
                         return
             except Exception as e:
@@ -1487,7 +1538,8 @@ class Engine:
                 except queue.Full:
                     pass
 
-        pth = threading.Thread(target=producer, daemon=True)
+        pth = threading.Thread(target=producer, daemon=True,
+                               name="bf-producer")
         pth.start()
         try:
             self._run_blocks(max_blocks, wq, wstats, budget, pq, pstate)
@@ -1531,8 +1583,13 @@ class Engine:
                 break
             if wstats["err"] is not None:
                 break
+            # one reading of the clock a stage boundary, for the stage
+            # table, the periods and the spans
             t0 = time.perf_counter()
-            self._dbg("input", "call read", self.blockcounter)
+            blk = self.blockcounter
+            sp = REC.on and (
+                REC.begin("read", blk, 1, t0) if pq is None
+                else REC.begin("dispatch.wait_producer", blk, 1, t0))
             self._block_start_hooks()
             if pq is not None:
                 fut, frames, silent = pq.get()
@@ -1546,35 +1603,41 @@ class Engine:
             else:
                 x, frames = self.read_block()
                 silent = self._input_silent(x if frames > 0 else None)
-            self._dbg("input", f"ret {frames} frames", self.blockcounter)
             if frames < N:
                 eof = True
             t1 = time.perf_counter()
+            if sp:
+                REC.end(sp, frames, t1)
             item = None
+            sp = frames > 0 and REC.on and REC.begin("dispatch", blk, 1, t1)
             if frames > 0:
-                self._dbg("filter", "call dispatch", self.blockcounter)
                 epoch = self._snapshot_epoch()
                 ctrl, gains, uni, udl, xf, bank, out_snap = epoch
                 if self.dio is not None:
                     if words is None:
                         # np.array: a writable copy of the (read-only)
                         # words
+                        up = REC.on and REC.begin("upload")
                         words = [torch.as_tensor(np.array(w),
                                                  device=self.device)
                                  for w in xw]
+                        if up:
+                            REC.end(up)
                     self.state, outs, meters, nan_ok = self.dio.step(
                         self.state, ctrl, gains[0], gains[1], bank, words,
                         uniform=uni, udelay=udl, xfade=xf)
-                    item = ("dio", frames, outs, meters, nan_ok)
+                    item = ("dio", frames, blk, 1, outs, meters, nan_ok)
                 else:
-                    item = ("host", frames, self._dispatch_host(x, epoch),
-                            out_snap)
-                self._dbg("filter", "ret", self.blockcounter)
+                    item = ("host", frames, blk, 1,
+                            self._dispatch_host(x, epoch), out_snap)
                 self.blockcounter += 1
             t2 = time.perf_counter()
             if item is not None:
+                sp = sp and REC.next(sp, "dispatch.wait_writer", t=t2)
                 self._put(wq, wstats, item)
             t3 = time.perf_counter()
+            if sp:
+                REC.end(sp, t=t3)
             period = t3 - t0
             self._periods.append(period)
             rti = period / budget
@@ -1655,8 +1718,17 @@ class Engine:
         """Full-ring timeline dump (print_debug, bfrun.c:230-434), the
         JAX package's text: one section per pipeline stage (input, filter,
         output), each listing every retained period's call/ret events in
-        microseconds from the first retained event."""
-        events = list(self._debug_ring)
+        microseconds from the first retained event. The events are the
+        starts and ends of the recorder's ``read``, ``dispatch`` and
+        ``write`` spans, the newest ``DEBUG_SPANS`` of them: 1024 periods
+        of 8 events, the reference's DEBUG_MAX ring depth."""
+        events = []
+        for s in [s for s in tracing.take() if s.name in DEBUG_EVENTS
+                  ][-DEBUG_SPANS:]:
+            stage, call, ret = DEBUG_EVENTS[s.name]
+            events.append((s.start_ns, stage, call, s.block))
+            events.append((s.end_ns, stage,
+                           ret.format(frames=s.frames), s.block))
         if not events:
             sys.stderr.write("debug timeline: no events recorded\n")
             return
@@ -1674,8 +1746,7 @@ class Engine:
                 if blk != last_blk:
                     sys.stderr.write(f"  period {blk}:\n")
                     last_blk = blk
-                sys.stderr.write(
-                    f"    {int((ts - t0) * 1e6)}\t{ev}\n")
+                sys.stderr.write(f"    {(ts - t0) // 1000}\t{ev}\n")
             sys.stderr.write("\n")
 
     def _print_overflow_warnings(self):
@@ -1710,6 +1781,8 @@ class Engine:
         conf = self.conf
         N = self.N
         M = batch_blocks
+        prof = self._start_profile()
+        own = tracing.follow()
         t_run0 = time.perf_counter()
         self._periods = collections.deque(maxlen=1 << 17)
         wq, wstats, wth = self._start_writer()
@@ -1725,10 +1798,14 @@ class Engine:
                 # dropped, skipping samples for a later run on this engine
                 left = (None if max_blocks is None
                         else max(0, max_blocks - self.blockcounter))
+                blk = self.blockcounter
                 while not pstate["stop"]:
                     take = M if left is None else min(M, left)
                     if take == 0:
                         return
+                    # one span for the batch's reads and their copies into
+                    # the stacks, as the loop interleaves them
+                    sp = REC.on and REC.begin("read", blk, take)
                     stacks = [np.zeros((M, N) + self.dio.in_wire_shape[di],
                                        self.dio.in_wire_dtype[di])
                               for di in range(len(conf.iodevs[IN]))]
@@ -1746,14 +1823,19 @@ class Engine:
                             break
                     if left is not None:
                         left -= got
+                    sp = sp and REC.next(sp, "upload", frames)
                     item = ([torch.from_numpy(st).to(self.device)
                              for st in stacks], frames, got, hit_eof)
+                    sp = sp and REC.next(sp, "produce.wait")
                     while not pstate["stop"]:
                         try:
                             pq.put(item, timeout=0.5)
                             break
                         except queue.Full:
                             continue
+                    if sp:
+                        REC.end(sp)
+                    blk += got
                     if hit_eof:
                         return
             except Exception as e:
@@ -1763,7 +1845,8 @@ class Engine:
                 except queue.Full:
                     pass
 
-        pth = threading.Thread(target=producer, daemon=True)
+        pth = threading.Thread(target=producer, daemon=True,
+                               name="bf-producer")
         pth.start()
 
         try:
@@ -1783,9 +1866,14 @@ class Engine:
             if wstats["err"] is not None:
                 raise wstats["err"]
         except BaseException:
+            self._stop_quietly(prof, own)
             if setup:
                 self._teardown_quietly()
             raise
+        if own:
+            REC.disable()
+        if prof is not None:
+            self._stop_profile(prof)
         stats = self._stats(wstats["frames"], time.perf_counter() - t_run0)
         if setup:
             self.teardown()
@@ -1796,11 +1884,16 @@ class Engine:
         """Dispatch one block of a batch under ``epoch`` (a
         ``_snapshot_epoch``) and queue its ``frames`` frames."""
         ctrl, gains, uni, udl, _, bank, _ = epoch
+        blk = self.blockcounter
+        sp = REC.on and REC.begin("dispatch", blk, 1)
         self.state, outs, meters, nan_ok = self.dio.step(
             self.state, ctrl, gains[0], gains[1], bank, words,
             uniform=uni, udelay=udl, xfade=xfade)
         self.blockcounter += 1
-        self._put(wq, wstats, ("dio", frames, outs, meters, nan_ok))
+        sp = sp and REC.next(sp, "dispatch.wait_writer")
+        self._put(wq, wstats, ("dio", frames, blk, 1, outs, meters, nan_ok))
+        if sp:
+            REC.end(sp)
 
     def _run_offline_batches(self, max_blocks, M, wq, wstats, pq, pstate,
                              budget):
@@ -1811,8 +1904,14 @@ class Engine:
                    else max_blocks - self.blockcounter)
             if rem is not None and rem <= 0:
                 break
+            # one reading of the clock at each end of a batch, for the
+            # periods and the spans
             t0 = time.perf_counter()
+            sp = REC.on and REC.begin("dispatch.wait_producer",
+                                      self.blockcounter, M, t0)
             dstacks, frames, got_blocks, eof = pq.get()
+            if sp:
+                REC.end(sp)
             if pstate["err"] is not None:
                 raise pstate["err"]
             if rem is not None and rem < got_blocks:
@@ -1851,20 +1950,28 @@ class Engine:
                     # the next batch's snapshot picks it up
                     break
                 epoch = self._snapshot_epoch()
+            sp = False
             if start == 0:
                 ctrl, gains, uni, udl, _, bank, _ = epoch
+                k = self.blockcounter
+                sp = REC.on and REC.begin("dispatch", k, M)
                 self.state, outs, meters, nan_ok = self.dio.multi_step(
                     self.state, ctrl, gains[0], gains[1], bank,
                     dstacks, uniform=uni, udelay=udl)
                 self.blockcounter += M
-                self._put(wq, wstats, ("dio", M * N, outs, meters, nan_ok))
+                sp = sp and REC.next(sp, "dispatch.wait_writer")
+                self._put(wq, wstats,
+                          ("dio", M * N, k, M, outs, meters, nan_ok))
             else:
                 # the rest of a split batch, block by block under the
                 # same snapshot
                 for b in range(start, M):
                     self._step_one(wq, wstats, epoch,
                                    [st[b] for st in dstacks], N, False)
-            per = (time.perf_counter() - t0) / M
+            t1 = time.perf_counter()
+            if sp:
+                REC.end(sp, t=t1)
+            per = (t1 - t0) / M
             self._periods.append(per)
             # full batches only (the offline analog of full_proc rti
             # gating, bfrun.c:1436-1445)

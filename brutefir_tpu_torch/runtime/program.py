@@ -104,6 +104,7 @@ import torch
 from ..graph.compile import real_dtype, step_impl
 from ..ops import fft_fused, fft_glue, mac, mac_dual, mac_group, mac_mix
 from ..parallel.mesh import Sharded
+from .tracing import RECORDER as REC
 
 # the launch counters a replay keeps true
 COUNTERS = (mac.launches, mac_mix.launches, mac_group.launches,
@@ -232,7 +233,7 @@ def _delta(before: list) -> list:
             for k, n in c.items() if n != b.get(k, 0)]
 
 
-def _capturing(device: torch.device, capture, mesh=None):
+def _capturing(device: torch.device, capture, mesh=None, key=None):
     """Run ``capture()`` on synchronised cards (``device``, and under a
     ``mesh`` every card it spans) with the allocator's cache emptied and
     Python's cycle collector off (``torch.cuda.graph`` collects just
@@ -240,7 +241,9 @@ def _capturing(device: torch.device, capture, mesh=None):
     graph, and destroying a graph there ends the capture). Each card
     other than ``device`` allocates into a private ``MemPool`` of its own
     meanwhile. Returns (its result, the device bytes the capture reserved
-    by card, its host seconds, the private pools)."""
+    by card, its host seconds, the private pools). ``key``: the program's
+    key, in the name of its ``program.capture`` span."""
+    sp = REC.on and REC.begin(f"program.capture {key}")
     t0 = time.perf_counter()
     cards = [device] if mesh is None else mesh.cards()
     collecting = gc.isenabled()
@@ -267,6 +270,8 @@ def _capturing(device: torch.device, capture, mesh=None):
     finally:
         if collecting:
             gc.enable()
+        if sp:
+            REC.end(sp)
     return out, reserved, time.perf_counter() - t0, pools
 
 
@@ -279,11 +284,12 @@ class Program:
     other than the first get a private pool each (``_capturing``)."""
 
     def __init__(self, body, device: torch.device, capture: bool,
-                 mesh=None):
+                 mesh=None, key=None):
         self.body = body
         self.device = device
         self.capture = capture
         self.mesh = mesh
+        self.key = key           # the owner's key, for the capture's span
         self.words = None
         self.calls = 0
         self.graph = None
@@ -294,24 +300,36 @@ class Program:
         self.pools = []          # the private pools of the other cards
         self.capture_s = 0.0     # host seconds the capture took
 
-    def __call__(self, in_words):
+    def __call__(self, in_words, sp=False):
+        """The outputs of one call on ``in_words``. ``sp``: the caller's
+        open ``bind`` span (its statics bound), which goes on over the
+        word slots."""
+        sp = sp or (REC.on and REC.begin("bind"))
         if self.words is None:
             self.words = Slot(list(in_words), True)
         else:
             self.words.fill(list(in_words))
         words = self.words.tree
         if not self.capture or self.calls == 0:
+            sp = sp and REC.next(sp, "eager")
             out = self.body(words)
         else:
             if self.graph is None:
+                if sp:
+                    REC.end(sp)
                 self._capture(words)
+                sp = REC.on and REC.begin("replay")
             else:
                 for c, k, n in self.delta:
                     c[k] += n
+                sp = sp and REC.next(sp, "replay")
             with (self.mesh.streams.replaying() if _spans(self.mesh)
                   else contextlib.nullcontext()):
                 self.graph.replay()
+            sp = sp and REC.next(sp, "clone")
             out = tree_map(torch.clone, self.out)
+        if sp:
+            REC.end(sp)
         self.calls += 1
         return out
 
@@ -332,7 +350,7 @@ class Program:
             return graph
 
         graph, reserved, self.capture_s, self.pools = _capturing(
-            self.device, capture, self.mesh)
+            self.device, capture, self.mesh, self.key)
         self.card_pool_bytes = reserved
         self.pool_bytes = sum(reserved.values())
         self.delta = _delta(before)
@@ -374,7 +392,7 @@ class HostStep:
 
     def _program(self, key):
         return Program(self._body(key), self.device, self.captures,
-                       self.mesh)
+                       self.mesh, key)
 
     def _body(self, key):
         """``step_impl`` over the static tensors: () -> y, the new state
@@ -587,7 +605,7 @@ class Segmented:
             return out
 
         self.out, reserved, self.capture_s, _ = _capturing(
-            self.owner.device, capture)
+            self.owner.device, capture, key=self.key)
         self.card_pool_bytes = reserved
         self.pool_bytes = sum(reserved.values())
         self.delta = delta

@@ -32,8 +32,9 @@ package on the same numpy inputs made from a seed.
   bf16 position in 16 or 24 chunks, more positions a stage, all 256 rows
   a block at G = 2.
 - ``BRUTEFIR_TPU_PROFILE=<dir>``: a 4-block ``run()`` writes one Chrome
-  trace into the directory it creates; an error inside ``run()`` still
-  stops the profiler.
+  trace into the directory it creates, and so does ``run_offline``, each
+  with the engine's spans on their threads' tracks; an error inside
+  ``run()`` still stops the profiler.
 
 The CUDA forms themselves are held against these plain versions on a
 card by tests/test_torch_cuda.py and chip_smoke.py.
@@ -54,6 +55,7 @@ from brutefir_tpu_torch.ops import (mac as tm, mac_dual as td,
                                     mac_group as mg, mac_mix as mm,
                                     partconv as pc)
 from brutefir_tpu_torch.ops.mac_mix import check_operands
+from brutefir_tpu_torch.runtime import tracing
 
 CPU = torch.device("cpu")
 F, B, K, E, C_OUT = 4, 4, 256, 3, 3
@@ -611,8 +613,10 @@ def test_eq_render_goes_through_the_bf16_bank(tmp_path, monkeypatch):
 def test_profile_writes_a_trace_of_run(tmp_path, monkeypatch, fail):
     """``BRUTEFIR_TPU_PROFILE=<dir>``: a 4-block ``run()`` writes one
     Chrome trace into the directory it makes; an error inside ``run()``
-    writes it too and leaves no profiler running; ``run_offline`` is not
-    traced, as in the JAX package."""
+    writes it too and leaves no profiler running, and the recorder off;
+    ``run_offline``, the CLI's default for files, writes one too. Each
+    trace carries the engine's spans (``runtime/tracing.py``) on the
+    tracks of the threads that ran them."""
     from brutefir_tpu_torch.runtime.engine import Engine
     p0, _ = _taps(tmp_path, 0, N_E * B_E, 21)
     _s32_input(tmp_path / "in.raw", N_E * 4, 2, 22)
@@ -634,11 +638,35 @@ def test_profile_writes_a_trace_of_run(tmp_path, monkeypatch, fail):
     assert len(files) == 1
     trace = json.loads(files[0].read_text())
     assert trace["traceEvents"]
+    assert not tracing.RECORDER.on
     if not fail:
         names = {e.get("name", "") for e in trace["traceEvents"]}
         assert any("matmul" in n or "mm" in n for n in names)
+        assert {"read", "dispatch", "write"} <= _span_names(trace)
         conf = parse_config(_engine_text(tmp_path, "q.raw", [p0], [0, 0]))
         conf.quiet = True
-        Engine(conf, device=CPU).run_offline()
-        assert len(list(out.glob("*.json"))) == 1
+        Engine(conf, device=CPU).run_offline(batch_blocks=2)
+        assert not tracing.RECORDER.on
+        files = set(out.glob("*.json")) - set(files)
+        assert len(files) == 1
+        trace = json.loads(files.pop().read_text())
+        assert {"read", "upload", "dispatch", "write",
+                "write.fetch"} <= _span_names(trace)
+        tracks = {e["args"]["name"]: e["tid"] for e in trace["traceEvents"]
+                  if e.get("name") == "thread_name"}
+        tids = {}
+        for e in trace["traceEvents"]:
+            if e.get("cat") == "program_span":
+                tids.setdefault(e["name"].split(".")[0], set()).add(e["tid"])
+        assert tids["read"] == tids["upload"] == {tracks["bf-producer"]}
+        assert tids["write"] == {tracks["bf-writer"]}
+        # the main thread's spans on the track of its own operators
+        ops = {e["tid"] for e in trace["traceEvents"]
+               if e.get("cat") == "cpu_op"}
+        assert tids["dispatch"] == ops and len(ops) == 1
     assert os.path.isdir(out)
+
+
+def _span_names(trace) -> set:
+    return {e["name"] for e in trace["traceEvents"]
+            if e.get("cat") == "program_span"}

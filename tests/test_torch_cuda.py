@@ -14,6 +14,9 @@ CPU FFT round differently; outputs here peak near 2^22, where a float32
 ulp is half an LSB).
 """
 
+import json
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1735,7 +1738,9 @@ def test_profile_traces_run_on_card(cuda, tmp_path, monkeypatch, fail):
     """BRUTEFIR_TPU_PROFILE=<dir>: run() writes one Chrome trace that
     names the MAC kernel and both glue kernels of the route (the forward
     one into the ring); also when run() raises,
-    and the profiler is stopped then (a new one starts)."""
+    and the profiler is stopped then (a new one starts). run_offline
+    writes one too, with the kernels and the engine's spans: the
+    producer's upload, the dispatch's replays, the writer's fetch."""
     from brutefir_tpu_torch.runtime.engine import Engine
     N, B, C = 512, 2, 2
     rng = np.random.default_rng(3)
@@ -1770,8 +1775,56 @@ filter 1 {{ from_inputs: 1; to_outputs: 1; coeff: 0; }};
         for name in ("mac_mix_kernel", "glue_fwd_ring_kernel",
                      "glue_inv_kernel"):
             assert name in text, name
+        Engine(conf, device=cuda).run_offline(batch_blocks=2)
+        new = set(out.glob("*.json")) - set(files)
+        assert len(new) == 1
+        trace = json.loads(new.pop().read_text())
+        names = {e.get("name", "") for e in trace["traceEvents"]}
+        assert any("mac_mix_kernel" in n for n in names)
+        spans = {e["name"] for e in trace["traceEvents"]
+                 if e.get("cat") == "program_span"}
+        assert {"upload", "dispatch", "replay", "clone", "write.sync",
+                "write.fetch"} <= spans, spans
     with torch.profiler.profile():
         pass
+
+
+@pytest.mark.cuda
+def test_spans_share_the_profilers_clock(cuda):
+    """A span around one kernel's launch and ``torch.cuda.synchronize()``
+    holds that kernel's interval among ``torch.profiler``'s device events,
+    within 50 µs at each end: the recorder's spans and the profiler's
+    device events lie on one clock. (The launch itself can take 0.1-0.3
+    ms, so a kernel starts well inside its span; a clock off by more than
+    the span's slack would put it outside.)"""
+    from torch._C._autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from brutefir_tpu_torch.runtime import tracing
+    rec = tracing.RECORDER
+    x = torch.ones(1 << 26, device=cuda)      # 256 MB: one kernel of ~0.2 ms
+    x.mul_(1.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tracing.enable()
+        try:
+            for _ in range(8):
+                sp = rec.begin("kernel")
+                x.mul_(1.0)
+                torch.cuda.synchronize()
+                rec.end(sp)
+                time.sleep(0.005)
+        finally:
+            tracing.disable()
+    spans = tracing.take()
+    kernels = [(e.start_ns(), e.start_ns() + e.duration_ns())
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and "elementwise" in e.name()]
+    assert len(spans) == 8 and kernels
+    for a, b in kernels:
+        inside = [s for s in spans
+                  if s.start_ns - 50_000 <= a and b <= s.end_ns + 50_000]
+        assert len(inside) == 1, (a, b, spans)
 
 
 @pytest.mark.cuda

@@ -226,15 +226,6 @@ def _spectra_to_device(z: np.ndarray, like: torch.Tensor,
                                                          like.dtype)
 
 
-def _expand_p24(raw: np.ndarray) -> np.ndarray:
-    """[..., open, 3] le wire bytes -> [..., open] int32 container words
-    (sign-extended), the inverse of the device's S24 wire packing."""
-    w = (raw[..., 0].astype(np.int32)
-         | (raw[..., 1].astype(np.int32) << 8)
-         | (raw[..., 2].astype(np.int32) << 16))
-    return w - ((w & 0x800000) << 1)
-
-
 def read_bank_dtype(real: torch.dtype) -> torch.dtype:
     """The bank's dtype: ``torch.bfloat16`` under
     ``BRUTEFIR_TPU_BANK_DTYPE=bf16`` (or ``bfloat16``) on a float32 graph
@@ -1153,25 +1144,18 @@ class Engine:
         N = self.N
         frames = N
         words = []
-        for di, dev in enumerate(self.conf.iodevs[IN]):
+        for di, inst in enumerate(self.devices[IN]):
             fb = self._in_framebytes[di]
-            raw = self._read_device(self.devices[IN][di], N * fb, fb)
+            raw = self._read_device(inst, N * fb, fb)
             got = len(raw) // fb
             if got < N:
                 frames = min(frames, got)
             if len(raw) < N * fb:
                 raw = raw + b"\0" * (N * fb - len(raw))
-            if self.dio.in_wire[di] == "p24":
-                # ship only the 3 significant bytes (see device_io.py)
-                words.append(np.frombuffer(raw, dtype=np.uint8).reshape(
-                    N, dev.open_channels, 4)[:, :, :3])
-            elif self.dio.in_wire[di] == "raw3":
-                words.append(np.frombuffer(raw, dtype=np.uint8).reshape(
-                    N, dev.open_channels, 3))
-            else:
-                words.append(np.frombuffer(
-                    raw, dtype=self.dio.in_wire_dtype[di]).reshape(
-                    N, dev.open_channels))
+            # the file's bytes as read, a view (see device_io.py)
+            words.append(np.frombuffer(
+                raw, dtype=self.dio.in_wire_dtype[di]).reshape(
+                (N,) + self.dio.in_wire_shape[di]))
         return words, frames
 
     def _account_output_meters(self, dev, m: np.ndarray):
@@ -1206,8 +1190,6 @@ class Engine:
             sp = sp and REC.next(sp, "write.fetch")
             raw = outs[di].cpu().numpy()
             sp = sp and REC.next(sp, "write.encode")
-            if self.dio.out_wire[di] == "p24":
-                raw = _expand_p24(raw)        # 3-byte wire -> 4-byte file
             if self.dio.out_wire[di] == "raw3":
                 raw = raw.reshape(-1, dev.open_channels, 3)
             else:
@@ -1561,7 +1543,10 @@ class Engine:
         device-IO path decides it; it only gates the rti meter here."""
         if not self.conf.powersave:
             return False
-        return all(not np.asarray(w).any() for w in xw)
+        # a "p24" word decodes from its low 24 bits alone
+        return all(not (np.asarray(w) & 0xFFFFFF if wire == "p24"
+                        else np.asarray(w)).any()
+                   for w, wire in zip(xw, self.dio.in_wire))
 
     def _update_full_proc(self, silent: bool) -> bool:
         """Advance the full-processing ramp (procblocks,
@@ -1787,7 +1772,7 @@ class Engine:
         self._periods = collections.deque(maxlen=1 << 17)
         wq, wstats, wth = self._start_writer()
 
-        # batch producer: reads, packs and uploads batch k+1 while the
+        # batch producer: reads, stacks and uploads batch k+1 while the
         # main thread dispatches batch k
         pq: "queue.Queue" = queue.Queue(maxsize=2)
         pstate = {"stop": False, "err": None}

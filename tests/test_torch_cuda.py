@@ -588,6 +588,49 @@ def test_grouped_engine_on_card_matches_cpu(cuda, tmp_path, monkeypatch,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pack", ["0", "1"])
+def test_s24_4le_words_on_card_match_cpu(cuda, tmp_path, monkeypatch, pack):
+    """massive_config's shape cut to 1024 x 4 partitions (26 S24_4LE
+    channels, one shared set) file to file through ``run_offline``: the
+    words cross whole (104 bytes a frame each way) and are sign-extended
+    on the card; the output within 1 LSB of the CPU engine's, under
+    ``BRUTEFIR_TPU_WIRE_PACK24`` at 0 and at 1."""
+    from brutefir_tpu_torch.runtime.engine import Engine
+    monkeypatch.setenv("BRUTEFIR_TPU_WIRE_PACK24", pack)
+    N, B, C = 1024, 4, 26
+    rng = np.random.default_rng(13)
+    taps = rng.standard_normal(N * B) * np.exp(-np.arange(N * B) / 600.0)
+    (tmp_path / "c0.txt").write_text("\n".join(
+        repr(float(v)) for v in taps * 0.5 / np.linalg.norm(taps)) + "\n")
+    frames = N * 19 + 77
+    np.clip(np.round(rng.standard_normal((frames, C)) * 2 ** 20),
+            -(2 ** 23), 2 ** 23 - 1).astype("<i4").tofile(tmp_path / "in.raw")
+    chans = ",".join(str(c) for c in range(C))
+    filters = "".join(f"filter {c} {{ from_inputs: {c}; to_outputs: {c}; "
+                      f"coeff: 0; }};\n" for c in range(C))
+
+    def conf(name):
+        return parse_config(f"""
+sampling_rate: 44100;
+filter_length: {N},{B};
+coeff 0 {{ filename: "{tmp_path / 'c0.txt'}"; format: "TEXT"; }};
+input {chans} {{ device: "file" {{ path: "{tmp_path / 'in.raw'}"; }}; sample: "S24_4LE"; channels: {C}; }};
+output {chans} {{ device: "file" {{ path: "{tmp_path / name}"; }}; sample: "S24_4LE"; channels: {C}; dither: false; }};
+{filters}""")
+
+    eg = Engine(conf("gpu.raw"), device=cuda)
+    assert eg.dio.in_wire_dtype == [np.dtype(np.int32)]
+    assert eg.dio.wire_frame_bytes == [[4 * C], [4 * C]]
+    sg = eg.run_offline()
+    sc = Engine(conf("cpu.raw"), device=torch.device("cpu")).run_offline()
+    assert sg["frames"] == sc["frames"] == frames
+    yg = np.fromfile(tmp_path / "gpu.raw", "<i4").astype(np.int64)
+    yc = np.fromfile(tmp_path / "cpu.raw", "<i4").astype(np.int64)
+    assert yg.size == frames * C and np.abs(yg).max() > 2 ** 19
+    assert np.abs(yg - yc).max() <= 1
+
+
+@pytest.mark.cuda
 def test_cascade_engine_on_card_matches_cpu(cuda, tmp_path):
     """bench1's cascade at 256 x 4 partitions, file to file on the card
     and on the CPU: two unfused MAC launches a block, within 2 LSB."""
@@ -1992,8 +2035,7 @@ def test_program_graphs_match_eager_forms(cuda, tmp_path, monkeypatch,
                 e.dio.dstate = tree_map(torch.clone, e.dio.dstate)
         x = np.round(rng.standard_normal(
             ((m,) if op == "multi" else ()) + (N, C)) * 2.0 ** 18)
-        words = np.ascontiguousarray(x.astype("<i4").view(np.uint8).reshape(
-            x.shape + (4,))[..., :3])
+        words = np.ascontiguousarray(x.astype("<i4"))   # S24_4LE words
         deltas, results = [], []
         for eng, eager in zip(engines, (False, True)):
             before = counts()

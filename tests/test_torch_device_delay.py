@@ -276,23 +276,24 @@ filter 2 {{ from_inputs: 2; to_outputs: 2; coeff: 0; }};
 
     def block():
         w = rng.integers(-(1 << 23), 1 << 23, (N, 3)).astype(np.int32)
-        words = [w.view(np.uint8).reshape(N, 3, 4)[:, :, :3].copy()]
+        # the JAX package's p24 wire; the port takes the words whole
+        jwords = [w.view(np.uint8).reshape(N, 3, 4)[:, :, :3].copy()]
         y = (rng.standard_normal((3, N))
              * np.array([[3000.0], [20000.0], [2.0 ** 21]])).astype(np.float32)
         y[1, :7] = 40000.0                          # S16 clipping
-        return words, y
+        return jwords, [w], y
 
     for _ in range(3):
-        words, y = block()
-        _jax_in(jdio, words, ones)
+        jwords, _, y = block()
+        _jax_in(jdio, jwords, ones)
         _jax_out(jdio, y, ones)
     tdio.dstate = dstate_from_jax(
         {k: np.asarray(v) for k, v in jdio.dstate.items()}, CPU)
     _dstate_equal(jdio, tdio, jdio.dstate)
     for _ in range(12):
-        words, y = block()
-        np.testing.assert_array_equal(_port_in(tdio, words, ones),
-                                      _jax_in(jdio, words, ones))
+        jwords, twords, y = block()
+        np.testing.assert_array_equal(_port_in(tdio, twords, ones),
+                                      _jax_in(jdio, jwords, ones))
         (wt, mt), (wj, mj) = _port_out(tdio, y, ones), _jax_out(jdio, y, ones)
         for a, b in zip(wt + mt, wj + mj):
             assert a.dtype == b.dtype

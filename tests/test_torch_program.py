@@ -142,13 +142,20 @@ class _Jax:
 
 
 def _wire(x: np.ndarray) -> np.ndarray:
-    """S24 samples [..., C] -> the p24 wire: 3 little-endian bytes."""
+    """S24 samples [..., C] -> the JAX package's p24 wire: 3 little-endian
+    bytes."""
     return np.ascontiguousarray(
         x.astype("<i4").view(np.uint8).reshape(x.shape + (4,))[..., :3])
 
 
+def _words(x: np.ndarray) -> np.ndarray:
+    """S24 samples [..., C] -> the port's wire: the S24_4LE file's int32
+    container words, sign-extended."""
+    return np.ascontiguousarray(x.astype("<i4"))
+
+
 def _s24(words) -> np.ndarray:
-    """p24 wire bytes -> sign-extended samples."""
+    """The JAX package's p24 wire bytes -> sign-extended samples."""
     w = np.asarray(words).astype(np.int32)
     v = w[..., 0] | (w[..., 1] << 8) | (w[..., 2] << 16)
     return v - ((v & 0x800000) << 1)
@@ -192,8 +199,10 @@ def _drive(tmp_path, monkeypatch, topology: str, op: str, calls: int,
     kept = []
     for i in range(calls):
         _changes(i, (prog.eng, eager.eng, jx.eng), entry)
-        words = [_wire(np.round(rng.standard_normal(shape) * 2.0 ** 18))]
-        for name, side in (("prog", prog), ("eager", eager), ("jax", jx)):
+        x = np.round(rng.standard_normal(shape) * 2.0 ** 18)
+        for name, side, words in (("prog", prog, [_words(x)]),
+                                  ("eager", eager, [_words(x)]),
+                                  ("jax", jx, [_wire(x)])):
             out = getattr(side, op)(words)
             results[name].append(_host(out))
             if name == "prog":
@@ -206,7 +215,8 @@ def _drive(tmp_path, monkeypatch, topology: str, op: str, calls: int,
         for a, b in zip(p, e):
             assert a.dtype == b.dtype and np.array_equal(a, b)
     for p, j in zip(results["prog"], results["jax"]):
-        assert np.abs(_s24(p[0]) - _s24(j[0])).max() <= 1
+        assert p[0].dtype == np.int32
+        assert np.abs(p[0] - _s24(j[0])).max() <= 1
     return prog, results
 
 
@@ -258,7 +268,7 @@ def test_state_handed_in_is_copied_in(tmp_path):
     b = _Port(_config(tmp_path, "shared"), True)
     rng = np.random.default_rng(3)
     for i in range(3):
-        words = [_wire(np.round(rng.standard_normal((N, C)) * 2.0 ** 20))]
+        words = [_words(np.round(rng.standard_normal((N, C)) * 2.0 ** 20))]
         if i == 2:
             for p in (a, b):
                 p.eng.state = init_state(p.eng.spec, CPU)
@@ -387,7 +397,7 @@ def test_emulated_capture_matches_eager(tmp_path, monkeypatch, emulated,
             for e in (prog.eng, eager.eng):
                 e.state = program.tree_map(torch.clone, e.state)
                 e.dio.dstate = program.tree_map(torch.clone, e.dio.dstate)
-        words = [_wire(np.round(rng.standard_normal(shape) * 2.0 ** 18))]
+        words = [_words(np.round(rng.standard_normal(shape) * 2.0 ** 18))]
         a, b = _host(getattr(prog, op)(words)), _host(getattr(eager, op)(
             words))
         for x, y in zip(a, b):

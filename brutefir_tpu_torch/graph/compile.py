@@ -719,6 +719,31 @@ def group_size(spec: GraphSpec, m: int, mesh=None) -> int:
     return 1
 
 
+class GroupRoute(NamedTuple):
+    """The route of a batch: ``G`` blocks a group and the group's
+    ``form``: "fused" (``mac_mix_group``), "unfused" (``mac_group``, the
+    mix outside) or "none" (G = 1, block by block)."""
+    G: int
+    form: str
+
+    def __str__(self) -> str:
+        return f"G={self.G} {self.form}"
+
+
+NO_GROUP = GroupRoute(1, "none")
+
+
+def group_route(spec: GraphSpec, m: int, mesh=None) -> GroupRoute:
+    """The route ``group_step_impl`` takes for a batch of m blocks:
+    ``group_size``'s G, and the form ``_group_fused`` picks (under a mesh
+    always the unfused form)."""
+    G = group_size(spec, m, mesh)
+    if G < 2:
+        return NO_GROUP
+    fused = mesh is None and _group_fused(spec, G)
+    return GroupRoute(G, "fused" if fused else "unfused")
+
+
 def group_step_impl(spec: GraphSpec, state: StepState, ctrl: StepCtrl,
                     bank: torch.Tensor, xs, uniform_delay: bool = False,
                     mesh=None):

@@ -73,8 +73,8 @@ import numpy as np
 import torch
 
 from ..config.model import BFConfig, BF_UNDEFINED_SUBDELAY, IN, OUT
-from ..graph.compile import (group_size, group_step_impl, real_dtype,
-                             step_impl)
+from ..graph.compile import (NO_GROUP, group_route, group_size,
+                             group_step_impl, real_dtype, step_impl)
 from ..ops.device_codec import (device_format_word, decode_words,
                                 encode_words, scatter_words, torch_dtype)
 from ..ops.device_dither import dither_quantize, dither_window
@@ -458,28 +458,32 @@ class DeviceIO:
         state, which the next call reads in place."""
         return self._call(("step", uniform, udelay, xfade), state, ctrl,
                           in_gain, out_gain, bank, in_words,
-                          lambda: functools.partial(
+                          lambda: (functools.partial(
                               self.step_eager, uniform=uniform,
-                              udelay=udelay, xfade=xfade))
+                              udelay=udelay, xfade=xfade), NO_GROUP))
 
     def multi_step(self, state, ctrl, in_gain, out_gain, bank, in_words,
                    uniform=False, udelay=False):
         """m blocks, as ``multi_step_eager``, through the program of the key
-        ``(m, uniform, udelay)``; its group size is chosen at the key's
-        first call, as the JAX package chooses it when it builds the
-        key's program."""
+        ``(m, uniform, udelay)``; its route (``group_route``: the group
+        size and form) is chosen at the key's first call, as the JAX
+        package chooses it when it builds the key's program."""
         m = in_words[0].shape[0]
+
+        def make():
+            route = group_route(self.spec, m, self.mesh)
+            return functools.partial(
+                self.multi_step_eager, uniform=uniform, udelay=udelay,
+                G=route.G), route
+
         return self._call(("multi", m, uniform, udelay), state, ctrl,
-                          in_gain, out_gain, bank, in_words,
-                          lambda: functools.partial(
-                              self.multi_step_eager, uniform=uniform,
-                              udelay=udelay,
-                              G=group_size(self.spec, m, self.mesh)))
+                          in_gain, out_gain, bank, in_words, make)
 
     def _call(self, key, state, ctrl, in_gain, out_gain, bank, in_words,
               make):
         """Bind the arguments to the static tensors, then run the key's
-        program (made from ``make()``, the eager form, on first use).
+        program (made on first use from ``make()``: the eager form and
+        its ``GroupRoute``, which the program keeps as ``route``).
         ``dstate`` is the static one from here on: a replay runs no
         Python, so nothing else would rebind it."""
         sp = REC.on and REC.begin("bind")
@@ -491,9 +495,10 @@ class DeviceIO:
         self.dstate = self._statics.dstate.tree
         prog = self._programs.get(key)
         if prog is None:
+            fn, route = make()
             prog = self._programs[key] = Program(
-                self._body(make()), self.device, self.captures, self.mesh,
-                key)
+                self._body(fn), self.device, self.captures, self.mesh, key,
+                route)
         return (self._statics.state.tree,) + prog(in_words, sp)
 
     def _body(self, fn):
@@ -523,7 +528,9 @@ class DeviceIO:
         return capturable(self.device, self.mesh)
 
     def programs(self) -> dict:
-        """The step programs made so far, by key."""
+        """The step programs made so far, by key; each ``Program`` holds
+        its ``route`` (G blocks a group and the form; G = 1, "none" for
+        the per-block keys)."""
         return dict(self._programs)
 
     # ----- the eager forms ---------------------------------------------------

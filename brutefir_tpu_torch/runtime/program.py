@@ -101,7 +101,7 @@ import weakref
 import numpy as np
 import torch
 
-from ..graph.compile import real_dtype, step_impl
+from ..graph.compile import NO_GROUP, real_dtype, step_impl
 from ..ops import fft_fused, fft_glue, mac, mac_dual, mac_group, mac_mix
 from ..parallel.mesh import Sharded
 from .tracing import RECORDER as REC
@@ -233,7 +233,8 @@ def _delta(before: list) -> list:
             for k, n in c.items() if n != b.get(k, 0)]
 
 
-def _capturing(device: torch.device, capture, mesh=None, key=None):
+def _capturing(device: torch.device, capture, mesh=None, key=None,
+               route=None):
     """Run ``capture()`` on synchronised cards (``device``, and under a
     ``mesh`` every card it spans) with the allocator's cache emptied and
     Python's cycle collector off (``torch.cuda.graph`` collects just
@@ -241,9 +242,11 @@ def _capturing(device: torch.device, capture, mesh=None, key=None):
     graph, and destroying a graph there ends the capture). Each card
     other than ``device`` allocates into a private ``MemPool`` of its own
     meanwhile. Returns (its result, the device bytes the capture reserved
-    by card, its host seconds, the private pools). ``key``: the program's
-    key, in the name of its ``program.capture`` span."""
-    sp = REC.on and REC.begin(f"program.capture {key}")
+    by card, its host seconds, the private pools). ``key`` and ``route``
+    (a ``GroupRoute``): the program's, in the name of its
+    ``program.capture`` span."""
+    sp = REC.on and REC.begin(f"program.capture {key}"
+                              + (f" {route}" if route else ""))
     t0 = time.perf_counter()
     cards = [device] if mesh is None else mesh.cards()
     collecting = gc.isenabled()
@@ -281,15 +284,18 @@ class Program:
     buffers. Eager at the first call (and at every call unless
     ``capture``), captured at the second, replayed after. ``mesh``: the
     step's mesh, whose cell streams the capture takes in and whose cards
-    other than the first get a private pool each (``_capturing``)."""
+    other than the first get a private pool each (``_capturing``).
+    ``route``: the ``GroupRoute`` the owner chose for the key at its first
+    call (DeviceIO's batches; G = 1, "none" elsewhere)."""
 
     def __init__(self, body, device: torch.device, capture: bool,
-                 mesh=None, key=None):
+                 mesh=None, key=None, route=NO_GROUP):
         self.body = body
         self.device = device
         self.capture = capture
         self.mesh = mesh
         self.key = key           # the owner's key, for the capture's span
+        self.route = route
         self.words = None
         self.calls = 0
         self.graph = None
@@ -350,7 +356,7 @@ class Program:
             return graph
 
         graph, reserved, self.capture_s, self.pools = _capturing(
-            self.device, capture, self.mesh, self.key)
+            self.device, capture, self.mesh, self.key, self.route)
         self.card_pool_bytes = reserved
         self.pool_bytes = sum(reserved.values())
         self.delta = _delta(before)

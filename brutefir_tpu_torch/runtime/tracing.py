@@ -33,8 +33,12 @@ The sites, by thread (``runtime/engine.py`` unless named):
   inside it ``write.sync`` (the NaN flag's fetch, which waits for the
   item's device work), ``write.meters``, ``write.fetch`` (the words'
   copy off the card), ``write.encode``, ``write.file``, ``write.peak``;
-- a capture: ``program.capture <key>`` (``program._capturing``), where
-  one happens while the recorder is on.
+- a capture: ``program.capture <key> <route>`` (``program._capturing``;
+  the route as ``G=4 unfused``, ``G=1 none``: ``graph.compile.
+  GroupRoute``), where one happens while the recorder is on. A grouped
+  batch runs inside one replay, so no span sees into it: its kernels
+  are counted by ``Program.delta`` (launches a call) and read from the
+  device trace.
 
 While the recorder is off, each site costs one attribute test and reads
 no clock. It is switched on by ``enable()`` (until ``disable()``), and

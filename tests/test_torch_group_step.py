@@ -30,12 +30,12 @@ from brutefir_tpu_torch.convert import (bank_from_jax, ctrl_from_jax,
 from brutefir_tpu_torch.graph import compile as tcomp
 from brutefir_tpu_torch.graph.spec import build_graph_spec
 
-N, B, C = 256, 5, 4
+N, C = 256, 4
 CPU = torch.device("cpu")
 
 CASES = {
     # name: (G, BRUTEFIR_TPU_GROUP_FORM, coeff_idx, delay, uniform_delay,
-    #        powersave, the port's kernel)
+    #        powersave, the port's kernel[, partitions B, default 5])
     "fused_g2": (2, "", [0, 1, 2, 0], [0, 1, 3, 2], False, False,
                  "mac_mix_group"),
     "fused_g4": (4, "", [0, 1, 2, 0], [0, 1, 3, 4], False, False,
@@ -48,20 +48,27 @@ CASES = {
                          "mac_mix_group"),
     "powersave_g4": (4, "", [0, 1, 2, 0], [0, 1, 0, 2], False, True,
                      "mac_mix_group"),
+    # one partition (bench3_config's overlap-save): every later block of
+    # the group reads only its own spectra, from xnews
+    "unfused_g4_b1": (4, "unfused", [0, 0, 0, 0], [0, 0, 0, 0], True, False,
+                      "mac_group", 1),
+    "fused_g4_b1": (4, "", [0, 1, 2, 0], [0, 0, 0, 0], False, False,
+                    "mac_mix_group", 1),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_group_step_matches_jax(rng, monkeypatch, case):
-    G, form, idx, delay, udl, powersave, kernel = CASES[case]
+    G, form, idx, delay, udl, powersave, kernel, *part = CASES[case]
+    B = part[0] if part else 5
     monkeypatch.setenv("BRUTEFIR_TPU_GROUP_FORM", form)
     idx = np.asarray(idx, np.int32)
     delay = np.asarray(delay, np.int32)
+    n_blocks = np.minimum([B, 3, 2], B)
     entries = [preprocess_coeffs(
         (rng.standard_normal(N * n) * 0.05).astype(np.float32), N, B)
-        for n in (B, 3, 2)]
+        for n in n_blocks]
     bank = make_bank(entries)                               # [3, B, 2, N]
-    n_blocks = np.array([B, 3, 2])
     mask = np.zeros((C, B), np.float32)
     for f in range(C):                   # the host's cblocks clamp
         mask[f, :min(n_blocks[idx[f]], B - delay[f])] = 1.0
@@ -132,6 +139,7 @@ SHAPES = [
     (8192, 32, 128, False),
     (16384, 16, 256, False),
     (65536, 4, 2, False),
+    (65536, 1, 26, False),     # bench3_config: G = 4, unfused
     (256, 4, 3, False),
     (192, 4, 3, False),        # not tileable
     (256, 4, 3, True),         # a cascade

@@ -412,3 +412,48 @@ def test_program_refuses_another_shape():
     p([torch.zeros(4, 3)])
     with pytest.raises(ValueError):
         p([torch.zeros(5, 3)])
+
+
+@pytest.mark.parametrize("pair,form,route", [
+    (None, "", (1, "none")),              # massive-like: block by block
+    ("force:4", "unfused", (4, "unfused")),
+    ("force:4", "", (4, "fused")),
+    ("force:2", "unfused", (2, "unfused")),
+])
+def test_program_keeps_its_route(tmp_path, monkeypatch, emulated, pair,
+                                 form, route):
+    """Each program records at its key's first call the route
+    ``group_route`` chose (G blocks a group and the form), which
+    ``DeviceIO.programs()`` exposes, and its capture's span carries it in
+    its name; a per-block key records G = 1, "none"."""
+    from brutefir_tpu_torch.graph.compile import GroupRoute, group_route
+    from brutefir_tpu_torch.runtime import tracing
+    if pair:
+        monkeypatch.setenv("BRUTEFIR_TPU_PAIR", pair)
+    monkeypatch.setenv("BRUTEFIR_TPU_GROUP_FORM", form)
+    port = _Port(_config(tmp_path, "shared"), False)
+    emulated.dio = port.eng.dio
+    rng = np.random.default_rng(31)
+    tracing.enable()
+    try:
+        for _ in range(3):                 # eager, capture, replay
+            port.multi([_words(np.round(rng.standard_normal((8, N, C))
+                                        * 2.0 ** 18))])
+        port.step([_words(np.round(rng.standard_normal((N, C))
+                                   * 2.0 ** 18))])
+        port.step([_words(np.round(rng.standard_normal((N, C))
+                                   * 2.0 ** 18))])
+    finally:
+        tracing.disable()
+    progs = port.eng.dio.programs()
+    multi = [p for k, p in progs.items() if k[0] == "multi"]
+    step = [p for k, p in progs.items() if k[0] == "step"]
+    assert len(multi) == len(step) == 1
+    assert multi[0].route == route == group_route(port.eng.spec, 8)
+    assert isinstance(multi[0].route, GroupRoute)
+    assert step[0].route == (1, "none")
+    names = [s.name for s in tracing.take()
+             if s.name.startswith("program.capture")]
+    assert names == [f"program.capture {multi[0].key} G={route[0]} "
+                     f"{route[1]}",
+                     f"program.capture {step[0].key} G=1 none"]

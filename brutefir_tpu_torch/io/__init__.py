@@ -64,6 +64,14 @@ class IoDevice:
         """Read up to nbytes. Short result means EOF is imminent (input)."""
         raise IoModuleError("not an input device")
 
+    def readinto(self, view) -> int:
+        """Read up to ``len(view)`` bytes into ``view`` (a writable
+        byte-format memoryview) in place; returns the count, short as
+        ``read``'s. This default copies what ``read`` returns."""
+        data = self.read(len(view))
+        view[:len(data)] = data
+        return len(data)
+
     def read_nonblock(self, nbytes: int):
         """Poll-mode read: return whatever is available now.
 

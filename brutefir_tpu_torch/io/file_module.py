@@ -123,19 +123,24 @@ class FileDevice(IoDevice):
 
     # --- binary path ----------------------------------------------------
     def _read_binary(self, nbytes: int) -> bytes:
-        out = bytearray()
-        while len(out) < nbytes:
-            chunk = self.fh.read(nbytes - len(out))
-            got = len(chunk) if chunk else 0
-            self.curpos += got
-            out += chunk or b""
+        buf = bytearray(nbytes)
+        got = self._readinto_binary(memoryview(buf))
+        del buf[got:]
+        return bytes(buf)
+
+    def _readinto_binary(self, view) -> int:
+        got = 0
+        while got < len(view):
+            n = self.fh.readinto(view[got:]) or 0
+            self.curpos += n
+            got += n
             if self.loop and self.curpos == self.filesize:
                 self.fh.seek(self.skipbytes)
                 self.curpos = self.skipbytes
                 continue
-            if got == 0:
+            if n == 0:
                 break
-        return bytes(out)
+        return got
 
     # --- text path --------------------------------------------------------
     def _read_text(self, nbytes: int) -> bytes:
@@ -206,6 +211,15 @@ class FileDevice(IoDevice):
             return self._read_text(nbytes)
         return self._read_binary(nbytes)
 
+    def readinto(self, view) -> int:
+        """``read`` into ``view`` in place: the binary path reads straight
+        into it, with no intermediate bytes."""
+        if self.io != IN:
+            raise IoModuleError("not an input device")
+        if self.text:
+            return super().readinto(view)
+        return self._readinto_binary(view)
+
     def write(self, data) -> int:
         if self.io != OUT:
             raise IoModuleError("not an output device")
@@ -218,7 +232,8 @@ class FileDevice(IoDevice):
             body = ("\n".join(lines) + "\n").encode()
             self.fh.write(body)
             return len(data)
-        self.fh.write(bytes(data))
+        # the caller's buffer itself, uncopied
+        self.fh.write(memoryview(data))
         return len(data)
 
     def close(self):

@@ -152,6 +152,7 @@ from ..ops.partconv import np_c2p, np_p2c, pack_spectrum, unpack_spectrum
 from ..parallel import mesh as mesh_mod
 from .control import RuntimeControl
 from .device_io import DeviceIO, dithered_phys, eligible
+from .staging import Staging
 from .program import HostStep, TapStep, tree_map
 from . import tracing
 from .subdelay import SubsampleDelay
@@ -460,8 +461,10 @@ class Engine:
         # than one output device on a multi-core host; the C codec
         # releases the GIL) and two pinned staging buffers for the upload
         self._encode_pool = None
-        self._staging = []
-        self._staged = 0
+        self._upload_bufs = []
+        self._upload_turn = 0
+        # the offline pipeline's reused host buffers (staging.py)
+        self.staging = Staging(self.device)
         # set while _warm_programs runs the step on zeros: the taps skip
         # their hooks, so no module sees the warm-up
         self._warming = False
@@ -1012,13 +1015,13 @@ class Engine:
         if self.device.type != "cuda":
             xt = torch.as_tensor(x)
             return xt if out is None else out.copy_(xt)
-        if not self._staging:
-            self._staging = [
+        if not self._upload_bufs:
+            self._upload_bufs = [
                 (torch.empty(x.shape, dtype=real_dtype(self.spec),
                              pin_memory=True), torch.cuda.Event())
                 for _ in range(2)]
-        buf, done = self._staging[self._staged]
-        self._staged ^= 1
+        buf, done = self._upload_bufs[self._upload_turn]
+        self._upload_turn ^= 1
         done.synchronize()
         buf.numpy()[...] = x
         xd = (buf.to(self.device, non_blocking=True) if out is None
@@ -1138,24 +1141,37 @@ class Engine:
         return out
 
     # ----- device-IO host side ---------------------------------------------
-    def read_block_dio(self):
+    def read_block_dio(self, into=None):
         """Read raw words per input device: ([N, ...] arrays, frames),
-        frames < N at EOF (the block is zero padded)."""
+        frames < N at EOF (the block is zero padded). ``into``: per
+        device a writable C-contiguous [N, ...] array (a row of the
+        producer's stack) the words are read into in place and returned
+        as; else new arrays."""
         N = self.N
         frames = N
         words = []
         for di, inst in enumerate(self.devices[IN]):
             fb = self._in_framebytes[di]
-            raw = self._read_device(inst, N * fb, fb)
-            got = len(raw) // fb
-            if got < N:
-                frames = min(frames, got)
-            if len(raw) < N * fb:
-                raw = raw + b"\0" * (N * fb - len(raw))
-            # the file's bytes as read, a view (see device_io.py)
-            words.append(np.frombuffer(
-                raw, dtype=self.dio.in_wire_dtype[di]).reshape(
-                (N,) + self.dio.in_wire_shape[di]))
+            if into is None:
+                raw = self._read_device(inst, N * fb, fb)
+                got = len(raw)
+                if got < N * fb:
+                    raw = raw + b"\0" * (N * fb - got)
+                # the file's bytes as read, a view (see device_io.py)
+                w = np.frombuffer(raw, dtype=self.dio.in_wire_dtype[di]
+                                  ).reshape((N,) + self.dio.in_wire_shape[di])
+            else:
+                w = into[di]
+                buf = w.reshape(-1).view(np.uint8)
+                if self._poll_mode and inst.bad_alignment:
+                    raw = self._read_device(inst, N * fb, fb)
+                    got = len(raw)
+                    buf[:got] = np.frombuffer(raw, np.uint8)
+                else:
+                    got = inst.readinto(memoryview(buf))
+                buf[got:] = 0
+            frames = min(frames, got // fb)
+            words.append(w)
         return words, frames
 
     def _account_output_meters(self, dev, m: np.ndarray):
@@ -1176,25 +1192,28 @@ class Engine:
                     f"({20 * np.log10(float(m[i, 3]) / ovf.max):.2f} > "
                     f"{20 * np.log10(limit):.2f} dB)")
 
-    def _write_outputs(self, outs, meters, nan_ok, frames):
+    def _write_outputs(self, outs, meters, nan_ok, ready, frames):
         """Writer-thread half of a dispatch: fetch, NaN check, meters and
-        safety abort, then the device writes (first ``frames`` frames)."""
+        safety abort, then the device writes (first ``frames`` frames),
+        each from an array of the writer's pool (``Staging``). ``ready``:
+        the dispatch's ``Staging.mark``, which the fetches wait for."""
+        st = self.staging
         sp = REC.on and REC.begin("write.sync")
-        if not bool(nan_ok):
+        if not bool(st.fetch(nan_ok, ready)):
             raise EngineError("NaN or Inf values in the system! "
                               "Invalid input?",
                               exit_code=BF_EXIT_INVALID_INPUT)
         for di, dev in enumerate(self.conf.iodevs[OUT]):
             sp = sp and REC.next(sp, "write.meters")
-            self._account_output_meters(dev, meters[di].cpu().numpy())
+            self._account_output_meters(dev, st.fetch(meters[di], ready))
             sp = sp and REC.next(sp, "write.fetch")
-            raw = outs[di].cpu().numpy()
+            raw = st.fetch(outs[di], ready)
             sp = sp and REC.next(sp, "write.encode")
             if self.dio.out_wire[di] == "raw3":
                 raw = raw.reshape(-1, dev.open_channels, 3)
             else:
                 raw = raw.reshape(-1, dev.open_channels)
-            data = raw[:frames].tobytes()
+            data = st.encode(di, raw[:frames])
             sp = sp and REC.next(sp, "write.file")
             self.devices[OUT][di].write(data)
         sp = sp and REC.next(sp, "write.peak")
@@ -1207,8 +1226,8 @@ class Engine:
         """The output stage on its own thread (the analog of the
         reference's output process, bfrun.c:846-964): it fetches, meters
         and writes block k while the main thread dispatches block k+1.
-        An item is ("dio", frames, block, blocks, outs, meters, nan_ok)
-        from the device-IO path or ("host", frames, block, blocks, y,
+        An item is ("dio", frames, block, blocks, outs, meters, nan_ok,
+        ready) from the device-IO path or ("host", frames, block, blocks, y,
         out_snap) from the host path (``block``, ``blocks``: its first
         block and block count, the id of its spans). Returns (queue,
         stats, thread); queue depth 2 bounds latency.
@@ -1316,6 +1335,7 @@ class Engine:
             "realtime_index": self.realtime_index,
             "overflows": [o.n_overflows for o in self.overflow],
             "peak_db": [o.peak_db() for o in self.overflow],
+            "staging": dict(self.staging.counts),
         }
 
     def _teardown_quietly(self):
@@ -1351,6 +1371,7 @@ class Engine:
         self._monitor_clock = ((t_run0, self.blockcounter)
                                if self.conf.monitor_rate and clocked
                                else None)
+        self.staging.reset()
         wq, wstats, wth = self._start_writer(sink_output)
         wd_stop = self._start_watchdog()
         try:
@@ -1611,7 +1632,8 @@ class Engine:
                     self.state, outs, meters, nan_ok = self.dio.step(
                         self.state, ctrl, gains[0], gains[1], bank, words,
                         uniform=uni, udelay=udl, xfade=xf)
-                    item = ("dio", frames, blk, 1, outs, meters, nan_ok)
+                    item = ("dio", frames, blk, 1, outs, meters, nan_ok,
+                            self.staging.mark())
                 else:
                     item = ("host", frames, blk, 1,
                             self._dispatch_host(x, epoch), out_snap)
@@ -1755,7 +1777,9 @@ class Engine:
         block latency becomes batch_blocks * N samples. Falls back to
         ``run()`` on the host codec path (engine.py:1633), for logic
         modules (script lines pace per block) and for ``batch_blocks <=
-        1``. ``max_blocks`` and ``setup`` as in ``run()``."""
+        1``. ``max_blocks`` and ``setup`` as in ``run()``. The stats'
+        ``staging`` counts how the reused host buffers (``Staging``)
+        engaged."""
         if self.dio is None or self.conf.logic_modules or batch_blocks <= 1:
             return self.run(max_blocks, setup=setup)
         # taps drop the device-IO path, so they never reach the batches
@@ -1770,12 +1794,17 @@ class Engine:
         own = tracing.follow()
         t_run0 = time.perf_counter()
         self._periods = collections.deque(maxlen=1 << 17)
+        self.staging.reset()
         wq, wstats, wth = self._start_writer()
 
-        # batch producer: reads, stacks and uploads batch k+1 while the
-        # main thread dispatches batch k
+        # batch producer: reads batch k+1 into its stacks in place and
+        # uploads them while the main thread dispatches batch k
         pq: "queue.Queue" = queue.Queue(maxsize=2)
         pstate = {"stop": False, "err": None}
+        staging = self.staging
+        layout = tuple(((M, N) + self.dio.in_wire_shape[di],
+                        self.dio.in_wire_dtype[di])
+                       for di in range(len(conf.iodevs[IN])))
 
         def producer():
             try:
@@ -1788,19 +1817,18 @@ class Engine:
                     take = M if left is None else min(M, left)
                     if take == 0:
                         return
-                    # one span for the batch's reads and their copies into
-                    # the stacks, as the loop interleaves them
+                    # one span for the batch's reads into the rows of its
+                    # stacks (a pinned set waited for first); a short batch
+                    # runs block by block, so rows past its end, stale in
+                    # a reused set, are never read
                     sp = REC.on and REC.begin("read", blk, take)
-                    stacks = [np.zeros((M, N) + self.dio.in_wire_shape[di],
-                                       self.dio.in_wire_dtype[di])
-                              for di in range(len(conf.iodevs[IN]))]
+                    stacks, pset = staging.stacks(layout)
                     got = 0
                     frames = take * N
                     hit_eof = False
                     for b in range(take):
-                        words, f = self.read_block_dio()
-                        for di in range(len(stacks)):
-                            stacks[di][b] = words[di]
+                        _, f = self.read_block_dio(
+                            into=[st[b] for st in stacks])
                         got += 1
                         if f < N:
                             frames = b * N + f
@@ -1809,8 +1837,8 @@ class Engine:
                     if left is not None:
                         left -= got
                     sp = sp and REC.next(sp, "upload", frames)
-                    item = ([torch.from_numpy(st).to(self.device)
-                             for st in stacks], frames, got, hit_eof)
+                    item = (*staging.upload(stacks, pset), frames, got,
+                            hit_eof)
                     sp = sp and REC.next(sp, "produce.wait")
                     while not pstate["stop"]:
                         try:
@@ -1826,7 +1854,7 @@ class Engine:
             except Exception as e:
                 pstate["err"] = e
                 try:
-                    pq.put_nowait(([], 0, 0, True))
+                    pq.put_nowait(([], None, 0, 0, True))
                 except queue.Full:
                     pass
 
@@ -1874,9 +1902,11 @@ class Engine:
         self.state, outs, meters, nan_ok = self.dio.step(
             self.state, ctrl, gains[0], gains[1], bank, words,
             uniform=uni, udelay=udl, xfade=xfade)
+        ready = self.staging.mark()
         self.blockcounter += 1
         sp = sp and REC.next(sp, "dispatch.wait_writer")
-        self._put(wq, wstats, ("dio", frames, blk, 1, outs, meters, nan_ok))
+        self._put(wq, wstats,
+                  ("dio", frames, blk, 1, outs, meters, nan_ok, ready))
         if sp:
             REC.end(sp)
 
@@ -1894,11 +1924,12 @@ class Engine:
             t0 = time.perf_counter()
             sp = REC.on and REC.begin("dispatch.wait_producer",
                                       self.blockcounter, M, t0)
-            dstacks, frames, got_blocks, eof = pq.get()
+            dstacks, ready, frames, got_blocks, eof = pq.get()
             if sp:
                 REC.end(sp)
             if pstate["err"] is not None:
                 raise pstate["err"]
+            self.staging.consume(dstacks, ready)
             if rem is not None and rem < got_blocks:
                 got_blocks = rem
                 frames = min(frames, rem * N)
@@ -1943,10 +1974,11 @@ class Engine:
                 self.state, outs, meters, nan_ok = self.dio.multi_step(
                     self.state, ctrl, gains[0], gains[1], bank,
                     dstacks, uniform=uni, udelay=udl)
+                ready = self.staging.mark()
                 self.blockcounter += M
                 sp = sp and REC.next(sp, "dispatch.wait_writer")
                 self._put(wq, wstats,
-                          ("dio", M * N, k, M, outs, meters, nan_ok))
+                          ("dio", M * N, k, M, outs, meters, nan_ok, ready))
             else:
                 # the rest of a split batch, block by block under the
                 # same snapshot
